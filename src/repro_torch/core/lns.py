@@ -60,6 +60,16 @@ class LNSFormat:
     def max_code(self) -> int:
         return (1 << (self.bits - 1)) - 1
 
+    def with_bits(self, bits: int) -> "LNSFormat":
+        """The format at another bitwidth with the same dynamic range
+        ``(0, max_code/γ)``: γ scales by ``2**(bits - B)`` (paper §6.1.1,
+        how Q_U is widened)."""
+        if bits >= self.bits:
+            gamma = self.gamma * (1 << (bits - self.bits))
+        else:
+            gamma = max(1, self.gamma >> (self.bits - bits))
+        return LNSFormat(bits=bits, gamma=gamma)
+
 
 def pow2_scale(absmax: torch.Tensor) -> torch.Tensor:
     """Snap a positive scale up to the next power of two (f32)."""
@@ -155,16 +165,22 @@ def lns_requant_packed(packed: torch.Tensor, src: LNSFormat,
 
 class LNSWeight:
     """A weight stored as packed LNS words plus a power-of-two scale that
-    broadcasts against the decoded tensor. Serving needs no tangent
-    carrier, so unlike the JAX class there is no ``delta``."""
+    broadcasts against the decoded tensor.
 
-    __slots__ = ("packed", "scale", "fmt")
+    ``delta`` is the training tangent carrier, as in the JAX class: a
+    zero dense tensor with ``requires_grad`` that the forward adds to the
+    decoded weight (or, in the routed GEMM, ignores in the primal), so its
+    ``.grad`` is dL/dW at W = decode(packed). ``None`` outside a loss.
+    """
+
+    __slots__ = ("packed", "scale", "delta", "fmt")
 
     def __init__(self, packed: torch.Tensor, scale: torch.Tensor,
-                 fmt: LNSFormat):
+                 fmt: LNSFormat, delta: Optional[torch.Tensor] = None):
         self.packed = packed
         self.scale = scale
         self.fmt = fmt
+        self.delta = delta
 
     @property
     def shape(self):
@@ -174,22 +190,37 @@ class LNSWeight:
     def ndim(self) -> int:
         return self.packed.dim()
 
+    def replace(self, **kw) -> "LNSWeight":
+        d = {"packed": self.packed, "scale": self.scale, "fmt": self.fmt,
+             "delta": self.delta}
+        d.update(kw)
+        return LNSWeight(**d)
+
     def __getitem__(self, i) -> "LNSWeight":
-        """Slice a stacked weight along its leading (layer) axis."""
-        return LNSWeight(self.packed[i], self.scale[i], self.fmt)
+        """Slice a stacked weight along its leading (layer) axis; the
+        slice of ``delta`` is a view, so its gradient lands in the
+        stacked carrier's ``.grad``."""
+        return LNSWeight(self.packed[i], self.scale[i], self.fmt,
+                         None if self.delta is None else self.delta[i])
 
     def to(self, device) -> "LNSWeight":
         return LNSWeight(self.packed.to(device), self.scale.to(device),
-                         self.fmt)
+                         self.fmt,
+                         None if self.delta is None else self.delta.to(device))
 
     def decode(self, dtype=torch.float32) -> torch.Tensor:
-        """Dense view ``±s·2^(-code/γ)`` in ``dtype``."""
-        return (lns_decode_packed(self.packed, self.fmt, torch.float32)
-                * self.scale).to(dtype)
+        """Dense view ``±s·2^(-code/γ) (+ delta)`` in ``dtype``."""
+        y = (lns_decode_packed(self.packed, self.fmt, torch.float32)
+             * self.scale).to(dtype)
+        if self.delta is not None:
+            y = y + self.delta.to(dtype)
+        return y
 
     def __repr__(self):
         return (f"LNSWeight(packed={tuple(self.packed.shape)}, "
-                f"scale={tuple(self.scale.shape)}, fmt={self.fmt})")
+                f"scale={tuple(self.scale.shape)}, "
+                f"delta={'None' if self.delta is None else 'dense'}, "
+                f"fmt={self.fmt})")
 
 
 def is_lns_weight(leaf) -> bool:

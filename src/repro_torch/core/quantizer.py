@@ -1,4 +1,4 @@
-"""Quantized GEMMs on LNS, forward (inference) only.
+"""Quantized GEMMs on LNS, forward and backward (paper §3, Fig. 3).
 
 ``qeinsum`` is the one entry every model projection goes through, as in
 ``repro.core.quantizer``:
@@ -8,11 +8,16 @@
   (``dispatch.encode_pack``, K1) and multiplied against the weight's words
   (``dispatch.qmatmul``, K2) with the scales in the epilogue;
 * anything else takes the fake-quant leg: Q_A and Q_W put both operands on
-  the LNS grid, then a plain ``torch.einsum`` (the tied LM head goes here,
-  as it does in the JAX package, where XLA runs that product).
+  the LNS grid with straight-through gradients, then a plain
+  ``torch.einsum`` (the tied LM head goes here, as it does in the JAX
+  package, where XLA runs that product).
 
-Training (straight-through gradients, Q_E, Q_G) comes with the training
-slice; nothing here builds an autograd graph.
+Training adds Q_E on each GEMM output's gradient (:func:`backward_quantize`)
+and Q_G on the final weight gradients (:func:`quantize_grads`). The routed
+GEMM's gradient is :class:`_RoutedMatmul`, which saves the packed
+activation (1 byte per element) rather than a dense one and returns dW into
+the weight's ``delta`` carrier. Without a carrier (serving) the routed GEMM
+and the quantizers build no autograd node at all.
 """
 from __future__ import annotations
 
@@ -22,38 +27,121 @@ from typing import Optional
 import torch
 
 from repro_torch.core.lns import (LNSFormat, LNSWeight, is_lns_weight,
-                                  lns_quantize, lns_requant_packed)
+                                  lns_decode_packed, lns_quantize,
+                                  lns_requant_packed)
 from repro_torch.kernels import dispatch
 
-__all__ = ["QuantConfig", "qeinsum", "quantize"]
+__all__ = ["QuantConfig", "qeinsum", "quantize", "ste_quantize",
+           "backward_quantize", "cot_boundary", "quantize_grads"]
 
 
 @dataclasses.dataclass(frozen=True)
 class QuantConfig:
-    """The forward quantizers Q_W and Q_A (``None`` disables one). Scale
-    axes: ``None`` is per tensor, an int keeps resolution on that axis.
-    The backward ones (Q_E, Q_G) and Q_U come with the training slice."""
+    """Formats of the four quantizers (``None`` disables one): Q_W
+    (weights) and Q_A (activations) before each GEMM, Q_E on each GEMM
+    output's gradient, Q_G on the weight gradients, and Q_U, the update
+    store the optimizer keeps. Scale axes: ``None`` is per tensor, an int
+    keeps resolution on that axis."""
 
     weight: Optional[LNSFormat] = None
     act: Optional[LNSFormat] = None
+    err: Optional[LNSFormat] = None
+    grad: Optional[LNSFormat] = None
+    update: Optional[LNSFormat] = None
     weight_scale_axis: Optional[int] = -1
     act_scale_axis: Optional[int] = None
+    err_scale_axis: Optional[int] = None
+    grad_scale_axis: Optional[int] = None
 
     @classmethod
-    def lns_madam(cls, bits: int = 8, gamma: int = 8) -> "QuantConfig":
-        """The paper's setting: B=8, γ=8 on weights and activations."""
+    def lns_madam(cls, bits: int = 8, gamma: int = 8,
+                  update_bits: int = 16) -> "QuantConfig":
+        """The paper's setting: B=8, γ=8 everywhere; Q_U at
+        ``update_bits`` with γ widened to keep the range (§6.1.1)."""
         fmt = LNSFormat(bits=bits, gamma=gamma)
-        return cls(weight=fmt, act=fmt)
+        return cls(weight=fmt, act=fmt, err=fmt, grad=fmt,
+                   update=fmt.with_bits(update_bits))
+
+    @classmethod
+    def full_precision(cls) -> "QuantConfig":
+        return cls()
 
     @property
     def is_quantized(self) -> bool:
-        return self.weight is not None or self.act is not None
+        return any(f is not None for f in (self.weight, self.act, self.err,
+                                           self.grad))
 
 
 def quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
              scale_axis: Optional[int] = None) -> torch.Tensor:
     """Q_log onto ``fmt``'s grid (identity for ``fmt=None``)."""
     return x if fmt is None else lns_quantize(x, fmt, scale_axis=scale_axis)
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def ste_quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
+                 scale_axis: Optional[int] = None) -> torch.Tensor:
+    """Forward: onto the grid. Backward: identity (straight through).
+
+    With a gradient to carry this is ``x + (q - x).detach()``, the JAX
+    expression and its rounding; without one it is ``q``, which equals
+    it except where the encode clamps a value far below the grid."""
+    if fmt is None:
+        return x
+    q = quantize(x, fmt, scale_axis)
+    if not _needs_grad(x):
+        return q
+    return x + (q - x).detach()
+
+
+class _BackwardQuantize(torch.autograd.Function):
+    """Identity forward; the gradient is put on ``fmt``'s grid (Q_E) and
+    cast to ``cot_dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, fmt, scale_axis, cot_dtype):
+        ctx.fmt, ctx.scale_axis, ctx.cot_dtype = fmt, scale_axis, cot_dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.fmt is not None:
+            g = lns_quantize(g, ctx.fmt, scale_axis=ctx.scale_axis)
+        if ctx.cot_dtype is not None:
+            g = g.to(ctx.cot_dtype)
+        return g, None, None, None
+
+
+def backward_quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
+                      scale_axis: Optional[int] = None,
+                      cot_dtype: Optional[torch.dtype] = None
+                      ) -> torch.Tensor:
+    """Forward identity; backward quantizes the gradient (the paper's
+    Q_E) and stores it in ``cot_dtype``. No node without a gradient."""
+    if not _needs_grad(x):
+        return x
+    return _BackwardQuantize.apply(x, fmt, scale_axis, cot_dtype)
+
+
+def cot_boundary(x: torch.Tensor) -> torch.Tensor:
+    """Forward identity; the gradient is cast to ``x.dtype``. The port's
+    layers need no such boundary (autograd already returns a gradient in
+    its input's dtype); this is the JAX function's counterpart for code
+    that moves a gradient across dtypes itself."""
+    return backward_quantize(x, None, None, x.dtype)
+
+
+def quantize_grads(grads, cfg: Optional[QuantConfig]):
+    """Q_G on a gradient tree (nested dicts of tensors), per-tensor
+    scales unless ``cfg.grad_scale_axis`` says otherwise."""
+    if cfg is None or cfg.grad is None:
+        return grads
+    if isinstance(grads, dict):
+        return {k: quantize_grads(v, cfg) for k, v in grads.items()}
+    return lns_quantize(grads, cfg.grad, scale_axis=cfg.grad_scale_axis)
 
 
 def _route_plan(eq: str) -> bool:
@@ -92,28 +180,65 @@ def _forward_packed(w: LNSWeight, ffmt: LNSFormat) -> torch.Tensor:
 
 
 def _routed_impl(fmt: LNSFormat, x: torch.Tensor, pw: torch.Tensor,
-                 wscale: torch.Tensor) -> torch.Tensor:
-    """y = decode(Q_A(x)) @ decode(pw) * s_x * s_w through K1 and K2."""
+                 wscale: torch.Tensor):
+    """y = decode(Q_A(x)) @ decode(pw) * s_x * s_w through K1 and K2.
+    Returns ``(y, px, sx)``: the packed activation and its scale are the
+    backward's residuals."""
     K = x.shape[-1]
     xm = x.reshape(-1, K).contiguous()
     px, sx = dispatch.encode_pack(xm, fmt, scale_axis=None)
     sw = wscale.reshape(1, -1).to(torch.float32).expand(1, pw.shape[1])
     y = dispatch.qmatmul(px, pw, fmt, scale_a=sx, scale_b=sw.contiguous(),
                          compute_dtype=x.dtype)
-    return y.reshape(x.shape[:-1] + (pw.shape[1],)).to(x.dtype)
+    return y.reshape(x.shape[:-1] + (pw.shape[1],)).to(x.dtype), px, sx
+
+
+class _RoutedMatmul(torch.autograd.Function):
+    """The routed GEMM with straight-through gradients
+    (``_routed_fwd``/``_routed_bwd`` of the JAX package). ``delta`` is
+    ignored by the primal; the backward returns dW into it."""
+
+    @staticmethod
+    def forward(ctx, fmt, x, delta, pw, wscale):
+        y, px, sx = _routed_impl(fmt, x, pw, wscale)
+        ctx.fmt = fmt
+        ctx.x_dtype, ctx.d_dtype = x.dtype, delta.dtype
+        ctx.x_shape = x.shape
+        ctx.save_for_backward(px, sx, pw, wscale)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        px, sx, pw, wscale = ctx.saved_tensors
+        fmt, xdt = ctx.fmt, ctx.x_dtype
+        dym = dy.reshape(-1, dy.shape[-1]).to(xdt)
+        # STE: dx = dy @ Wq^T (Q_A taken as identity); dW = Q_A(x)^T @ dy
+        wq = (lns_decode_packed(pw, fmt, torch.float32)
+              * wscale.reshape(1, -1)).to(xdt)
+        xq = (lns_decode_packed(px, fmt, torch.float32) * sx).to(xdt)
+        dx = (dym @ wq.T).reshape(ctx.x_shape).to(xdt)
+        ddelta = (xq.T @ dym).to(ctx.d_dtype)
+        return None, dx, ddelta, None, None
 
 
 def qeinsum(eq: str, x: torch.Tensor, w,
             cfg: Optional[QuantConfig]) -> torch.Tensor:
-    """``einsum(eq, Q_A(x), Q_W(w))``; packed 2-D weights route through
-    the kernels, dense ones take the fake-quant leg."""
+    """``einsum(eq, Q_A(x), Q_W(w))`` with Q_E on the output's gradient;
+    packed 2-D weights route through the kernels, dense ones take the
+    fake-quant leg. A packed weight without a ``delta`` (serving) calls
+    the kernels with no autograd machinery, as the JAX package does."""
     if is_lns_weight(w):
         if _routable(eq, w, cfg):
-            return _routed_impl(cfg.weight, x, _forward_packed(w, cfg.weight),
-                                w.scale)
-        w = w.decode(x.dtype)
+            pw = _forward_packed(w, cfg.weight)
+            if w.delta is None:
+                y = _routed_impl(cfg.weight, x, pw, w.scale)[0]
+            else:
+                y = _RoutedMatmul.apply(cfg.weight, x, w.delta, pw, w.scale)
+            return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)
+        w = w.decode(x.dtype)      # per-leaf fallback; delta carries grads
     if cfg is None or not cfg.is_quantized:
-        return torch.einsum(eq, x, w)
-    xq = quantize(x, cfg.act, cfg.act_scale_axis)
-    wq = quantize(w, cfg.weight, cfg.weight_scale_axis)
-    return torch.einsum(eq, xq, wq)
+        return backward_quantize(torch.einsum(eq, x, w), None, None, x.dtype)
+    xq = ste_quantize(x, cfg.act, cfg.act_scale_axis)
+    wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
+    y = torch.einsum(eq, xq, wq)
+    return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)

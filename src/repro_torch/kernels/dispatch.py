@@ -1,4 +1,4 @@
-"""One dispatch point for the serving kernels, chosen by tensor device.
+"""One dispatch point for the kernels, chosen by tensor device.
 
 * A CPU tensor goes to the plain PyTorch version (``kernels.ref``).
 * A CUDA tensor launches the hand-written kernel (``kernels.ops``), or the
@@ -17,8 +17,10 @@ import torch
 
 from repro_torch.core.lns import LNSFormat
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.madam_stats import madam_stats_dict, requant_spec
 
-__all__ = ["route", "encode_pack", "qmatmul", "paged_attend", "fused_sample"]
+__all__ = ["route", "encode_pack", "qmatmul", "paged_attend", "fused_sample",
+           "madam_step"]
 
 
 def route(t) -> str:
@@ -62,3 +64,32 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
     """K6: ``logits (B,V)`` -> ``(B,)`` int32 tokens."""
     impl = ops.fused_sample if route(logits) == "kernel" else ref.fused_sample
     return impl(logits, gumbel, temp)
+
+
+def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+               count: int, fmt: LNSFormat, *, lr: float, beta: float = 0.999,
+               eps: float = 1e-30, with_stats: bool = False,
+               requant_fmt: Optional[LNSFormat] = None):
+    """K3 (K4 with ``with_stats``): the fused Algorithm-1 step on a packed
+    leaf of rank >= 2, folded to ``(-1, last)``. ``count`` is the
+    post-increment step (a host int, so reading it costs no device sync).
+    Returns ``(new_packed, new_v)``, plus the dict of
+    ``madam_stats.MADAM_STAT_KEYS`` with ``with_stats``."""
+    kernel = route(packed) == "kernel"
+    shape = packed.shape
+    if len(shape) < 2:
+        raise ValueError(f"madam_step needs a >=2-D leaf, got {tuple(shape)}")
+    p2 = packed.reshape(-1, shape[-1])
+    g2 = g.reshape(p2.shape)
+    v2 = v.reshape(p2.shape)
+    bc = ref.bias_correction(beta, count)
+    kw = dict(lr=lr, beta=beta, eps=eps)
+    if not with_stats:
+        impl = ops.madam_step if kernel else ref.madam_step
+        np_, nv = impl(p2, g2, v2, bc, fmt, **kw)
+        return np_.reshape(shape), nv.reshape(shape)
+    impl = ops.madam_step_stats if kernel else ref.madam_step_stats
+    np_, nv, vec = impl(p2, g2, v2, bc, fmt,
+                        requant=requant_spec(fmt, requant_fmt), **kw)
+    return (np_.reshape(shape), nv.reshape(shape),
+            madam_stats_dict(vec, p2.numel(), fmt))

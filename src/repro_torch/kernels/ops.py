@@ -18,11 +18,12 @@ from repro_torch.core.lns import LNSFormat
 from repro_torch.kernels import _build, ref
 
 __all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "PAGED_ATTEND",
-           "FUSED_SAMPLE", "launch_counts", "reset_launch_counts",
-           "encode_pack", "qmatmul", "paged_attend", "fused_sample"]
+           "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "launch_counts",
+           "reset_launch_counts", "encode_pack", "qmatmul", "paged_attend",
+           "fused_sample", "madam_step", "madam_step_stats"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_DT = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 3}
+_DT = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 3, torch.int32: 4}
 
 
 class Kernel:
@@ -57,9 +58,13 @@ PAGED_ATTEND = Kernel("paged_attend", "repro_paged_attend",
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P])
 FUSED_SAMPLE = Kernel("fused_sample", "repro_fused_sample",
                       [_P, _P, _P, _P, _I, _I, _P])
+_MADAM_ARGS = [_P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _F, _F, _F, _F, _F]
+MADAM_STEP = Kernel("madam_step", "repro_madam_step", _MADAM_ARGS + [_I, _P])
+MADAM_STEP_STATS = Kernel("madam_step_stats", "repro_madam_step_stats",
+                          _MADAM_ARGS + [_I, _I, _P, _I, _P])
 KERNELS: Dict[str, Kernel] = {k.name: k for k in
                               (ENCODE_PACK, QMATMUL, PAGED_ATTEND,
-                               FUSED_SAMPLE)}
+                               FUSED_SAMPLE, MADAM_STEP, MADAM_STEP_STATS)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -203,3 +208,65 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
     FUSED_SAMPLE(logits.data_ptr(), g_p, t_p, out.data_ptr(), B, V,
                  _stream(logits))
     return out
+
+
+# K3/K4 launch geometry: 256 threads, enough blocks to fill the 132 SMs
+# twice over, then a grid-stride loop (K4 writes one stat row per block)
+_MADAM_THREADS = 256
+_MADAM_MAX_BLOCKS = 132 * 16
+
+
+def _madam_blocks(n: int) -> int:
+    return max(1, min(-(-n // _MADAM_THREADS), _MADAM_MAX_BLOCKS))
+
+
+def _madam_check(packed, g, v, fmt: LNSFormat):
+    if not 2 <= fmt.bits <= 16:
+        raise ValueError(f"the Madam kernels take words of 2..16 bits, got "
+                         f"{fmt}")
+    word_dt = torch.uint8 if fmt.bits <= 8 else torch.int32
+    _check(packed, "packed", (word_dt,), 2)
+    _check(g, "g", _FLOATS, 2)
+    _check(v, "v", (torch.float32,), 2)
+    if g.shape != packed.shape or v.shape != packed.shape:
+        raise ValueError(f"packed {tuple(packed.shape)}, g {tuple(g.shape)} "
+                         f"and v {tuple(v.shape)} must share a shape")
+    return torch.empty_like(packed), torch.empty_like(v)
+
+
+def _madam_args(packed, g, v, w_out, v_out, bc, fmt, lr, beta, eps):
+    # (1-beta), beta, eps and lr*gamma: Python doubles rounded to f32 as
+    # JAX's weak types round them
+    return (packed.data_ptr(), _DT[packed.dtype], g.data_ptr(), _DT[g.dtype],
+            v.data_ptr(), w_out.data_ptr(), v_out.data_ptr(), packed.numel(),
+            fmt.bits, fmt.gamma, float(bc), 1.0 - beta, beta, eps,
+            lr * fmt.gamma)
+
+
+def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+               bc: float, fmt: LNSFormat, *, lr: float, beta: float,
+               eps: float):
+    """K3 on the card: the fused update of a 2-D packed leaf (uint8 words
+    at B<=8, int32 at B<=16; g f32 or bf16; v f32) -> new
+    ``(words, v)``."""
+    w_out, v_out = _madam_check(packed, g, v, fmt)
+    MADAM_STEP(*_madam_args(packed, g, v, w_out, v_out, bc, fmt, lr, beta,
+                            eps), _madam_blocks(packed.numel()),
+               _stream(packed))
+    return w_out, v_out
+
+
+def madam_step_stats(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                     bc: float, fmt: LNSFormat, *, lr: float, beta: float,
+                     eps: float, requant=None):
+    """K4 on the card: K3 plus the stat vector (f64, width 8): one row of
+    partial sums per block, then a fixed-order sum over the rows."""
+    w_out, v_out = _madam_check(packed, g, v, fmt)
+    blocks = _madam_blocks(packed.numel())
+    partials = torch.empty((blocks, 8), dtype=torch.float64,
+                           device=packed.device)
+    ratio, dst_max = requant if requant is not None else (0, 0)
+    MADAM_STEP_STATS(*_madam_args(packed, g, v, w_out, v_out, bc, fmt, lr,
+                                  beta, eps), ratio, dst_max,
+                     partials.data_ptr(), blocks, _stream(packed))
+    return w_out, v_out, partials.sum(dim=0)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four serving kernels.
+"""Plain PyTorch versions of the hand-written kernels.
 
 Each function computes what its CUDA kernel computes, on any device. The
 dispatch layer sends CPU tensors here; the tests hold these against the
@@ -12,10 +12,12 @@ from typing import Optional
 import torch
 
 from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode_packed,
-                                  lns_encode, lns_pack)
+                                  lns_encode, lns_pack, lns_word_dtype)
+from repro_torch.kernels.madam_stats import madam_stats_vec
 
 __all__ = ["row_scale", "encode_pack", "qmatmul", "paged_attend",
-           "fused_sample"]
+           "fused_sample", "bias_correction", "step_math", "madam_step",
+           "madam_step_stats"]
 
 
 def row_scale(x: torch.Tensor, scale_axis: Optional[int] = None):
@@ -101,3 +103,60 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
     scaled = lg / torch.clamp_min(temp, 1e-6)[:, None]
     toks = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
     return torch.where(temp > 0.0, toks, greedy)
+
+
+def bias_correction(beta: float, count: int) -> float:
+    """``1 - beta**count`` as the JAX package computes it: an f32 pow of
+    f32 ``beta``, then an f32 subtract (not Python's double pow, which
+    rounds differently). A host float holding the f32 value exactly."""
+    b = torch.tensor(beta, dtype=torch.float32)
+    return float(1.0 - b ** float(count))
+
+
+def step_math(code: torch.Tensor, sign: torch.Tensor, g: torch.Tensor,
+              v: torch.Tensor, bc: float, *, lr: float, beta: float,
+              eps: float, gamma: int, max_code: int):
+    """Algorithm 1 on one leaf, in the op order of the JAX ``_step_math``;
+    returns ``(new_code f32, new_v, target)``. The Python constants round
+    to f32 as JAX's weak types do. ``bc`` divides as a device tensor: ATen
+    on CUDA turns a division by a Python scalar into a multiply by its
+    reciprocal, which rounds differently from the kernel's IEEE divide."""
+    g = g.to(torch.float32)
+    v = (1.0 - beta) * g * g + beta * v
+    bc_t = torch.full((), bc, dtype=torch.float32, device=v.device)
+    gstar = g * torch.rsqrt(v / bc_t + eps)
+    target = code.to(torch.float32) + (lr * gamma) * gstar * sign.to(
+        torch.float32)
+    return torch.clamp(torch.floor(target + 0.5), 0, max_code), v, target
+
+
+def _madam(packed, g, v, bc, fmt: LNSFormat, lr, beta, eps):
+    w = packed.to(torch.int32)
+    sign_bit = (w >> (fmt.bits - 1)) & 1
+    code = w & fmt.max_code
+    new_code, nv, target = step_math(code, 1 - 2 * sign_bit, g, v, bc, lr=lr,
+                                     beta=beta, eps=eps, gamma=fmt.gamma,
+                                     max_code=fmt.max_code)
+    word = (sign_bit << (fmt.bits - 1)) | new_code.to(torch.int32)
+    return word.to(lns_word_dtype(fmt)), nv, code, target, new_code
+
+
+def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+               bc: float, fmt: LNSFormat, *, lr: float, beta: float,
+               eps: float):
+    """K3: the fused update of one 2-D packed leaf -> ``(words', v')``.
+    ``bc`` is :func:`bias_correction` of the step count."""
+    word, nv, _, _, _ = _madam(packed, g, v, bc, fmt, lr, beta, eps)
+    return word, nv
+
+
+def madam_step_stats(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
+                     bc: float, fmt: LNSFormat, *, lr: float, beta: float,
+                     eps: float, requant=None):
+    """K4: :func:`madam_step` plus the summed stat vector (f64, width 8;
+    layout in ``kernels.madam_stats``)."""
+    word, nv, code, target, new_code = _madam(packed, g, v, bc, fmt, lr,
+                                              beta, eps)
+    vec = madam_stats_vec(code, target, new_code, gamma=fmt.gamma,
+                          max_code=fmt.max_code, requant=requant)
+    return word, nv, vec

@@ -1,4 +1,10 @@
-"""GQA attention on the serving cache paths.
+"""GQA attention: the training path without a cache, and the two
+serving cache layouts.
+
+Without a cache (training) the KV heads are repeated to the query heads
+and attended by :func:`flash_attention`, an online softmax over KV blocks
+in plain torch; the JAX package runs the same scan through XLA, not a
+Pallas kernel, and autograd gives its gradient here.
 
 Two KV layouts, as in ``repro.models.attention``:
 
@@ -12,8 +18,7 @@ Two KV layouts, as in ``repro.models.attention``:
 Unlike the JAX package, cache tensors are updated **in place**: the
 engine owns them and nothing else holds a reference, so the functional
 copy would only cost memory. With ``cfg.kv_cache_bits`` the caches hold
-packed LNS words plus a per-(position, head) bf16 scale. The no-cache
-(training) flash-attention path comes with the training slice.
+packed LNS words plus a per-(position, head) bf16 scale.
 """
 from __future__ import annotations
 
@@ -24,19 +29,19 @@ import torch
 
 from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode,
                                   lns_encode, lns_pack, lns_unpack)
-from repro_torch.core.quantizer import QuantConfig, qeinsum, quantize
+from repro_torch.core.quantizer import QuantConfig, qeinsum, ste_quantize
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import apply_rope, dense_of, rope
 
-__all__ = ["attn_apply", "init_kv_cache", "init_paged_kv_cache",
-           "is_paged_cache"]
+__all__ = ["attn_apply", "flash_attention", "init_kv_cache",
+           "init_paged_kv_cache", "is_paged_cache"]
 
 
 def _qa(x: torch.Tensor, qcfg: Optional[QuantConfig]):
-    """Q_A on the attention operands (per tensor)."""
+    """Q_A on the attention operands (per tensor, straight through)."""
     if qcfg is not None and qcfg.act is not None:
-        return quantize(x, qcfg.act, None)
+        return ste_quantize(x, qcfg.act, None)
     return x
 
 
@@ -44,12 +49,49 @@ def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     return logits if cap is None else cap * torch.tanh(logits / cap)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    softcap: Optional[float] = None,
+                    block_k: int = 512) -> torch.Tensor:
+    """Causal online-softmax attention over KV blocks of ``block_k``.
+    q, k, v: (B, S, H, D) with the KV heads already repeated. f32 inside,
+    ``q.dtype`` out."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    block_k = min(block_k, Skv)
+    if Skv % block_k:
+        raise ValueError(f"KV length {Skv} must tile by {block_k}")
+    qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
+    q_pos = torch.arange(Sq, device=q.device)
+    m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Sq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    neg = torch.full((), -1e30, device=q.device)
+    for start in range(0, Skv, block_k):
+        k_blk = k[:, start:start + block_k].to(torch.float32)
+        v_blk = v[:, start:start + block_k].to(torch.float32)
+        k_pos = start + torch.arange(block_k, device=q.device)
+        logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, k_blk), softcap)
+        mask = k_pos[None, :] <= q_pos[:, None]                   # (Sq, blk)
+        logits = torch.where(mask[None, None], logits, neg)
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1)
+        acc = corr[..., None] * acc + torch.einsum("bhqk,bkhd->bhqd", p, v_blk)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
+
+
 def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
                qcfg: Optional[QuantConfig], *, positions: torch.Tensor,
-               cache: Dict[str, torch.Tensor],
+               cache: Optional[Dict[str, torch.Tensor]] = None,
                block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One attention block in append mode: the S new positions of ``x``
-    (B, S, D) are written to ``cache`` and attended with what it holds."""
+    """One attention block over ``x`` (B, S, D). Without ``cache``
+    (training) the S positions attend causally among themselves; with one
+    (append mode) they are written to ``cache`` and attended with what it
+    holds."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg)
@@ -64,7 +106,12 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     q = _qa(apply_rope(q, rot), qcfg)
     k = _qa(apply_rope(k, rot), qcfg)
     v = _qa(v, qcfg)
-    if is_paged_cache(cache):
+    if cache is None:
+        rep = h // kv
+        out = flash_attention(q, k.repeat_interleave(rep, dim=2),
+                              v.repeat_interleave(rep, dim=2),
+                              softcap=cfg.attn_logit_softcap)
+    elif is_paged_cache(cache):
         if block_table is None:
             raise ValueError("a paged cache needs the block table")
         out = _paged_attend(q, k, v, cache, cfg, block_table)

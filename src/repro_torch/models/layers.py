@@ -1,5 +1,10 @@
 """Building blocks: weight views, RMSNorm, rotary embedding, gated MLP,
-embedding lookup. Every GEMM goes through ``core.quantizer.qeinsum``."""
+embedding lookup. Every GEMM goes through ``core.quantizer.qeinsum``.
+
+The JAX package wraps the f32 islands (norms, rope) in ``cot_boundary``
+to keep their gradients in the network dtype; autograd already returns
+each gradient in its input's dtype, so the port needs no boundary there.
+"""
 from __future__ import annotations
 
 from typing import Optional
@@ -73,11 +78,13 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
 def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Rows of the embedding table for ``tokens``. A packed table decodes
     only the gathered rows: decoding is elementwise, so this equals
-    gathering from the decoded table."""
+    gathering from the decoded table (``delta`` included)."""
     if is_lns_weight(table):
         rows = lns_decode_packed(table.packed[tokens], table.fmt,
                                  torch.float32)
         x = (rows * table.scale).to(cfg.compute_dtype)
+        if table.delta is not None:
+            x = x + table.delta[tokens].to(cfg.compute_dtype)
     else:
         x = table[tokens]
     return x.to(cfg.compute_dtype)

@@ -1,11 +1,13 @@
-"""The dense decoder: parameter init, cached forward, decode step.
+"""The dense decoder: parameter init, forward (training or cached),
+loss, decode step.
 
 Parameters are a nested dict laid out leaf for leaf as the JAX package's
 pytree: the layer ("period") parameters carry a leading stack axis of
 ``num_layers`` (``period/pos0/...``), which this module walks with a
 Python loop where the JAX package scans. Weights may be packed
 :class:`LNSWeight` leaves; the 2-D slices of a stacked packed leaf route
-through the kernels.
+through the kernels. There is no rematerialization: at smollm-135m's
+width a 2048-token training step keeps its activations in a few GB.
 """
 from __future__ import annotations
 
@@ -21,8 +23,8 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (decoded_of, embed_lookup, mlp_apply,
                                        rms_norm)
 
-__all__ = ["init_params", "forward", "lm_head", "init_caches", "decode_step",
-           "layer", "to_device"]
+__all__ = ["init_params", "forward", "lm_loss", "lm_head", "init_caches",
+           "decode_step", "layer", "to_device"]
 
 
 def _trunc_normal(shape, std, dtype, gen: torch.Generator, device):
@@ -75,20 +77,24 @@ def layer(tree, i: int):
 
 
 def lm_head(params, cfg: ArchConfig) -> torch.Tensor:
-    """The tied LM head ``(d, V)``: the decoded embedding, transposed. A
-    pure function of the weights, so the engine decodes it once; the
-    fake-quant leg of ``qeinsum`` puts it on the weight grid per call, as
-    the JAX package does."""
+    """The tied LM head ``(d, V)``: the decoded embedding (``delta``
+    included, so the table's gradient gathers from the lookup and the
+    head), transposed. A pure function of the weights, so the engine
+    decodes it once; the fake-quant leg of ``qeinsum`` puts it on the
+    weight grid per call, as the JAX package does."""
     return decoded_of(params["embed"]["tok"], cfg).T
 
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
-            qcfg: Optional[QuantConfig] = None, *, caches: Dict[str, Any],
+            qcfg: Optional[QuantConfig] = None, *,
+            caches: Optional[Dict[str, Any]] = None,
             pos_offset=0, block_tables: Optional[torch.Tensor] = None,
             head: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Run the decoder over ``tokens (B, S)`` in append mode, writing the
-    new positions into ``caches`` in place. ``pos_offset`` is a scalar or
-    a (B,) tensor of per-row offsets. Returns logits ``(B, S, V)``."""
+    """Run the decoder over ``tokens (B, S)``. Without ``caches``
+    (training) the sequence attends causally to itself; with them (append
+    mode) the new positions are written into ``caches`` in place.
+    ``pos_offset`` is a scalar or a (B,) tensor of per-row offsets.
+    Returns logits ``(B, S, V)``."""
     x = embed_lookup(params["embed"]["tok"], tokens, cfg)
     S = x.shape[1]
     off = torch.as_tensor(pos_offset, device=x.device)
@@ -96,9 +102,11 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
         torch.int32)
     if positions.dim() > 1 and positions.shape[0] == 1:
         positions = positions[0]
-    stack, cstack = params["period"]["pos0"], caches["period"]["pos0"]
+    stack = params["period"]["pos0"]
+    cstack = caches["period"]["pos0"] if caches is not None else None
     for i in range(cfg.num_layers):
-        bp, c = layer(stack, i), layer(cstack, i)
+        bp = layer(stack, i)
+        c = layer(cstack, i) if cstack is not None else None
         hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
         x = x + attn_mod.attn_apply(bp["attn"], hdn, cfg, qcfg,
                                     positions=positions, cache=c,
@@ -109,6 +117,23 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     if head is None:
         head = lm_head(params, cfg)
     return qeinsum("bsd,dv->bsv", x, head, qcfg)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 over labels >= 0."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
+            qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
+    """Next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (the dense family has no auxiliary loss)."""
+    logits = forward(params, batch["tokens"], cfg, qcfg)
+    return _xent(logits, batch["labels"])
 
 
 def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,

@@ -65,6 +65,18 @@ def test_chip_smoke_fails_without_card_or_repo(tmp_path, alone):
     assert '"ok"' not in out.stdout
 
 
+class _CudaStandIn:
+    """Claims to be a 2-D CUDA tensor; reshapes to itself."""
+    device = torch.device("cuda")
+    shape = (2, 4)
+
+    def reshape(self, *shape):
+        return self
+
+    def numel(self):
+        return 8
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +101,25 @@ def test_entry_points_default_to_cuda(no_cuda):
         main(["--smoke"])
 
 
+def test_training_entry_points_default_to_cuda(no_cuda):
+    """``init_train_state``, the train step's first call on a state built
+    without a device, and the train CLI without ``--device``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch import train
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.steps import build_train_step, init_train_state
+
+    cfg, mcfg = get_smoke_config("smollm-135m"), MadamConfig()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(cfg, mcfg)
+    step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        step(init_train_state(cfg, mcfg), {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1"])
+
+
 def _cpu_args():
     rng = np.random.default_rng(0)
     fmt = LNSFormat(8, 8)
@@ -99,19 +130,35 @@ def _cpu_args():
     pool = torch.randn(5, 4, 2, 32)
     bt = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
     ln = torch.tensor([3, 8], dtype=torch.int32)
+    w16 = torch.from_numpy(rng.integers(0, 1 << 16, (6, 10)).astype(np.int32))
+    g, v = torch.randn(6, 10), torch.rand(6, 10)
+    f16 = LNSFormat(16, 2048)
+    madam = dict(lr=2.0 ** -7, beta=0.999, eps=1e-30)
     return {
         "encode_pack": ((x, fmt), {}),
         "qmatmul": ((pa, pb, fmt, sa), {"compute_dtype": torch.float32}),
         "paged_attend": ((q, pool, pool, None, None, bt, ln),
                          {"sm_scale": 0.25}),
         "fused_sample": ((torch.randn(2, 50), None, None), {}),
+        "madam_step": ((w16, g, v, 0.5, f16), madam),
+        "madam_step_stats": ((w16, g, v, 0.5, f16), dict(madam, requant=None)),
     }
+
+
+def _dispatch_call(name, args, kw):
+    """Call the dispatch entry behind kernel ``name`` with its wrapper's
+    arguments (the Madam step's dispatch takes a step count, not bc)."""
+    if name.startswith("madam_step"):
+        w, g, v, _, fmt = args
+        return dispatch.madam_step(w, g, v, 3, fmt, lr=kw["lr"],
+                                   with_stats=name == "madam_step_stats")
+    return getattr(dispatch, name)(*args, **kw)
 
 
 def test_cpu_calls_count_no_launch():
     ops.reset_launch_counts()
     for name, (args, kw) in _cpu_args().items():
-        getattr(dispatch, name)(*args, **kw)
+        _dispatch_call(name, args, kw)
     assert ops.launch_counts() == {n: 0 for n in ops.KERNELS}
 
 
@@ -119,17 +166,28 @@ def test_cuda_tensors_never_reach_plain_path(no_cuda, monkeypatch):
     """With the CUDA check off, stand-ins whose device is CUDA go to the
     kernel wrappers; the plain versions are rigged to fail if reached."""
     called = []
+    cuda = _CudaStandIn()
+
+    def kernel(name):
+        def fn(*a, **k):
+            called.append(name)
+            if name == "madam_step":
+                return cuda, cuda
+            return cuda, cuda, torch.zeros(8, dtype=torch.float64)
+        return fn
+
     for name in ops.KERNELS:
         monkeypatch.setattr(ref, name, lambda *a, _n=name, **k: pytest.fail(
             f"plain {_n} reached from a CUDA tensor"))
-        monkeypatch.setattr(ops, name, lambda *a, _n=name, **k:
-                            called.append(_n))
-    cuda = types.SimpleNamespace(device=torch.device("cuda"))
+        monkeypatch.setattr(ops, name, kernel(name))
     dispatch.encode_pack(cuda, LNSFormat())
     dispatch.qmatmul(cuda, cuda, LNSFormat())
     dispatch.paged_attend(cuda, cuda, cuda, None, None, cuda, cuda,
                           sm_scale=1.0)
     dispatch.fused_sample(cuda, None, None)
+    dispatch.madam_step(cuda, cuda, cuda, 1, LNSFormat(16, 2048), lr=0.01)
+    dispatch.madam_step(cuda, cuda, cuda, 1, LNSFormat(16, 2048), lr=0.01,
+                        with_stats=True)
     assert called == list(ops.KERNELS)
     with pytest.raises(ValueError, match="no kernel path"):
         dispatch.route(torch.empty(1, device="meta"))
