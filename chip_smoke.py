@@ -6,11 +6,12 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build the six CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. Build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. Hold each kernel against its plain PyTorch version on the card at the
-   serving and training shapes of smollm-135m (K3/K4 at the four packed
-   leaf shapes), and time the kernel, the plain version and a one-call
-   PyTorch yardstick (``library_ms``) where one exists.
+   serving and training shapes of smollm-135m (K3/K4 at the packed leaf
+   shapes, K7 at the 8 packed leaves for 8->6 and 8->7, K5 also at the
+   speculative verify's S=4), and time the kernel, the plain version and
+   a one-call PyTorch yardstick (``library_ms``) where one exists.
 4. Serve smollm-135m at full width with random packed 8-bit LNS weights:
    the paged layout (8 requests, 4 slots, 32+32 tokens, page 16), then a
    short dense-layout run. Each run's kernel launch counts are zeroed just
@@ -35,11 +36,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    words that differ after the update, within the stated limits.
 10. Time 3 train steps, then profile one: wall time, device busy share,
     top kernels.
+11. Speculative serving at full width through the serve CLI's engine:
+    phase 4's paged trace with ``--speculate-k 4`` at draft bitwidths 6,
+    7 and 8, then bitwidth 6 and the non-speculating engine under
+    ``--alloc-policy ondemand``, then ``--speculate-k 1``, with the
+    non-speculating reserve engine first and last. Every run completes
+    8/8; K7 launches 8 times per draft view built; K5 runs at S=k once
+    per layer per cycle; the ondemand pool ends full; the baselines, the
+    ondemand baseline and the k=1 run reproduce phase 4's streams
+    exactly. Accept rates, stream agreement with phase 4, tok/s and the
+    tok/s ratio to the two baseline runs are printed, not limited.
+12. At the smoke config on the card: a mixed greedy/seeded trace gives
+    the speculating engine's streams equal to the baseline's, dense and
+    ondemand.
+13. Profile 2 speculative cycles as phase 6 profiles decode steps.
+14. Measure why k>1 streams leave phase 4's: from 8 states of the paged
+    trace, 4 greedy one-token steps against one S=4 verify over the same
+    tokens, counting differing tokens and differing per-tensor
+    activation scales (printed, not limited).
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
 ``chiprun_out/chip_smoke.json``. Nothing here imports JAX.
 """
+import collections
 import contextlib
 import json
 import math
@@ -101,6 +121,24 @@ SERVE_PAGED = ["--requests", "8", "--slots", "4", "--prompt-len", "32",
                "--gen-len", "32", "--page-size", "16"]
 SERVE_DENSE = ["--requests", "4", "--slots", "4", "--prompt-len", "32",
                "--gen-len", "8"]
+# phase 11: the paged trace with speculation, by run name
+SPEC_K = 4
+SPEC_RUNS = [
+    ("baseline", []),
+    ("spec_b6", ["--speculate-k", str(SPEC_K), "--draft-bitwidth", "6"]),
+    ("spec_b7", ["--speculate-k", str(SPEC_K), "--draft-bitwidth", "7"]),
+    ("spec_b8", ["--speculate-k", str(SPEC_K), "--draft-bitwidth", "8"]),
+    ("spec_b6_ondemand", ["--speculate-k", str(SPEC_K), "--draft-bitwidth",
+                          "6", "--alloc-policy", "ondemand"]),
+    ("ondemand", ["--alloc-policy", "ondemand"]),
+    ("spec_k1_b6", ["--speculate-k", "1", "--draft-bitwidth", "6"]),
+    ("baseline_end", []),
+]
+# the packed leaves of smollm-135m as K7 re-grids them, in tree order
+K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
+             ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
+             ("wo", (30, 576, 576)), ("gate", (30, 576, 1536)),
+             ("up", (30, 576, 1536)), ("down", (30, 1536, 576))]
 
 
 class SmokeFailure(RuntimeError):
@@ -249,8 +287,8 @@ def k2_check(torch, ops, ref, fmt, shapes):
     return rows
 
 
-def k5_inputs(torch, B, S, lengths, packed, fmt, gen):
-    H, KV, HD, PAGE, MP = 9, 3, 64, 16, 5
+def k5_inputs(torch, B, S, lengths, packed, fmt, gen, heads):
+    (H, KV, HD), PAGE, MP = heads, 16, 5
     P = 4 * MP + 1  # the serving pool: 4 slots x 5 pages + the null page
     q = torch.randn((B, S, H, HD), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -279,11 +317,13 @@ def k5_check(torch, ops, ref, fmt, cases):
     from repro_torch.core.lns import lns_decode_packed
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-    for name, B, S, lengths, packed in cases:
+    for name, B, S, lengths, packed, *rest in cases:
+        # (heads, kv heads, head_dim): smollm-135m's, or a case's own
+        H, KV, HD = heads = rest[0] if rest else (9, 3, 64)
         q, kp, vp, ks, vs, bt, ln = k5_inputs(torch, B, S, lengths, packed,
-                                              fmt, gen)
+                                              fmt, gen, heads)
         kw = dict(fmt=fmt if packed else None, softcap=None,
-                  sm_scale=1 / math.sqrt(64))
+                  sm_scale=1 / math.sqrt(HD))
         out = ops.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
         want = ref.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
         err = float((out - want).abs().max())
@@ -292,11 +332,11 @@ def k5_check(torch, ops, ref, fmt, cases):
         cap = bt.shape[1] * kp.shape[1]
 
         def gathered(pool, scale):
-            x = pool[bt.long()].reshape(B, cap, 3, 64)
+            x = pool[bt.long()].reshape(B, cap, KV, HD)
             if packed:
-                s = scale[bt.long()].reshape(B, cap, 3, 1).float()
+                s = scale[bt.long()].reshape(B, cap, KV, 1).float()
                 x = lns_decode_packed(x, fmt, torch.float32) * s
-            return x.to(torch.bfloat16).repeat_interleave(3, dim=2) \
+            return x.to(torch.bfloat16).repeat_interleave(H // KV, dim=2) \
                 .transpose(1, 2).contiguous()
 
         kg, vg = gathered(kp, ks), gathered(vp, vs)
@@ -307,14 +347,14 @@ def k5_check(torch, ops, ref, fmt, cases):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         elem = 1 if packed else 2
         n_pos = [min(-(-int(n) // 16), 5) * 16 for n in lengths]
-        nbytes = (q.numel() * 2 + sum(n_pos) * 2 * 3 * 64 * elem
-                  + (sum(n_pos) * 2 * 3 * 2 if packed else 0)
+        nbytes = (q.numel() * 2 + sum(n_pos) * 2 * KV * HD * elem
+                  + (sum(n_pos) * 2 * KV * 2 if packed else 0)
                   + bt.numel() * 4 + B * 4 + q.numel() * 4)
         visible = sum(max(int(n) - S + s + 1, 0) for n in lengths
                       for s in range(S))
-        b, by = bound_ms(nbytes, 4 * 9 * 64 * visible, BF16_FLOPS)
+        b, by = bound_ms(nbytes, 4 * H * HD * visible, BF16_FLOPS)
         rows.append(dict(
-            shape=[B, S, 9, 64], case=name, lengths=list(lengths),
+            shape=[B, S, H, HD], case=name, lengths=list(lengths),
             max_abs_err=err,
             ms=cuda_ms(torch, lambda: ops.paged_attend(q, kp, vp, ks, vs, bt,
                                                        ln, **kw)),
@@ -363,6 +403,56 @@ def k6_check(torch, ops, ref):
               f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, argmax "
               f"{r['library_ms']:.4f} ms, bound {b:.5f} ms")
+    return rows
+
+
+def k7_check(torch, ops, ref):
+    """K7 against its plain version at the 8 packed leaves, 8->6 and
+    8->7: words equal. Timed with >= 100 MB of source words rotating
+    through the graph, so the big leaves are not read L2-warm."""
+    from repro_torch.core.lns import LNSFormat
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    src = LNSFormat(8, 8)
+    rows = []
+    for name, shape in K7_LEAVES:
+        n = math.prod(shape)
+        n_buf = max(2, -(-100_000_000 // n))
+        words = [torch.randint(0, 256, shape, generator=gen, device="cuda",
+                               dtype=torch.uint8) for _ in range(n_buf)]
+        it = {"i": 0}
+
+        def rot():
+            it["i"] = (it["i"] + 1) % n_buf
+            return words[it["i"]]
+
+        for bits in (6, 7):
+            dst = src.with_bits(bits)
+            out = ops.requant_pack(words[0], src, dst)
+            want = ref.requant_pack(words[0], src, dst)
+            diff = int((out != want).sum())
+            check(diff == 0, f"K7 {name} {shape} 8->{bits}: {diff} words "
+                  f"differ from the plain version")
+            b, by = bound_ms(2 * n, 5 * n, F32_FLOPS)
+            rows.append(dict(
+                leaf=name, shape=list(shape), bits=bits, max_abs_err=0,
+                ms=cuda_ms(torch, lambda: ops.requant_pack(rot(), src, dst),
+                           iters=n_buf),
+                eager_ms=eager_ms(torch, lambda: ops.requant_pack(
+                    rot(), src, dst)),
+                plain_ms=cuda_ms(torch, lambda: ref.requant_pack(
+                    rot(), src, dst), iters=n_buf, replays=3),
+                bound_ms=b, bound_by=by, library_ms=None))
+            r = rows[-1]
+            print(f"K7 requant_pack {name} {'x'.join(map(str, shape))} "
+                  f"8->{bits}: words equal, kernel {r['ms']:.4f} ms (eager "
+                  f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                  f"bound {b:.4f} ms")
+    for bits in (6, 7):
+        view = [r for r in rows if r["bits"] == bits]
+        print(f"K7 one draft view 8->{bits} (8 launches): kernel "
+              f"{sum(r['ms'] for r in view):.4f} ms, plain "
+              f"{sum(r['plain_ms'] for r in view):.4f} ms, bound "
+              f"{sum(r['bound_ms'] for r in view):.4f} ms")
     return rows
 
 
@@ -459,9 +549,12 @@ def k34_check(torch, ops, ref, cases):
     return rows
 
 
-def serve(torch, argv, ops):
+def serve(torch, argv, ops, warm=True):
     """One full-width serving run through the CLI's own engine; returns
-    (aggregate metrics, engine, launch counts of exactly this run)."""
+    (aggregate metrics, engine, launch counts of exactly this run).
+    ``warm`` runs the trace once before the measured run (cuBLAS handles,
+    the allocator); without it the measured run also builds the engine's
+    draft views, whose K7 launches it then counts."""
     from repro_torch.launch.serve import build_engine, parser
     from repro_torch.serving import synthetic_trace
 
@@ -470,14 +563,297 @@ def serve(torch, argv, ops):
     trace = lambda: synthetic_trace(engine.cfg, requests=args.requests,
                                     prompt_len=args.prompt_len,
                                     gen_len=args.gen_len, seed=args.seed)
-    engine.run(trace())          # warm-up: cuBLAS handles, allocator
-    engine.reset()
+    if warm:
+        engine.run(trace())
+        engine.reset()
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     agg = engine.run(trace())
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     return agg, engine, counts
+
+
+def streams(engine):
+    return {rs.request.rid: list(rs.generated) for rs in engine.finished}
+
+
+@contextlib.contextmanager
+def k5_query_rows(ops):
+    """Count K5 launches by their query length S (the wrapper still counts
+    every launch itself)."""
+    seen = collections.Counter()
+    launch = ops.paged_attend
+
+    def record(q, *args, **kw):
+        seen[q.shape[1]] += 1
+        return launch(q, *args, **kw)
+
+    ops.paged_attend = record
+    try:
+        yield seen
+    finally:
+        ops.paged_attend = launch
+
+
+def spec_serve(torch, ops, base):
+    """Phase 11: the paged trace with speculation (and the ondemand
+    runs) at full width, each held to phase 4's streams ``base``. The
+    non-speculating reserve engine runs first and last, unwarmed like
+    the rest, and tok/s ratios are taken to the mean of those two runs:
+    host-bound times drift within one call."""
+    base_streams = base["streams"]
+    runs, engines = {}, {}
+    for name, extra in SPEC_RUNS:
+        with k5_query_rows(ops) as seen:
+            agg, eng, counts = serve(torch, SERVE_PAGED + extra, ops,
+                                     warm=False)
+        got = streams(eng)
+        check(agg["completed"] == 8, f"{name}: completed "
+              f"{int(agg['completed'])}/8 requests")
+        same = [rid for rid in base_streams if got[rid] == base_streams[rid]]
+        first = [next((i for i, (a, b) in enumerate(zip(got[rid],
+                                                         base_streams[rid]))
+                       if a != b), min(len(got[rid]),
+                                       len(base_streams[rid])))
+                 for rid in base_streams if rid not in same]
+        k = eng.spec.k if eng.spec is not None else 0
+        # one draft view is built where the draft width is not the
+        # serving width (8)
+        views = int(k > 0 and eng.spec.draft_bits != 8)
+        check(counts["requant_pack"] == 8 * views,
+              f"{name}: K7 launched {counts['requant_pack']} times for "
+              f"{views} draft views")
+        check(sum(seen.values()) == counts["paged_attend"],
+              f"{name}: K5 launches {dict(seen)} vs {counts}")
+        if k:
+            # one verify per layer per cycle (at k=1 the drafts and the
+            # one-token steps run at S=1 as well)
+            L = eng.cfg.num_layers
+            want = L * eng.spec_cycles + (
+                L * (eng.spec_cycles + eng.decode_steps) if k == 1 else 0)
+            check(eng.spec_cycles > 0 and seen[k] == want,
+                  f"{name}: K5 at S={k} launched {seen[k]} times over "
+                  f"{eng.spec_cycles} cycles")
+        if eng.alloc_policy == "ondemand":
+            check(eng.allocator.available == eng.num_pages and
+                  eng.allocator.in_use == 0,
+                  f"{name}: pool ends at {eng.allocator.available}/"
+                  f"{eng.num_pages} pages")
+        r = dict(
+            agg=agg, launches=counts, k5_by_query_rows=dict(seen),
+            spec=eng.spec_snapshot(), decode_steps=eng.decode_steps,
+            prefills=eng.prefills, preemptions=eng.preemptions,
+            decode_page_allocs=eng.decode_page_allocs,
+            draft_views_built=views,
+            same_as_phase4=len(same) / len(base_streams),
+            first_divergence=min(first) if first else None)
+        runs[name] = r
+        sp = r["spec"] or {}
+        print(f"{name}: completed 8/8, {agg['tokens_per_s']:.2f} tok/s, "
+              f"tpot p50 {agg['tpot_p50_s'] * 1e3:.1f} "
+              f"ms, ttft mean {agg['ttft_mean_s'] * 1e3:.1f} ms; accept "
+              f"rate {sp.get('spec_accept_rate')}, cycles "
+              f"{sp.get('spec_cycles')}, fallbacks "
+              f"{sp.get('spec_fallbacks')}, decode steps "
+              f"{eng.decode_steps}; streams equal to phase 4 for "
+              f"{len(same)}/8 (first divergence at token "
+              f"{r['first_divergence']}); K7 {counts['requant_pack']}, "
+              f"K5 by S {dict(seen)}, preemptions {eng.preemptions}")
+        engines[name] = eng
+    for name in ("baseline", "ondemand", "spec_k1_b6", "baseline_end"):
+        check(runs[name]["same_as_phase4"] == 1.0,
+              f"{name}: streams differ from phase 4's (first divergence at "
+              f"token {runs[name]['first_divergence']})")
+    base_tps = (runs["baseline"]["agg"]["tokens_per_s"]
+                + runs["baseline_end"]["agg"]["tokens_per_s"]) / 2
+    for name, r in runs.items():
+        r["tok_s_ratio_to_baseline"] = r["agg"]["tokens_per_s"] / base_tps
+    print("tok/s over the mean of the first and last baseline runs ("
+          f"{base_tps:.2f}): " + ", ".join(
+              f"{name} {r['tok_s_ratio_to_baseline']:.3f}"
+              for name, r in runs.items()))
+    print("random weights: the 30-layer 8-bit model is chaotic, and the "
+          "per-tensor activation scales of a B*k verify batch differ from "
+          "a decode step's B rows, so a k=4 stream may leave phase 4's "
+          "at a near-tie; k=1 and the ondemand baseline may not")
+    return runs, engines["spec_b6"]
+
+
+@contextlib.contextmanager
+def k1_scales(ops):
+    """Record the per-tensor activation scale of every K1 call."""
+    seen = []
+    launch = ops.encode_pack
+
+    def record(x, fmt, scale_axis=None):
+        packed, scale = launch(x, fmt, scale_axis)
+        seen.append(float(scale[0, 0]))
+        return packed, scale
+
+    ops.encode_pack = record
+    try:
+        yield seen
+    finally:
+        ops.encode_pack = launch
+
+
+def verify_coupling(torch, ops, cycles=8):
+    """Phase 14 (measured, not limited): from the states of the paged
+    trace's baseline engine, k greedy S=1 steps against one S=k verify
+    over the same tokens (the identity draft). Counts the positions whose
+    greedy token differs and the K1 sites whose per-tensor activation
+    scale differs between the two."""
+    from repro_torch.launch.serve import build_engine, parser
+    from repro_torch.models.model import forward
+    from repro_torch.serving import synthetic_trace
+    args = parser().parse_args(SERVE_PAGED)
+    eng = build_engine(args)
+    for r in synthetic_trace(eng.cfg, requests=args.requests,
+                             prompt_len=args.prompt_len,
+                             gen_len=args.gen_len, seed=args.seed):
+        eng.submit(r)
+    eng.step()
+    cache = eng.caches["period"]["pos0"]
+    tok_diff = positions = site_diff = sites = unexplained = 0
+    for _ in range(cycles):
+        saved = {k: v.clone() for k, v in cache.items()}
+        bt = eng._tensor(eng._block_tables)
+        pos = eng._tensor(eng._slot_len)
+        cur = eng._tensor(eng._last_tok)
+        steps, step_scales = [], []
+        for j in range(SPEC_K):
+            with k1_scales(ops) as sc:
+                lg = forward(eng.params, cur[:, None], eng.cfg, eng.qcfg,
+                             caches=eng.caches, pos_offset=pos + j,
+                             block_tables=bt, head=eng._head)[:, -1]
+            cur = lg.float().argmax(-1).to(torch.int32)
+            steps.append(cur)
+            step_scales.append(sc)
+        for k, v in saved.items():
+            cache[k].copy_(v)
+        x = torch.cat([eng._tensor(eng._last_tok)[:, None]]
+                      + [t[:, None] for t in steps[:-1]], dim=1)
+        with k1_scales(ops) as vsc:
+            ver = forward(eng.params, x, eng.cfg, eng.qcfg,
+                          caches=eng.caches, pos_offset=pos,
+                          block_tables=bt, head=eng._head)
+        ver = ver.float().argmax(-1).to(torch.int32)
+        for k, v in saved.items():
+            cache[k].copy_(v)
+        for j in range(SPEC_K):
+            d = int((ver[:, j] != steps[j]).sum())
+            n = sum(a != b for a, b in zip(vsc, step_scales[j]))
+            tok_diff += d
+            positions += ver.shape[0]
+            site_diff += n
+            sites += len(vsc)
+            unexplained += int(d > 0 and n == 0)
+        eng.step()
+    res = {"cycles": cycles, "token_diffs": tok_diff,
+           "positions": positions, "scale_site_diffs": site_diff,
+           "scale_sites": sites,
+           "token_diffs_without_scale_diff": unexplained}
+    print(f"verify (S={SPEC_K}) vs {SPEC_K} one-token steps over the same "
+          f"tokens, {cycles} states of the paged trace: greedy tokens "
+          f"differ at {tok_diff}/{positions} positions, per-tensor K1 "
+          f"scales at {site_diff}/{sites} sites; positions with a token "
+          f"difference but no scale difference: {unexplained}")
+    return res
+
+
+def mixed_trace(cfg):
+    """The CPU tests' mixed trace: greedy and seeded rows interleaved."""
+    import numpy as np
+    from repro_torch.server.sampling import SamplingParams
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(3)
+    out = []
+    for i in range(6):
+        sp = None if i % 2 == 0 else SamplingParams(
+            temperature=0.9, top_k=0 if i % 4 == 1 else 8, seed=100 + i)
+        prompt = rng.integers(0, cfg.vocab_size, (4 + (i % 3) * 3,)).tolist()
+        out.append(Request(rid=i, prompt=prompt, max_new_tokens=12 - (i % 4),
+                           sampling=sp))
+    return out
+
+
+def smoke_spec(torch):
+    """Phase 12: at the smoke config on the card, the speculating
+    engine's streams equal the baseline's on the mixed trace."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.madam import MadamConfig, init_lns_params
+    from repro_torch.serving import Engine
+    cfg = get_smoke_config("smollm-135m")
+    params = init_lns_params(init_params(cfg, seed=0, device="cuda"),
+                             MadamConfig(update_format=LNSFormat(8, 8)))
+    out = {}
+    for name, kw, bits in (
+            ("dense", {}, 7),
+            ("ondemand", dict(page_size=8, num_pages=18,
+                              alloc_policy="ondemand"), 6)):
+        mk = lambda **extra: Engine(cfg, QuantConfig.lns_madam(), params,
+                                    num_slots=3, max_len=48, device="cuda",
+                                    **kw, **extra)
+        base = mk()
+        base.run(mixed_trace(cfg))
+        eng = mk(speculate_k=3, draft_bitwidth=bits)
+        eng.run(mixed_trace(cfg))
+        b, g = streams(base), streams(eng)
+        diff = [rid for rid in b if b[rid] != g.get(rid)]
+        check(len(b) == 6 and not diff,
+              f"smoke {name}: spec streams differ for requests {diff}")
+        if eng.page_size:
+            check(eng.allocator.available == eng.num_pages,
+                  f"smoke {name}: pool not returned")
+        out[name] = eng.spec_snapshot()
+        print(f"smoke {name}: spec (k=3, B={bits}) streams equal the "
+              f"baseline's for 6/6 mixed greedy/seeded requests, accept "
+              f"rate {eng.spec_accept_rate:.3f}, cycles {eng.spec_cycles}")
+    return out
+
+
+def profile_spec(torch, engine, decode_ms):
+    """Phase 13: wall and device time of 2 speculative cycles of the
+    B=6 engine (its draft view already built)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import synthetic_trace
+
+    engine.reset()
+    for r in synthetic_trace(engine.cfg, requests=4, prompt_len=32,
+                             gen_len=16, seed=1):
+        engine.submit(r)
+    engine.step()              # admissions + first cycle
+    torch.cuda.synchronize()
+    c0, d0 = engine.spec_cycles, engine.decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(2):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    check(engine.spec_cycles - c0 == 2 and engine.decode_steps == d0,
+          "profile: the 2 steps were not 2 speculative cycles")
+    busy_us, top = device_time(torch, prof, 8)
+    share = busy_us / 1e6 / wall if busy_us else None
+    print(f"profile, 2 spec cycles (k={SPEC_K}, B=6): wall "
+          f"{wall * 1e3 / 2:.1f} ms/cycle = "
+          f"{wall * 1e3 / 2 / decode_ms:.2f} decode steps, device busy "
+          + (f"{busy_us / 2e3:.2f} ms/cycle ({share:.1%})" if busy_us
+             else "not measured (no device time in the trace)"))
+    for e in top:
+        print(f"  {e.key[:60]}: {e.self_device_time_total / 2e3:.3f} "
+              f"ms/cycle, {e.count // 2} calls/cycle")
+    return {"wall_ms_per_cycle": wall * 1e3 / 2,
+            "cycle_over_decode_step": wall * 1e3 / 2 / decode_ms,
+            "device_busy_ms_per_cycle": busy_us / 2e3 if busy_us else None,
+            "device_busy_share": share,
+            "top": [[e.key, e.self_device_time_total / 2e3, e.count // 2]
+                    for e in top]}
 
 
 @contextlib.contextmanager
@@ -786,6 +1162,7 @@ def profile_train(torch, setup):
 def main() -> int:
     import torch
 
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -833,8 +1210,13 @@ def main() -> int:
         ("decode bf16 pool", 4, 1, [33, 48, 61, 66], False),
         ("decode packed pool", 4, 1, [33, 48, 61, 66], True),
         ("prefill bf16 pool", 1, 32, [32], False),
-        ("prefill packed pool", 1, 32, [32], True)])
+        ("prefill packed pool", 1, 32, [32], True),
+        ("verify bf16 pool", 4, SPEC_K, [36, 45, 52, 63], False),
+        ("verify packed pool", 4, SPEC_K, [36, 45, 52, 63], True),
+        # the smoke config's heads (phase 12 serves it paged)
+        ("smoke verify bf16 pool", 3, 3, [9, 20, 31], False, (3, 1, 16))])
     k6 = k6_check(torch, ops, ref)
+    k7 = k7_check(torch, ops, ref)
 
     agg, engine, counts = serve(torch, SERVE_PAGED, ops)
     print(f"paged serve: completed {int(agg['completed'])}/8 requests, "
@@ -848,7 +1230,8 @@ def main() -> int:
                                       "paged_attend", "fused_sample")),
           f"a kernel was not launched on the paged path: {counts}")
     paged = dict(agg=agg, decode_steps=engine.decode_steps,
-                 prefills=engine.prefills, launches=counts)
+                 prefills=engine.prefills, launches=counts,
+                 streams=streams(engine))
 
     dagg, deng, dcounts = serve(torch, SERVE_DENSE, ops)
     print(f"dense serve: completed {int(dagg['completed'])}/4 requests, "
@@ -872,9 +1255,19 @@ def main() -> int:
     numerics = numerics_step(torch, ops, setup)
     step_cmp = train_step_check(torch, setup)
     train_prof = profile_train(torch, setup)
+    del setup
+    torch.cuda.empty_cache()
+
+    spec_runs, spec_engine = spec_serve(torch, ops, paged)
+    smoke = smoke_spec(torch)
+    spec_prof = profile_spec(torch, spec_engine,
+                             prof["wall_ms_per_step"])
+    del spec_engine
+    coupling = verify_coupling(torch, ops)
 
     # launches: each kernel's count on its own path's run (serving for
-    # K1/K2/K5/K6, the training run for K3, the numerics step for K4)
+    # K1/K2/K5/K6, the training run for K3, the numerics step for K4, the
+    # B=6 speculative serve for K7)
     meta = {
         "encode_pack": ("lns_quantize.cu", "lns_quantize.py:80", k1, 1,
                         counts),
@@ -887,6 +1280,8 @@ def main() -> int:
         "madam_step_stats": ("madam_update.cu", "madam_update.py:291",
                              k34["madam_step_stats"], 0,
                              numerics["launches"]),
+        "requant_pack": ("lns_requant.cu", "lns_quantize.py:44", k7, 0,
+                         spec_runs["spec_b6"]["launches"]),
     }
     kernels = []
     for name, (src, tpu, rows, pick, launched) in meta.items():
@@ -905,14 +1300,18 @@ def main() -> int:
     full = {"card": card.stdout.strip(), "build_s": build_s,
             "kernels": kernels,
             "shapes": {"encode_pack": k1, "qmatmul": k2, "paged_attend": k5,
-                       "fused_sample": k6, **k34},
+                       "fused_sample": k6, "requant_pack": k7, **k34},
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,
-            "train_profile": train_prof, "device": device}
+            "train_profile": train_prof,
+            "spec": {"runs": spec_runs, "smoke": smoke,
+                     "profile": spec_prof, "verify_coupling": coupling},
+            "seconds": time.monotonic() - t_start, "device": device}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(full, indent=1))
+    print(f"chip_smoke took {full['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

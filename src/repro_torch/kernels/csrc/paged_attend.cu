@@ -27,7 +27,9 @@
 #define WARPS 4
 #define ROWS_PER_BLOCK (ROWS_PER_WARP * WARPS)
 
-template <int DPL>  // dims per lane: hd = 32 * DPL
+// HD = 32 * DPL, or 16 with DPL = 1 and lanes 16..31 idle (the smoke
+// config's head_dim)
+template <int HD>
 __global__ void __launch_bounds__(WARPS * 32)
 paged_attend_kernel(const void* __restrict__ q, int q_dt,
                     const void* __restrict__ kp, const void* __restrict__ vp,
@@ -37,7 +39,7 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
                     const int* __restrict__ lengths, float* __restrict__ out,
                     int S, int H, int KV, int page, int max_pages, int bits,
                     float gamma, float softcap, float sm_scale) {
-  constexpr int HD = 32 * DPL;
+  constexpr int DPL = (HD + 31) / 32;  // dims per lane
   extern __shared__ float smem[];
   float* Ks = smem;                // [page][HD]
   float* Vs = smem + page * HD;    // [page][HD]
@@ -48,6 +50,7 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
   const int nrows = S * rep;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const bool lane_on = HD % 32 == 0 || lane < HD;  // holds a dim
   const int ln = lengths[b];
   int n_pages = (ln + page - 1) / page;
   if (n_pages > max_pages) n_pages = max_pages;
@@ -73,7 +76,8 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
       qpos[j] = ln - S + s;
       obase[j] = ((static_cast<long long>(b) * S + s) * H + h) * HD;
 #pragma unroll
-      for (int d = 0; d < DPL; ++d) qv[j][d] = load_f32(q, q_dt, obase[j] + d * 32 + lane);
+      for (int d = 0; d < DPL; ++d)
+        if (lane_on) qv[j][d] = load_f32(q, q_dt, obase[j] + d * 32 + lane);
     }
   }
   const int max_code = (1 << (bits - 1)) - 1;
@@ -108,7 +112,8 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
       for (int p = 0; p < np; ++p) {
         float part = 0.f;
 #pragma unroll
-        for (int d = 0; d < DPL; ++d) part = fmaf(qv[j][d], Ks[p * HD + d * 32 + lane], part);
+        for (int d = 0; d < DPL; ++d)
+          if (lane_on) part = fmaf(qv[j][d], Ks[p * HD + d * 32 + lane], part);
         float sc = warp_sum(part) * sm_scale;
         if (softcap > 0.f) sc = softcap * tanhf(sc / softcap);
         const float m_new = fmaxf(m[j], sc);
@@ -117,7 +122,7 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
         l[j] = corr * l[j] + pe;
 #pragma unroll
         for (int d = 0; d < DPL; ++d)
-          acc[j][d] = fmaf(pe, Vs[p * HD + d * 32 + lane], corr * acc[j][d]);
+          if (lane_on) acc[j][d] = fmaf(pe, Vs[p * HD + d * 32 + lane], corr * acc[j][d]);
         m[j] = m_new;
       }
     }
@@ -129,7 +134,8 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
     if (!live[j]) continue;
     const float den = fmaxf(l[j], 1e-30f);
 #pragma unroll
-    for (int d = 0; d < DPL; ++d) out[obase[j] + d * 32 + lane] = acc[j][d] / den;
+    for (int d = 0; d < DPL; ++d)
+      if (lane_on) out[obase[j] + d * 32 + lane] = acc[j][d] / den;
   }
 }
 
@@ -144,14 +150,15 @@ REPRO_EXPORT int repro_paged_attend(
   const dim3 grid(B * KV, (nrows + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK);
   const size_t smem = 2 * static_cast<size_t>(page) * hd * sizeof(float);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAUNCH(DPL)                                                          \
-  paged_attend_kernel<DPL><<<grid, WARPS * 32, smem, st>>>(                  \
+#define LAUNCH(HD)                                                           \
+  paged_attend_kernel<HD><<<grid, WARPS * 32, smem, st>>>(                   \
       q, q_dt, kp, vp, kv_dt, ks, vs, s_dt, block_table, lengths, out, S, H, \
       KV, page, max_pages, bits, static_cast<float>(gamma), softcap, sm_scale)
   switch (hd) {
-    case 32: LAUNCH(1); break;
-    case 64: LAUNCH(2); break;
-    case 128: LAUNCH(4); break;
+    case 16: LAUNCH(16); break;
+    case 32: LAUNCH(32); break;
+    case 64: LAUNCH(64); break;
+    case 128: LAUNCH(128); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef LAUNCH

@@ -20,7 +20,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.madam_stats import madam_stats_dict, requant_spec
 
 __all__ = ["route", "encode_pack", "qmatmul", "paged_attend", "fused_sample",
-           "madam_step"]
+           "madam_step", "requant_pack"]
 
 
 def route(t) -> str:
@@ -64,6 +64,14 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
     """K6: ``logits (B,V)`` -> ``(B,)`` int32 tokens."""
     impl = ops.fused_sample if route(logits) == "kernel" else ref.fused_sample
     return impl(logits, gumbel, temp)
+
+
+def requant_pack(packed: torch.Tensor, src: LNSFormat,
+                 dst: LNSFormat) -> torch.Tensor:
+    """K7: re-grid packed words of any rank from ``src`` to ``dst`` bits
+    (the self-speculative draft view; integer-only, scales untouched)."""
+    impl = ops.requant_pack if route(packed) == "kernel" else ref.requant_pack
+    return impl(packed, src, dst)
 
 
 def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,

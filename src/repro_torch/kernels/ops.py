@@ -18,9 +18,10 @@ from repro_torch.core.lns import LNSFormat
 from repro_torch.kernels import _build, ref
 
 __all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "PAGED_ATTEND",
-           "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "launch_counts",
-           "reset_launch_counts", "encode_pack", "qmatmul", "paged_attend",
-           "fused_sample", "madam_step", "madam_step_stats"]
+           "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "REQUANT_PACK",
+           "launch_counts", "reset_launch_counts", "encode_pack", "qmatmul",
+           "paged_attend", "fused_sample", "madam_step", "madam_step_stats",
+           "requant_pack"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _DT = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 3, torch.int32: 4}
@@ -62,9 +63,12 @@ _MADAM_ARGS = [_P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _F, _F, _F, _F, _F]
 MADAM_STEP = Kernel("madam_step", "repro_madam_step", _MADAM_ARGS + [_I, _P])
 MADAM_STEP_STATS = Kernel("madam_step_stats", "repro_madam_step_stats",
                           _MADAM_ARGS + [_I, _I, _P, _I, _P])
+REQUANT_PACK = Kernel("requant_pack", "repro_requant_pack",
+                      [_P, _P, _LL, _I, _I, _I, _I, _P])
 KERNELS: Dict[str, Kernel] = {k.name: k for k in
                               (ENCODE_PACK, QMATMUL, PAGED_ATTEND,
-                               FUSED_SAMPLE, MADAM_STEP, MADAM_STEP_STATS)}
+                               FUSED_SAMPLE, MADAM_STEP, MADAM_STEP_STATS,
+                               REQUANT_PACK)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -157,9 +161,10 @@ def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
     if vp.shape != kp.shape or kp.dtype != vp.dtype:
         raise ValueError("kp and vp must share shape and dtype")
     _, page, KV, hd2 = kp.shape
-    if hd2 != hd or H % KV or hd not in (32, 64, 128):
+    if hd2 != hd or H % KV or hd not in (16, 32, 64, 128):
         raise ValueError(f"q {tuple(q.shape)} vs pool {tuple(kp.shape)}: "
-                         f"need equal head_dim in (32, 64, 128) and KV | H")
+                         f"need equal head_dim in (16, 32, 64, 128) and "
+                         f"KV | H")
     if 2 * page * hd * 4 > 48 * 1024:
         raise ValueError(f"page {page} x head_dim {hd} exceeds the kernel's "
                          f"48 KB page staging")
@@ -270,3 +275,26 @@ def madam_step_stats(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                                   beta, eps), ratio, dst_max,
                      partials.data_ptr(), blocks, _stream(packed))
     return w_out, v_out, partials.sum(dim=0)
+
+
+def requant_pack(packed: torch.Tensor, src: LNSFormat,
+                 dst: LNSFormat) -> torch.Tensor:
+    """K7 on the card: re-grid packed uint8 words of any rank from ``src``
+    to ``dst`` bits (same shape, uint8)."""
+    if packed.device.type != "cuda":
+        raise ValueError(f"packed: expected a CUDA tensor, got "
+                         f"{packed.device}")
+    if packed.dtype != torch.uint8:
+        raise ValueError(f"packed: dtype {packed.dtype} is not uint8")
+    if not packed.is_contiguous():
+        raise ValueError("packed: must be contiguous")
+    _check_fmt(src)
+    _check_fmt(dst)
+    if dst.gamma >= src.gamma:
+        mul, div = dst.gamma // src.gamma, 0
+    else:
+        mul, div = 0, src.gamma // dst.gamma
+    out = torch.empty_like(packed)
+    REQUANT_PACK(packed.data_ptr(), out.data_ptr(), packed.numel(), src.bits,
+                 dst.bits, mul, div, _stream(packed))
+    return out

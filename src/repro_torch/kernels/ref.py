@@ -12,12 +12,13 @@ from typing import Optional
 import torch
 
 from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode_packed,
-                                  lns_encode, lns_pack, lns_word_dtype)
+                                  lns_encode, lns_pack, lns_requant_packed,
+                                  lns_word_dtype)
 from repro_torch.kernels.madam_stats import madam_stats_vec
 
 __all__ = ["row_scale", "encode_pack", "qmatmul", "paged_attend",
            "fused_sample", "bias_correction", "step_math", "madam_step",
-           "madam_step_stats"]
+           "madam_step_stats", "requant_pack"]
 
 
 def row_scale(x: torch.Tensor, scale_axis: Optional[int] = None):
@@ -160,3 +161,11 @@ def madam_step_stats(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     vec = madam_stats_vec(code, target, new_code, gamma=fmt.gamma,
                           max_code=fmt.max_code, requant=requant)
     return word, nv, vec
+
+
+def requant_pack(packed: torch.Tensor, src: LNSFormat,
+                 dst: LNSFormat) -> torch.Tensor:
+    """K7: re-grid packed words of any rank from ``src`` to ``dst`` bits;
+    the integer function :func:`~repro_torch.core.lns.lns_requant_packed`
+    itself, as the TPU kernel's body is."""
+    return lns_requant_packed(packed, src, dst)

@@ -5,7 +5,8 @@ weights (seeded), and drives ``repro_torch.serving.Engine`` on the card;
 prints throughput, TTFT and each kernel's launch count.
 
   python -m repro_torch.launch.serve --arch smollm-135m \
-      --requests 8 --slots 4 --prompt-len 32 --gen-len 32 --page-size 16
+      --requests 8 --slots 4 --prompt-len 32 --gen-len 32 --page-size 16 \
+      [--alloc-policy ondemand] [--speculate-k 4 --draft-bitwidth 6]
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 """
@@ -34,7 +35,10 @@ def build_engine(args) -> Engine:
                                             lengths)
     return Engine(cfg, qcfg, params, num_slots=args.slots, max_len=max_len,
                   page_size=args.page_size, num_pages=args.num_pages,
-                  alloc_policy=args.alloc_policy, device=args.device)
+                  alloc_policy=args.alloc_policy,
+                  speculate_k=args.speculate_k,
+                  draft_bitwidth=args.draft_bitwidth,
+                  spec_autotune=args.spec_autotune, device=args.device)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -59,7 +63,20 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool pages per layer")
     ap.add_argument("--alloc-policy", default="reserve",
-                    choices=("reserve", "ondemand"))
+                    choices=("reserve", "ondemand"),
+                    help="paged-KV page claiming: 'reserve' takes the "
+                         "worst case up front, 'ondemand' grows the block "
+                         "table as decode proceeds and preempts by "
+                         "recompute under pool pressure")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="self-speculative decoding: draft tokens per "
+                         "draft+verify cycle (0 = off)")
+    ap.add_argument("--draft-bitwidth", type=int, default=6,
+                    help="wire bitwidth of the draft re-grid view "
+                         "(8 = identity draft; 6/7 = coarser LNS grid)")
+    ap.add_argument("--spec-autotune", action="store_true",
+                    help="explore (draft bitwidth, k) arms from "
+                         "accept-rate/throughput feedback")
     ap.add_argument("--max-len", type=int, default=None,
                     help="per-slot cache capacity (default: from the trace)")
     ap.add_argument("--seed", type=int, default=0)
@@ -95,7 +112,16 @@ def main(argv=None) -> dict:
           f"decode_steps={engine.decode_steps} prefills={engine.prefills}")
     if engine.page_size:
         print(f"paged KV: page_size={engine.page_size} "
-              f"pages={engine.num_pages} alloc_policy={engine.alloc_policy}")
+              f"pages={engine.num_pages} alloc_policy={engine.alloc_policy} "
+              f"preemptions={engine.preemptions} "
+              f"decode_page_allocs={engine.decode_page_allocs}")
+    if engine.spec is not None:
+        print(f"speculative: cycles={engine.spec_cycles} "
+              f"k={engine._spec_arm[1]} draft_bits={engine._spec_arm[0]} "
+              f"accept_rate={engine.spec_accept_rate:.3f} "
+              f"emitted={engine.spec_emitted} "
+              f"fallbacks={engine.spec_fallbacks} "
+              f"pages_trimmed={engine.spec_pages_trimmed}")
     print(f"completed {int(agg['completed'])} requests in "
           f"{agg['wall_s']:.2f}s: {agg['tokens_per_s']:.1f} tok/s, "
           f"ttft mean {agg['ttft_mean_s']:.3f}s p95 {agg['ttft_p95_s']:.3f}s, "

@@ -50,6 +50,10 @@ class SamplingParams:
                                frozenset(int(t) for t in self.stop))
         object.__setattr__(self, "seed", int(self.seed) & 0xFFFFFFFF)
 
+    @property
+    def is_greedy(self) -> bool:
+        return self.temperature <= 0.0
+
 
 GREEDY = SamplingParams()
 
@@ -112,17 +116,25 @@ def _mask_sample(scaled: torch.Tensor, top_k: int, top_p: float,
     return order[torch.argmax(ranked + gumbel[order])].to(torch.int32)
 
 
-def sample_logits(logits: torch.Tensor,
-                  rows: Dict[str, np.ndarray]) -> torch.Tensor:
-    """``logits (B, V)`` + per-slot rows -> token ids ``(B,)`` int32."""
+def sample_logits(logits: torch.Tensor, rows: Dict[str, np.ndarray], *,
+                  step_offset=None) -> torch.Tensor:
+    """``logits (B, V)`` + per-slot rows -> token ids ``(B,)`` int32.
+
+    ``step_offset`` (an int or a ``(B,)`` array) shifts each row's sample
+    counter without mutating ``rows``: the speculative verify samples its
+    position ``j`` with ``step + j``, the noise the baseline engine draws
+    for that token."""
     lg = logits.to(torch.float32).contiguous()
     temp = rows["temp"]
     if not np.any(temp > 0.0):
         return dispatch.fused_sample(lg, None, None)
     B, V = lg.shape
+    step = rows["step"].astype(np.int64)
+    if step_offset is not None:
+        step = step + step_offset
     gumbel = torch.zeros_like(lg)
     for b in np.flatnonzero(temp > 0.0):
-        gumbel[b] = row_gumbel(rows["seed"][b], rows["step"][b], V, lg.device)
+        gumbel[b] = row_gumbel(rows["seed"][b], step[b], V, lg.device)
     temp_t = torch.as_tensor(temp, dtype=torch.float32, device=lg.device)
     masked = (rows["top_k"] > 0) | (rows["top_p"] < 1.0)
     if not np.any(masked):

@@ -1,5 +1,5 @@
 """Per-request latency accounting and aggregate serving statistics (from
-``repro.serving.metrics``, without the speculative-decoding fields)."""
+``repro.serving.metrics``), with per-request preemption counts."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,6 +23,20 @@ class RequestMetrics:
     # the slot ran out of cache positions before a stop token or the
     # token budget
     truncated: bool = False
+    # speculative decoding: draft tokens scored for this request and how
+    # many the verify pass accepted (0/0 when speculation was off)
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    # times on-demand paging evicted this request
+    preemptions: int = 0
+
+    @property
+    def spec_accept_rate(self) -> Optional[float]:
+        """Fraction of this request's draft tokens the target model
+        agreed with; None when no drafts were scored for it."""
+        if not self.spec_drafted:
+            return None
+        return self.spec_accepted / self.spec_drafted
 
     @property
     def ttft(self) -> float:
@@ -53,7 +67,10 @@ class RequestMetrics:
                    arrival=rs.request.arrival, t_admit=rs.t_admit,
                    t_first_token=rs.t_first_token, t_finish=rs.t_finish,
                    prompt_len=rs.request.prompt_len,
-                   new_tokens=len(rs.generated), truncated=truncated)
+                   new_tokens=len(rs.generated), truncated=truncated,
+                   spec_drafted=rs.spec_drafted,
+                   spec_accepted=rs.spec_accepted,
+                   preemptions=rs.preemptions)
 
 
 def percentile(vals: List[float], q: float) -> float:
@@ -72,6 +89,10 @@ def summarize(metrics: List[RequestMetrics], wall: float) -> Dict[str, float]:
     lats = [m.latency for m in metrics]
     queued = [m.queued_s for m in metrics]
     tpots = [m.tpot for m in metrics if m.tpot is not None]
+    accepts = [m.spec_accept_rate for m in metrics
+               if m.spec_accept_rate is not None]
+    spec_drafted = sum(m.spec_drafted for m in metrics)
+    spec_accepted = sum(m.spec_accepted for m in metrics)
     return {
         "completed": float(len(metrics)),
         "truncated": float(sum(m.truncated for m in metrics)),
@@ -86,4 +107,18 @@ def summarize(metrics: List[RequestMetrics], wall: float) -> Dict[str, float]:
         "queued_p95_s": percentile(queued, 0.95),
         "tpot_p50_s": percentile(tpots, 0.50),
         "tpot_p95_s": percentile(tpots, 0.95),
+        # speculative decoding: the request-level accept-rate distribution
+        # (requests that rode at least one spec cycle) and run totals;
+        # zero/NaN when speculation was off
+        "spec_requests": float(len(accepts)),
+        "spec_drafted_tokens": float(spec_drafted),
+        "spec_accepted_tokens": float(spec_accepted),
+        "spec_accept_rate": (spec_accepted / spec_drafted
+                             if spec_drafted else float("nan")),
+        "spec_accept_rate_p50": percentile(accepts, 0.50),
+        "spec_accept_rate_p95": percentile(accepts, 0.95),
+        # on-demand paging: evictions of the completed requests
+        "preempted_requests": float(sum(m.preemptions > 0
+                                        for m in metrics)),
+        "preemptions": float(sum(m.preemptions for m in metrics)),
     }

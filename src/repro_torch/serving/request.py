@@ -66,8 +66,21 @@ class RequestState:
     t_first_token: Optional[float] = None
     t_finish: Optional[float] = None
     # terminal disposition: "stop" (stop token), "length" (budget),
-    # "capacity" (cache full -> truncated)
+    # "capacity" (cache full -> truncated), "aborted" (cancelled)
     finish_reason: Optional[str] = None
+    # speculative decoding accounting (filled when a spec cycle covered
+    # this request's slot): cycles seen, draft tokens scored for it, and
+    # how many of those the verify pass accepted
+    spec_cycles: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
+    # times on-demand paging evicted this request (it resumed by
+    # recomputing its KV)
+    preemptions: int = 0
+
+    @property
+    def aborted(self) -> bool:
+        return self.finish_reason == "aborted"
 
     @property
     def hit_stop(self) -> bool:
@@ -111,6 +124,15 @@ class RequestQueue:
         e.g. the KV-page pool can't host it yet). Arrival order holds
         because ``req`` was the head a moment ago."""
         self._q.appendleft(req)
+
+    def remove(self, rid: int) -> Optional[Request]:
+        """Cancel a still-queued request; returns it, or None if ``rid``
+        is not waiting here (already admitted, finished, or unknown)."""
+        for i, r in enumerate(self._q):
+            if r.rid == rid:
+                del self._q[i]
+                return r
+        return None
 
     def next_arrival(self) -> Optional[float]:
         return self._q[0].arrival if self._q else None

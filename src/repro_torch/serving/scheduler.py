@@ -2,9 +2,10 @@
 
 The engine decodes a fixed batch of ``num_slots`` rows; the scheduler
 hands a freed row to the next waiting request. ``BlockAllocator`` owns the
-paged pool's free list and per-page reference counts. The prefix-cache
+paged pool's free list and per-page reference counts, which the reserve
+and on-demand policies and ``abort`` return to baseline. The prefix-cache
 registry of the JAX package is not ported yet (it arrives with the
-prefix cache).
+prefix cache), so every unreferenced page is free.
 """
 from __future__ import annotations
 
@@ -28,6 +29,12 @@ class BlockAllocator:
         self._ref: Dict[int, int] = {}
 
     @property
+    def available(self) -> int:
+        """Pages allocatable right now (with no prefix cache, the free
+        ones)."""
+        return len(self._free)
+
+    @property
     def free(self) -> int:
         return len(self._free)
 
@@ -39,7 +46,7 @@ class BlockAllocator:
     def alloc(self, n: int) -> Optional[List[int]]:
         """Reserve ``n`` pages (ref=1 each), or None if the pool can't;
         nothing is partially taken."""
-        if n > len(self._free):
+        if n > self.available:
             return None
         out = [self._free.pop() for _ in range(n)]
         for p in out:

@@ -1,6 +1,7 @@
 """The port's serving engine against the JAX package's on one synthetic
 trace (the smollm smoke config, the same packed weights), in the dense
-and the paged (``page_size=4``, reserve) KV layouts.
+and the paged (``page_size=4``) KV layouts, the paged one under both
+page policies (reserve, ondemand).
 
 Both engines batch the same way (admission order, buckets, idle rows
 decoding), so the greedy token streams are held equal outright: the
@@ -46,13 +47,17 @@ def _streams(engine):
     return {rs.request.rid: list(rs.generated) for rs in engine.finished}
 
 
-@pytest.mark.parametrize("page_size", [None, 4])
-def test_engine_streams_match_jax(smoke, page_size):
+@pytest.mark.parametrize("page_size,alloc_policy", [
+    pytest.param(None, "reserve", id="None"),
+    pytest.param(4, "reserve", id="4"),
+    pytest.param(4, "ondemand", id="4-ondemand"),
+])
+def test_engine_streams_match_jax(smoke, page_size, alloc_policy):
     cfg, qcfg, mcfg, params = smoke
-    kw = dict(num_slots=3, max_len=40, page_size=page_size)
+    kw = dict(num_slots=3, max_len=40, page_size=page_size,
+              alloc_policy=alloc_policy)
     with jd.configured(backend="reference"):
-        jeng = JEngine(cfg, qcfg, mcfg, params, prefix_cache=False,
-                       alloc_policy="reserve", **kw)
+        jeng = JEngine(cfg, qcfg, mcfg, params, prefix_cache=False, **kw)
         jagg = jeng.run(j_trace(cfg, **TRACE))
     teng = Engine(get_smoke_config("smollm-135m"), QuantConfig.lns_madam(),
                   params_from_flat(flat_params(params), LNSFormat(8, 8),
@@ -61,6 +66,8 @@ def test_engine_streams_match_jax(smoke, page_size):
 
     assert jagg["completed"] == tagg["completed"] == TRACE["requests"]
     assert teng.decode_steps == jeng.decode_steps
+    assert teng.preemptions == jeng.preemptions
+    assert teng.decode_page_allocs == jeng.decode_page_allocs
     js, ts = _streams(jeng), _streams(teng)
     assert js.keys() == ts.keys()
     mismatched = [rid for rid in js if js[rid] != ts[rid]]

@@ -96,9 +96,27 @@ def test_entry_points_default_to_cuda(no_cuda):
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(cfg, QuantConfig.lns_madam(), params)
+    from repro_torch.launch.serve import main
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        from repro_torch.launch.serve import main
         main(["--smoke"])
+
+
+def test_spec_entry_points_default_to_cuda(no_cuda):
+    """The speculative engine and ``serve --speculate-k`` without a device
+    (the draft views would run K7 there)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch.serve import main
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import Engine
+
+    cfg = get_smoke_config("smollm-135m")
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, QuantConfig.lns_madam(), params, speculate_k=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--smoke", "--speculate-k", "2", "--page-size", "4",
+              "--alloc-policy", "ondemand"])
 
 
 def test_training_entry_points_default_to_cuda(no_cuda):
@@ -142,6 +160,7 @@ def _cpu_args():
         "fused_sample": ((torch.randn(2, 50), None, None), {}),
         "madam_step": ((w16, g, v, 0.5, f16), madam),
         "madam_step_stats": ((w16, g, v, 0.5, f16), dict(madam, requant=None)),
+        "requant_pack": ((pb, fmt, fmt.with_bits(6)), {}),
     }
 
 
@@ -188,6 +207,7 @@ def test_cuda_tensors_never_reach_plain_path(no_cuda, monkeypatch):
     dispatch.madam_step(cuda, cuda, cuda, 1, LNSFormat(16, 2048), lr=0.01)
     dispatch.madam_step(cuda, cuda, cuda, 1, LNSFormat(16, 2048), lr=0.01,
                         with_stats=True)
+    dispatch.requant_pack(cuda, LNSFormat(8, 8), LNSFormat(6, 2))
     assert called == list(ops.KERNELS)
     with pytest.raises(ValueError, match="no kernel path"):
         dispatch.route(torch.empty(1, device="meta"))
@@ -198,3 +218,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     for name, (args, kw) in _cpu_args().items():
         with pytest.raises(ValueError, match="expected a CUDA tensor"):
             getattr(ops, name)(*args, **kw)
+
+
+@pytest.mark.parametrize("dtype,fmts,match", [
+    (torch.int32, ((8, 8), (6, 2)), "not uint8"),
+    (torch.uint8, ((16, 2048), (8, 8)), "bits <= 8"),
+    (torch.uint8, ((8, 8), (16, 2048)), "bits <= 8"),
+])
+def test_requant_wrapper_refuses_words_it_cannot_take(dtype, fmts, match):
+    """K7's wrapper takes contiguous uint8 words of at most 8 bits."""
+    words = types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                                  is_contiguous=lambda: True)
+    src, dst = (LNSFormat(*f) for f in fmts)
+    with pytest.raises(ValueError, match=match):
+        ops.requant_pack(words, src, dst)

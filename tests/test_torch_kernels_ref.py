@@ -114,10 +114,11 @@ def _paged_inputs(B, S, h, kv, hd, page, mp, packed, dt, seed):
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("softcap", [None, 5.0])
-@pytest.mark.parametrize("S", [1, 8])
+@pytest.mark.parametrize("S", [1, 8, 4])
 def test_k5_paged_attend_close(dt, packed, softcap, S):
-    # decode (S=1, 4 rows) and suffix prefill (S=8, 1 row); GQA rep 3
-    B = 4 if S == 1 else 1
+    # decode (S=1, 4 rows), suffix prefill (S=8, 1 row) and the
+    # speculative verify (S=k=4 query rows over 4 rows); GQA rep 3
+    B = 1 if S == 8 else 4
     jargs, targs = _paged_inputs(B, S, 6, 2, 32, 4, 5, packed, dt, seed=S)
     kw = dict(softcap=softcap, sm_scale=1 / np.sqrt(32))
     with jd.configured(backend="reference"):
