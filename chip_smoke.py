@@ -6,7 +6,7 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
-2. Build the seven CUDA kernels from ``src/repro_torch/kernels/csrc``.
+2. Build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes of smollm-135m (K3/K4 at the packed leaf
    shapes, K7 at the 8 packed leaves for 8->6 and 8->7, K5 also at the
@@ -54,6 +54,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     trace, 4 greedy one-token steps against one S=4 verify over the same
     tokens, counting differing tokens and differing per-tensor
     activation scales (printed, not limited).
+15. K8, the bit-exact Fig.-6 datapath, against its plain version at
+    smollm-135m's GEMM shapes (M 4 and 2048), over the LUT sweep 1/2/4/8
+    at 2048x576x1536 and on the saturating all-zero case: int32 outputs
+    equal in every case. Then the Table-10 kernel sweep through the public
+    ``repro_torch.kernels.lns_matmul`` (exact, LUT 1/2/4/8): K8 launches
+    once per call; the error against the f32 matmul is printed beside the
+    paper's calibrated fJ/op (an energy model, not a measurement).
+16. K9, the unpacked Madam step, against its plain version at the packed
+    leaf shapes of phase 3 (int32 codes, B=16; int16 codes, B=16, at the
+    embedding; uint8 codes, B=8): codes
+    equal outside the tie band, v' equal; through
+    ``dispatch.madam_step_unpacked`` it launches once per call.
+17. Approximation-aware training of smollm-135m at full width, from phase
+    9's state and batch: one step each under ``QuantConfig.lns_madam()``
+    and ``approx_lut`` 8 and 1, then 3 more steps at LUT 1, with TF32 off.
+    Losses finite; K3 launches 8 times a step, K1 and K2 none under the
+    approximation; the LUT-8 loss equals the exact fake-quant forward's
+    within ``APPROX_LOSS_RTOL``, printed beside an f64-accumulation floor,
+    and the LUT-4/2/1 losses (the controls) must lie outside it;
+    step wall time and peak memory printed, and one LUT-1 step profiled.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -134,6 +154,31 @@ SPEC_RUNS = [
     ("spec_k1_b6", ["--speculate-k", "1", "--draft-bitwidth", "6"]),
     ("baseline_end", []),
 ]
+# K8's bound counts what the function needs, not what the kernel does. A
+# term's magnitude depends only on m = code_a + code_b, so a table of the
+# 2 max_code + 1 terms (built in shared memory by the datapath's own
+# arithmetic, at any LUT size) leaves per product an add (m), one
+# shared-memory load, a sign apply and an accumulate. Each word is decoded
+# once (code mask, sign bit); each output takes an add, a min and a max
+# per block_k slice. Integer ops issue at up to 128 lanes per SM per clock
+# (4 schedulers x 32: adds and shifts go to the INT32 pipe and, as IMAD
+# forms, to the FMA pipe); shared-memory loads at 32 per SM per clock (32
+# four-byte banks). SMs and the maximum SM clock are read from the card.
+K8_ALU_OPS_PER_PRODUCT = 3
+K8_ALU_OPS_PER_WORD = 2
+K8_ALU_OPS_PER_SLICE = 3
+ISSUE_LANES_PER_SM = 128
+SMEM_LOADS_PER_SM = 32
+# phase 17: the LUT-8 approximation is the exact conversion, so its loss
+# differs from the exact fake-quant forward's only by rounding (bucket
+# factors within ulps of 1, the sum split over 8 buckets). On the H100 the
+# gap read 7.05e-5 at LUT 8 beside an f64-accumulation floor of 2.24e-5,
+# and 1.74e-4/5.84e-4/7.02e-4 at LUT 4/2/1. The limit is the geometric mean
+# of the LUT-8 and LUT-4 readings, and the smaller LUT sizes run through
+# the same check as controls that must fail it, so LUT-4 factors in place
+# of LUT-8 ones would not pass
+APPROX_LOSS_RTOL = 1.1e-4
+APPROX_EXTRA_STEPS = 3
 # the packed leaves of smollm-135m as K7 re-grids them, in tree order
 K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
              ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
@@ -1159,6 +1204,357 @@ def profile_train(torch, setup):
                     for e in top]}
 
 
+def once_ms(torch, fn):
+    """Device time of a single ``fn`` call (CUDA events) and its result:
+    for plain versions too slow to repeat at full size."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def k8_rates(torch):
+    """K8's peak rates: integer ops and shared-memory loads per second,
+    from the SM count and the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi clocks failed: {clk.stderr}")
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    return {"sms": sms, "max_sm_mhz": mhz,
+            "int_ops_per_s": sms * ISSUE_LANES_PER_SM * mhz * 1e6,
+            "smem_loads_per_s": sms * SMEM_LOADS_PER_SM * mhz * 1e6}
+
+
+def k8_operands(torch, M, K, N, fmt, gen):
+    """Random f32 operands and their packed words with per-tensor scales,
+    as ``kernels.lns_matmul`` encodes them."""
+    from repro_torch.core.lns import compute_scale, lns_encode, lns_pack
+    a = torch.randn((M, K), generator=gen, device="cuda")
+    b = torch.randn((K, N), generator=gen, device="cuda")
+    sa, sb = compute_scale(a), compute_scale(b)
+    pa = lns_pack(*lns_encode(a, fmt, sa), fmt)
+    pb = lns_pack(*lns_encode(b, fmt, sb), fmt)
+    return a, b, sa, sb, pa, pb
+
+
+def k8_check(torch, ops, ref, fmt, gemms):
+    """Phase 15: K8 against its plain version (int32 outputs equal) at
+    the GEMM shapes, the LUT sweep and the saturating case; then the
+    Table-10 sweep through the public ``kernels.lns_matmul``."""
+    from repro_torch.core.energy import DATAPATH_FJ_PER_OP
+    from repro_torch.kernels import lns_matmul
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rates = k8_rates(torch)
+    print(f"K8 bound: {rates['sms']} SMs x {rates['max_sm_mhz']:.0f} MHz; "
+          f"per product {K8_ALU_OPS_PER_PRODUCT} integer ops at "
+          f"{ISSUE_LANES_PER_SM} lanes/SM/clock "
+          f"({rates['int_ops_per_s']:.4g} op/s) and 1 shared-memory load "
+          f"at {SMEM_LOADS_PER_SM}/SM/clock "
+          f"({rates['smem_loads_per_s']:.4g} load/s), the same at every "
+          f"LUT size")
+
+    def bound(M, K, N):
+        products = M * K * N
+        slices = -(-K // 16)
+        alu = (K8_ALU_OPS_PER_PRODUCT * products
+               + K8_ALU_OPS_PER_WORD * (M * K + K * N)
+               + K8_ALU_OPS_PER_SLICE * M * N * slices)
+        t_b = (M * K + K * N + 4 * M * N) / HBM_BPS * 1e3
+        t_o = max(alu / rates["int_ops_per_s"],
+                  products / rates["smem_loads_per_s"]) * 1e3
+        return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
+
+    def rel_err(out, a, b, sa, sb):
+        val = out.float() * (sa * sb) / (1 << 16)
+        exact = a @ b
+        return float((val - exact).abs().max() / exact.abs().max())
+
+    rows, sweep = [], []
+    for M, K, N in gemms:
+        a, b, sa, sb, pa, pb = k8_operands(torch, M, K, N, fmt, gen)
+        fn = lambda: ops.lns_matmul_packed(pa, pb, fmt)
+        out = fn()
+        if M >= 2048:     # the plain version runs once at full size
+            plain_ms, want = once_ms(torch, lambda: ref.lns_matmul_packed(
+                pa, pb, fmt))
+        else:
+            want = ref.lns_matmul_packed(pa, pb, fmt)
+            plain_ms = cuda_ms(torch, lambda: ref.lns_matmul_packed(
+                pa, pb, fmt), iters=5, replays=3)
+        diff = int((out != want).sum())
+        check(diff == 0, f"K8 {M}x{K}x{N}: {diff} outputs differ from the "
+              f"plain version")
+        b_ms, by = bound(M, K, N)
+        rows.append(dict(
+            shape=[M, K, N], lut_entries=None, max_abs_err=0,
+            rel_err_vs_f32=rel_err(out, a, b, sa, sb),
+            ms=cuda_ms(torch, fn, iters=5 if M >= 2048 else 20, replays=3),
+            eager_ms=eager_ms(torch, fn, iters=10), plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=by, library_ms=None))
+        r = rows[-1]
+        print(f"K8 lns_matmul_packed {M}x{K}x{N}: int32 outputs equal, "
+              f"kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
+              f"kernel at {b_ms / r['ms']:.1%} of it)")
+    M, K, N = 2048, 576, 1536
+    a, b, sa, sb, pa, pb = k8_operands(torch, M, K, N, fmt, gen)
+    for lut in (1, 2, 4, 8):
+        fn = lambda: ops.lns_matmul_packed(pa, pb, fmt, lut_entries=lut)
+        out = fn()
+        want = ref.lns_matmul_packed(pa, pb, fmt, lut_entries=lut)
+        diff = int((out != want).sum())
+        check(diff == 0, f"K8 LUT {lut}: {diff} outputs differ from the "
+              f"plain version")
+        b_ms, by = bound(M, K, N)
+        sweep.append(dict(
+            shape=[M, K, N], lut_entries=lut, max_abs_err=0,
+            ms=cuda_ms(torch, fn, iters=5, replays=3), bound_ms=b_ms,
+            bound_by=by))
+        print(f"K8 LUT {lut} {M}x{K}x{N}: int32 outputs equal, kernel "
+              f"{sweep[-1]['ms']:.4f} ms, bound {b_ms:.4f} ms (kernel at "
+              f"{b_ms / sweep[-1]['ms']:.1%} of it)")
+    zeros_a = torch.zeros((128, 256), dtype=torch.uint8, device="cuda")
+    zeros_b = torch.zeros((256, 128), dtype=torch.uint8, device="cuda")
+    sat = ops.lns_matmul_packed(zeros_a, zeros_b, fmt)
+    check(torch.equal(sat, ref.lns_matmul_packed(zeros_a, zeros_b, fmt))
+          and bool((sat == ref.SAT24).all()),
+          "K8 saturation: the collector did not clamp to 2^23 - 1")
+    print("K8 saturation (all-zero words, K=256): every output "
+          f"{ref.SAT24}, equal to the plain version")
+
+    # the Table-10 kernel sweep through the public entry point
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    table10 = []
+    for lut in (None, 1, 2, 4, 8):
+        out = lns_matmul(a, b, fmt, lut_entries=lut)
+        exact = a @ b
+        fj = DATAPATH_FJ_PER_OP["lns8" if lut is None else f"lns8_lut{lut}"]
+        table10.append(dict(lut_entries=lut, rel_err_vs_f32=float(
+            (out - exact).abs().max() / exact.abs().max()), fj_per_op=fj))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(counts["lns_matmul_packed"] == 5,
+          f"K8 launched {counts['lns_matmul_packed']} times for 5 "
+          f"lns_matmul calls")
+    for t in table10:
+        print(f"Table 10, kernels.lns_matmul {M}x{K}x{N} LUT "
+              f"{t['lut_entries'] or 'exact (8)'}: max error "
+              f"{t['rel_err_vs_f32']:.4f} of max |f32 matmul|; paper's "
+              f"calibrated model {t['fj_per_op']} fJ/op (not measured)")
+    return rows, sweep, table10, counts, rates
+
+
+def k9_inputs(torch, R, C, bits, gdt, cdt, gen):
+    """A leaf kept as (code, sign) with codes of dtype ``cdt``."""
+    max_code = (1 << (bits - 1)) - 1
+    code = torch.randint(0, max_code + 1, (R, C), generator=gen,
+                         device="cuda", dtype=torch.int32).to(cdt)
+    sign = (1 - 2 * torch.randint(0, 2, (R, C), generator=gen,
+                                  device="cuda")).to(torch.int8)
+    _, g, v = madam_inputs(torch, R, C, bits, gdt, gen)
+    return code, sign, g, v
+
+
+def k9_check(torch, ops, ref, cases):
+    """Phase 16: K9 against its plain version (codes equal outside the
+    tie band, v' bit-equal), then once per case through
+    ``dispatch.madam_step_unpacked``, one launch each."""
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.kernels import dispatch
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kw = dict(lr=2.0 ** -7, beta=0.999, eps=1e-30)
+    count = 7
+    bc = ref.bias_correction(0.999, count)
+    rows, inputs = [], []
+    for R, C, bits, gamma, gdt, cdt in cases:
+        fmt = LNSFormat(bits, gamma)
+        code, sign, g, v = k9_inputs(torch, R, C, bits, gdt, cdt, gen)
+        inputs.append((code, sign, g, v, fmt))
+        fn = lambda: ops.madam_step_unpacked(code, sign, g, v, bc, fmt, **kw)
+        pfn = lambda: ref.madam_step_unpacked(code, sign, g, v, bc, fmt,
+                                              **kw)
+        kc, kv = fn()
+        pc, pv = pfn()
+        _, _, target = ref.step_math(code, sign, g, v, bc, gamma=fmt.gamma,
+                                     max_code=fmt.max_code, **kw)
+        torch.cuda.synchronize()
+        check(kc.dtype == code.dtype, f"K9 {R}x{C}: code dtype {kc.dtype}")
+        check(torch.equal(kv.view(torch.int32), pv.view(torch.int32)),
+              f"K9 {R}x{C} B={bits}: v' differs from the plain version")
+        frac = target - torch.floor(target)
+        ulp = torch.abs(torch.nextafter(target, target + 1) - target)
+        near = (frac - 0.5).abs() <= MADAM_TIE_ULPS * ulp
+        diff = kc.to(torch.int32) != pc.to(torch.int32)
+        bad = int((diff & ~near).sum())
+        check(bad == 0, f"K9 {R}x{C} B={bits}: {bad} codes differ away "
+              f"from a tie")
+        n = R * C
+        c_b = code.element_size()
+        nbytes = n * (2 * c_b + 1 + g.element_size() + 2 * 4)
+        b_ms, by = bound_ms(nbytes, 15 * n, F32_FLOPS)
+        rows.append(dict(
+            shape=[R, C], bits=bits, code_dtype=str(code.dtype)[6:],
+            g_dtype=str(gdt)[6:], tie_codes=int(diff.sum()),
+            near_tie=int(near.sum()),
+            max_abs_err=int((kc.to(torch.int32) - pc.to(torch.int32)).abs()
+                            .max()),
+            ms=cuda_ms(torch, fn, iters=10, replays=5),
+            eager_ms=eager_ms(torch, fn, iters=20),
+            plain_ms=cuda_ms(torch, pfn, iters=2, replays=3),
+            bound_ms=b_ms, bound_by=by, library_ms=None))
+        r = rows[-1]
+        print(f"K9 madam_step_unpacked {R}x{C} B={bits} code "
+              f"{r['code_dtype']} g {r['g_dtype']}: v' equal, codes "
+              f"differing at ties {r['tie_codes']} (near-tie "
+              f"{r['near_tie']}), kernel {r['ms']:.4f} ms (eager "
+              f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for i, (code, sign, g, v, fmt) in enumerate(inputs):
+        dispatch.madam_step_unpacked(code, sign, g, v, count, fmt,
+                                     lr=kw["lr"])
+        check(ops.launch_counts()["madam_step_unpacked"] == i + 1,
+              "K9 did not launch exactly once per call")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    return rows, counts
+
+
+@contextlib.contextmanager
+def exact_fake_quant(quant_training, acc):
+    """Replace the approximate GEMM by the exact fake-quantized one on the
+    same decoded operands, accumulated in ``acc`` (f32, or f64 for the
+    floor), for phase 17's comparison only."""
+    saved = quant_training.approx_qeinsum
+
+    def fn(eq, x, w, cfg):
+        import torch
+        _, xq, wq = quant_training.approx_value(eq, x, w, cfg)
+        return torch.einsum(eq, xq.to(acc), wq.to(acc)).to(x.dtype)
+
+    quant_training.approx_qeinsum = fn
+    try:
+        yield
+    finally:
+        quant_training.approx_qeinsum = saved
+
+
+def approx_train(torch, ops, setup):
+    """Phase 17: approximation-aware training steps at full width."""
+    from repro_torch.core import quant_training
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.model import lm_loss
+    from repro_torch.training.steps import build_train_step
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 is on: the approximate GEMMs must run in full f32")
+    cfg, _, mcfg, state, batch = setup
+    runs = {}
+
+    def one_step(name, qcfg, st):
+        step = build_train_step(cfg, qcfg, mcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        new, m = step(st, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(math.isfinite(loss), f"{name}: non-finite loss {loss}")
+        check(counts["madam_step"] == 8,
+              f"{name}: K3 launched {counts['madam_step']} times, not 8")
+        if qcfg.approx_lut is None:
+            check(counts["encode_pack"] > 0 and counts["qmatmul"] > 0,
+                  f"{name}: K1/K2 not launched: {counts}")
+        else:
+            check(counts["encode_pack"] == 0 and counts["qmatmul"] == 0,
+                  f"{name}: the approximation launched K1/K2: {counts}")
+        r = dict(loss=loss, grad_norm=float(m["grad_norm"]),
+                 step_s=wall, peak_gib=peak, launches=counts)
+        print(f"approx train {name}: loss {loss:.5f}, grad norm "
+              f"{r['grad_norm']:.4f}, step {wall * 1e3:.1f} ms, peak "
+              f"{peak:.2f} GiB, K3 {counts['madam_step']}, K1 "
+              f"{counts['encode_pack']}, K2 {counts['qmatmul']}")
+        return new, r
+
+    for name, lut in (("exact", None), ("lut8", 8), ("lut1", 1)):
+        new, runs[name] = one_step(name, QuantConfig.lns_madam(
+            approx_lut=lut), state)
+    st, extra = new, []
+    for i in range(APPROX_EXTRA_STEPS):
+        st, r = one_step(f"lut1 step {i + 2}", QuantConfig.lns_madam(
+            approx_lut=1), st)
+        extra.append(r)
+    runs["lut1_more"] = extra
+
+    # where a LUT-1 step's time goes (as phase 10 profiles the K-path step)
+    from torch.profiler import ProfilerActivity, profile
+    step = build_train_step(cfg, QuantConfig.lns_madam(approx_lut=1), mcfg)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        float(step(st, batch)[1]["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy_us, top = device_time(torch, prof, 6)
+    share = busy_us / 1e6 / wall if busy_us else None
+    print(f"profile, 1 LUT-1 step: wall {wall * 1e3:.1f} ms, device busy "
+          + (f"{busy_us / 1e3:.1f} ms ({share:.1%})" if busy_us
+             else "not measured (no device time in the trace)"))
+    for e in top:
+        print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms, "
+              f"{e.count} calls")
+    runs["lut1_profile"] = {
+        "wall_ms": wall * 1e3,
+        "device_busy_ms": busy_us / 1e3 if busy_us else None,
+        "device_busy_share": share,
+        "top": [[e.key, e.self_device_time_total / 1e3, e.count]
+                for e in top]}
+
+    q8 = QuantConfig.lns_madam(approx_lut=8)
+    with torch.no_grad():
+        fwd = {lut: float(lm_loss(state.params, batch, cfg,
+                                  QuantConfig.lns_madam(approx_lut=lut)))
+               for lut in (8, 4, 2, 1)}
+        with exact_fake_quant(quant_training, torch.float32):
+            exact = float(lm_loss(state.params, batch, cfg, q8))
+        with exact_fake_quant(quant_training, torch.float64):
+            floor = float(lm_loss(state.params, batch, cfg, q8))
+    rels = {lut: abs(v - exact) / exact for lut, v in fwd.items()}
+    rel, rel_floor = rels[8], abs(floor - exact) / exact
+    print(f"approx train: forward loss vs the exact fake-quant forward "
+          f"{exact:.6f}: " + ", ".join(
+              f"LUT {lut} {fwd[lut]:.6f} (rel {rels[lut]:.2e})"
+              for lut in fwd)
+          + f"; limit {APPROX_LOSS_RTOL} (LUT 8 within, the controls LUT "
+          f"4/2/1 outside); floor, f64 accumulation, {rel_floor:.2e}; LUT-1 "
+          "losses " + " ".join(f"{r['loss']:.4f}"
+                               for r in [runs["lut1"]] + extra)
+          + f"; LUT-1 step {sum(r['step_s'] for r in extra) / len(extra):.3f}"
+          f" s over the last {len(extra)}")
+    check(rel <= APPROX_LOSS_RTOL,
+          f"LUT-8 loss differs from the exact fake-quant loss by {rel}")
+    for lut in (4, 2, 1):
+        check(rels[lut] > APPROX_LOSS_RTOL,
+              f"control: the LUT-{lut} loss is within {APPROX_LOSS_RTOL} of "
+              f"the exact fake-quant loss ({rels[lut]}), so the check cannot "
+              f"tell LUT {lut} from the exact conversion")
+    return dict(runs=runs, forward_loss={str(k): v for k, v in fwd.items()},
+                forward_rel={str(k): v for k, v in rels.items()},
+                exact_fq_loss=exact, floor_loss=floor, lut8_rel=rel,
+                floor_rel=rel_floor)
+
+
 def main() -> int:
     import torch
 
@@ -1264,10 +1660,25 @@ def main() -> int:
                              prof["wall_ms_per_step"])
     del spec_engine
     coupling = verify_coupling(torch, ops)
+    torch.cuda.empty_cache()
+
+    k8, k8_sweep, table10, k8_counts, k8_rate_inputs = k8_check(
+        torch, ops, ref, fmt, [(m, k, n) for m in (4, 2048) for k, n in gemms])
+    # K9 at phase 3's leaves with int32 codes, the embedding once with
+    # int16 codes (JAX's madam_update_pallas takes int16) and B=8 in uint8
+    i32, i16, u8 = torch.int32, torch.int16, torch.uint8
+    k9, k9_counts = k9_check(torch, ops, ref, [
+        (49152, 576, 16, 2048, bf16, i32), (17280, 576, 16, 2048, bf16, i32),
+        (17280, 1536, 16, 2048, bf16, i32), (46080, 576, 16, 2048, bf16, i32),
+        (17280, 192, 16, 2048, bf16, i32), (49152, 576, 16, 2048, bf16, i16),
+        (17280, 576, 8, 8, torch.float32, u8)])
+    approx = approx_train(torch, ops, train_setup(torch))
+    torch.cuda.empty_cache()
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K3, the numerics step for K4, the
-    # B=6 speculative serve for K7)
+    # B=6 speculative serve for K7, the Table-10 sweep through
+    # kernels.lns_matmul for K8, the dispatch calls of phase 16 for K9)
     meta = {
         "encode_pack": ("lns_quantize.cu", "lns_quantize.py:80", k1, 1,
                         counts),
@@ -1282,6 +1693,10 @@ def main() -> int:
                              numerics["launches"]),
         "requant_pack": ("lns_requant.cu", "lns_quantize.py:44", k7, 0,
                          spec_runs["spec_b6"]["launches"]),
+        "lns_matmul_packed": ("lns_matmul.cu", "lns_matmul.py:96", k8, 6,
+                              k8_counts),
+        "madam_step_unpacked": ("madam_update.cu", "madam_update.py:172", k9,
+                                0, k9_counts),
     }
     kernels = []
     for name, (src, tpu, rows, pick, launched) in meta.items():
@@ -1294,13 +1709,19 @@ def main() -> int:
             "max_abs_err": max(x["max_abs_err"] for x in rows),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_share": r["bound_ms"] / r["ms"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     full = {"card": card.stdout.strip(), "build_s": build_s,
             "kernels": kernels,
             "shapes": {"encode_pack": k1, "qmatmul": k2, "paged_attend": k5,
-                       "fused_sample": k6, "requant_pack": k7, **k34},
+                       "fused_sample": k6, "requant_pack": k7, **k34,
+                       "lns_matmul_packed": k8,
+                       "lns_matmul_packed_lut_sweep": k8_sweep,
+                       "madam_step_unpacked": k9},
+            "table10": table10, "k8_rate_inputs": k8_rate_inputs,
+            "approx_train": approx,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

@@ -10,7 +10,10 @@
 * anything else takes the fake-quant leg: Q_A and Q_W put both operands on
   the LNS grid with straight-through gradients, then a plain
   ``torch.einsum`` (the tied LM head goes here, as it does in the JAX
-  package, where XLA runs that product).
+  package, where XLA runs that product);
+* with ``QuantConfig.approx_lut`` set, no GEMM routes: packed weights
+  decode per leaf and every GEMM simulates the hybrid conversion
+  approximation (``core.quant_training.approx_qeinsum``, paper Table 10).
 
 Training adds Q_E on each GEMM output's gradient (:func:`backward_quantize`)
 and Q_G on the final weight gradients (:func:`quantize_grads`). The routed
@@ -52,15 +55,18 @@ class QuantConfig:
     act_scale_axis: Optional[int] = None
     err_scale_axis: Optional[int] = None
     grad_scale_axis: Optional[int] = None
+    # the hybrid conversion-approximation simulation (paper App. B, Table
+    # 10): the number of LUT entries; None is exact accumulation
+    approx_lut: Optional[int] = None
 
     @classmethod
-    def lns_madam(cls, bits: int = 8, gamma: int = 8,
-                  update_bits: int = 16) -> "QuantConfig":
+    def lns_madam(cls, bits: int = 8, gamma: int = 8, update_bits: int = 16,
+                  approx_lut: Optional[int] = None) -> "QuantConfig":
         """The paper's setting: B=8, γ=8 everywhere; Q_U at
         ``update_bits`` with γ widened to keep the range (§6.1.1)."""
         fmt = LNSFormat(bits=bits, gamma=gamma)
         return cls(weight=fmt, act=fmt, err=fmt, grad=fmt,
-                   update=fmt.with_bits(update_bits))
+                   update=fmt.with_bits(update_bits), approx_lut=approx_lut)
 
     @classmethod
     def full_precision(cls) -> "QuantConfig":
@@ -82,19 +88,23 @@ def _needs_grad(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
 
-def ste_quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
-                 scale_axis: Optional[int] = None) -> torch.Tensor:
-    """Forward: onto the grid. Backward: identity (straight through).
+def ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The value of ``q`` with the gradient of the identity in ``x``.
 
     With a gradient to carry this is ``x + (q - x).detach()``, the JAX
     expression and its rounding; without one it is ``q``, which equals
     it except where the encode clamps a value far below the grid."""
-    if fmt is None:
-        return x
-    q = quantize(x, fmt, scale_axis)
     if not _needs_grad(x):
         return q
     return x + (q - x).detach()
+
+
+def ste_quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
+                 scale_axis: Optional[int] = None) -> torch.Tensor:
+    """Forward: onto the grid. Backward: identity (straight through)."""
+    if fmt is None:
+        return x
+    return ste(x, quantize(x, fmt, scale_axis))
 
 
 class _BackwardQuantize(torch.autograd.Function):
@@ -158,8 +168,11 @@ def _route_plan(eq: str) -> bool:
 def _routable(eq: str, w: LNSWeight, cfg: Optional[QuantConfig]) -> bool:
     """Can this GEMM take the packed kernel path? Both operands on one
     LNS grid, a per-tensor activation scale, a 2-D weight whose scale is
-    constant along the contraction axis."""
-    if cfg is None or cfg.weight is None or cfg.act is None:
+    constant along the contraction axis, and no conversion-approximation
+    simulation."""
+    if cfg is None or cfg.approx_lut is not None:
+        return False
+    if cfg.weight is None or cfg.act is None:
         return False
     if cfg.weight != cfg.act or cfg.act_scale_axis is not None:
         return False
@@ -238,7 +251,11 @@ def qeinsum(eq: str, x: torch.Tensor, w,
         w = w.decode(x.dtype)      # per-leaf fallback; delta carries grads
     if cfg is None or not cfg.is_quantized:
         return backward_quantize(torch.einsum(eq, x, w), None, None, x.dtype)
-    xq = ste_quantize(x, cfg.act, cfg.act_scale_axis)
-    wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
-    y = torch.einsum(eq, xq, wq)
+    if cfg.approx_lut is not None and cfg.weight is not None:
+        from repro_torch.core.quant_training import approx_qeinsum
+        y = approx_qeinsum(eq, x, w, cfg)
+    else:
+        xq = ste_quantize(x, cfg.act, cfg.act_scale_axis)
+        wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
+        y = torch.einsum(eq, xq, wq)
     return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)

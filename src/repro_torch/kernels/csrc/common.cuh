@@ -13,7 +13,7 @@
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
 // element types, as the wrappers in ops.py number them
-enum { DT_F32 = 0, DT_BF16 = 1, DT_U8 = 3, DT_I32 = 4 };
+enum { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_U8 = 3, DT_I32 = 4, DT_I16 = 5 };
 
 __device__ __forceinline__ float load_f32(const void* p, int dt, long long i) {
   if (dt == DT_BF16) return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);

@@ -1,9 +1,11 @@
-// K3 and K4: the fused LNS-Madam update (Algorithm 1) on packed words.
+// K3 and K4: the fused LNS-Madam update (Algorithm 1) on packed words;
+// K9: the same update on an unpacked (code, sign) leaf.
 //
 // Replaces the TPU kernels src/repro/kernels/madam_update.py
 // `madam_update_packed_pallas` (K3, body `_packed_kernel`, math
-// `_step_math`) and `madam_update_packed_stats_pallas` (K4, body
-// `_packed_stats_kernel`, epilogue `madam_stats_vec`).
+// `_step_math`), `madam_update_packed_stats_pallas` (K4, body
+// `_packed_stats_kernel`, epilogue `madam_stats_vec`) and
+// `madam_update_pallas` (K9, body `_kernel`, pallas_call at :204).
 //
 // Per element, with bc = 1 - beta^count computed once on the host in f32:
 //   v'     = (1-beta)*g*g + beta*v
@@ -19,8 +21,8 @@
 // The counts and code_sum are integers in each block (exact); qerr_sum is
 // an f32 sum within the block.
 //
-// Both kernels call one device function, `step_math`, so they cannot drift
-// apart. It keeps the plain version's order of operations, and the build
+// All three kernels call one device function, `step_math`, so they cannot
+// drift apart. It keeps the plain version's order of operations, and the build
 // passes -fmad=false so no multiply-add is contracted where the plain
 // version rounds twice. The reciprocal square root is `rsqrtf`, the
 // function `torch.rsqrt` runs on a CUDA float tensor (ATen's rsqrt kernel
@@ -35,7 +37,10 @@
 // because Pallas needs it); one thread per element in a grid-stride loop
 // over the flattened leaf, neighbouring threads on neighbouring words so
 // every load and store is coalesced, the ragged tail masked by the loop
-// bound. Vector loads and a persistent grid are later work.
+// bound. Vector loads and a persistent grid are later work. K9 reads a
+// code (1, 2 or 4 bytes) and a 1-byte sign where K3 reads one word, and
+// writes the code back in its own dtype: at int16 codes and f32 g that is
+// 2+1+4+4 in and 2+4 out, 17 bytes an element, bytes-bound as K3.
 #include "common.cuh"
 
 #define MADAM_THREADS 256
@@ -97,6 +102,41 @@ madam_step_kernel(const void* __restrict__ w, int wdt,
     float code, target, new_code;
     update_one(w, wdt, g, gdt, v, w_out, v_out, i, a, &code, &target,
                &new_code);
+  }
+}
+
+__device__ __forceinline__ float load_code(const void* c, int cdt,
+                                           long long i) {
+  if (cdt == DT_U8) return static_cast<float>(static_cast<const uint8_t*>(c)[i]);
+  if (cdt == DT_I16) return static_cast<float>(static_cast<const int16_t*>(c)[i]);
+  return static_cast<float>(static_cast<const int32_t*>(c)[i]);
+}
+
+__device__ __forceinline__ void store_code(void* c, int cdt, long long i,
+                                           float code) {
+  const int v = static_cast<int>(code);  // in [0, max_code]: fits the dtype
+  if (cdt == DT_U8) static_cast<uint8_t*>(c)[i] = static_cast<uint8_t>(v);
+  else if (cdt == DT_I16) static_cast<int16_t*>(c)[i] = static_cast<int16_t>(v);
+  else static_cast<int32_t*>(c)[i] = v;
+}
+
+// K9: one thread per element, grid-stride, no padding (as K3)
+__global__ void __launch_bounds__(MADAM_THREADS)
+madam_step_unpacked_kernel(const void* __restrict__ code, int cdt,
+                           const int8_t* __restrict__ sign,
+                           const void* __restrict__ g, int gdt,
+                           const float* __restrict__ v,
+                           void* __restrict__ code_out,
+                           float* __restrict__ v_out, long long n,
+                           MadamArgs a) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float nv, target;
+    const float nc = step_math(load_code(code, cdt, i),
+                               static_cast<float>(sign[i]),
+                               load_f32(g, gdt, i), v[i], a, &nv, &target);
+    store_code(code_out, cdt, i, nc);
+    v_out[i] = nv;
   }
 }
 
@@ -202,5 +242,19 @@ REPRO_EXPORT int repro_madam_step_stats(
   madam_step_stats_kernel<<<blocks, MADAM_THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       w, wdt, g, gdt, v, w_out, v_out, n, a, ratio, dst_max, partials);
+  return static_cast<int>(cudaGetLastError());
+}
+
+REPRO_EXPORT int repro_madam_step_unpacked(
+    const void* code, int cdt, const int8_t* sign, const void* g, int gdt,
+    const float* v, void* code_out, float* v_out, long long n, int bits,
+    int gamma, float bc, float one_minus_beta, float beta, float eps,
+    float lr_gamma, int blocks, void* stream) {
+  if (n == 0) return 0;
+  const MadamArgs a = make_args(bits, gamma, bc, one_minus_beta, beta, eps,
+                                lr_gamma);
+  madam_step_unpacked_kernel<<<blocks, MADAM_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      code, cdt, sign, g, gdt, v, code_out, v_out, n, a);
   return static_cast<int>(cudaGetLastError());
 }

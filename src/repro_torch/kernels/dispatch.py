@@ -14,13 +14,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.core.lns import LNSFormat
+from repro_torch.core.lns import LNSFormat, compute_scale, lns_encode, lns_pack
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.madam_stats import madam_stats_dict, requant_spec
 
 __all__ = ["route", "encode_pack", "qmatmul", "paged_attend", "fused_sample",
-           "madam_step", "requant_pack"]
+           "madam_step", "madam_step_unpacked", "requant_pack",
+           "lns_matmul_packed", "lns_matmul"]
 
 
 def route(t) -> str:
@@ -101,3 +103,55 @@ def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
                         requant=requant_spec(fmt, requant_fmt), **kw)
     return (np_.reshape(shape), nv.reshape(shape),
             madam_stats_dict(vec, p2.numel(), fmt))
+
+
+def madam_step_unpacked(code: torch.Tensor, sign: torch.Tensor,
+                        g: torch.Tensor, v: torch.Tensor, count: int,
+                        fmt: LNSFormat, *, lr: float, beta: float = 0.999,
+                        eps: float = 1e-30):
+    """K9: the Algorithm-1 step on a 2-D leaf kept as ``(code, sign)``
+    (the counterpart of ``repro.kernels.ops.madam_step``); ``count`` is
+    the post-increment step. Returns ``(new_code, new_v)``."""
+    impl = (ops.madam_step_unpacked if route(code) == "kernel"
+            else ref.madam_step_unpacked)
+    return impl(code, sign, g, v, ref.bias_correction(beta, count), fmt,
+                lr=lr, beta=beta, eps=eps)
+
+
+def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
+                      frac_bits: int = 16, lut_entries: Optional[int] = None,
+                      block_k: int = 16) -> torch.Tensor:
+    """K8: the Fig.-6 integer datapath on packed ``pa (M,K) @ pb (K,N)``
+    -> int32 partial sums in ``frac_bits`` fixed point."""
+    impl = (ops.lns_matmul_packed if route(pa) == "kernel"
+            else ref.lns_matmul_packed)
+    return impl(pa, pb, fmt, frac_bits=frac_bits, lut_entries=lut_entries,
+                block_k=block_k)
+
+
+def lns_matmul(a: torch.Tensor, b: torch.Tensor, fmt: LNSFormat, *,
+               frac_bits: int = 16, lut_entries: Optional[int] = None,
+               block_k: int = 16) -> torch.Tensor:
+    """The datapath matmul on real 2-D inputs, as
+    ``repro.kernels.ops.lns_matmul``: per-tensor pow2 scales, Q_log encode
+    and pack of both operands, K8, then ``out · s_a·s_b / 2**frac_bits``
+    in f32 (exact: the scales are powers of two and |out| < 2**24).
+
+    K is padded to a multiple of ``block_k`` with ``max_code`` words
+    (positive, smallest magnitude), exactly as the JAX function pads it.
+    K8 itself needs no padding, but a pad pair is not always zero: at
+    B=8, γ<=8 its product exponent 254 shifts it out (q = 31), while at
+    B=4, γ=4 each pad pair adds 5792 (2**-3.5 in Q.16) to the last block.
+    Padding the same way keeps the result equal to JAX's for every
+    format."""
+    sa, sb = compute_scale(a), compute_scale(b)
+    pa = lns_pack(*lns_encode(a, fmt, sa), fmt)
+    pb = lns_pack(*lns_encode(b, fmt, sb), fmt)
+    pad = -a.shape[1] % block_k
+    if pad:
+        pa = F.pad(pa, (0, pad), value=fmt.max_code)
+        pb = F.pad(pb, (0, 0, 0, pad), value=fmt.max_code)
+    out = lns_matmul_packed(pa.contiguous(), pb.contiguous(), fmt,
+                            frac_bits=frac_bits, lut_entries=lut_entries,
+                            block_k=block_k)
+    return out.to(torch.float32) * (sa * sb) / (1 << frac_bits)

@@ -14,17 +14,20 @@ from typing import Dict, Optional
 
 import torch
 
+from repro_torch.core import conversion
 from repro_torch.core.lns import LNSFormat
 from repro_torch.kernels import _build, ref
 
 __all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "PAGED_ATTEND",
            "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "REQUANT_PACK",
-           "launch_counts", "reset_launch_counts", "encode_pack", "qmatmul",
-           "paged_attend", "fused_sample", "madam_step", "madam_step_stats",
-           "requant_pack"]
+           "LNS_MATMUL_PACKED", "MADAM_STEP_UNPACKED", "launch_counts",
+           "reset_launch_counts", "encode_pack", "qmatmul", "paged_attend",
+           "fused_sample", "madam_step", "madam_step_stats", "requant_pack",
+           "lns_matmul_packed", "madam_step_unpacked"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_DT = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 3, torch.int32: 4}
+_DT = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3,
+       torch.int32: 4, torch.int16: 5}
 
 
 class Kernel:
@@ -65,10 +68,18 @@ MADAM_STEP_STATS = Kernel("madam_step_stats", "repro_madam_step_stats",
                           _MADAM_ARGS + [_I, _I, _P, _I, _P])
 REQUANT_PACK = Kernel("requant_pack", "repro_requant_pack",
                       [_P, _P, _LL, _I, _I, _I, _I, _P])
+LNS_MATMUL_PACKED = Kernel("lns_matmul_packed", "repro_lns_matmul",
+                           [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P])
+MADAM_STEP_UNPACKED = Kernel("madam_step_unpacked",
+                             "repro_madam_step_unpacked",
+                             [_P, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I,
+                              _F, _F, _F, _F, _F, _I, _P])
 KERNELS: Dict[str, Kernel] = {k.name: k for k in
                               (ENCODE_PACK, QMATMUL, PAGED_ATTEND,
                                FUSED_SAMPLE, MADAM_STEP, MADAM_STEP_STATS,
-                               REQUANT_PACK)}
+                               REQUANT_PACK, LNS_MATMUL_PACKED,
+                               MADAM_STEP_UNPACKED)}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -239,13 +250,17 @@ def _madam_check(packed, g, v, fmt: LNSFormat):
     return torch.empty_like(packed), torch.empty_like(v)
 
 
-def _madam_args(packed, g, v, w_out, v_out, bc, fmt, lr, beta, eps):
+def _madam_scalars(bc, fmt: LNSFormat, lr, beta, eps):
     # (1-beta), beta, eps and lr*gamma: Python doubles rounded to f32 as
     # JAX's weak types round them
+    return (fmt.bits, fmt.gamma, float(bc), 1.0 - beta, beta, eps,
+            lr * fmt.gamma)
+
+
+def _madam_args(packed, g, v, w_out, v_out, bc, fmt, lr, beta, eps):
     return (packed.data_ptr(), _DT[packed.dtype], g.data_ptr(), _DT[g.dtype],
             v.data_ptr(), w_out.data_ptr(), v_out.data_ptr(), packed.numel(),
-            fmt.bits, fmt.gamma, float(bc), 1.0 - beta, beta, eps,
-            lr * fmt.gamma)
+            *_madam_scalars(bc, fmt, lr, beta, eps))
 
 
 def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
@@ -297,4 +312,87 @@ def requant_pack(packed: torch.Tensor, src: LNSFormat,
     out = torch.empty_like(packed)
     REQUANT_PACK(packed.data_ptr(), out.data_ptr(), packed.numel(), src.bits,
                  dst.bits, mul, div, _stream(packed))
+    return out
+
+
+_CODE_DT = {torch.uint8: 8, torch.int16: 16, torch.int32: 16}  # widest B
+
+
+def madam_step_unpacked(code: torch.Tensor, sign: torch.Tensor,
+                        g: torch.Tensor, v: torch.Tensor, bc: float,
+                        fmt: LNSFormat, *, lr: float, beta: float,
+                        eps: float):
+    """K9 on the card: the update of a 2-D leaf kept as ``(code, sign)``
+    (code uint8 at B<=8, int16 or int32 at B<=16, written back in its own
+    dtype; sign int8 ±1; g f32 or bf16; v f32) -> new ``(code, v)``.
+    The counterpart of ``repro.kernels.ops.madam_step``; the port's
+    ``madam_step`` is the packed K3, as the JAX dispatch names it."""
+    _check(code, "code", tuple(_CODE_DT), 2)
+    if not 2 <= fmt.bits <= _CODE_DT[code.dtype]:
+        raise ValueError(f"{code.dtype} codes take 2..{_CODE_DT[code.dtype]}"
+                         f"-bit formats, got {fmt}")
+    _check(sign, "sign", (torch.int8,), 2)
+    _check(g, "g", _FLOATS, 2)
+    _check(v, "v", (torch.float32,), 2)
+    if not code.shape == sign.shape == g.shape == v.shape:
+        raise ValueError(f"code {tuple(code.shape)}, sign "
+                         f"{tuple(sign.shape)}, g {tuple(g.shape)} and v "
+                         f"{tuple(v.shape)} must share a shape")
+    c_out, v_out = torch.empty_like(code), torch.empty_like(v)
+    MADAM_STEP_UNPACKED(code.data_ptr(), _DT[code.dtype], sign.data_ptr(),
+                        g.data_ptr(), _DT[g.dtype], v.data_ptr(),
+                        c_out.data_ptr(), v_out.data_ptr(), code.numel(),
+                        *_madam_scalars(bc, fmt, lr, beta, eps),
+                        _madam_blocks(code.numel()), _stream(code))
+    return c_out, v_out
+
+
+# K8's limits: the LUT sits in 256 ints of shared memory (byte words give
+# remainders below 255 whatever gamma is), and with frac_bits <= 16,
+# gamma <= 4096 and block_k <= 4096 no int32 product or block sum can
+# overflow (a term is below 2**17)
+_K8_LUT, _K8_MAX_GAMMA, _K8_MAX_BLOCK_K = 256, 4096, 4096
+
+
+def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
+                      frac_bits: int = 16, lut_entries: Optional[int] = None,
+                      block_k: int = 16) -> torch.Tensor:
+    """K8 on the card: the Fig.-6 integer datapath on packed uint8
+    ``pa (M,K) @ pb (K,N)`` -> int32 ``(M,N)``, any M, N and K (no
+    padding; a partial last K block is one block)."""
+    _check(pa, "pa", (torch.uint8,), 2)
+    _check(pb, "pb", (torch.uint8,), 2)
+    _check_fmt(fmt)
+    M, K = pa.shape
+    K2, N = pb.shape
+    if K != K2:
+        raise ValueError(f"inner dims differ: {tuple(pa.shape)} @ "
+                         f"{tuple(pb.shape)}")
+    if fmt.gamma > _K8_MAX_GAMMA:
+        raise ValueError(f"K8 takes gamma <= {_K8_MAX_GAMMA}, got {fmt}")
+    if not 0 <= frac_bits <= 16:
+        raise ValueError(f"K8 takes frac_bits in [0, 16], got {frac_bits}")
+    if not 1 <= block_k <= _K8_MAX_BLOCK_K:
+        raise ValueError(f"K8 takes block_k in [1, {_K8_MAX_BLOCK_K}], got "
+                         f"{block_k}")
+    if -(-M // 64) > 65535:
+        raise ValueError(f"K8 takes at most {65535 * 64} rows, got {M}")
+    # the numpy tables of core.conversion (bit-identical to the JAX
+    # package's; they validate lut_entries), uploaded once per
+    # format and device
+    b = fmt.gamma.bit_length() - 1
+    if lut_entries is None:
+        b_l = -1
+        lut = conversion.device_table(conversion.remainder_lut_neg_int,
+                                      fmt.gamma, frac_bits, device=pa.device)
+    else:
+        b_l = b - (lut_entries.bit_length() - 1)
+        lut = conversion.device_table(
+            conversion.remainder_lut_neg_shifted_int, fmt.gamma, frac_bits,
+            lut_entries, device=pa.device)
+    lut = lut[:_K8_LUT]
+    out = torch.empty((M, N), dtype=torch.int32, device=pa.device)
+    LNS_MATMUL_PACKED(pa.data_ptr(), pb.data_ptr(), lut.data_ptr(),
+                      lut.numel(), out.data_ptr(), M, N, K, fmt.bits, b, b_l,
+                      block_k, _stream(pa))
     return out

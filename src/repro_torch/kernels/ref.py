@@ -11,14 +11,18 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import conversion
 from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode_packed,
                                   lns_encode, lns_pack, lns_requant_packed,
-                                  lns_word_dtype)
+                                  lns_unpack, lns_word_dtype)
 from repro_torch.kernels.madam_stats import madam_stats_vec
 
-__all__ = ["row_scale", "encode_pack", "qmatmul", "paged_attend",
+__all__ = ["SAT24", "row_scale", "encode_pack", "qmatmul", "paged_attend",
            "fused_sample", "bias_correction", "step_math", "madam_step",
-           "madam_step_stats", "requant_pack"]
+           "madam_step_stats", "madam_step_unpacked", "requant_pack",
+           "lns_matmul_packed"]
+
+SAT24 = (1 << 23) - 1  # the 24-bit accumulation collector's bound (Table 1)
 
 
 def row_scale(x: torch.Tensor, scale_axis: Optional[int] = None):
@@ -163,9 +167,56 @@ def madam_step_stats(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     return word, nv, vec
 
 
+def madam_step_unpacked(code: torch.Tensor, sign: torch.Tensor,
+                        g: torch.Tensor, v: torch.Tensor, bc: float,
+                        fmt: LNSFormat, *, lr: float, beta: float,
+                        eps: float):
+    """K9: the update of one leaf kept as ``(code, sign)`` ->
+    ``(code' in code's dtype, v')``; K3's arithmetic without the
+    packing. ``bc`` is :func:`bias_correction` of the step count."""
+    new_code, nv, _ = step_math(code, sign, g, v, bc, lr=lr, beta=beta,
+                                eps=eps, gamma=fmt.gamma,
+                                max_code=fmt.max_code)
+    return new_code.to(code.dtype), nv
+
+
 def requant_pack(packed: torch.Tensor, src: LNSFormat,
                  dst: LNSFormat) -> torch.Tensor:
     """K7: re-grid packed words of any rank from ``src`` to ``dst`` bits;
     the integer function :func:`~repro_torch.core.lns.lns_requant_packed`
     itself, as the TPU kernel's body is."""
     return lns_requant_packed(packed, src, dst)
+
+
+def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
+                      frac_bits: int = 16, lut_entries: Optional[int] = None,
+                      block_k: int = 16) -> torch.Tensor:
+    """K8: the Fig.-6 integer datapath on packed ``pa (M,K) @ pb (K,N)``
+    -> int32 partial sums in ``frac_bits`` fixed point (real value
+    ``out · s_a·s_b / 2**frac_bits``).
+
+    Per product: exponents add (``m = ca + cb``), signs multiply, and the
+    magnitude is :func:`~repro_torch.core.conversion.exp2_neg_exact_fixed`
+    of ``m`` (``exp2_neg_hybrid_fixed`` with ``lut_entries``). Each
+    ``block_k`` slice of K sums in int32 and is added to the accumulator,
+    which saturates to ±(2**23 - 1) after every slice; a partial last
+    slice is one slice. The semantics of ``repro.kernels.ref.
+    lns_matmul_ref``, walked one K slice at a time instead of building the
+    (M, K, N) term tensor (7.2 GB of int32 at 2048×576×1536)."""
+    sa, ca = lns_unpack(pa, fmt)
+    sb, cb = lns_unpack(pb, fmt)
+    neg_a, neg_b = sa < 0, sb < 0
+    M, K = pa.shape
+    acc = torch.zeros((M, pb.shape[1]), dtype=torch.int32, device=pa.device)
+    for k0 in range(0, K, block_k):
+        k1 = min(k0 + block_k, K)
+        m = ca[:, k0:k1, None] + cb[None, k0:k1, :]
+        if lut_entries is None:
+            mag = conversion.exp2_neg_exact_fixed(m, fmt.gamma, frac_bits)
+        else:
+            mag = conversion.exp2_neg_hybrid_fixed(m, fmt.gamma, lut_entries,
+                                                   frac_bits)
+        neg = neg_a[:, k0:k1, None] ^ neg_b[None, k0:k1, :]
+        block = torch.where(neg, -mag, mag).sum(dim=1, dtype=torch.int32)
+        acc = torch.clamp(acc + block, -SAT24, SAT24)
+    return acc

@@ -152,6 +152,10 @@ def _cpu_args():
     g, v = torch.randn(6, 10), torch.rand(6, 10)
     f16 = LNSFormat(16, 2048)
     madam = dict(lr=2.0 ** -7, beta=0.999, eps=1e-30)
+    code16 = torch.from_numpy(rng.integers(0, 1 << 15, (6, 10)).astype(
+        np.int16))
+    sign = torch.from_numpy(np.where(rng.random((6, 10)) < 0.5, 1, -1
+                                     ).astype(np.int8))
     return {
         "encode_pack": ((x, fmt), {}),
         "qmatmul": ((pa, pb, fmt, sa), {"compute_dtype": torch.float32}),
@@ -161,12 +165,18 @@ def _cpu_args():
         "madam_step": ((w16, g, v, 0.5, f16), madam),
         "madam_step_stats": ((w16, g, v, 0.5, f16), dict(madam, requant=None)),
         "requant_pack": ((pb, fmt, fmt.with_bits(6)), {}),
+        "lns_matmul_packed": ((pa, pb, fmt), {"lut_entries": 2}),
+        "madam_step_unpacked": ((code16, sign, g, v, 0.5, f16), madam),
     }
 
 
 def _dispatch_call(name, args, kw):
     """Call the dispatch entry behind kernel ``name`` with its wrapper's
-    arguments (the Madam step's dispatch takes a step count, not bc)."""
+    arguments (the Madam steps' dispatch takes a step count, not bc)."""
+    if name == "madam_step_unpacked":
+        code, sign, g, v, _, fmt = args
+        return dispatch.madam_step_unpacked(code, sign, g, v, 3, fmt,
+                                            lr=kw["lr"])
     if name.startswith("madam_step"):
         w, g, v, _, fmt = args
         return dispatch.madam_step(w, g, v, 3, fmt, lr=kw["lr"],
@@ -190,7 +200,9 @@ def test_cuda_tensors_never_reach_plain_path(no_cuda, monkeypatch):
     def kernel(name):
         def fn(*a, **k):
             called.append(name)
-            if name == "madam_step":
+            if name == "lns_matmul_packed":
+                return cuda
+            if name in ("madam_step", "madam_step_unpacked"):
                 return cuda, cuda
             return cuda, cuda, torch.zeros(8, dtype=torch.float64)
         return fn
@@ -208,6 +220,9 @@ def test_cuda_tensors_never_reach_plain_path(no_cuda, monkeypatch):
     dispatch.madam_step(cuda, cuda, cuda, 1, LNSFormat(16, 2048), lr=0.01,
                         with_stats=True)
     dispatch.requant_pack(cuda, LNSFormat(8, 8), LNSFormat(6, 2))
+    dispatch.lns_matmul_packed(cuda, cuda, LNSFormat(8, 8), lut_entries=4)
+    dispatch.madam_step_unpacked(cuda, cuda, cuda, cuda, 1,
+                                 LNSFormat(16, 2048), lr=0.01)
     assert called == list(ops.KERNELS)
     with pytest.raises(ValueError, match="no kernel path"):
         dispatch.route(torch.empty(1, device="meta"))
@@ -232,3 +247,45 @@ def test_requant_wrapper_refuses_words_it_cannot_take(dtype, fmts, match):
     src, dst = (LNSFormat(*f) for f in fmts)
     with pytest.raises(ValueError, match=match):
         ops.requant_pack(words, src, dst)
+
+
+def _cuda_words(dtype, shape=(4, 8)):
+    """A stand-in for a contiguous 2-D CUDA tensor of ``dtype``."""
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                                 shape=torch.Size(shape),
+                                 dim=lambda: len(shape),
+                                 is_contiguous=lambda: True)
+
+
+@pytest.mark.parametrize("fmt,kw,match", [
+    ((16, 2048), {}, "bits <= 8"),
+    ((8, 8192), {}, "gamma <= 4096"),
+    ((8, 8), {"frac_bits": 20}, "frac_bits"),
+    ((8, 8), {"block_k": 0}, "block_k"),
+    ((8, 8), {"block_k": 8192}, "block_k"),
+])
+def test_k8_wrapper_refuses_what_it_cannot_take(fmt, kw, match):
+    """K8 takes byte words, and bounds gamma, frac_bits and block_k so no
+    int32 product or block sum can overflow in the kernel."""
+    pa, pb = _cuda_words(torch.uint8, (4, 8)), _cuda_words(torch.uint8,
+                                                           (8, 4))
+    with pytest.raises(ValueError, match=match):
+        ops.lns_matmul_packed(pa, pb, LNSFormat(*fmt), **kw)
+    with pytest.raises(ValueError, match="not in"):
+        ops.lns_matmul_packed(_cuda_words(torch.int32), pb, LNSFormat(8, 8))
+
+
+@pytest.mark.parametrize("code_dt,fmt,match", [
+    (torch.int8, (8, 8), "not in"),
+    (torch.uint8, (16, 2048), "2..8-bit"),
+    (torch.int16, (17, 4096), "2..16-bit"),
+])
+def test_k9_wrapper_refuses_what_it_cannot_take(code_dt, fmt, match):
+    """K9 takes uint8 codes up to B=8, int16 or int32 codes up to B=16."""
+    code = _cuda_words(code_dt)
+    with pytest.raises(ValueError, match=match):
+        ops.madam_step_unpacked(code, _cuda_words(torch.int8),
+                                _cuda_words(torch.float32),
+                                _cuda_words(torch.float32), 0.5,
+                                LNSFormat(*fmt), lr=0.01, beta=0.999,
+                                eps=1e-30)
