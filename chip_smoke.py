@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --k2-sweep   # K2's skinny plan constants only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -10,8 +11,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. Hold each kernel against its plain PyTorch version on the card at the
    serving and training shapes of smollm-135m (K3/K4 at the packed leaf
    shapes, K7 at the 8 packed leaves for 8->6 and 8->7, K5 also at the
-   speculative verify's S=4), and time the kernel, the plain version and
-   a one-call PyTorch yardstick (``library_ms``) where one exists.
+   speculative verify's S=4 and with warps that see no position), and
+   time the kernel, the plain version and a one-call PyTorch yardstick
+   (``library_ms``) where one exists. K2 prints the path its plan took
+   (skinny split-K mma.sync, wgmma, or f32), also runs at the verify's
+   M=16 and M=24, at M=128/256/512 beside the other path (the
+   crossover), on ragged shapes (skinny with one and two row tiles,
+   wgmma) and at the smoke config's f32 compute, checks the fused bf16
+   output against the f32 output cast, and decodes every word of every
+   accepted format on both bf16 paths as the plain version does; the
+   wgmma path's decode pass (``qmatmul_decode``, a kernel of its own)
+   must give the plain version's padded operands bit for bit; every K2
+   and K5 case is called twice and must repeat bit for bit. K5 also runs
+   an f32 pool whose pages take one stage a warp. TF32 must be off.
 4. Serve smollm-135m at full width with random packed 8-bit LNS weights:
    the paged layout (8 requests, 4 slots, 32+32 tokens, page 16), then a
    short dense-layout run. Each run's kernel launch counts are zeroed just
@@ -22,7 +34,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a pure accumulation-order change; tokens equal where the plain
    version's top-2 margin exceeds the tolerance.
 6. Profile 3 decode steps with ``torch.profiler``: wall time, device busy
-   time and share, and the kernels that take it.
+   time and share, the kernels that take it, and K2's and K5's share.
 7. Train smollm-135m at full width through ``repro_torch.launch.train``:
    6 steps of 8 x 256 tokens, checkpoints in a temporary directory. The
    loss is finite every step, no step was retried by the supervisor, K1
@@ -53,7 +65,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 14. Measure why k>1 streams leave phase 4's: from 8 states of the paged
     trace, 4 greedy one-token steps against one S=4 verify over the same
     tokens, counting differing tokens and differing per-tensor
-    activation scales (printed, not limited).
+    activation scales (printed, not limited). Then every K2 shape that
+    phases 4-14 ran (recorded as they ran) is held against the plain
+    version on fresh operands: within ``K2_RTOL``, bit-identical on a
+    repeat, bf16 output equal to the f32 output cast.
 15. K8, the bit-exact Fig.-6 datapath, against its plain version at
     smollm-135m's GEMM shapes (M 4 and 2048), over the LUT sweep 1/2/4/8
     at 2048x576x1536 and on the saturating all-zero case: int32 outputs
@@ -277,12 +292,60 @@ def k1_check(torch, ops, ref, fmt, shapes):
     return rows
 
 
+@contextlib.contextmanager
+def k2_path(ops, path):
+    """Route every bf16 K2 call through ``path`` (``"skinny"`` or
+    ``"wgmma"``) by moving the plan's threshold, to time or check the path
+    the plan would not pick."""
+    keep = ops.QMATMUL_WGMMA_MIN_M
+    ops.QMATMUL_WGMMA_MIN_M = 0 if path == "wgmma" else 1 << 62
+    try:
+        yield
+    finally:
+        ops.QMATMUL_WGMMA_MIN_M = keep
+
+
+@contextlib.contextmanager
+def k2_shapes_seen(torch, ops):
+    """Record every K2 call's (M, K, N, compute dtype, out dtype) while
+    the main paths run (the wrapper still counts every launch itself)."""
+    seen = collections.Counter()
+    launch = ops.qmatmul
+
+    def record(pa, pb, fmt, *args, compute_dtype=None, out_dtype=None,
+               **kw):
+        cdt = compute_dtype or torch.bfloat16
+        odt = out_dtype or torch.float32
+        seen[(pa.shape[0], pa.shape[1], pb.shape[1], cdt, odt)] += 1
+        return launch(pa, pb, fmt, *args, compute_dtype=cdt, out_dtype=odt,
+                      **kw)
+
+    ops.qmatmul = record
+    try:
+        yield seen
+    finally:
+        ops.qmatmul = launch
+
+
 def k2_check(torch, ops, ref, fmt, shapes):
+    """K2 against its plain version at each ``(M, K, N[, opts])``: within
+    ``K2_RTOL`` of the output's max, two calls bit-identical, the path the
+    plan picked printed. ``opts``: ``compute`` (the compute dtype, bf16 by
+    default), ``out`` (bf16: the fused cast must equal the f32 output cast
+    to bf16, bit for bit), ``also`` (another bf16 path, timed beside the
+    planned one: the skinny/wgmma crossover) and ``brief`` (no eager or
+    plain timing)."""
     from repro_torch.core.lns import lns_decode_packed
+    check(torch.backends.cuda.matmul.allow_tf32 is False,
+          "TF32 is on for float32 matmuls")
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
-    for M, K, N in shapes:
-        x = torch.randn((M, K), generator=gen, device="cuda").to(torch.bfloat16)
+    for M, K, N, *opt in shapes:
+        o = opt[0] if opt else {}
+        cdt = o.get("compute", torch.bfloat16)
+        odt = o.get("out", torch.float32)
+        brief = o.get("brief", False)
+        x = torch.randn((M, K), generator=gen, device="cuda").to(cdt)
         pa, sa = ref.encode_pack(x, fmt)
         # >= 100 MB of weight copies rotate through the timed calls (one
         # graph node each) so the weights come from HBM, not the 50 MB L2,
@@ -294,46 +357,243 @@ def k2_check(torch, ops, ref, fmt, shapes):
                              dtype=torch.uint8) for _ in range(n_buf)]
         sb = torch.exp2(torch.randint(-6, -2, (1, N), generator=gen,
                                       device="cuda").float())
-        out = ops.qmatmul(pa, pbs[0], fmt, sa, sb,
-                          compute_dtype=torch.bfloat16)
-        want = ref.qmatmul(pa, pbs[0], fmt, sa, sb,
-                           compute_dtype=torch.bfloat16)
+        kw = dict(compute_dtype=cdt)
+        plan = ops.qmatmul_plan(M, N, K, cdt)
+        out = ops.qmatmul(pa, pbs[0], fmt, sa, sb, **kw)
+        again = ops.qmatmul(pa, pbs[0], fmt, sa, sb, **kw)
+        want = ref.qmatmul(pa, pbs[0], fmt, sa, sb, **kw)
         err = float((out - want).abs().max())
         lim = K2_RTOL * float(want.abs().max())
-        check(err <= lim, f"K2 {M}x{K}x{N}: max err {err} > {lim}")
-        a16 = lns_decode_packed(pa, fmt, torch.bfloat16)
-        b16 = [lns_decode_packed(p, fmt, torch.bfloat16) for p in pbs]
+        tag = f"K2 {M}x{K}x{N} ({plan['path']}"
+        check(err <= lim, f"{tag}): max err {err} > {lim}")
+        check(torch.equal(out, again), f"{tag}): two calls differ")
+        if odt != torch.float32:
+            cast = ops.qmatmul(pa, pbs[0], fmt, sa, sb, out_dtype=odt, **kw)
+            check(cast.dtype == odt and torch.equal(cast, out.to(odt)),
+                  f"{tag}): the fused {odt} cast differs from the f32 "
+                  f"output cast")
+        a16 = lns_decode_packed(pa, fmt, cdt)
+        b16 = [lns_decode_packed(p, fmt, cdt) for p in pbs]
+        kw["out_dtype"] = odt
         it = {"i": 0}
 
         def rot():
             it["i"] = (it["i"] + 1) % len(pbs)
             return it["i"]
 
-        nbytes = M * K + K * N + 4 * (M + N) + 4 * M * N
-        b, by = bound_ms(nbytes, 2 * M * N * K, BF16_FLOPS)
+        esize = 2 if odt == torch.bfloat16 else 4
+        nbytes = M * K + K * N + 4 * (M + N) + esize * M * N
+        b, by = bound_ms(nbytes, 2 * M * N * K,
+                         BF16_FLOPS if cdt == torch.bfloat16 else F32_FLOPS)
         rows.append(dict(
-            shape=[M, K, N], max_abs_err=err,
+            shape=[M, K, N], path=plan["path"], splits=plan["splits"],
+            blocks=plan["blocks"], out=str(odt).replace("torch.", ""),
+            compute=str(cdt).replace("torch.", ""), max_abs_err=err,
             ms=cuda_ms(torch, lambda: ops.qmatmul(
-                pa, pbs[rot()], fmt, sa, sb, compute_dtype=torch.bfloat16),
-                iters=n_buf),
-            eager_ms=eager_ms(torch, lambda: ops.qmatmul(
-                pa, pbs[rot()], fmt, sa, sb, compute_dtype=torch.bfloat16)),
-            plain_ms=cuda_ms(torch, lambda: ref.qmatmul(
-                pa, pbs[rot()], fmt, sa, sb, compute_dtype=torch.bfloat16),
+                pa, pbs[rot()], fmt, sa, sb, **kw), iters=n_buf),
+            eager_ms=None if brief else eager_ms(torch, lambda: ops.qmatmul(
+                pa, pbs[rot()], fmt, sa, sb, **kw)),
+            plain_ms=None if brief else cuda_ms(torch, lambda: ref.qmatmul(
+                pa, pbs[rot()], fmt, sa, sb, **kw),
                 iters=n_buf, replays=3),
             library_ms=cuda_ms(torch, lambda: torch.matmul(a16, b16[rot()]),
                                iters=n_buf),
             bound_ms=b, bound_by=by))
         r = rows[-1]
-        print(f"K2 qmatmul {M}x{K}x{N}: max err {err:.3e} (limit {lim:.3e}), "
-              f"kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), "
-              f"plain {r['plain_ms']:.4f} ms, "
-              f"torch.matmul bf16 {r['library_ms']:.4f} ms, bound {b:.5f} ms")
+        also = ""
+        if "also" in o:
+            r["also_path"] = o["also"]
+            with k2_path(ops, o["also"]):
+                r["also_ms"] = cuda_ms(torch, lambda: ops.qmatmul(
+                    pa, pbs[rot()], fmt, sa, sb, **kw), iters=n_buf)
+            also = f", {o['also']} path {r['also_ms']:.4f} ms"
+        timed = "" if brief else (f" (eager {r['eager_ms']:.4f} ms)")
+        plain = "" if brief else f", plain {r['plain_ms']:.4f} ms"
+        tiles = (f"{plan['mt8'] * 8}-row tiles, "
+                 if plan["path"] == "skinny" else "")
+        print(f"{tag}, {plan['blocks']} blocks, splits {plan['splits']}, "
+              f"{tiles}"
+              f"{r['compute']} -> {r['out']}): max err {err:.3e} (limit "
+              f"{lim:.3e}), repeat bit-identical, kernel {r['ms']:.4f} ms"
+              f"{timed}{also}{plain}, torch.matmul {r['library_ms']:.4f} "
+              f"ms, bound {b:.5f} ms ({by}; {b / r['ms']:.1%})")
     return rows
 
 
-def k5_inputs(torch, B, S, lengths, packed, fmt, gen, heads):
-    (H, KV, HD), PAGE, MP = heads, 16, 5
+def k2_decode_pass_check(torch, ops, ref, fmt, shapes):
+    """The wgmma path's decode pass (``qmatmul_decode``) at each
+    ``(M, K, N)``: both padded bf16 operands equal to the plain version's
+    bit for bit, two calls bit-identical; timed with the weights rotating
+    through >= 100 MB as in ``k2_check``."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows = []
+    for M, K, N in shapes:
+        pa = torch.randint(0, 256, (M, K), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+        n_buf = max(64, -(-100_000_000 // (K * N)))
+        pbs = [torch.randint(0, 256, (K, N), generator=gen, device="cuda",
+                             dtype=torch.uint8) for _ in range(n_buf)]
+        got = ops.qmatmul_decode(pa, pbs[0], fmt)
+        again = ops.qmatmul_decode(pa, pbs[0], fmt)
+        want = ref.qmatmul_decode(pa, pbs[0], fmt)
+        tag = f"K2 decode pass {M}x{K}x{N}"
+        for g, a, w, n in zip(got, again, want, ("A", "B")):
+            check(g.shape == w.shape and torch.equal(g, w),
+                  f"{tag}: operand {n} differs from the plain decode")
+            check(torch.equal(g, a), f"{tag}: two calls differ")
+        it = {"i": 0}
+
+        def rot():
+            it["i"] = (it["i"] + 1) % len(pbs)
+            return it["i"]
+
+        # each word read once, each padded bf16 element written once; a
+        # table lookup and a sign apply an element (CUDA cores)
+        nbytes = M * K + K * N + 2 * (want[0].numel() + want[1].numel())
+        b, by = bound_ms(nbytes, 2 * (M * K + K * N), F32_FLOPS)
+        rows.append(dict(
+            shape=[M, K, N], max_abs_err=0.0,
+            ms=cuda_ms(torch, lambda: ops.qmatmul_decode(pa, pbs[rot()],
+                                                         fmt), iters=n_buf),
+            plain_ms=cuda_ms(torch, lambda: ref.qmatmul_decode(
+                pa, pbs[rot()], fmt), iters=n_buf, replays=3),
+            library_ms=None, bound_ms=b, bound_by=by))
+        r = rows[-1]
+        print(f"{tag}: operands equal to the plain decode, repeat "
+              f"bit-identical, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {b:.5f} ms ({by}; "
+              f"{b / r['ms']:.1%})")
+    return rows
+
+
+def k2_driven_check(torch, ops, ref, fmt, seen):
+    """Every (M, K, N, compute, out) that K2 took on the main paths
+    (``k2_shapes_seen``), on fresh random operands: within ``K2_RTOL``,
+    two calls bit-identical, and a bf16 output equal to the f32 output
+    cast. So each launch configuration the paths ran (path, split, row
+    tiles, partly masked tiles) is held against the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    by_path = collections.defaultdict(set)
+    for M, K, N, cdt, odt in sorted(seen, key=str):
+        x = torch.randn((M, K), generator=gen, device="cuda").to(cdt)
+        pa, sa = ref.encode_pack(x, fmt)
+        pb = torch.randint(0, 256, (K, N), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+        sb = torch.exp2(torch.randint(-6, -2, (1, N), generator=gen,
+                                      device="cuda").float())
+        kw = dict(compute_dtype=cdt)
+        out = ops.qmatmul(pa, pb, fmt, sa, sb, **kw)
+        again = ops.qmatmul(pa, pb, fmt, sa, sb, **kw)
+        want = ref.qmatmul(pa, pb, fmt, sa, sb, **kw)
+        err = float((out - want).abs().max())
+        lim = K2_RTOL * float(want.abs().max())
+        plan = ops.qmatmul_plan(M, N, K, cdt)
+        tag = f"K2 driven {M}x{K}x{N} ({plan['path']}, {cdt} -> {odt})"
+        check(err <= lim, f"{tag}: max err {err} > {lim}")
+        check(torch.equal(out, again), f"{tag}: two calls differ")
+        if odt != torch.float32:
+            cast = ops.qmatmul(pa, pb, fmt, sa, sb, out_dtype=odt, **kw)
+            check(torch.equal(cast, out.to(odt)),
+                  f"{tag}: the fused {odt} cast differs from the f32 "
+                  f"output cast")
+        by_path[plan["path"]].add(M)
+    summary = {p: sorted(ms) for p, ms in by_path.items()}
+    print(f"K2 on the main paths: {len(seen)} distinct shapes "
+          f"({sum(seen.values())} calls), each within K2_RTOL and "
+          f"bit-identical on a repeat; M by path {summary}")
+    return {"shapes": [[M, K, N, str(c), str(o), n]
+                       for (M, K, N, c, o), n in sorted(seen.items(),
+                                                        key=str)],
+            "m_by_path": summary}
+
+
+def k2_sweep(torch, ops, ref, fmt):
+    """``--k2-sweep``: the skinny plan's two constants re-derived on the
+    card. At M = 4, 16 and 32 and the four GEMMs, K2 is timed (weights
+    rotating through >= 100 MB) as one 8-warp block over all of K (where 8
+    warps' shares fit the kernel's 6 steps) and split over the grid in
+    4-warp blocks of 1..6 steps a warp; then at the default plan, with
+    the decode pass alone, at M = 2048."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gemms = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+    configs = [("one block", 6, 3)] + [(f"split, {t} steps", 0, t)
+                                      for t in range(1, 7)]
+    keep = ops._SK_ONE_STEPS, ops._SK_SPLIT_STEPS
+    rows = []
+    for M in (4, 16, 32, 2048):
+        for K, N in gemms:
+            pa, sa = ref.encode_pack(torch.randn(
+                (M, K), generator=gen, device="cuda").to(torch.bfloat16), fmt)
+            n_buf = max(64, -(-100_000_000 // (K * N)))
+            pbs = [torch.randint(0, 256, (K, N), generator=gen,
+                                 device="cuda", dtype=torch.uint8)
+                   for _ in range(n_buf)]
+            it = {"i": 0}
+
+            def rot():
+                it["i"] = (it["i"] + 1) % len(pbs)
+                return it["i"]
+
+            def t(fn):
+                return cuda_ms(torch, fn, iters=n_buf)
+
+            row = {"shape": [M, K, N]}
+            if M == 2048:
+                row["default_ms"] = t(lambda: ops.qmatmul(pa, pbs[rot()], fmt,
+                                                          sa))
+                row["decode_pass_ms"] = t(lambda: ops.qmatmul_decode(
+                    pa, pbs[rot()], fmt))
+            else:
+                for name, one, split in configs:
+                    ops._SK_ONE_STEPS, ops._SK_SPLIT_STEPS = one, split
+                    try:
+                        plan = ops.qmatmul_plan(M, N, K)
+                        if name == "one block" and plan["splits"] > 1:
+                            row[name] = None      # K too deep for one block
+                            continue
+                        row[name] = t(lambda: ops.qmatmul(pa, pbs[rot()], fmt,
+                                                          sa))
+                    finally:
+                        ops._SK_ONE_STEPS, ops._SK_SPLIT_STEPS = keep
+                row["default_ms"] = t(lambda: ops.qmatmul(pa, pbs[rot()], fmt,
+                                                          sa))
+            rows.append(row)
+            print("k2 sweep " + json.dumps(row))
+    return rows
+
+
+def k2_decode_check(torch, ops, ref):
+    """Every word of every format the wrapper takes (B 2..8, gamma 1..64)
+    through both bf16 paths, as ``1.0 x dec(word)`` (K = 1, a code-0
+    activation): equal bit for bit to the plain decode, subnormals at
+    gamma 1 included. Covers the skinny path's ALU decode wherever
+    ``ops.arith_decode`` picks it and the table elsewhere."""
+    from repro_torch.core.lns import LNSFormat, lns_decode_packed
+    n_fmt = n_arith = 0
+    for bits in range(2, 9):
+        for gamma in (1, 2, 4, 8, 16, 64):
+            f = LNSFormat(bits, gamma)
+            words = torch.arange(1 << bits, device="cuda", dtype=torch.int32
+                                 ).to(torch.uint8)[None]
+            want = lns_decode_packed(words, f, torch.bfloat16).float()
+            for M, path in ((1, "skinny"), (128, "wgmma")):
+                pa = torch.zeros((M, 1), dtype=torch.uint8, device="cuda")
+                with k2_path(ops, path):
+                    got = ops.qmatmul(pa, words, f)
+                check(torch.equal(got, want.expand(M, -1)),
+                      f"K2 {path} decode of {f} differs from the plain "
+                      f"decode (skinny ALU decode: {ops.arith_decode(f)})")
+            n_fmt += 1
+            n_arith += ops.arith_decode(f)
+    print(f"K2 decode: every word of {n_fmt} formats equal to the plain "
+          f"decode on both bf16 paths ({n_arith} by the skinny path's ALU "
+          f"decode)")
+    return {"formats": n_fmt, "alu_formats": n_arith}
+
+
+def k5_inputs(torch, B, S, lengths, packed, fmt, gen, heads, PAGE=16,
+              pool=None):
+    (H, KV, HD), MP = heads, 5
     P = 4 * MP + 1  # the serving pool: 4 slots x 5 pages + the null page
     q = torch.randn((B, S, H, HD), generator=gen, device="cuda").to(
         torch.bfloat16)
@@ -351,9 +611,9 @@ def k5_inputs(torch, B, S, lengths, packed, fmt, gen, heads):
                                       device="cuda").float()).to(torch.bfloat16)
     else:
         kp = torch.randn((P, PAGE, KV, HD), generator=gen, device="cuda").to(
-            torch.bfloat16)
+            pool or torch.bfloat16)
         vp = torch.randn((P, PAGE, KV, HD), generator=gen, device="cuda").to(
-            torch.bfloat16)
+            pool or torch.bfloat16)
         ks = vs = None
     return q, kp, vp, ks, vs, bt, ln
 
@@ -363,16 +623,20 @@ def k5_check(torch, ops, ref, fmt, cases):
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for name, B, S, lengths, packed, *rest in cases:
-        # (heads, kv heads, head_dim): smollm-135m's, or a case's own
+        # (heads, kv heads, head_dim): smollm-135m's, or a case's own;
+        # then the page size and the float pool's dtype, if not 16 and bf16
         H, KV, HD = heads = rest[0] if rest else (9, 3, 64)
+        pool = rest[1] if len(rest) > 1 else {}
         q, kp, vp, ks, vs, bt, ln = k5_inputs(torch, B, S, lengths, packed,
-                                              fmt, gen, heads)
+                                              fmt, gen, heads, **pool)
         kw = dict(fmt=fmt if packed else None, softcap=None,
                   sm_scale=1 / math.sqrt(HD))
         out = ops.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
+        again = ops.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
         want = ref.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
         err = float((out - want).abs().max())
         check(err <= K5_ATOL, f"K5 {name}: max err {err} > {K5_ATOL}")
+        check(torch.equal(out, again), f"K5 {name}: two calls differ")
         # yardstick: SDPA over pre-gathered, pre-decoded pages
         cap = bt.shape[1] * kp.shape[1]
 
@@ -390,8 +654,8 @@ def k5_check(torch, ops, ref, fmt, cases):
         mask = (torch.arange(cap, device="cuda")[None, None, :]
                 <= qpos[:, :, None])[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        elem = 1 if packed else 2
-        n_pos = [min(-(-int(n) // 16), 5) * 16 for n in lengths]
+        elem, page = kp.element_size(), kp.shape[1]
+        n_pos = [min(-(-int(n) // page), 5) * page for n in lengths]
         nbytes = (q.numel() * 2 + sum(n_pos) * 2 * KV * HD * elem
                   + (sum(n_pos) * 2 * KV * 2 if packed else 0)
                   + bt.numel() * 4 + B * 4 + q.numel() * 4)
@@ -411,7 +675,8 @@ def k5_check(torch, ops, ref, fmt, cases):
                                                    attn_mask=mask)),
             bound_ms=b, bound_by=by))
         r = rows[-1]
-        print(f"K5 paged_attend {name}: max err {err:.3e}, kernel "
+        print(f"K5 paged_attend {name}: max err {err:.3e}, repeat "
+              f"bit-identical, kernel "
               f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, sdpa "
               f"{r['library_ms']:.4f} ms, bound {b:.5f} ms")
@@ -893,7 +1158,8 @@ def profile_spec(torch, engine, decode_ms):
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 2e3:.3f} "
               f"ms/cycle, {e.count // 2} calls/cycle")
-    return {"wall_ms_per_cycle": wall * 1e3 / 2,
+    shares = kernel_shares(torch, prof, busy_us, 2, "cycle")
+    return {"wall_ms_per_cycle": wall * 1e3 / 2, "k2_k5": shares,
             "cycle_over_decode_step": wall * 1e3 / 2 / decode_ms,
             "device_busy_ms_per_cycle": busy_us / 2e3 if busy_us else None,
             "device_busy_share": share,
@@ -945,10 +1211,10 @@ def logits_check(torch, engine):
         return out
 
     def qmatmul_f64(pa, pb, fmt, scale_a=None, scale_b=None, *,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, out_dtype=torch.float32):
         a = lns_decode_packed(pa, fmt, compute_dtype).double()
         b = lns_decode_packed(pb, fmt, compute_dtype).double()
-        return (a @ b).float() * scale_a * scale_b
+        return ((a @ b).float() * scale_a * scale_b).to(out_dtype)
 
     seq = [prompt]     # both runs follow the plain run's greedy tokens
     with plain_versions(dispatch, ref):
@@ -993,6 +1259,28 @@ def device_time(torch, prof, n_top):
     return busy_us, top
 
 
+def kernel_shares(torch, prof, busy_us, per, unit):
+    """Device ms per ``unit`` and launches of K2 (``qmatmul``: its GEMM
+    kernels; ``qmatmul_decode``: the wgmma path's decode pass) and K5
+    (``paged_attend``) in a profile, beside their share of the busy time;
+    printed and returned."""
+    cuda = torch.autograd.DeviceType.CUDA
+    res = {}
+    for name in ("qmatmul", "qmatmul_decode", "paged_attend"):
+        evs = [e for e in prof.key_averages()
+               if e.device_type == cuda and name in e.key
+               and (name != "qmatmul" or "qmatmul_decode" not in e.key)]
+        us = sum(e.self_device_time_total for e in evs)
+        res[name] = {"ms": us / 1e3 / per,
+                     "calls": sum(e.count for e in evs) // per,
+                     "share": us / busy_us if busy_us else None}
+    print("  " + ", ".join(
+        f"{n} {r['ms']:.3f} ms/{unit} ({r['calls']} calls"
+        + (f", {r['share']:.1%} of busy)" if r["share"] is not None else ")")
+        for n, r in res.items()))
+    return res
+
+
 def profile_decode(torch, engine, ops):
     """Device busy share over 3 decode steps of a full engine."""
     from torch.profiler import ProfilerActivity, profile
@@ -1020,7 +1308,8 @@ def profile_decode(torch, engine, ops):
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 3e3:.3f} "
               f"ms/step, {e.count // 3} calls/step")
-    return {"wall_ms_per_step": wall * 1e3 / 3,
+    shares = kernel_shares(torch, prof, busy_us, 3, "step")
+    return {"wall_ms_per_step": wall * 1e3 / 3, "k2_k5": shares,
             "device_busy_ms_per_step": busy_us / 3e3 if busy_us else None,
             "device_busy_share": share,
             "top": [[e.key, e.self_device_time_total / 3e3, e.count // 3]
@@ -1049,6 +1338,10 @@ def train_run(torch, ops):
           f"K3 launched {counts['madam_step']} times, not 8 per step")
     check(counts["encode_pack"] > 0 and counts["qmatmul"] > 0,
           f"K1/K2 not launched on the training path: {counts}")
+    # at M = 2048 K2 takes the wgmma path: one decode pass a GEMM
+    check(0 < counts["qmatmul_decode"] <= counts["qmatmul"],
+          f"K2's decode pass launched {counts['qmatmul_decode']} times for "
+          f"{counts['qmatmul']} GEMMs on the training path")
     print(f"train: {steps} steps x 2048 tokens, {out['tokens_per_s']:.0f} "
           f"tok/s over {out['wall_s']:.2f}s, loss "
           + " ".join(f"{x:.4f}" for x in out["losses"])
@@ -1129,10 +1422,10 @@ def train_step_check(torch, setup):
         return float(m["loss"]), float(m["grad_norm"]), new.params
 
     def qmatmul_f64(pa, pb, fmt, scale_a=None, scale_b=None, *,
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, out_dtype=torch.float32):
         a = lns_decode_packed(pa, fmt, compute_dtype).double()
         b = lns_decode_packed(pb, fmt, compute_dtype).double()
-        return (a @ b).float() * scale_a * scale_b
+        return ((a @ b).float() * scale_a * scale_b).to(out_dtype)
 
     with plain_versions(dispatch, ref), plain_madam(ops, ref):
         plain = run()
@@ -1197,7 +1490,8 @@ def profile_train(torch, setup):
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms, "
               f"{e.count} calls")
-    return {"step_ms": step_ms, "wall_ms": wall * 1e3,
+    shares = kernel_shares(torch, prof, busy_us, 1, "step")
+    return {"step_ms": step_ms, "wall_ms": wall * 1e3, "k2_k5": shares,
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
             "device_busy_share": share,
             "top": [[e.key, e.self_device_time_total / 1e3, e.count]
@@ -1559,6 +1853,10 @@ def main() -> int:
     import torch
 
     t_start = time.monotonic()
+    sweep = sys.argv[1:] == ["--k2-sweep"]
+    if sys.argv[1:] and not sweep:
+        print(f"usage: {Path(__file__).name} [--k2-sweep]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
@@ -1585,19 +1883,48 @@ def main() -> int:
     print(f"kernels built and loaded in {build_s:.1f}s")
 
     fmt = LNSFormat(8, 8)
+    if sweep:
+        rows = k2_sweep(torch, ops, ref, fmt)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "k2_sweep.json").write_text(json.dumps(
+            {"card": card.stdout.strip(), "rows": rows}, indent=1))
+        return 0
     # serving shapes (M = 4 decode, 32 prefill), then the training step's
     # M = 8 x 256 = 2048
     k1 = k1_check(torch, ops, ref, fmt, [(4, 576), (4, 1536), (32, 576),
                                          (32, 1536), (2048, 576),
                                          (2048, 1536)])
     gemms = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+    # the main path's shapes first (decode M=4, prefill M=32, training
+    # M=2048), then the verify's M=16 and M=24 (two 8-row tiles a block,
+    # the second partly masked); M=32, 128, 256 and 512 are also timed on
+    # the other path (the skinny/wgmma crossover); ragged shapes (skinny
+    # with one and two row tiles, wgmma), the smoke config's f32 compute,
+    # and the fused bf16 cast at M=2048. "brief" rows skip the eager and
+    # plain timings
+    bf16, f32 = torch.bfloat16, torch.float32
     k2 = k2_check(torch, ops, ref, fmt, [(4, k, n) for k, n in gemms]
-                  + [(32, k, n) for k, n in gemms]
-                  + [(2048, k, n) for k, n in gemms])
+                  + [(32, k, n, {"also": "wgmma"}) for k, n in gemms]
+                  + [(2048, k, n) for k, n in gemms]
+                  + [(16, k, n) for k, n in gemms]
+                  + [(24, k, n) for k, n in gemms]
+                  + [(128, k, n, {"also": "wgmma", "brief": True})
+                     for k, n in gemms]
+                  + [(m, k, n, {"also": "skinny", "brief": True})
+                     for m in (256, 512) for k, n in gemms]
+                  + [(5, 577, 193, {"brief": True}),
+                     (24, 577, 193, {"brief": True}),
+                     (2047, 584, 1543, {"brief": True}),
+                     (4, 48, 128, {"compute": f32, "brief": True})]
+                  + [(2048, k, n, {"out": bf16}) for k, n in gemms])
+    k2_decode = k2_decode_check(torch, ops, ref)
+    k2_pass = k2_decode_pass_check(torch, ops, ref, fmt,
+                                   [(2048, k, n) for k, n in gemms]
+                                   + [(2047, 584, 1543)])
     # the packed leaves of smollm-135m: embed, then wq/wo, up/gate, down
     # and wk/wv stacked over 30 layers, folded to (-1, last); B=16 words
     # with bf16 gradients as the train step gives them, and B=8 once
-    bf16 = torch.bfloat16
     k34 = k34_check(torch, ops, ref, [
         (49152, 576, 16, 2048, bf16), (17280, 576, 16, 2048, bf16),
         (17280, 1536, 16, 2048, bf16), (46080, 576, 16, 2048, bf16),
@@ -1610,10 +1937,18 @@ def main() -> int:
         ("verify bf16 pool", 4, SPEC_K, [36, 45, 52, 63], False),
         ("verify packed pool", 4, SPEC_K, [36, 45, 52, 63], True),
         # the smoke config's heads (phase 12 serves it paged)
-        ("smoke verify bf16 pool", 3, 3, [9, 20, 31], False, (3, 1, 16))])
+        ("smoke verify bf16 pool", 3, 3, [9, 20, 31], False, (3, 1, 16)),
+        # one visible page for four warps: three merge as no-ops
+        ("decode empty warps", 4, 1, [9, 1, 16, 5], True),
+        # two stages a warp exceed 227 KB here: one stage a warp
+        ("decode f32 pool page 32 hd 128", 2, 1, [100, 160], False,
+         (8, 2, 128), {"PAGE": 32, "pool": torch.float32})])
     k6 = k6_check(torch, ops, ref)
     k7 = k7_check(torch, ops, ref)
 
+    # every K2 shape of phases 4-14 is recorded and checked after them
+    k2_seen_ctx = k2_shapes_seen(torch, ops)
+    k2_seen = k2_seen_ctx.__enter__()
     agg, engine, counts = serve(torch, SERVE_PAGED, ops)
     print(f"paged serve: completed {int(agg['completed'])}/8 requests, "
           f"{agg['tokens_per_s']:.1f} tok/s, ttft mean "
@@ -1660,7 +1995,9 @@ def main() -> int:
                              prof["wall_ms_per_step"])
     del spec_engine
     coupling = verify_coupling(torch, ops)
+    k2_seen_ctx.__exit__(None, None, None)
     torch.cuda.empty_cache()
+    k2_driven = k2_driven_check(torch, ops, ref, fmt, k2_seen)
 
     k8, k8_sweep, table10, k8_counts, k8_rate_inputs = k8_check(
         torch, ops, ref, fmt, [(m, k, n) for m in (4, 2048) for k, n in gemms])
@@ -1676,13 +2013,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # launches: each kernel's count on its own path's run (serving for
-    # K1/K2/K5/K6, the training run for K3, the numerics step for K4, the
+    # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
     # B=6 speculative serve for K7, the Table-10 sweep through
     # kernels.lns_matmul for K8, the dispatch calls of phase 16 for K9)
     meta = {
         "encode_pack": ("lns_quantize.cu", "lns_quantize.py:80", k1, 1,
                         counts),
         "qmatmul": ("lns_qmatmul.cu", "lns_qmatmul.py:48", k2, 3, counts),
+        "qmatmul_decode": ("lns_qmatmul.cu", "lns_qmatmul.py:48", k2_pass, 2,
+                           train["launches"]),
         "paged_attend": ("paged_attend.cu", "paged_attend.py:172", k5, 0,
                          counts),
         "fused_sample": ("sampler.cu", "sampler.py:62", k6, 0, counts),
@@ -1715,7 +2054,9 @@ def main() -> int:
               "count": torch.cuda.device_count()}
     full = {"card": card.stdout.strip(), "build_s": build_s,
             "kernels": kernels,
-            "shapes": {"encode_pack": k1, "qmatmul": k2, "paged_attend": k5,
+            "qmatmul_decode": k2_decode, "qmatmul_driven": k2_driven,
+            "shapes": {"encode_pack": k1, "qmatmul": k2,
+                       "qmatmul_decode_pass": k2_pass, "paged_attend": k5,
                        "fused_sample": k6, "requant_pack": k7, **k34,
                        "lns_matmul_packed": k8,
                        "lns_matmul_packed_lut_sweep": k8_sweep,

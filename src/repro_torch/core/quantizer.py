@@ -202,8 +202,8 @@ def _routed_impl(fmt: LNSFormat, x: torch.Tensor, pw: torch.Tensor,
     px, sx = dispatch.encode_pack(xm, fmt, scale_axis=None)
     sw = wscale.reshape(1, -1).to(torch.float32).expand(1, pw.shape[1])
     y = dispatch.qmatmul(px, pw, fmt, scale_a=sx, scale_b=sw.contiguous(),
-                         compute_dtype=x.dtype)
-    return y.reshape(x.shape[:-1] + (pw.shape[1],)).to(x.dtype), px, sx
+                         compute_dtype=x.dtype, out_dtype=x.dtype)
+    return y.reshape(x.shape[:-1] + (pw.shape[1],)), px, sx
 
 
 class _RoutedMatmul(torch.autograd.Function):

@@ -20,7 +20,8 @@ from repro_torch.core.lns import LNSFormat, compute_scale, lns_encode, lns_pack
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.madam_stats import madam_stats_dict, requant_spec
 
-__all__ = ["route", "encode_pack", "qmatmul", "paged_attend", "fused_sample",
+__all__ = ["route", "encode_pack", "qmatmul", "qmatmul_decode",
+           "paged_attend", "fused_sample",
            "madam_step", "madam_step_unpacked", "requant_pack",
            "lns_matmul_packed", "lns_matmul"]
 
@@ -45,10 +46,20 @@ def encode_pack(x: torch.Tensor, fmt: LNSFormat,
 def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
             scale_a: Optional[torch.Tensor] = None,
             scale_b: Optional[torch.Tensor] = None, *,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """K2: packed ``pa (M,K) @ pb (K,N)`` -> f32, row/column scales."""
+            compute_dtype=torch.bfloat16,
+            out_dtype=torch.float32) -> torch.Tensor:
+    """K2: packed ``pa (M,K) @ pb (K,N)`` -> ``out_dtype`` (f32 or bf16),
+    row/column scales."""
     impl = ops.qmatmul if route(pa) == "kernel" else ref.qmatmul
-    return impl(pa, pb, fmt, scale_a, scale_b, compute_dtype=compute_dtype)
+    return impl(pa, pb, fmt, scale_a, scale_b, compute_dtype=compute_dtype,
+                out_dtype=out_dtype)
+
+
+def qmatmul_decode(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat):
+    """K2's decode pass: packed operands -> padded K-major bf16
+    ``(ad, bt)``, as the wgmma path multiplies them."""
+    impl = ops.qmatmul_decode if route(pa) == "kernel" else ref.qmatmul_decode
+    return impl(pa, pb, fmt)
 
 
 def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,

@@ -18,10 +18,13 @@ from repro_torch.core import conversion
 from repro_torch.core.lns import LNSFormat
 from repro_torch.kernels import _build, ref
 
-__all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "PAGED_ATTEND",
+__all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "QMATMUL_DECODE",
+           "PAGED_ATTEND", "QMATMUL_WGMMA_MIN_M", "qmatmul_plan",
+           "arith_decode",
            "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "REQUANT_PACK",
            "LNS_MATMUL_PACKED", "MADAM_STEP_UNPACKED", "launch_counts",
-           "reset_launch_counts", "encode_pack", "qmatmul", "paged_attend",
+           "reset_launch_counts", "encode_pack", "qmatmul", "qmatmul_decode",
+           "paged_attend",
            "fused_sample", "madam_step", "madam_step_stats", "requant_pack",
            "lns_matmul_packed", "madam_step_unpacked"]
 
@@ -56,10 +59,13 @@ class Kernel:
 ENCODE_PACK = Kernel("encode_pack", "repro_encode_pack",
                      [_P, _I, _P, _P, _LL, _LL, _I, _I, _P])
 QMATMUL = Kernel("qmatmul", "repro_qmatmul",
-                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                 [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _I, _P])
+QMATMUL_DECODE = Kernel("qmatmul_decode", "repro_qmatmul_decode",
+                        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
 PAGED_ATTEND = Kernel("paged_attend", "repro_paged_attend",
                       [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P])
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P])
 FUSED_SAMPLE = Kernel("fused_sample", "repro_fused_sample",
                       [_P, _P, _P, _P, _I, _I, _P])
 _MADAM_ARGS = [_P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _F, _F, _F, _F, _F]
@@ -76,7 +82,8 @@ MADAM_STEP_UNPACKED = Kernel("madam_step_unpacked",
                              [_P, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I,
                               _F, _F, _F, _F, _F, _I, _P])
 KERNELS: Dict[str, Kernel] = {k.name: k for k in
-                              (ENCODE_PACK, QMATMUL, PAGED_ATTEND,
+                              (ENCODE_PACK, QMATMUL, QMATMUL_DECODE,
+                               PAGED_ATTEND,
                                FUSED_SAMPLE, MADAM_STEP, MADAM_STEP_STATS,
                                REQUANT_PACK, LNS_MATMUL_PACKED,
                                MADAM_STEP_UNPACKED)}
@@ -136,16 +143,96 @@ def _scale_ptr(s: Optional[torch.Tensor], shape, name: str) -> int:
     return s.data_ptr()
 
 
+# K2's plan. The skinny path's unit of work is one 16-deep K step of 32
+# columns for one warp (a 4-byte load of each of 16 weight rows). Where eight
+# warps can share all of K at <= _SK_ONE_STEPS steps each, one 8-warp block
+# takes it (no split-K: at K=576 the split's extra round trip cost more
+# than the parallelism it buys); deeper K splits over the grid in 4-warp
+# blocks of _SK_SPLIT_STEPS-step warps. Both constants come from
+# `chip_smoke.py --k2-sweep` (PERF.md). M >= QMATMUL_WGMMA_MIN_M takes the
+# wgmma path (the crossover measured by chip_smoke.py, PERF.md). The plan
+# reads all three when it is called.
+_SK_ONE_STEPS = 6
+_SK_SPLIT_STEPS = 3
+_SK_NW = 32
+QMATMUL_WGMMA_MIN_M = 256
+_PATHS = ("skinny", "wgmma", "f32")
+
+
+def qmatmul_plan(M: int, N: int, K: int,
+                 compute_dtype=torch.bfloat16) -> Dict[str, int]:
+    """K2's launch plan for ``(M,K) @ (K,N)``: the path (``"skinny"``,
+    ``"wgmma"`` or ``"f32"``), its grid size in blocks (the GEMM's, on
+    the wgmma path), and on the skinny path the split-K ``splits``,
+    ``steps`` (16-deep K steps a warp), ``warps`` a block (8, or 4 where
+    K splits) and 8-row activation tiles a block (``mt8``: 1 or 2)."""
+    if compute_dtype == torch.float32:
+        return dict(path="f32", blocks=-(-N // 64) * -(-M // 16), splits=1,
+                    steps=0, warps=0, mt8=0)
+    if M >= QMATMUL_WGMMA_MIN_M:
+        return dict(path="wgmma", blocks=-(-N // 128) * -(-M // 128),
+                    splits=1, steps=0, warps=0, mt8=0)
+    mt8 = 1 if M <= 8 else 2                     # 8-row tiles a block
+    ntiles, ksteps, mtiles = -(-N // _SK_NW), -(-K // 16), -(-M // (8 * mt8))
+    warps, steps = 8, -(-ksteps // 8)
+    if steps > _SK_ONE_STEPS:
+        warps, steps = 4, _SK_SPLIT_STEPS
+    splits = -(-ksteps // (warps * steps))
+    return dict(path="skinny", blocks=ntiles * splits * mtiles,
+                splits=splits, steps=steps, warps=warps, mt8=mt8)
+
+
+def arith_decode(fmt: LNSFormat) -> bool:
+    """Whether K2's skinny path decodes by ALU (``Dec`` in lns_qmatmul.cu)
+    rather than through the shared-memory table: gamma <= 8, and every
+    code's bf16 value is a normal number (at most 125 exponent steps below
+    the base value's)."""
+    lg = fmt.gamma.bit_length() - 1
+    return fmt.gamma <= 8 and (fmt.max_code >> lg) <= 125
+
+
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+def qmatmul_decode(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat):
+    """K2's decode pass on the card (the wgmma path's first kernel): packed
+    operands -> padded K-major bf16 ``(ad (Mp,Kp), bt (Np,Kp))``, as
+    ``ref.qmatmul_decode``; both views of one buffer, ``bt`` right after
+    ``ad``."""
+    _check(pa, "pa", (torch.uint8,), 2)
+    _check(pb, "pb", (torch.uint8,), 2)
+    _check_fmt(fmt)
+    (M, K), N = pa.shape, pb.shape[1]
+    if pb.shape[0] != K:
+        raise ValueError(f"inner dims differ: {tuple(pa.shape)} @ "
+                         f"{tuple(pb.shape)}")
+    mp, np_, kp = (-(-M // ref.WG_MN) * ref.WG_MN,
+                   -(-N // ref.WG_MN) * ref.WG_MN, -(-K // ref.WG_K) * ref.WG_K)
+    ws = torch.empty(((mp + np_) * kp,), dtype=torch.bfloat16,
+                     device=pa.device)
+    QMATMUL_DECODE(pa.data_ptr(), pb.data_ptr(), ws.data_ptr(), M, N, K,
+                   fmt.bits, fmt.gamma, int(_aligned(pa, pb)), _stream(pa))
+    return ws[:mp * kp].view(mp, kp), ws[mp * kp:].view(np_, kp)
+
+
 def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
             scale_a: Optional[torch.Tensor] = None,
             scale_b: Optional[torch.Tensor] = None, *,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """K2 on the card: packed ``(M,K) @ (K,N)`` -> f32 with scales."""
+            compute_dtype=torch.bfloat16,
+            out_dtype=torch.float32) -> torch.Tensor:
+    """K2 on the card: packed ``(M,K) @ (K,N)`` with scales -> ``out_dtype``
+    (f32 or bf16, rounded once from the scaled f32 sum), through the path
+    :func:`qmatmul_plan` picks. The skinny and f32 paths launch one kernel;
+    the wgmma path launches :func:`qmatmul_decode` (counted as
+    ``qmatmul_decode``), then its GEMM (counted as ``qmatmul``)."""
     _check(pa, "pa", (torch.uint8,), 2)
     _check(pb, "pb", (torch.uint8,), 2)
     _check_fmt(fmt)
     if compute_dtype not in _FLOATS:
         raise ValueError(f"compute_dtype {compute_dtype} not in {_FLOATS}")
+    if out_dtype not in _FLOATS:
+        raise ValueError(f"out_dtype {out_dtype} not in {_FLOATS}")
     M, K = pa.shape
     K2, N = pb.shape
     if K != K2:
@@ -153,10 +240,28 @@ def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
                          f"{tuple(pb.shape)}")
     pa_s = _scale_ptr(scale_a, (M, 1), "scale_a")
     pb_s = _scale_ptr(scale_b, (1, N), "scale_b")
-    out = torch.empty((M, N), dtype=torch.float32, device=pa.device)
-    QMATMUL(pa.data_ptr(), pb.data_ptr(), pa_s, pb_s, out.data_ptr(), M, N, K,
-            fmt.bits, fmt.gamma, _DT[compute_dtype], _stream(pa))
+    plan = qmatmul_plan(M, N, K, compute_dtype)
+    out = torch.empty((M, N), dtype=out_dtype, device=pa.device)
+    aligned = _aligned(pa, pb)
+    ws = None
+    if plan["path"] == "skinny":
+        aligned = aligned and N % 4 == 0 and K % 4 == 0
+        if plan["splits"] > 1:
+            ws = torch.empty((plan["splits"], M, N), dtype=torch.float32,
+                             device=pa.device)
+    elif plan["path"] == "wgmma":
+        pa, pb = qmatmul_decode(pa, pb, fmt)   # the GEMM's operands
+    QMATMUL(pa.data_ptr(), pb.data_ptr(), pa_s, pb_s, out.data_ptr(),
+            _DT[out_dtype], 0 if ws is None else ws.data_ptr(), M, N, K,
+            fmt.bits, fmt.gamma, _PATHS.index(plan["path"]), plan["splits"],
+            plan["steps"], plan["warps"], plan["mt8"], int(aligned),
+            int(arith_decode(fmt)), _stream(out))
     return out
+
+
+# K5 stages pages in dynamic shared memory, two stages a warp where they fit
+# an H100 block's 227 KB, else one (the kernel reports the bytes)
+_SMEM_MAX = 232448
 
 
 def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
@@ -176,9 +281,13 @@ def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
         raise ValueError(f"q {tuple(q.shape)} vs pool {tuple(kp.shape)}: "
                          f"need equal head_dim in (16, 32, 64, 128) and "
                          f"KV | H")
-    if 2 * page * hd * 4 > 48 * 1024:
-        raise ValueError(f"page {page} x head_dim {hd} exceeds the kernel's "
-                         f"48 KB page staging")
+    smem_fn = _build.library().repro_paged_attend_smem
+    smem_fn.argtypes, smem_fn.restype = [_I, _I, _I, _I], ctypes.c_longlong
+    nbuf = 2 if smem_fn(hd, _DT[kp.dtype], page, 2) <= _SMEM_MAX else 1
+    smem = smem_fn(hd, _DT[kp.dtype], page, nbuf)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"page {page} x head_dim {hd} needs {smem} bytes of "
+                         f"shared memory, more than the card's {_SMEM_MAX}")
     _check(block_table, "block_table", (torch.int32,), 2)
     _check(lengths, "lengths", (torch.int32,), 1)
     if block_table.shape[0] != B or lengths.shape[0] != B:
@@ -204,7 +313,7 @@ def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
                  lengths.data_ptr(), out.data_ptr(), B, S, H, KV, hd, page,
                  block_table.shape[1], bits, gamma,
                  0.0 if softcap is None else float(softcap), float(sm_scale),
-                 _stream(q))
+                 nbuf, _stream(q))
     return out
 
 

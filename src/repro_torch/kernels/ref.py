@@ -17,12 +17,15 @@ from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode_packed,
                                   lns_unpack, lns_word_dtype)
 from repro_torch.kernels.madam_stats import madam_stats_vec
 
-__all__ = ["SAT24", "row_scale", "encode_pack", "qmatmul", "paged_attend",
+__all__ = ["SAT24", "WG_MN", "WG_K", "row_scale", "encode_pack", "qmatmul",
+           "qmatmul_decode", "paged_attend",
            "fused_sample", "bias_correction", "step_math", "madam_step",
            "madam_step_stats", "madam_step_unpacked", "requant_pack",
            "lns_matmul_packed"]
 
 SAT24 = (1 << 23) - 1  # the 24-bit accumulation collector's bound (Table 1)
+# K2's wgmma tiles: its decode pass pads M and N to WG_MN, K to WG_K
+WG_MN, WG_K = 128, 64
 
 
 def row_scale(x: torch.Tensor, scale_axis: Optional[int] = None):
@@ -44,10 +47,12 @@ def encode_pack(x: torch.Tensor, fmt: LNSFormat,
 def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
             scale_a: Optional[torch.Tensor] = None,
             scale_b: Optional[torch.Tensor] = None, *,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """K2: packed ``pa (M,K) @ pb (K,N)`` -> f32. Operands decode to
-    ``compute_dtype``; products and sums run in f32 (a product of two
-    bf16 values is exact in f32), then the row and column scales."""
+            compute_dtype=torch.bfloat16,
+            out_dtype=torch.float32) -> torch.Tensor:
+    """K2: packed ``pa (M,K) @ pb (K,N)`` -> ``out_dtype``. Operands decode
+    to ``compute_dtype``; products and sums run in f32 (a product of two
+    bf16 values is exact in f32), then the row and column scales, then one
+    rounding to ``out_dtype``."""
     a = lns_decode_packed(pa, fmt, compute_dtype).to(torch.float32)
     b = lns_decode_packed(pb, fmt, compute_dtype).to(torch.float32)
     out = a @ b
@@ -55,7 +60,22 @@ def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
         out = out * scale_a
     if scale_b is not None:
         out = out * scale_b
-    return out
+    return out.to(out_dtype)
+
+
+def qmatmul_decode(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat):
+    """K2's decode pass: packed ``pa (M,K)`` and ``pb (K,N)`` -> bf16
+    ``(ad (Mp,Kp), bt (Np,Kp))``, both K-major (``bt`` holds B
+    transposed), zero past M, N and K (a zero bf16 is 0, unlike a zero
+    word), Mp and Np whole multiples of ``WG_MN``, Kp of ``WG_K``."""
+    (M, K), N = pa.shape, pb.shape[1]
+    mp, np_, kp = (-(-M // WG_MN) * WG_MN, -(-N // WG_MN) * WG_MN,
+                   -(-K // WG_K) * WG_K)
+    ad = torch.zeros((mp, kp), dtype=torch.bfloat16, device=pa.device)
+    bt = torch.zeros((np_, kp), dtype=torch.bfloat16, device=pa.device)
+    ad[:M, :K] = lns_decode_packed(pa, fmt, torch.bfloat16)
+    bt[:N, :K] = lns_decode_packed(pb, fmt, torch.bfloat16).T
+    return ad, bt
 
 
 def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,

@@ -159,6 +159,7 @@ def _cpu_args():
     return {
         "encode_pack": ((x, fmt), {}),
         "qmatmul": ((pa, pb, fmt, sa), {"compute_dtype": torch.float32}),
+        "qmatmul_decode": ((pa, pb, fmt), {}),
         "paged_attend": ((q, pool, pool, None, None, bt, ln),
                          {"sm_scale": 0.25}),
         "fused_sample": ((torch.randn(2, 50), None, None), {}),
@@ -213,6 +214,7 @@ def test_cuda_tensors_never_reach_plain_path(no_cuda, monkeypatch):
         monkeypatch.setattr(ops, name, kernel(name))
     dispatch.encode_pack(cuda, LNSFormat())
     dispatch.qmatmul(cuda, cuda, LNSFormat())
+    dispatch.qmatmul_decode(cuda, cuda, LNSFormat())
     dispatch.paged_attend(cuda, cuda, cuda, None, None, cuda, cuda,
                           sm_scale=1.0)
     dispatch.fused_sample(cuda, None, None)
@@ -289,3 +291,28 @@ def test_k9_wrapper_refuses_what_it_cannot_take(code_dt, fmt, match):
                                 _cuda_words(torch.float32), 0.5,
                                 LNSFormat(*fmt), lr=0.01, beta=0.999,
                                 eps=1e-30)
+
+
+@pytest.mark.parametrize("name", ["qmatmul", "qmatmul_decode",
+                                  "paged_attend"])
+def test_redesigned_wrappers_refuse_cpu_tensors(name, monkeypatch):
+    """K2 (and its decode pass) and K5 take CUDA tensors only, whatever
+    path K2's plan picks."""
+    args, kw = _cpu_args()[name]
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        getattr(ops, name)(*args, **kw)
+    if name == "qmatmul":
+        for threshold in (0, 1 << 62):       # wgmma, then skinny
+            monkeypatch.setattr(ops, "QMATMUL_WGMMA_MIN_M", threshold)
+            with pytest.raises(ValueError, match="expected a CUDA tensor"):
+                ops.qmatmul(*args, **dict(kw, compute_dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.int32,
+                                       torch.float64])
+def test_k2_wrapper_refuses_other_out_dtypes(out_dtype):
+    """K2 rounds its output to f32 or bf16 only."""
+    pa, pb = _cuda_words(torch.uint8, (4, 8)), _cuda_words(torch.uint8,
+                                                           (8, 4))
+    with pytest.raises(ValueError, match="out_dtype"):
+        ops.qmatmul(pa, pb, LNSFormat(8, 8), out_dtype=out_dtype)
