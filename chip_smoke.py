@@ -2,14 +2,19 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py              # every phase below
+    python3 chip_smoke.py --k1-sweep   # K1's block size and grid only
     python3 chip_smoke.py --k2-sweep   # K2's skinny plan constants only
+    python3 chip_smoke.py --k8-sweep   # K8's tiles, splits, table copies
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Require CUDA; print the card's name and power limit (nvidia-smi).
 2. Build the nine CUDA kernels from ``src/repro_torch/kernels/csrc``.
 3. Hold each kernel against its plain PyTorch version on the card at the
-   serving and training shapes of smollm-135m (K3/K4 at the packed leaf
+   serving and training shapes of smollm-135m (K1 also per row, at an
+   absmax of 2^k and one ulp either side for every f32 exponent in f32 and
+   bf16, and with a NaN or an inf in x; one K1 call must show exactly one
+   device kernel, its own, in torch.profiler; K3/K4 at the packed leaf
    shapes, K7 at the 8 packed leaves for 8->6 and 8->7, K5 also at the
    speculative verify's S=4 and with warps that see no position), and
    time the kernel, the plain version and a one-call PyTorch yardstick
@@ -34,7 +39,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a pure accumulation-order change; tokens equal where the plain
    version's top-2 margin exceeds the tolerance.
 6. Profile 3 decode steps with ``torch.profiler``: wall time, device busy
-   time and share, the kernels that take it, and K2's and K5's share.
+   time and share, the kernels that take it, K2's and K5's share, and the
+   device work a step (the port's kernels, torch's, copies); then 3 steps
+   with K1's scale computed by torch first, the launches K1 saves.
 7. Train smollm-135m at full width through ``repro_torch.launch.train``:
    6 steps of 8 x 256 tokens, checkpoints in a temporary directory. The
    loss is finite every step, no step was retried by the supervisor, K1
@@ -45,9 +52,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 9. One full-width train step from the same state and batch through the
    kernels, the plain versions, and the plain versions with an
    f64-accumulating GEMM (the noise floor): loss and the share of packed
-   words that differ after the update, within the stated limits.
+   words that differ after the update, within the stated limits. Then,
+   measured and not limited, the same step with K2 forced onto its skinny
+   path (no wgmma) and with K1's plain version in place of the kernel.
 10. Time 3 train steps, then profile one: wall time, device busy share,
-    top kernels.
+    top kernels, device work (as phase 6), and one more step with K1's
+    scale computed by torch first.
 11. Speculative serving at full width through the serve CLI's engine:
     phase 4's paged trace with ``--speculate-k 4`` at draft bitwidths 6,
     7 and 8, then bitwidth 6 and the non-speculating engine under
@@ -70,7 +80,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     version on fresh operands: within ``K2_RTOL``, bit-identical on a
     repeat, bf16 output equal to the f32 output cast.
 15. K8, the bit-exact Fig.-6 datapath, against its plain version at
-    smollm-135m's GEMM shapes (M 4 and 2048), over the LUT sweep 1/2/4/8
+    smollm-135m's GEMM shapes (M 4 and 2048; each prints its tiles, grid,
+    split and share of the bound), over the LUT sweep 1/2/4/8
     at 2048x576x1536 and on the saturating all-zero case: int32 outputs
     equal in every case. Then the Table-10 kernel sweep through the public
     ``repro_torch.kernels.lns_matmul`` (exact, LUT 1/2/4/8): K8 launches
@@ -256,39 +267,136 @@ def bound_ms(nbytes, flops, peak):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def k1_near_tie(torch, x, s, fmt):
+    """Elements whose unrounded exponent sits within 2^-10 of a
+    half-integer (f32 log2 may round either way there)."""
+    e = -torch.log2(torch.clamp_min(x.double().abs() / s.double(),
+                                    torch.finfo(torch.float32).tiny))
+    e = e * fmt.gamma
+    return (e - torch.floor(e) - 0.5).abs() < 2.0 ** -10
+
+
+def same_floats(torch, a, b):
+    """Equal bit for bit where neither is NaN, NaN at the same places."""
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.where(a.isnan(), 0.0, a), torch.where(b.isnan(), 0.0, b))
+
+
+def k1_pair(torch, ops, ref, x, fmt, scale_axis, what):
+    """One K1 call against the plain version: scales equal, words equal
+    away from the near-half ties. Returns the differing words, the
+    near-ties and the largest word difference."""
+    kw, ks = ops.encode_pack(x, fmt, scale_axis)
+    pw, ps = ref.encode_pack(x, fmt, scale_axis)
+    check(same_floats(torch, ks, ps), f"K1 {what}: scales differ")
+    diff = kw.int() != pw.int()
+    near = k1_near_tie(torch, x, ps, fmt)
+    bad = int((diff & ~near & ~ps.isnan().expand_as(diff)).sum())
+    check(bad == 0, f"K1 {what}: {bad} words differ away from a tie")
+    check(not bool(ps.isnan().any()) or torch.equal(kw, pw),
+          f"K1 {what}: words differ under a NaN scale")
+    return (int(diff.sum()), int(near.sum()),
+            int((kw.int() - pw.int()).abs().max()))
+
+
+def k1_edges(torch, ops, ref, fmt):
+    """K1 where the absmax sits at 2^k and one ulp either side (f32 and
+    bf16 ulps) for every f32 exponent, per row (one edge a row) and per
+    tensor, and with a NaN or an inf in x."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = 0
+    for dt in (torch.float32, torch.bfloat16):
+        edges = []
+        for k in range(-126, 128):
+            for u in (-1, 0, 1):
+                v = torch.tensor(2.0 ** k, dtype=dt)
+                if u:
+                    v = torch.nextafter(v, torch.tensor(
+                        math.inf if u > 0 else 0.0, dtype=dt))
+                edges.append(float(v))
+        amax = torch.tensor(edges, device="cuda")[:, None]
+        x = (torch.rand((len(edges), 64), generator=gen, device="cuda")
+             - 0.5) * 0.9 * amax
+        x[:, 5] = amax[:, 0] * torch.where(
+            torch.arange(len(edges), device="cuda") % 2 == 0, 1.0, -1.0)
+        x = x.to(dt)
+        k1_pair(torch, ops, ref, x, fmt, 0, f"{dt} per-row pow2 edges")
+        for r in range(len(edges)):
+            xt = torch.zeros((4, 576), dtype=dt, device="cuda")
+            xt[1, 3], xt[2, 8] = x[r, 5], x[r, 9]
+            k1_pair(torch, ops, ref, xt, fmt, None,
+                    f"{dt} per-tensor pow2 edge {edges[r]!r}")
+        cases += 1 + len(edges)
+    for special in (math.nan, math.inf, -math.inf):
+        for R, C in ((32, 1536), (2048, 1536)):
+            for axis in (None, 0):
+                x = torch.randn((R, C), generator=gen, device="cuda")
+                x[R // 2, 7] = special
+                k1_pair(torch, ops, ref, x.to(torch.bfloat16), fmt, axis,
+                        f"{R}x{C} with {special} (scale_axis={axis})")
+                cases += 1
+    print(f"K1 edges: {cases} calls (absmax at 2^k and +-1 ulp for k = "
+          f"-126..127 in f32 and bf16, per row and per tensor; NaN, +inf "
+          f"and -inf per row and per tensor): scales equal, words equal "
+          f"away from ties")
+    return cases
+
+
+def k1_one_launch(torch, ops, fmt):
+    """One ``ops.encode_pack`` call issues K1's own kernel and no torch
+    kernel, per tensor and per row (torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+    res = {}
+    for R, C, axis in ((4, 1536, None), (2048, 1536, None),
+                       (2048, 1536, 0)):
+        x = torch.randn((R, C), device="cuda").to(torch.bfloat16)
+        ops.encode_pack(x, fmt, axis)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops.encode_pack(x, fmt, axis)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        check(names, "K1: the profiler saw no device event")
+        check(len(names) == 1 and names[0].startswith("void k1_"),
+              f"K1 {R}x{C} (scale_axis={axis}): one call ran {names}")
+        res[f"{R}x{C}/{axis}"] = names
+    print(f"K1 one launch a call: {res}")
+    return res
+
+
 def k1_check(torch, ops, ref, fmt, shapes):
-    """K1 words equal, except where the unrounded exponent sits within
-    2^-10 of a half-integer (f32 log2 may round either way there)."""
+    """K1 scales equal and words equal, except where the unrounded
+    exponent sits within 2^-10 of a half-integer, at each shape, per
+    tensor and (untimed) per row; timed per tensor."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     for R, C in shapes:
         x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0
              ).to(torch.bfloat16)
-        kw, ks = ops.encode_pack(x, fmt)
-        pw, ps = ref.encode_pack(x, fmt)
-        check(torch.equal(ks, ps), f"K1 {R}x{C}: scales differ")
-        e = -torch.log2(torch.clamp_min(x.double().abs() / ps.double(),
-                                        torch.finfo(torch.float32).tiny))
-        e = e * fmt.gamma
-        near = (e - torch.floor(e) - 0.5).abs() < 2.0 ** -10
-        diff = kw.int() != pw.int()
-        bad = int((diff & ~near).sum())
-        check(bad == 0, f"K1 {R}x{C}: {bad} words differ away from a tie")
-        err = int((kw.int() - pw.int()).abs().max())
+        ties, near, err = k1_pair(torch, ops, ref, x, fmt, None,
+                                  f"{R}x{C}")
+        row_ties, _, row_err = k1_pair(torch, ops, ref, x, fmt, 0,
+                                       f"{R}x{C} per row")
+        err = max(err, row_err)
         nbytes = R * C * 2 + R * 4 + R * C
         b, by = bound_ms(nbytes, 10 * R * C, F32_FLOPS)
         rows.append(dict(
-            shape=[R, C], tie_words=int(diff.sum()),
-            near_half=int(near.sum()), max_abs_err=err,
+            shape=[R, C], tie_words=ties, tie_words_per_row=row_ties,
+            near_half=near, max_abs_err=err,
             ms=cuda_ms(torch, lambda: ops.encode_pack(x, fmt)),
+            ms_per_row=cuda_ms(torch, lambda: ops.encode_pack(x, fmt, 0)),
             eager_ms=eager_ms(torch, lambda: ops.encode_pack(x, fmt)),
             plain_ms=cuda_ms(torch, lambda: ref.encode_pack(x, fmt)),
             bound_ms=b, bound_by=by, library_ms=None))
+        r = rows[-1]
         print(f"K1 encode_pack {R}x{C}: words differing at ties "
-              f"{rows[-1]['tie_words']} (near-half elements "
-              f"{rows[-1]['near_half']}), kernel {rows[-1]['ms']:.4f} ms "
-              f"(eager {rows[-1]['eager_ms']:.4f} ms), "
-              f"plain {rows[-1]['plain_ms']:.4f} ms, bound {b:.5f} ms")
+              f"{ties} (per row {row_ties}; near-half elements {near}), "
+              f"kernel {r['ms']:.4f} ms (per row {r['ms_per_row']:.4f}; "
+              f"eager {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} "
+              f"ms, bound {b:.5f} ms ({by}; kernel at {b / r['ms']:.1%} "
+              f"of it)")
     return rows
 
 
@@ -1281,9 +1389,78 @@ def kernel_shares(torch, prof, busy_us, per, unit):
     return res
 
 
+# the port's kernels by name; every other device kernel in a profile is
+# torch's own (ATen, cuBLAS)
+PORT_KERNELS = ("k1_tensor_kernel", "k1_row_kernel", "qmatmul_",
+                "paged_attend_kernel", "fused_sample_kernel", "madam_step",
+                "requant_kernel", "lns_matmul_kernel")
+
+
+def launch_split(torch, prof, per, n_top=8):
+    """Device work items per ``per`` in a profile: the port's kernels,
+    torch's kernels, memcpy/memset operations, and torch's ``n_top``
+    kernels by launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    n = {"port": 0, "torch": 0, "copies": 0}
+    torch_k = []
+    for e in prof.key_averages():
+        if e.device_type != cuda:
+            continue
+        kind = ("port" if any(k in e.key for k in PORT_KERNELS) else
+                "copies" if e.key.startswith(("Memcpy", "Memset")) else
+                "torch")
+        n[kind] += e.count
+        if kind == "torch":
+            torch_k.append((e.count / per, e.key[:70]))
+    res = {k: v / per for k, v in n.items()}
+    res["torch_top"] = sorted(torch_k, reverse=True)[:n_top]
+    return res
+
+
+@contextlib.contextmanager
+def k1_scale_in_torch(ops, ref):
+    """Launch K1 after ``ref.row_scale``'s torch chain (cast, abs, amax,
+    clamp, log2, ceil, exp2, copy), as K1's wrapper did when the scale was
+    a torch reduction, to profile that launch pattern beside K1's own."""
+    launch = ops.encode_pack
+
+    def scale_first(x, fmt, scale_axis=None):
+        ref.row_scale(x, scale_axis)
+        return launch(x, fmt, scale_axis)
+
+    ops.encode_pack = scale_first
+    try:
+        yield
+    finally:
+        ops.encode_pack = launch
+
+
+def scale_copies(torch, params):
+    """Per-layer weight scales that the routed GEMM's ``reshape(1, -1)
+    .to(f32).expand(1, N).contiguous()`` (core/quantizer.py
+    ``_routed_impl``) would copy, of all it reads: 0 means every one
+    returns the stored tensor and launches nothing."""
+    from repro_torch.core.lns import LNSWeight
+    from repro_torch.tree import leaves
+    copied = total = 0
+    for _, w in leaves(params):
+        if not isinstance(w, LNSWeight) or w.packed.dim() != 3:
+            continue
+        for i in range(w.packed.shape[0]):
+            s = w[i].scale
+            sw = s.reshape(1, -1).to(torch.float32).expand(
+                1, w.packed.shape[2]).contiguous()
+            copied += sw.data_ptr() != s.data_ptr()
+            total += 1
+    return copied, total
+
+
 def profile_decode(torch, engine, ops):
-    """Device busy share over 3 decode steps of a full engine."""
+    """Device busy share over 3 decode steps of a full engine, and the
+    device work a step (the port's kernels and torch's); then 3 more steps
+    with K1's scale computed by torch first (the launches K1 saves)."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ref
     from repro_torch.serving import synthetic_trace
 
     engine.reset()
@@ -1292,26 +1469,53 @@ def profile_decode(torch, engine, ops):
         engine.submit(r)
     engine.step()              # admissions + first decode
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        for _ in range(3):
-            engine.step()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+
+    def window():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(3):
+                engine.step()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        return prof, wall
+
+    prof, wall = window()
+    with k1_scale_in_torch(ops, ref):
+        prof_ts, wall_ts = window()
     busy_us, top = device_time(torch, prof, 6)
+    busy_ts, _ = device_time(torch, prof_ts, 1)
+    launches = launch_split(torch, prof, 3)
+    launches_ts = launch_split(torch, prof_ts, 3)
     share = busy_us / 1e6 / wall if busy_us else None
     print(f"profile, 3 decode steps: wall {wall * 1e3 / 3:.1f} ms/step, "
           f"device busy "
           + (f"{busy_us / 3e3:.2f} ms/step ({share:.1%})" if busy_us
              else "not measured (no device time in the trace)"))
+    print(f"  device work a decode step: {launches['port']:.0f} port "
+          f"kernels, {launches['torch']:.0f} torch kernels, "
+          f"{launches['copies']:.0f} copies; with K1's scale in torch "
+          f"first: {launches_ts['torch']:.0f} torch kernels, busy "
+          f"{busy_ts / 3e3:.2f} ms/step, wall {wall_ts * 1e3 / 3:.1f} "
+          f"ms/step")
+    copied, total = scale_copies(torch, engine.params)
+    print(f"  weight scales the routed GEMM copies: {copied} of {total} "
+          f"layer weights")
+    for tag, ls in (("", launches), ("K1's scale in torch, ", launches_ts)):
+        print(f"  {tag}torch kernels by launches a step: " + "; ".join(
+            f"{name} {cnt:.0f}" for cnt, name in ls["torch_top"]))
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 3e3:.3f} "
               f"ms/step, {e.count // 3} calls/step")
     shares = kernel_shares(torch, prof, busy_us, 3, "step")
     return {"wall_ms_per_step": wall * 1e3 / 3, "k2_k5": shares,
             "device_busy_ms_per_step": busy_us / 3e3 if busy_us else None,
-            "device_busy_share": share,
+            "device_busy_share": share, "launches_per_step": launches,
+            "weight_scale_copies": [copied, total],
+            "k1_scale_in_torch": {
+                "launches_per_step": launches_ts,
+                "device_busy_ms_per_step": busy_ts / 3e3,
+                "wall_ms_per_step": wall_ts * 1e3 / 3},
             "top": [[e.key, e.self_device_time_total / 3e3, e.count // 3]
                     for e in top]}
 
@@ -1432,6 +1636,17 @@ def train_step_check(torch, setup):
         dispatch.qmatmul = qmatmul_f64
         floor_run = run()
     kern = run()
+    # where the kernels' gap comes from (measured, not limited): K2 on its
+    # skinny path at M=2048 in place of wgmma, and K1's plain version in
+    # place of the kernel
+    with k2_path(ops, "skinny"):
+        kern_skinny = run()
+    keep = dispatch.encode_pack
+    dispatch.encode_pack = ref.encode_pack
+    try:
+        kern_k1_plain = run()
+    finally:
+        dispatch.encode_pack = keep
 
     def words_share(a, b):
         n = tot = 0
@@ -1447,13 +1662,27 @@ def train_step_check(torch, setup):
            "loss_rel_err": abs(kern[0] - plain[0]) / abs(plain[0]),
            "loss_rel_floor": abs(floor_run[0] - plain[0]) / abs(plain[0]),
            "word_share": words_share(kern[2], plain[2]),
-           "word_share_floor": words_share(floor_run[2], plain[2])}
+           "word_share_floor": words_share(floor_run[2], plain[2]),
+           "loss_rel_err_k2_skinny": abs(kern_skinny[0] - plain[0])
+           / abs(plain[0]),
+           "word_share_k2_skinny": words_share(kern_skinny[2], plain[2]),
+           "loss_rel_err_k1_plain": abs(kern_k1_plain[0] - plain[0])
+           / abs(plain[0]),
+           "k1_plain_same_loss": kern_k1_plain[0] == kern[0],
+           "k1_plain_word_share": words_share(kern_k1_plain[2], kern[2])}
     print(f"full-width train step: loss kernels {kern[0]:.5f} vs plain "
           f"{plain[0]:.5f} (rel {res['loss_rel_err']:.2e}, floor "
           f"{res['loss_rel_floor']:.2e}, limit {TRAIN_LOSS_RTOL}); words "
           f"differing after the update {res['word_share']:.4%} (floor "
           f"{res['word_share_floor']:.4%}, limit {TRAIN_WORD_SHARE:.0%}); "
           f"grad norm {kern[1]:.4f} vs {plain[1]:.4f}")
+    print(f"  the gap's sources: K2 skinny in place of wgmma: loss rel "
+          f"{res['loss_rel_err_k2_skinny']:.2e}, words "
+          f"{res['word_share_k2_skinny']:.4%}; K1's plain version in place "
+          f"of the kernel: loss rel {res['loss_rel_err_k1_plain']:.2e} "
+          f"(same loss as the kernels: {res['k1_plain_same_loss']}; words "
+          f"differing from the kernels' step "
+          f"{res['k1_plain_word_share']:.4%})")
     check(res["loss_rel_err"] <= TRAIN_LOSS_RTOL,
           f"train-step loss differs by {res['loss_rel_err']}")
     check(res["word_share"] <= TRAIN_WORD_SHARE,
@@ -1462,8 +1691,11 @@ def train_step_check(torch, setup):
 
 
 def profile_train(torch, setup):
-    """Phase 10: device busy share of one full-width train step."""
+    """Phase 10: device busy share of one full-width train step, its
+    device work (port and torch kernels), and one more step with K1's
+    scale computed by torch first."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops, ref
     from repro_torch.training.steps import build_train_step
     cfg, qcfg, mcfg, state, batch = setup
     step = build_train_step(cfg, qcfg, mcfg)
@@ -1481,19 +1713,34 @@ def profile_train(torch, setup):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     busy_us, top = device_time(torch, prof, 10)
+    launches = launch_split(torch, prof, 1)
+    with k1_scale_in_torch(ops, ref), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof_ts:
+        float(step(state, batch)[1]["loss"])
+        torch.cuda.synchronize()
+    busy_ts, _ = device_time(torch, prof_ts, 1)
+    launches_ts = launch_split(torch, prof_ts, 1)
     share = busy_us / 1e6 / wall if busy_us else None
     print(f"train step without the profiler: {step_ms:.1f} ms "
           f"({2048 / step_ms * 1e3:.0f} tok/s)")
     print(f"profile, 1 train step: wall {wall * 1e3:.1f} ms, device busy "
           + (f"{busy_us / 1e3:.1f} ms ({share:.1%})" if busy_us
              else "not measured (no device time in the trace)"))
+    print(f"  device work a train step: {launches['port']:.0f} port "
+          f"kernels, {launches['torch']:.0f} torch kernels, "
+          f"{launches['copies']:.0f} copies; with K1's scale in torch "
+          f"first: {launches_ts['torch']:.0f} torch kernels, busy "
+          f"{busy_ts / 1e3:.1f} ms")
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms, "
               f"{e.count} calls")
     shares = kernel_shares(torch, prof, busy_us, 1, "step")
     return {"step_ms": step_ms, "wall_ms": wall * 1e3, "k2_k5": shares,
             "device_busy_ms": busy_us / 1e3 if busy_us else None,
-            "device_busy_share": share,
+            "device_busy_share": share, "launches": launches,
+            "k1_scale_in_torch": {"launches": launches_ts,
+                                  "device_busy_ms": busy_ts / 1e3},
             "top": [[e.key, e.self_device_time_total / 1e3, e.count]
                     for e in top]}
 
@@ -1585,14 +1832,18 @@ def k8_check(torch, ops, ref, fmt, gemms):
         check(diff == 0, f"K8 {M}x{K}x{N}: {diff} outputs differ from the "
               f"plain version")
         b_ms, by = bound(M, K, N)
+        plan = ops.lns_matmul_plan(M, N, K)
         rows.append(dict(
             shape=[M, K, N], lut_entries=None, max_abs_err=0,
-            rel_err_vs_f32=rel_err(out, a, b, sa, sb),
+            rel_err_vs_f32=rel_err(out, a, b, sa, sb), plan=plan,
             ms=cuda_ms(torch, fn, iters=5 if M >= 2048 else 20, replays=3),
             eager_ms=eager_ms(torch, fn, iters=10), plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=by, library_ms=None))
         r = rows[-1]
         print(f"K8 lns_matmul_packed {M}x{K}x{N}: int32 outputs equal, "
+              f"{plan['cfg']} tiles, grid {plan['grid_n']}x"
+              f"{plan['grid_m']}x{plan['splits']} (splits of "
+              f"{plan['slices']} slices), table copies {plan['repl']}; "
               f"kernel {r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), "
               f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}; "
               f"kernel at {b_ms / r['ms']:.1%} of it)")
@@ -1643,6 +1894,97 @@ def k8_check(torch, ops, ref, fmt, gemms):
               f"{t['rel_err_vs_f32']:.4f} of max |f32 matmul|; paper's "
               f"calibrated model {t['fj_per_op']} fJ/op (not measured)")
     return rows, sweep, table10, counts, rates
+
+
+def k1_sweep(torch, ops, ref, fmt):
+    """``--k1-sweep``: K1 per tensor at the six phase-3 shapes (bf16) for
+    each block size and minimum chunk (which set the grid; no one-block
+    threshold), every call's scales and words held to the plain
+    version."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    keep = ops._K1_THREADS, ops._K1_ONE_BLOCK, ops._K1_MIN_CHUNK
+    ops._K1_ONE_BLOCK = 0
+    rows = []
+    try:
+        for R, C in ((4, 576), (4, 1536), (32, 576), (32, 1536),
+                     (2048, 576), (2048, 1536)):
+            x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0
+                 ).to(torch.bfloat16)
+            b, _ = bound_ms(R * C * 2 + R * 4 + R * C, 0, 1)
+            for threads in (256, 512, 1024):
+                for chunk in (2048, 4096, 8192, 16384):
+                    ops._K1_THREADS, ops._K1_MIN_CHUNK = threads, chunk
+                    k1_pair(torch, ops, ref, x, fmt, None,
+                            f"sweep {R}x{C} {threads}/{chunk}")
+                    rows.append(dict(shape=[R, C], threads=threads,
+                                     min_chunk=chunk, bound_ms=b,
+                                     ms=cuda_ms(torch, lambda: ops.encode_pack(
+                                         x, fmt))))
+            best = sorted((r for r in rows if r["shape"] == [R, C]),
+                          key=lambda r: r["ms"])
+            print(f"K1 sweep {R}x{C} (bound {b:.5f} ms): " + ", ".join(
+                f"{r['threads']}/{r['min_chunk']} {r['ms']:.4f}"
+                for r in best), flush=True)
+    finally:
+        ops._K1_THREADS, ops._K1_ONE_BLOCK, ops._K1_MIN_CHUNK = keep
+    return rows
+
+
+@contextlib.contextmanager
+def k8_forced(ops, cfg, splits, repl):
+    """Route every K8 call through tile config ``cfg`` with ``splits``
+    K splits (whole 16-column slices, none empty) and ``repl`` table
+    copies, to time the options the plan did not pick."""
+    keep = ops.lns_matmul_plan
+
+    def plan(M, N, K, block_k=16):
+        gm, gn = ops._k8_tiles(cfg, M, N)
+        n = -(-K // block_k)
+        per = -(-n // splits)
+        return dict(cfg=cfg, repl=repl, grid_n=gn, grid_m=gm,
+                    splits=-(-n // per), slices=per)
+
+    ops.lns_matmul_plan = plan
+    try:
+        yield
+    finally:
+        ops.lns_matmul_plan = keep
+
+
+def k8_sweep(torch, ops, ref, fmt):
+    """``--k8-sweep``: K8 at the phase-15 GEMMs under each tile config,
+    split count and number of table copies (1 or 32: bank conflicts
+    against table size), every output held to the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    gemms = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
+    rows = []
+    for M in (4, 2048):
+        if M == 4:
+            opts = [("skinny", s, r) for s in (1, 4, 8, 16, 36)
+                    for r in (1, 32)] + [("mid", s, 32) for s in (8, 36)]
+        else:
+            opts = [("wide", 1, r) for r in (32, 1)]
+            opts += [("mid", s, 32) for s in (1, 2, 3)] + [("mid", 1, 1)]
+        for K, N in gemms:
+            *_, pa, pb = k8_operands(torch, M, K, N, fmt, gen)
+            want = ref.lns_matmul_packed(pa, pb, fmt)
+            for cfg, splits, repl in opts:
+                with k8_forced(ops, cfg, splits, repl):
+                    out = ops.lns_matmul_packed(pa, pb, fmt)
+                    check(torch.equal(out, want),
+                          f"K8 sweep {M}x{K}x{N} {cfg}/{splits}/{repl}: "
+                          f"outputs differ from the plain version")
+                    ms = cuda_ms(torch, lambda: ops.lns_matmul_packed(
+                        pa, pb, fmt), iters=5 if M > 4 else 20, replays=3)
+                rows.append(dict(shape=[M, K, N], cfg=cfg, splits=splits,
+                                 repl=repl, ms=ms))
+            best = sorted((r for r in rows if r["shape"] == [M, K, N]),
+                          key=lambda r: r["ms"])
+            print(f"K8 sweep {M}x{K}x{N} (plan "
+                  f"{ops.lns_matmul_plan(M, N, K)}): " + ", ".join(
+                      f"{r['cfg']}/{r['splits']}/{r['repl']} "
+                      f"{r['ms']:.4f}" for r in best), flush=True)
+    return rows
 
 
 def k9_inputs(torch, R, C, bits, gdt, cdt, gen):
@@ -1853,9 +2195,12 @@ def main() -> int:
     import torch
 
     t_start = time.monotonic()
-    sweep = sys.argv[1:] == ["--k2-sweep"]
+    sweeps = {"--k1-sweep": k1_sweep, "--k2-sweep": k2_sweep,
+              "--k8-sweep": k8_sweep}
+    sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
-        print(f"usage: {Path(__file__).name} [--k2-sweep]", file=sys.stderr)
+        print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
+              f"--k8-sweep]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1884,10 +2229,11 @@ def main() -> int:
 
     fmt = LNSFormat(8, 8)
     if sweep:
-        rows = k2_sweep(torch, ops, ref, fmt)
+        name = sys.argv[1][2:].replace("-", "_")
+        rows = sweeps[sys.argv[1]](torch, ops, ref, fmt)
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
-        (out_dir / "k2_sweep.json").write_text(json.dumps(
+        (out_dir / f"{name}.json").write_text(json.dumps(
             {"card": card.stdout.strip(), "rows": rows}, indent=1))
         return 0
     # serving shapes (M = 4 decode, 32 prefill), then the training step's
@@ -1895,6 +2241,8 @@ def main() -> int:
     k1 = k1_check(torch, ops, ref, fmt, [(4, 576), (4, 1536), (32, 576),
                                          (32, 1536), (2048, 576),
                                          (2048, 1536)])
+    k1_edge_calls = k1_edges(torch, ops, ref, fmt)
+    k1_launch = k1_one_launch(torch, ops, fmt)
     gemms = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
     # the main path's shapes first (decode M=4, prefill M=32, training
     # M=2048), then the verify's M=16 and M=24 (two 8-row tiles a block,
@@ -1999,7 +2347,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k2_driven = k2_driven_check(torch, ops, ref, fmt, k2_seen)
 
-    k8, k8_sweep, table10, k8_counts, k8_rate_inputs = k8_check(
+    k8, k8_luts, table10, k8_counts, k8_rate_inputs = k8_check(
         torch, ops, ref, fmt, [(m, k, n) for m in (4, 2048) for k, n in gemms])
     # K9 at phase 3's leaves with int32 codes, the embedding once with
     # int16 codes (JAX's madam_update_pallas takes int16) and B=8 in uint8
@@ -2055,11 +2403,13 @@ def main() -> int:
     full = {"card": card.stdout.strip(), "build_s": build_s,
             "kernels": kernels,
             "qmatmul_decode": k2_decode, "qmatmul_driven": k2_driven,
+            "encode_pack_edge_calls": k1_edge_calls,
+            "encode_pack_one_launch": k1_launch,
             "shapes": {"encode_pack": k1, "qmatmul": k2,
                        "qmatmul_decode_pass": k2_pass, "paged_attend": k5,
                        "fused_sample": k6, "requant_pack": k7, **k34,
                        "lns_matmul_packed": k8,
-                       "lns_matmul_packed_lut_sweep": k8_sweep,
+                       "lns_matmul_packed_lut_sweep": k8_luts,
                        "madam_step_unpacked": k9},
             "table10": table10, "k8_rate_inputs": k8_rate_inputs,
             "approx_train": approx,

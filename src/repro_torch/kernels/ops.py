@@ -23,8 +23,8 @@ __all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "QMATMUL_DECODE",
            "arith_decode",
            "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "REQUANT_PACK",
            "LNS_MATMUL_PACKED", "MADAM_STEP_UNPACKED", "launch_counts",
-           "reset_launch_counts", "encode_pack", "qmatmul", "qmatmul_decode",
-           "paged_attend",
+           "reset_launch_counts", "lns_matmul_plan", "encode_pack",
+           "qmatmul", "qmatmul_decode", "paged_attend",
            "fused_sample", "madam_step", "madam_step_stats", "requant_pack",
            "lns_matmul_packed", "madam_step_unpacked"]
 
@@ -57,7 +57,8 @@ class Kernel:
 
 
 ENCODE_PACK = Kernel("encode_pack", "repro_encode_pack",
-                     [_P, _I, _P, _P, _LL, _LL, _I, _I, _P])
+                     [_P, _I, _I, _P, _P, _LL, _LL, _I, _I, _I, _LL, _LL,
+                      _P])
 QMATMUL = Kernel("qmatmul", "repro_qmatmul",
                  [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _P])
@@ -75,8 +76,8 @@ MADAM_STEP_STATS = Kernel("madam_step_stats", "repro_madam_step_stats",
 REQUANT_PACK = Kernel("requant_pack", "repro_requant_pack",
                       [_P, _P, _LL, _I, _I, _I, _I, _P])
 LNS_MATMUL_PACKED = Kernel("lns_matmul_packed", "repro_lns_matmul",
-                           [_P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _P])
+                           [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P])
 MADAM_STEP_UNPACKED = Kernel("madam_step_unpacked",
                              "repro_madam_step_unpacked",
                              [_P, _I, _P, _P, _I, _P, _P, _P, _LL, _I, _I,
@@ -119,17 +120,33 @@ def _check_fmt(fmt: LNSFormat) -> None:
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
+# K1 per tensor: threads a block; one block (no grid barrier) up to
+# _K1_ONE_BLOCK elements, above that a block a _K1_MIN_CHUNK elements up to
+# one a SM. From `chip_smoke.py --k1-sweep` (PERF.md); read when the
+# wrapper is called
+_K1_THREADS = 512
+_K1_ONE_BLOCK = 8192
+_K1_MIN_CHUNK = 2048
 
 
 def encode_pack(x: torch.Tensor, fmt: LNSFormat,
                 scale_axis: Optional[int] = None):
-    """K1 on the card -> ``(packed uint8 (R,C), scale (R,1) f32)``."""
+    """K1 on the card -> ``(packed uint8 (R,C), scale (R,1) f32)``: the
+    pow2 absmax scale (per tensor, or per row for ``scale_axis=0``) and the
+    words in one launch; no torch op runs besides the two allocations."""
     _check(x, "x", _FLOATS, 2)
     _check_fmt(fmt)
-    srow = ref.row_scale(x, scale_axis)       # torch reduction, as on TPU
-    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    ENCODE_PACK(x.data_ptr(), _DT[x.dtype], srow.data_ptr(), out.data_ptr(),
-                x.shape[0], x.shape[1], fmt.bits, fmt.gamma, _stream(x))
+    if scale_axis not in (None, 0):
+        raise ValueError(f"K1 scales per tensor or per row (scale_axis None "
+                         f"or 0), got scale_axis={scale_axis}")
+    R, C = x.shape
+    if R * C == 0:
+        raise ValueError(f"K1 takes a non-empty x, got {tuple(x.shape)}")
+    out = torch.empty((R, C), dtype=torch.uint8, device=x.device)
+    srow = torch.empty((R, 1), dtype=torch.float32, device=x.device)
+    ENCODE_PACK(x.data_ptr(), _DT[x.dtype], int(scale_axis == 0),
+                out.data_ptr(), srow.data_ptr(), R, C, fmt.bits, fmt.gamma,
+                _K1_THREADS, _K1_ONE_BLOCK, _K1_MIN_CHUNK, _stream(x))
     return out, srow
 
 
@@ -456,11 +473,61 @@ def madam_step_unpacked(code: torch.Tensor, sign: torch.Tensor,
     return c_out, v_out
 
 
-# K8's limits: the LUT sits in 256 ints of shared memory (byte words give
-# remainders below 255 whatever gamma is), and with frac_bits <= 16,
-# gamma <= 4096 and block_k <= 4096 no int32 product or block sum can
-# overflow (a term is below 2**17)
+# K8's limits: byte words give m = ca + cb <= 254, so at most 256 LUT
+# entries are read, and with frac_bits <= 16, gamma <= 4096 and block_k <=
+# 4096 no int32 product or slice sum can overflow (a term is below 2**17)
 _K8_LUT, _K8_MAX_GAMMA, _K8_MAX_BLOCK_K = 256, 4096, 4096
+# K8's plan. Tiles: "wide" 128x64 outputs a block where they number at
+# least _K8_FILL blocks (two an SM: a block keeps a 98 KB table), else
+# "mid" 64x64, and "skinny" 4x256 at M <= _K8_SKINNY_M. Mid and skinny
+# tiles split K in whole block_k slices: at least _K8_SPLIT_SLICES slices a
+# split, at most _K8_MAX_SPLITS splits, at most 4 x _K8_FILL blocks (the
+# workspace holds 3 int32 a split an output), each split's K under
+# _K8_SPLIT_MAX_K (its sum of slice sums, < 2**17 a term, stays in int32),
+# and at most _K8_MAX_TILES tiles (the kernel's arrival counters).
+# _K8_REPL: copies of the term table a block keeps (32: no bank conflicts,
+# 98 KB; 1: conflicts, 3 KB and a cheaper prologue). The constants come
+# from `chip_smoke.py --k8-sweep` (PERF.md); the plan reads them when it is
+# called.
+_K8_FILL = 2 * 132
+_K8_TILES = {"wide": (128, 64), "skinny": (4, 256), "mid": (64, 64)}
+_K8_SKINNY_M = 8
+_K8_MAX_SPLITS = {"wide": 1, "mid": 8, "skinny": 16}
+_K8_SPLIT_SLICES = {"wide": 32, "mid": 32, "skinny": 1}
+_K8_SPLIT_MAX_K = 16000
+_K8_MAX_TILES = 65536
+_K8_REPL = {"wide": 32, "mid": 32, "skinny": 1}
+
+
+def _k8_tiles(cfg: str, M: int, N: int):
+    bm, bn = _K8_TILES[cfg]
+    return -(-M // bm), -(-N // bn)
+
+
+def lns_matmul_plan(M: int, N: int, K: int, block_k: int = 16
+                    ) -> Dict[str, int]:
+    """K8's launch plan for ``(M,K) @ (K,N)``: the tile config, the table
+    copies ``repl``, the grid (``grid_n`` x ``grid_m`` tiles x
+    ``splits``) and the block_k ``slices`` each split takes."""
+    if M <= _K8_SKINNY_M:
+        cfg = "skinny"
+    else:
+        gm, gn = _k8_tiles("wide", M, N)
+        cfg = "wide" if gm * gn >= _K8_FILL else "mid"
+    grid_m, grid_n = _k8_tiles(cfg, M, N)
+    tiles = grid_m * grid_n
+    n_slices = -(-K // block_k)
+    splits = 1
+    if tiles <= _K8_MAX_TILES:
+        splits = max(1, min(_K8_MAX_SPLITS[cfg],
+                            n_slices // _K8_SPLIT_SLICES[cfg],
+                            4 * _K8_FILL // tiles))
+    per = -(-n_slices // splits) if n_slices else 0
+    if per * block_k > _K8_SPLIT_MAX_K:
+        per = n_slices
+    splits = -(-n_slices // per) if per else 1        # no empty split
+    return dict(cfg=cfg, repl=_K8_REPL[cfg], grid_n=grid_n, grid_m=grid_m,
+                splits=splits, slices=per)
 
 
 def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
@@ -468,7 +535,8 @@ def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
                       block_k: int = 16) -> torch.Tensor:
     """K8 on the card: the Fig.-6 integer datapath on packed uint8
     ``pa (M,K) @ pb (K,N)`` -> int32 ``(M,N)``, any M, N and K (no
-    padding; a partial last K block is one block)."""
+    padding; a partial last K block is one block), through the tiles and
+    split :func:`lns_matmul_plan` picks."""
     _check(pa, "pa", (torch.uint8,), 2)
     _check(pb, "pb", (torch.uint8,), 2)
     _check_fmt(fmt)
@@ -484,8 +552,9 @@ def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
     if not 1 <= block_k <= _K8_MAX_BLOCK_K:
         raise ValueError(f"K8 takes block_k in [1, {_K8_MAX_BLOCK_K}], got "
                          f"{block_k}")
-    if -(-M // 64) > 65535:
-        raise ValueError(f"K8 takes at most {65535 * 64} rows, got {M}")
+    plan = lns_matmul_plan(M, N, K, block_k)
+    if plan["grid_m"] > 65535:
+        raise ValueError(f"K8 takes at most 65535 row tiles, got {M} rows")
     # the numpy tables of core.conversion (bit-identical to the JAX
     # package's; they validate lut_entries), uploaded once per
     # format and device
@@ -501,7 +570,16 @@ def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
             lut_entries, device=pa.device)
     lut = lut[:_K8_LUT]
     out = torch.empty((M, N), dtype=torch.int32, device=pa.device)
+    ws = None
+    if plan["splits"] > 1:       # (c, lo, hi) of every split's collector
+        ws = torch.empty((plan["splits"], 3, M, N), dtype=torch.int32,
+                         device=pa.device)
+    aligned = (pa.data_ptr() % 4 == 0 and pb.data_ptr() % 4 == 0
+               and K % 4 == 0 and N % 4 == 0 and block_k % 4 == 0)
     LNS_MATMUL_PACKED(pa.data_ptr(), pb.data_ptr(), lut.data_ptr(),
-                      lut.numel(), out.data_ptr(), M, N, K, fmt.bits, b, b_l,
-                      block_k, _stream(pa))
+                      out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+                      M, N, K, fmt.bits, b, b_l, block_k,
+                      tuple(_K8_TILES).index(plan["cfg"]), plan["repl"],
+                      plan["splits"], plan["slices"], int(aligned),
+                      _stream(pa))
     return out

@@ -277,6 +277,29 @@ def test_k8_wrapper_refuses_what_it_cannot_take(fmt, kw, match):
         ops.lns_matmul_packed(_cuda_words(torch.int32), pb, LNSFormat(8, 8))
 
 
+@pytest.mark.parametrize("shape,axis,fmt,match", [
+    ((4, 8), 1, (8, 8), "scale_axis"),
+    ((4, 8), (0, 1), (8, 8), "scale_axis"),
+    ((0, 8), None, (8, 8), "non-empty"),
+    ((4, 8), None, (16, 2048), "bits <= 8"),
+])
+def test_k1_wrapper_refuses_what_it_cannot_take(shape, axis, fmt, match):
+    """K1 takes a non-empty 2-D f32 or bf16 x, scaled per tensor or per
+    row, into byte words."""
+    x = _cuda_words(torch.bfloat16, shape)
+    with pytest.raises(ValueError, match=match):
+        ops.encode_pack(x, LNSFormat(*fmt), axis)
+    with pytest.raises(ValueError, match="not in"):
+        ops.encode_pack(_cuda_words(torch.int32), LNSFormat(8, 8))
+
+
+def test_k8_wrapper_refuses_more_row_tiles_than_a_grid_takes():
+    pa = _cuda_words(torch.uint8, (128 * 65535 + 1, 8))
+    with pytest.raises(ValueError, match="row tiles"):
+        ops.lns_matmul_packed(pa, _cuda_words(torch.uint8, (8, 4)),
+                              LNSFormat(8, 8))
+
+
 @pytest.mark.parametrize("code_dt,fmt,match", [
     (torch.int8, (8, 8), "not in"),
     (torch.uint8, (16, 2048), "2..8-bit"),
@@ -294,13 +317,22 @@ def test_k9_wrapper_refuses_what_it_cannot_take(code_dt, fmt, match):
 
 
 @pytest.mark.parametrize("name", ["qmatmul", "qmatmul_decode",
-                                  "paged_attend"])
+                                  "paged_attend", "encode_pack",
+                                  "lns_matmul_packed"])
 def test_redesigned_wrappers_refuse_cpu_tensors(name, monkeypatch):
-    """K2 (and its decode pass) and K5 take CUDA tensors only, whatever
-    path K2's plan picks."""
+    """K2 (and its decode pass), K5, K1 and K8 take CUDA tensors only,
+    whatever path K2's or K8's plan picks and whichever K1 scale."""
     args, kw = _cpu_args()[name]
     with pytest.raises(ValueError, match="expected a CUDA tensor"):
         getattr(ops, name)(*args, **kw)
+    if name == "encode_pack":
+        with pytest.raises(ValueError, match="expected a CUDA tensor"):
+            ops.encode_pack(*args, scale_axis=0)
+    if name == "lns_matmul_packed":
+        for skinny_m in (0, 1 << 62):          # wide or mid, then skinny
+            monkeypatch.setattr(ops, "_K8_SKINNY_M", skinny_m)
+            with pytest.raises(ValueError, match="expected a CUDA tensor"):
+                ops.lns_matmul_packed(*args, **kw)
     if name == "qmatmul":
         for threshold in (0, 1 << 62):       # wgmma, then skinny
             monkeypatch.setattr(ops, "QMATMUL_WGMMA_MIN_M", threshold)

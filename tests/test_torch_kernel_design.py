@@ -1,4 +1,4 @@
-"""The Hopper designs of K2 and K5, checked on their plain versions.
+"""The Hopper designs of K1, K2, K5 and K8, checked on their plain versions.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them
 against their plain versions there). What the CPU can check is that the
@@ -22,7 +22,20 @@ it, so the two cannot drift apart):
   a zero word decodes to), and multiply to the plain K2.
 * The fused output cast: the plain K2 with ``out_dtype=bf16`` equals its
   f32 result cast to bf16, bit for bit.
+* K1's one launch: block maxima of |x|'s bit patterns over the kernel's
+  chunks, met in any order, then one f32 log2/ceil/exp2 finalize, give
+  ``ref.row_scale`` bit for bit and ``ref.encode_pack``'s words, at an
+  absmax of 2^k and one ulp either side for every f32 exponent, with NaN
+  and inf, per tensor and per row. H12: the port's scale is an exact power
+  of two at every exponent.
+* K8's term table (the whole signed term of m = ca + cb, built by the
+  datapath's own integer arithmetic) equals the per-product magnitude at
+  every format and LUT kind it takes; its split-K (each split's collector
+  carried as ``acc -> clamp(acc + c, lo, hi)``, applied in K order)
+  replays the 24-bit collector exactly, saturating both ways and on a
+  partial last slice; its plan.
 """
+import math
 import sys
 from pathlib import Path
 
@@ -31,6 +44,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import conversion  # noqa: E402
 from repro_torch.core.lns import LNSFormat, lns_decode_packed  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -316,3 +330,361 @@ def test_k5_warp_split_matches_plain(case, packed, softcap):
     got = _k5_warp_split(*args, **kw)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= K5_ATOL
+
+
+# ---------------------------------------------------------------- K1
+
+K1_SMS = 132
+TINY = torch.finfo(torch.float32).tiny
+
+
+def _k1_chunks(n, itemsize):
+    """K1's per-tensor partition (``launch`` in lns_quantize.cu, with the
+    wrapper's constants): one block up to ``_K1_ONE_BLOCK`` elements, else
+    a block a ``_K1_MIN_CHUNK`` up to one an SM, chunks of whole 16-byte
+    vectors."""
+    vec = 16 // itemsize
+    nb = 1 if n <= ops._K1_ONE_BLOCK else min(-(-n // ops._K1_MIN_CHUNK),
+                                              K1_SMS)
+    chunk = -(-(-(-n // nb)) // vec) * vec
+    return [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+
+
+def _abs_bits(x):
+    """|x|'s f32 bit patterns as int64: ordered as the values, NaN above
+    +inf (the kernel's unsigned max)."""
+    return (x.float().contiguous().view(torch.int32).to(torch.int64)
+            & 0x7FFFFFFF)
+
+
+def _finalize(bits):
+    """The kernel's scale from the max's bits: NaN-keeping clamp to tiny,
+    then log2, ceil, exp2 in f32."""
+    a = bits.to(torch.int32).view(torch.float32)
+    a = torch.where(a < TINY, torch.full((), TINY), a)
+    return torch.exp2(torch.ceil(torch.log2(a)))
+
+
+def _k1_partitioned(x, fmt, scale_axis, seed):
+    """K1 as the kernel partitions it, in plain torch: per tensor, block
+    maxima of the chunks met in a scrambled block order; per row, one
+    warp's max; one f32 finalize; then the encode in the kernel's order
+    (|x| times the exact reciprocal of a normal pow2 scale, NaN-keeping
+    clamps, NaN codes to 0)."""
+    R, C = x.shape
+    bits = _abs_bits(x)
+    if scale_axis == 0:
+        s = _finalize(bits.amax(dim=1, keepdim=True))
+    else:
+        flat = bits.reshape(-1)
+        maxima = [flat[lo:hi].max() for lo, hi in
+                  _k1_chunks(flat.numel(), x.element_size())]
+        order = np.random.default_rng(seed).permutation(len(maxima))
+        m = torch.zeros((), dtype=torch.int64)
+        for i in order:
+            m = torch.maximum(m, maxima[i])
+        s = _finalize(m).reshape(1, 1).expand(R, 1)
+    sb = s.view(torch.int32)
+    pow2 = ((sb & 0x7FFFFF) == 0) & (sb >= 0x00800000) & (sb < 0x7F800000)
+    xf = x.float()
+    mag = torch.where(pow2, xf.abs() * (1.0 / s), xf.abs() / s)
+    mag = torch.where(mag < TINY, torch.full((), TINY), mag)
+    e = torch.floor(-torch.log2(mag) * fmt.gamma + 0.5)
+    e = torch.nan_to_num(e, nan=0.0).clamp(0, fmt.max_code)
+    word = ((xf < 0).to(torch.int32) << (fmt.bits - 1)) | e.to(torch.int32)
+    return word.to(torch.uint8), s.contiguous()
+
+
+def _edge_amax(k, ulp, dtype):
+    """2^k moved by ``ulp`` units in the last place of ``dtype``."""
+    v = torch.tensor(2.0 ** k, dtype=dtype)
+    if ulp:
+        v = torch.nextafter(v, torch.tensor(np.inf if ulp > 0 else 0.0,
+                                            dtype=dtype))
+    return float(v)
+
+
+def _same(a, b):
+    return torch.equal(a.isnan(), b.isnan()) and torch.equal(
+        torch.where(a.isnan(), 0.0, a), torch.where(b.isnan(), 0.0, b))
+
+
+K1_EXPONENTS = list(range(-126, 128))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale_axis", [None, 0])
+@pytest.mark.parametrize("case", ["pow2_edges", "nan", "inf", "serving"])
+def test_k1_partition_matches_plain(dtype, scale_axis, case):
+    """Block maxima in a scrambled order and one f32 finalize give
+    ``ref.row_scale``'s scale bit for bit and ``ref.encode_pack``'s words:
+    at absmax 2^k and one ulp either side for every f32 exponent, with a
+    NaN or an inf in x, and at the serving and a multi-block shape."""
+    rng = np.random.default_rng(16)
+    xs = []
+    if case == "pow2_edges":
+        # 8 rows a tensor, one (k, ulp) a row: per row each row's absmax
+        # sits on the edge, per tensor the largest row's
+        edges = [(k, u) for k in K1_EXPONENTS for u in (-1, 0, 1)]
+        for i in range(0, len(edges), 8):
+            rows = edges[i:i + 8]
+            x = rng.uniform(-0.45, 0.45, (len(rows), 40)).astype(np.float32)
+            x = torch.from_numpy(x)
+            for r, (k, u) in enumerate(rows):
+                x[r] = x[r] * 2.0 ** k
+                x[r, (7 * r) % 40] = _edge_amax(k, u, dtype) * (-1) ** r
+            xs.append(x.to(dtype))
+    elif case in ("nan", "inf"):
+        for shape in [(4, 576), (32, 1536)]:
+            x = torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32))
+            x[1, 5] = np.nan if case == "nan" else np.inf
+            x[2, 9] = -np.inf if case == "inf" else 1.0
+            xs.append(x.to(dtype))
+    else:
+        for shape in [(4, 576), (4, 1536), (32, 1536), (96, 1536),
+                      (5, 77)]:
+            xs.append(torch.from_numpy(
+                (rng.standard_normal(shape) * 3.0).astype(np.float32)
+            ).to(dtype))
+    for i, x in enumerate(xs):
+        kw, ks = _k1_partitioned(x, FMT, scale_axis, seed=i)
+        pw, ps = ref.encode_pack(x, FMT, scale_axis)
+        assert _same(ks, ps)
+        assert torch.equal(ks.isnan(), ref.row_scale(x, scale_axis).isnan())
+        assert torch.equal(kw, pw)
+
+
+def test_k1_chunks_cover_the_tensor():
+    """The partition: whole vectors, at most one block an SM, one block
+    for the decode shapes, every element in exactly one chunk."""
+    for n, item in [(4 * 576, 2), (4 * 1536, 2), (32 * 1536, 2),
+                    (2048 * 1536, 2), (2048 * 1536, 4), (5 * 77, 4)]:
+        chunks = _k1_chunks(n, item)
+        assert len(chunks) <= K1_SMS
+        assert chunks[0][0] == 0 and chunks[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+        assert all((hi - lo) % (16 // item) == 0 for lo, hi in chunks[:-1])
+        if n <= ops._K1_ONE_BLOCK:
+            assert len(chunks) == 1
+        else:
+            assert len(chunks) > 1
+
+
+def test_h12_row_scale_is_an_exact_power_of_two():
+    """H12: the port's scale is 2^ceil(log2(absmax)) with a zero mantissa
+    at every exponent (the JAX reference's XLA-CPU exp2 is not exact
+    there); an absmax of exactly 2^k gives 2^k."""
+    for k in range(-126, 128):
+        for u in (-1, 0, 1):
+            a = _edge_amax(k, u, torch.float32)
+            x = torch.tensor([[a, -a / 3.0]], dtype=torch.float32)
+            s = ref.row_scale(x)
+            bits = int(s.view(torch.int32))
+            assert bits & 0x7FFFFF == 0 and 0 < bits < 0x7F800000
+            e = int(torch.ceil(torch.log2(torch.tensor(a, dtype=torch.float32)
+                                          .clamp_min(TINY))))
+            assert float(s) == math.ldexp(1.0, e)
+            if u == 0:
+                assert float(s) == 2.0 ** k
+
+
+# ---------------------------------------------------------------- K8
+
+SAT = ref.SAT24
+
+
+def _k8_lut(fmt, frac_bits, lut_entries):
+    if lut_entries is None:
+        return conversion.remainder_lut_neg_int(fmt.gamma, frac_bits)
+    return conversion.remainder_lut_neg_shifted_int(fmt.gamma, frac_bits,
+                                                    lut_entries)
+
+
+def _k8_term_table(fmt, frac_bits, lut_entries):
+    """The kernel's prologue: T[m + 256 s] for s = sa + sb, the datapath's
+    magnitude of m = ca + cb by its own unsigned integer arithmetic,
+    negated at s = 1, 0 past 2 max_code."""
+    lut = [int(v) for v in _k8_lut(fmt, frac_bits, lut_entries)[:256]]
+    b = fmt.gamma.bit_length() - 1
+    b_l = -1 if lut_entries is None else b - (lut_entries.bit_length() - 1)
+    tab = np.zeros(768, dtype=np.int64)
+    for e in range(768):
+        m, s = e & 255, e >> 8
+        if m > 2 * fmt.max_code:
+            continue
+        q, r = min(m >> b, 31), m & (fmt.gamma - 1)
+        if b_l >= 0:
+            t = (lut[r >> b_l] * (fmt.gamma + (1 << b_l)
+                                  - (r & ((1 << b_l) - 1)))) & 0xFFFFFFFF
+            v = (t >> b) >> q
+        else:
+            v = lut[r] >> q
+        tab[e] = -v if s == 1 else v
+    return tab
+
+
+K8_FORMATS = [LNSFormat(bits, 1 << lg) for bits in range(2, 9)
+              for lg in range(0, 13)]
+
+
+@pytest.mark.parametrize("lut_entries", [None, 1, 2, 4, 8])
+@pytest.mark.parametrize("frac_bits", [16, 8, 0])
+def test_k8_term_table_matches_the_datapath(lut_entries, frac_bits):
+    """T[m] equals the per-product magnitude of the plain version at every
+    m, at every format K8 takes (B 2..8, gamma 1..4096) and LUT kind."""
+    for fmt in K8_FORMATS:
+        if lut_entries is not None and lut_entries > fmt.gamma:
+            continue
+        tab = _k8_term_table(fmt, frac_bits, lut_entries)
+        m = torch.arange(0, 2 * fmt.max_code + 1)
+        if lut_entries is None:
+            want = conversion.exp2_neg_exact_fixed(m, fmt.gamma, frac_bits)
+        else:
+            want = conversion.exp2_neg_hybrid_fixed(m, fmt.gamma,
+                                                    lut_entries, frac_bits)
+        n = m.numel()
+        np.testing.assert_array_equal(tab[:n], want.numpy())
+        np.testing.assert_array_equal(tab[256:256 + n], -want.numpy())
+        np.testing.assert_array_equal(tab[512:512 + n], want.numpy())
+        assert (np.abs(tab) < 1 << 17).all()      # int32 slice sums
+
+
+def _k8_slice_sums(pa, pb, fmt, block_k, lut_entries=None):
+    """The unclamped int32 sum of every block_k slice, through the term
+    table the way the kernel indexes it (offsets of both words added)."""
+    tab = torch.from_numpy(_k8_term_table(fmt, 16, lut_entries))
+    wa, wb = pa.to(torch.int64), pb.to(torch.int64)
+    off_a = (wa & fmt.max_code) + (((wa >> (fmt.bits - 1)) & 1) << 8)
+    off_b = (wb & fmt.max_code) + (((wb >> (fmt.bits - 1)) & 1) << 8)
+    K = pa.shape[1]
+    return [tab[off_a[:, k0:k0 + block_k, None]
+                + off_b[None, k0:k0 + block_k, :]].sum(dim=1)
+            for k0 in range(0, K, block_k)]
+
+
+def _k8_split_replay(sums, splits, per):
+    """The kernel's split-K: each split carries its slices' collector as
+    (c, lo, hi); the last block applies the splits' maps to 0 in K
+    order."""
+    acc = torch.zeros_like(sums[0])
+    for s in range(splits):
+        c = torch.zeros_like(acc)
+        lo, hi = torch.full_like(acc, -SAT), torch.full_like(acc, SAT)
+        for b in sums[s * per:(s + 1) * per]:
+            c = c + b
+            lo = torch.clamp(lo + b, -SAT, SAT)
+            hi = torch.clamp(hi + b, -SAT, SAT)
+        assert int(c.abs().max()) < 2 ** 31 - 2 ** 24    # int32 in-kernel
+        acc = torch.minimum(torch.maximum(acc + c, lo), hi)
+    return acc
+
+
+def _k8_operands(M, K, N, seed, bits=8):
+    rng = np.random.default_rng(seed)
+    hi = 1 << bits
+    return (torch.from_numpy(rng.integers(0, hi, (M, K), dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, hi, (K, N), dtype=np.uint8)))
+
+
+K8_REPLAY_CASES = {
+    # decode's M=4 at the four smollm GEMMs, the plan's own split
+    **{f"m4_{k}x{n}": (4, k, n, 16, "random") for k, n in GEMMS},
+    # every word zero: every term 2^16, the collector saturates
+    "saturating": (4, 256, 40, 16, "zeros"),
+    # half the K all-negative products, half positive: lo/hi both move
+    "saturate_both_ways": (3, 512, 24, 16, "signs"),
+    # a partial last slice, and a block_k that is no multiple of 4
+    "partial_last_slice": (4, 100, 33, 16, "random"),
+    "odd_block_k": (5, 101, 17, 7, "random"),
+}
+
+
+@pytest.mark.parametrize("case", list(K8_REPLAY_CASES))
+def test_k8_split_replay_matches_plain(case):
+    """Per-slice sums replayed with 24-bit saturation in K order, and the
+    kernel's per-split (c, lo, hi) replay at the plan's split and at every
+    other split count, equal ``ref.lns_matmul_packed``."""
+    M, K, N, bk, kind = K8_REPLAY_CASES[case]
+    pa, pb = _k8_operands(M, K, N, seed=M + K + N)
+    if kind == "zeros":
+        pa, pb = torch.zeros_like(pa), torch.zeros_like(pb)
+    elif kind == "signs":
+        pa = torch.zeros_like(pa)
+        pb = torch.zeros_like(pb)
+        pb[:K // 2] = 1 << (FMT.bits - 1)
+    want = ref.lns_matmul_packed(pa, pb, FMT, block_k=bk)
+    sums = _k8_slice_sums(pa, pb, FMT, bk)
+    acc = torch.zeros_like(sums[0])
+    for b in sums:
+        acc = torch.clamp(acc + b, -SAT, SAT)
+    assert torch.equal(acc.to(torch.int32), want)
+    plan = ops.lns_matmul_plan(M, N, K, bk)
+    assert plan["splits"] * plan["slices"] >= len(sums)
+    got = _k8_split_replay(sums, plan["splits"], plan["slices"])
+    assert torch.equal(got.to(torch.int32), want)
+    for per in range(1, len(sums) + 1):
+        splits = -(-len(sums) // per)
+        assert torch.equal(_k8_split_replay(sums, splits, per).to(
+            torch.int32), want)
+    if kind != "random":
+        assert int(want.abs().max()) == SAT
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_k8_collector_maps_compose(seed):
+    """The family acc -> clamp(acc + c, lo, hi) is closed under the
+    collector's step, so any split of a slice sequence replays it: random
+    sums of up to 2^23 (saturating often), random split points."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(2, 60))
+    sums = [torch.from_numpy(rng.integers(-2 ** 23, 2 ** 23, (8,)))
+            for _ in range(n)]
+    acc = torch.zeros(8, dtype=torch.int64)
+    for b in sums:
+        acc = torch.clamp(acc + b, -SAT, SAT)
+    for per in sorted({1, 2, 3, int(rng.integers(1, n + 1)), n}):
+        got = _k8_split_replay(sums, -(-n // per), per)
+        assert torch.equal(got, acc)
+
+
+@pytest.mark.parametrize("mkn", [(m, k, n) for m in (1, 4, 8, 9, 2048)
+                                 for k, n in GEMMS]
+                         + [(3, 4096, 40), (7, 333, 77), (2, 40000, 8),
+                            (4, 0, 16), (8192, 4096, 8192)])
+def test_k8_plan(mkn):
+    """Skinny tiles to M=8, then wide where they make two blocks an SM,
+    else mid; split-K on whole slices with none empty, each split's K
+    inside the int32 budget, the split grid within four such fills."""
+    M, K, N = mkn
+    plan = ops.lns_matmul_plan(M, N, K)
+    wide = -(-M // 128) * -(-N // 64)
+    cfg = "skinny" if M <= 8 else ("wide" if wide >= 264 else "mid")
+    bm, bn = {"skinny": (4, 256), "wide": (128, 64), "mid": (64, 64)}[cfg]
+    assert plan["cfg"] == cfg
+    assert (plan["grid_m"], plan["grid_n"]) == (-(-M // bm), -(-N // bn))
+    slices = -(-K // 16)
+    tiles = plan["grid_m"] * plan["grid_n"]
+    assert plan["splits"] >= 1
+    if plan["splits"] > 1:
+        assert cfg != "wide"
+        assert plan["splits"] <= (16 if cfg == "skinny" else 8)
+        assert tiles * plan["splits"] <= 4 * 264
+        assert plan["slices"] * 16 <= 16000
+        if cfg != "skinny":
+            assert plan["slices"] >= 32
+    assert (plan["splits"] - 1) * plan["slices"] < max(slices, 1)
+    assert plan["splits"] * plan["slices"] >= slices
+    assert plan["repl"] == (1 if cfg == "skinny" else 32)
+
+
+def test_k8_plan_at_the_measured_shapes():
+    """The plan the sweep chose (PERF.md): decode's M=4 in 12-16 skinny
+    splits, M=2048 on mid tiles unsplit at K=576 and in 3 splits at
+    K=1536, wide tiles at 2048x576x1536."""
+    got = {(m, k, n): ops.lns_matmul_plan(m, n, k)
+           for m in (4, 2048) for k, n in GEMMS}
+    assert [got[(4, k, n)]["splits"] for k, n in GEMMS] == [12, 12, 12, 16]
+    assert [(got[(2048, k, n)]["cfg"], got[(2048, k, n)]["splits"])
+            for k, n in GEMMS] == [("mid", 1), ("mid", 1), ("wide", 1),
+                                   ("mid", 3)]
