@@ -4,6 +4,7 @@
     python3 chip_smoke.py              # every phase below
     python3 chip_smoke.py --k1-sweep   # K1's block size and grid only
     python3 chip_smoke.py --k2-sweep   # K2's skinny plan constants only
+    python3 chip_smoke.py --k6-sweep   # K6's blocks a row and block size
     python3 chip_smoke.py --k8-sweep   # K8's tiles, splits, table copies
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -15,8 +16,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    absmax of 2^k and one ulp either side for every f32 exponent in f32 and
    bf16, and with a NaN or an inf in x; one K1 call must show exactly one
    device kernel, its own, in torch.profiler; K3/K4 at the packed leaf
-   shapes, K7 at the 8 packed leaves for 8->6 and 8->7, K5 also at the
-   speculative verify's S=4 and with warps that see no position), and
+   shapes; K6 greedy, noise-in and seeded at 4 x 49152 and the verify's
+   16 x 49152, its seeded noise equal to ``ref.gumbel_noise`` on the card
+   and within ``K6_NOISE_ATOL`` of the CPU's; K7 at the 8 packed leaves
+   for 8->6 and 8->7 in one grouped launch and one leaf at a time, on a
+   misaligned slice and a ragged length; K5 also at the speculative
+   verify's S=4 and with warps that see no position), and
    time the kernel, the plain version and a one-call PyTorch yardstick
    (``library_ms``) where one exists. K2 prints the path its plan took
    (skinny split-K mma.sync, wgmma, or f32), also runs at the verify's
@@ -29,6 +34,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must give the plain version's padded operands bit for bit; every K2
    and K5 case is called twice and must repeat bit for bit. K5 also runs
    an f32 pool whose pages take one stage a warp. TF32 must be off.
+   ``sample_logits`` on a 4-row temperature batch and its 16-row verify
+   batch must launch K6 once a call (its count) and run no torch kernel,
+   no copy (torch.profiler) and no ``torch.Generator``; its wall time and device work are printed
+   beside the earlier sampler's pattern (``k6_noise_in_torch``: a
+   generator and a torch chain a row, then the noise-in K6); a top-k batch must give the tokens
+   of the plain noise.
 4. Serve smollm-135m at full width with random packed 8-bit LNS weights:
    the paged layout (8 requests, 4 slots, 32+32 tokens, page 16), then a
    short dense-layout run. Each run's kernel launch counts are zeroed just
@@ -63,7 +74,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     7 and 8, then bitwidth 6 and the non-speculating engine under
     ``--alloc-policy ondemand``, then ``--speculate-k 1``, with the
     non-speculating reserve engine first and last. Every run completes
-    8/8; K7 launches 8 times per draft view built; K5 runs at S=k once
+    8/8; K7 launches once per draft view built; K5 runs at S=k once
     per layer per cycle; the ondemand pool ends full; the baselines, the
     ondemand baseline and the k=1 run reproduce phase 4's streams
     exactly. Accept rates, stream agreement with phase 4, tok/s and the
@@ -205,6 +216,18 @@ SMEM_LOADS_PER_SM = 32
 # of LUT-8 ones would not pass
 APPROX_LOSS_RTOL = 1.1e-4
 APPROX_EXTRA_STEPS = 3
+# K6's operations an element, for its bound: greedy a compare; noise-in a
+# divide, an add and a compare; seeded also the noise (two mix32 rounds of
+# 8 integer ops, 4 more to key, shift and convert, 2 to scale, two logs
+# and two negations)
+K6_OPS = {"greedy": 1, "noise-in": 3, "seeded": 3 + 16 + 4 + 2 + 4}
+# K6's seeded noise on the card against the plain version on the CPU:
+# torch's CPU log (a vectorised polynomial) and CUDA's logf may round the
+# last bit apart. An ulp of the inner log moves g by about that ulp over
+# its value, at most 2^-23 in absolute terms, and the outer log's own ulp
+# adds 2^-24 |g|; so |dg| <= 2^-21 max(1, |g|) bounds two such roundings
+# with room
+K6_NOISE_ATOL = 2.0 ** -21
 # the packed leaves of smollm-135m as K7 re-grids them, in tree order
 K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
              ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
@@ -791,68 +814,322 @@ def k5_check(torch, ops, ref, fmt, cases):
     return rows
 
 
-def k6_check(torch, ops, ref):
-    gen = torch.Generator(device="cuda").manual_seed(6)
-    B, V = 4, 49152
+def k6_inputs(torch, B, V, gen):
+    """Logits ``(B, V)`` with a tie across blocks in row 0 (greedy in every
+    case: the first maximum must win), torch-drawn noise for the noise-in
+    case, and host rows: row 0 greedy, the rest sampled."""
+    import numpy as np
     lg = torch.randn((B, V), generator=gen, device="cuda") * 4.0
-    lg[0, 100] = lg[0, 20000] = 50.0  # a tie: the first maximum wins
+    lg[0, 100] = lg[0, 20000] = 50.0
     u = torch.rand((B, V), generator=gen, device="cuda").clamp_min(1e-30)
     gum = -torch.log(-torch.log(u))
-    temp = torch.tensor([0.0, 0.7, 1.0, 1.3], device="cuda")
+    temp = np.array([0.0] + [0.7 + 0.2 * (b % 4) for b in range(1, B)],
+                    np.float32)
+    seed = np.arange(100, 100 + B, dtype=np.uint32) * np.uint32(2654435761)
+    step = np.array([3 * b % 7 for b in range(B)], np.int32)
+    return lg, gum, temp, seed, step
+
+
+def k6_check(torch, ops, ref):
+    """K6 against its plain version at the decode batch (4 x 49152) and
+    the verify's (16 x 49152), greedy, noise-in (the TPU kernel's
+    function, noise fed in) and seeded (noise drawn in the kernel): tokens
+    equal; the seeded noise_out equal to ``ref.gumbel_noise`` on the card
+    and within ``K6_NOISE_ATOL`` of it on the CPU."""
+    import numpy as np
+    gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
-    for name, g, t in (("greedy", None, None), ("gumbel", gum, temp)):
-        out = ops.fused_sample(lg, g, t)
-        want = ref.fused_sample(lg, g, t)
-        check(torch.equal(out, want), f"K6 {name}: tokens differ "
-              f"{out.tolist()} vs {want.tolist()}")
-        check(name != "greedy" or int(out[0]) == 100, "K6: not first max")
-        nbytes = B * V * 4 * (2 if g is not None else 1) + B * 4 * 2
-        b, by = bound_ms(nbytes, B * V * (3 if g is not None else 1),
-                         F32_FLOPS)
-        rows.append(dict(
-            shape=[B, V], case=name, max_abs_err=0,
-            ms=cuda_ms(torch, lambda: ops.fused_sample(lg, g, t)),
-            eager_ms=eager_ms(torch, lambda: ops.fused_sample(lg, g, t)),
-            plain_ms=cuda_ms(torch, lambda: ref.fused_sample(lg, g, t)),
-            library_ms=cuda_ms(torch, lambda: torch.argmax(lg, dim=-1)),
-            bound_ms=b, bound_by=by))
-        r = rows[-1]
-        print(f"K6 fused_sample {name}: tokens equal, kernel "
-              f"{r['ms']:.4f} ms (eager {r['eager_ms']:.4f} ms), plain "
-              f"{r['plain_ms']:.4f} ms, argmax "
-              f"{r['library_ms']:.4f} ms, bound {b:.5f} ms")
+    for B in (4, 16):
+        V = 49152
+        lg, gum, temp, seed, step = k6_inputs(torch, B, V, gen)
+        # the plain versions take device rows (graph capture copies no
+        # host memory)
+        temp_t, seed_t, step_t = (torch.as_tensor(a.astype(dt), device="cuda")
+                                  for a, dt in ((temp, np.float32),
+                                                (seed, np.int64),
+                                                (step, np.int64)))
+        calls = {
+            "greedy": (lambda: ops.fused_sample(lg, None, None),
+                       lambda: ref.fused_sample(lg, None, None), 1),
+            "noise-in": (lambda: ops.fused_sample(lg, gum, temp_t),
+                         lambda: ref.fused_sample(lg, gum, temp_t), 2),
+            "seeded": (lambda: ops.fused_sample_seeded(lg, temp, seed, step),
+                       lambda: ref.fused_sample_seeded(lg, temp_t, seed_t,
+                                                       step_t), 1),
+        }
+        for name, (kern, plain, reads) in calls.items():
+            out, want = kern(), plain()
+            check(torch.equal(out, want), f"K6 {name} {B}x{V}: tokens differ "
+                  f"{out.tolist()} vs {want.tolist()}")
+            check(int(out[0]) == 100, f"K6 {name}: not the first maximum")
+            nbytes = B * V * 4 * reads + B * 4 * (2 if name != "seeded" else 1)
+            b, by = bound_ms(nbytes, B * V * K6_OPS[name], F32_FLOPS)
+            rows.append(dict(
+                shape=[B, V], case=name, max_abs_err=0,
+                blocks=ops.fused_sample_plan(B, V)["blocks"],
+                ms=cuda_ms(torch, kern), eager_ms=eager_ms(torch, kern),
+                plain_ms=cuda_ms(torch, plain),
+                library_ms=cuda_ms(torch, lambda: torch.argmax(lg, dim=-1)),
+                bound_ms=b, bound_by=by))
+            r = rows[-1]
+            print(f"K6 fused_sample {name} {B}x{V} ({r['blocks']} blocks a "
+                  f"row): tokens equal, kernel {r['ms']:.4f} ms (eager "
+                  f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+                  f"argmax {r['library_ms']:.4f} ms, bound {b:.5f} ms",
+                  flush=True)
+        toks, noise = ops.fused_sample_seeded(lg, temp, seed, step,
+                                              noise_out=True)
+        check(torch.equal(toks, ref.fused_sample_seeded(lg, temp, seed,
+                                                        step)),
+              "K6 seeded with noise_out: tokens differ")
+        want = ref.gumbel_noise(seed, step, V, "cuda")
+        check(torch.equal(noise, want), f"K6 {B}x{V}: noise_out differs from "
+              f"ref.gumbel_noise on the card at "
+              f"{int((noise != want).sum())} elements")
+        cpu = ref.gumbel_noise(seed, step, V, "cpu")
+        err = (noise.cpu() - cpu).abs()
+        lim = K6_NOISE_ATOL * torch.clamp_min(cpu.abs(), 1.0)
+        check(bool((err <= lim).all()), f"K6 {B}x{V}: noise_out vs the CPU's "
+              f"ref.gumbel_noise: {float(err.max()):.3g} > the limit")
+        rows.append(dict(shape=[B, V], case="seeded noise_out",
+                         max_abs_err=0, noise_equal_card=True,
+                         noise_vs_cpu_max_abs=float(err.max()),
+                         noise_vs_cpu_differing=int((err > 0).sum()),
+                         noise_vs_cpu_max_ratio=float((err / lim).max())))
+        print(f"K6 seeded noise_out {B}x{V}: equal to ref.gumbel_noise on "
+              f"the card; vs the CPU: {rows[-1]['noise_vs_cpu_differing']} "
+              f"of {B * V} differ, max {rows[-1]['noise_vs_cpu_max_abs']:.3g}"
+              f" ({rows[-1]['noise_vs_cpu_max_ratio']:.3f} of the limit)",
+              flush=True)
     return rows
+
+
+@contextlib.contextmanager
+def k6_noise_in_torch(torch, dispatch, ops):
+    """Sample as the sampler did before the seeded K6: a zeroed (B, V)
+    noise buffer, for each sampled row a ``torch.Generator`` seeded by
+    splitmix64 of (seed, step) and a rand/clamp/log/neg/log/neg chain
+    copied into it, the temperatures copied from host memory, then the
+    noise-in K6; to time and profile that pattern beside the seeded K6."""
+    import numpy as np
+    seeded = dispatch.fused_sample_seeded
+
+    def mix64(x):
+        m = (1 << 64) - 1
+        x = (x + 0x9E3779B97F4A7C15) & m
+        x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
+        x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
+        return x ^ (x >> 31)
+
+    def chain(logits, temp, seed, step, *, noise_out=False):
+        gumbel = torch.zeros_like(logits)
+        V = logits.shape[1]
+        for b in np.flatnonzero(temp > 0.0):
+            g = torch.Generator(device=logits.device).manual_seed(mix64(
+                (int(seed[b]) << 32) | (int(step[b]) & 0xFFFFFFFF)))
+            u = torch.rand((V,), generator=g, device=logits.device)
+            u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
+            gumbel[b] = -torch.log(-torch.log(u))
+        temp_t = torch.as_tensor(temp, dtype=torch.float32,
+                                 device=logits.device)
+        out = ops.fused_sample(logits, gumbel, temp_t)
+        return (out, gumbel) if noise_out else out
+
+    dispatch.fused_sample_seeded = chain
+    try:
+        yield
+    finally:
+        dispatch.fused_sample_seeded = seeded
+
+
+def sampler_batches():
+    """The 4-row temperature batch of a decode step and the 16-row batch
+    of a k=4 verify over it (``step_offset`` 0..3 per row)."""
+    import numpy as np
+    from repro_torch.server.sampling import SamplingParams, sampling_rows, \
+        set_row
+    rows = sampling_rows(4)
+    for b in range(4):
+        set_row(rows, b, SamplingParams(temperature=0.7 + 0.2 * b,
+                                        seed=1000 + b))
+        rows["step"][b] = 5 + 3 * b
+    verify = {n: np.repeat(v, SPEC_K) for n, v in rows.items()}
+    return [("decode 4 rows", rows, None),
+            ("verify 16 rows", verify, np.tile(np.arange(SPEC_K), 4))]
+
+
+def sampler_check(torch, ops, ref):
+    """``sample_logits`` on a temperature-only batch: the seeded K6 (one
+    launch a call, no torch kernel, no copy, no torch.Generator) against the pattern of
+    ``k6_noise_in_torch``, wall time and device work a call, the same
+    call; and a masked batch (top-k) whose noise comes from K6's
+    noise_out, tokens equal to the plain seeded path's."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import dispatch
+    from repro_torch.server import sampling
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    res = []
+    for name, rows, off in sampler_batches():
+        B = len(rows["temp"])
+        lg = torch.randn((B, 49152), generator=gen, device="cuda") * 4.0
+
+        def call():
+            return sampling.sample_logits(lg, rows, step_offset=off)
+
+        real_gen = torch.Generator
+
+        def refuse(*a, **k):
+            raise SmokeFailure("seeded sampling built a torch.Generator")
+
+        torch.Generator = refuse
+        try:
+            toks = call()
+        finally:
+            torch.Generator = real_gen
+        step = (rows["step"].astype(np.int64)
+                + (0 if off is None else off)).astype(np.int32)
+        check(torch.equal(toks, ref.fused_sample_seeded(
+            lg, rows["temp"], rows["seed"], step)),
+              f"sample_logits {name}: tokens differ from the plain version")
+        r = {"batch": name}
+        for how in ("seeded", "noise-in torch"):
+            ctx = (k6_noise_in_torch(torch, dispatch, ops)
+                   if how != "seeded" else contextlib.nullcontext())
+            with ctx:
+                wall = eager_ms(torch, call, iters=100)
+                n = 20
+                ops.reset_launch_counts()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(n):
+                        call()
+                    torch.cuda.synchronize()
+            split = launch_split(torch, prof, n)
+            r[how] = dict(wall_ms=wall,
+                          launches=ops.launch_counts()["fused_sample"],
+                          port=split["port"],
+                          torch=split["torch"], copies=split["copies"],
+                          torch_top=split["torch_top"])
+        new = r["seeded"]
+        # K6's own count gives the launches exactly; the profiler window
+        # may lose an event at its edges, but must hold no other kernel
+        check(new["launches"] == n and new["torch"] == 0
+              and new["copies"] == 0 and 0 < new["port"] <= 1,
+              f"sample_logits {name}: {n} seeded calls launched K6 "
+              f"{new['launches']} times and ran {new['torch']} torch "
+              f"kernels and {new['copies']} copies a call")
+        old = r["noise-in torch"]
+        print(f"sample_logits {name}: seeded K6 {new['wall_ms']:.4f} ms wall,"
+              f" {new['launches'] / n:.0f} K6 launch, {new['torch']:.0f} "
+              f"torch kernels and {new['copies']:.0f} copies a call; the "
+              f"per-row chain then noise-in K6 {old['wall_ms']:.4f} ms wall, "
+              f"{old['launches'] / n:.0f} K6 launch, {old['torch']:.1f} torch "
+              f"kernels and {old['copies']:.1f} copies a call", flush=True)
+        res.append(r)
+    # a masked batch: top-k rows sample on the sort path with K6's noise
+    rows = sampler_batches()[0][1]
+    rows["top_k"][1:3] = 8
+    lg = torch.randn((4, 49152), generator=gen, device="cuda") * 4.0
+    got = sampling.sample_logits(lg, rows)
+    plain = dispatch.fused_sample_seeded
+    dispatch.fused_sample_seeded = ref.fused_sample_seeded
+    try:
+        want = sampling.sample_logits(lg, rows)
+    finally:
+        dispatch.fused_sample_seeded = plain
+    check(torch.equal(got, want), f"masked sample_logits: tokens {got.tolist()}"
+          f" differ from the plain noise's {want.tolist()}")
+    print(f"masked sample_logits (top-k 8 on 2 of 4 rows): tokens equal to "
+          f"the plain noise's {got.tolist()}")
+    return res
 
 
 def k7_check(torch, ops, ref):
     """K7 against its plain version at the 8 packed leaves, 8->6 and
-    8->7: words equal. Timed with >= 100 MB of source words rotating
-    through the graph, so the big leaves are not read L2-warm."""
+    8->7, through the grouped launch (the whole draft view, as
+    ``build_draft_params`` calls it) and through the one-leaf entry: words
+    equal; also on a misaligned slice and a length that is not a multiple
+    of 16. Timed with >= 100 MB of source words rotating through the
+    graph, so the big leaves are not read L2-warm: the view in one launch,
+    then at 8->6 each leaf alone (the sum is the view in 8 launches, the
+    earlier pattern)."""
     from repro_torch.core.lns import LNSFormat
     gen = torch.Generator(device="cuda").manual_seed(7)
     src = LNSFormat(8, 8)
+
+    def words(shape):
+        return torch.randint(0, 256, shape, generator=gen, device="cuda",
+                             dtype=torch.uint8)
+
+    # two whole views' words (269 MB) rotate through the view's timing
+    views = [[words(shape) for _, shape in K7_LEAVES] for _ in range(2)]
+    n_view = sum(math.prod(shape) for _, shape in K7_LEAVES)
+    it = {"v": 0}
+
+    def rot_view():
+        it["v"] = (it["v"] + 1) % 2
+        return views[it["v"]]
+
     rows = []
+    for bits in (6, 7):
+        dst = src.with_bits(bits)
+        got = ops.requant_pack_many(views[0], src, dst)
+        for (name, shape), w, o in zip(K7_LEAVES, views[0], got):
+            want = ref.requant_pack(w, src, dst)
+            one = ops.requant_pack(w, src, dst)
+            check(o.shape == w.shape and torch.equal(o, want),
+                  f"K7 view 8->{bits} {name}: "
+                  f"{int((o != want).sum())} words differ from the plain "
+                  f"version")
+            check(torch.equal(one, want), f"K7 one leaf 8->{bits} {name}: "
+                  f"{int((one != want).sum())} words differ")
+        # a misaligned slice (offset 3) of a ragged length, and a ragged
+        # leaf on its own, in one launch and alone
+        flat = views[0][0].reshape(-1)
+        odd = [flat[3:3 + 1_000_003], words((1_000_003,)),
+               flat[17:17 + 15]]
+        for w, o in zip(odd, ops.requant_pack_many(odd, src, dst)):
+            want = ref.requant_pack(w, src, dst)
+            check(torch.equal(o, want) and torch.equal(
+                ops.requant_pack(w, src, dst), want),
+                f"K7 8->{bits}: words differ at a misaligned or ragged leaf "
+                f"of {w.numel()} (offset {w.data_ptr() % 16})")
+        b, by = bound_ms(2 * n_view, 5 * n_view, F32_FLOPS)
+        rows.append(dict(
+            leaf="view", shape=[n_view], bits=bits, launches=1,
+            max_abs_err=0,
+            ms=cuda_ms(torch, lambda: ops.requant_pack_many(rot_view(), src,
+                                                            dst), iters=2),
+            eager_ms=eager_ms(torch, lambda: ops.requant_pack_many(
+                rot_view(), src, dst), iters=20),
+            plain_ms=cuda_ms(torch, lambda: ref.requant_pack_many(
+                rot_view(), src, dst), iters=2, replays=3),
+            bound_ms=b, bound_by=by, library_ms=None))
+        r = rows[-1]
+        print(f"K7 requant_pack_many draft view 8->{bits} (1 launch, 8 "
+              f"leaves): words equal (also one leaf at a time, misaligned "
+              f"and ragged), kernel {r['ms']:.4f} ms (eager "
+              f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"bound {b:.4f} ms ({b / r['ms']:.1%})", flush=True)
+    del views
+    torch.cuda.empty_cache()
     for name, shape in K7_LEAVES:
         n = math.prod(shape)
         n_buf = max(2, -(-100_000_000 // n))
-        words = [torch.randint(0, 256, shape, generator=gen, device="cuda",
-                               dtype=torch.uint8) for _ in range(n_buf)]
-        it = {"i": 0}
+        leaf = [words(shape) for _ in range(n_buf)]
+        it["i"] = 0
 
         def rot():
             it["i"] = (it["i"] + 1) % n_buf
-            return words[it["i"]]
+            return leaf[it["i"]]
 
-        for bits in (6, 7):
+        for bits in (6,):
             dst = src.with_bits(bits)
-            out = ops.requant_pack(words[0], src, dst)
-            want = ref.requant_pack(words[0], src, dst)
-            diff = int((out != want).sum())
-            check(diff == 0, f"K7 {name} {shape} 8->{bits}: {diff} words "
-                  f"differ from the plain version")
             b, by = bound_ms(2 * n, 5 * n, F32_FLOPS)
             rows.append(dict(
-                leaf=name, shape=list(shape), bits=bits, max_abs_err=0,
+                leaf=name, shape=list(shape), bits=bits, launches=1,
+                max_abs_err=0,
                 ms=cuda_ms(torch, lambda: ops.requant_pack(rot(), src, dst),
                            iters=n_buf),
                 eager_ms=eager_ms(torch, lambda: ops.requant_pack(
@@ -862,15 +1139,14 @@ def k7_check(torch, ops, ref):
                 bound_ms=b, bound_by=by, library_ms=None))
             r = rows[-1]
             print(f"K7 requant_pack {name} {'x'.join(map(str, shape))} "
-                  f"8->{bits}: words equal, kernel {r['ms']:.4f} ms (eager "
+                  f"8->{bits} alone: kernel {r['ms']:.4f} ms (eager "
                   f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
-                  f"bound {b:.4f} ms")
-    for bits in (6, 7):
-        view = [r for r in rows if r["bits"] == bits]
-        print(f"K7 one draft view 8->{bits} (8 launches): kernel "
-              f"{sum(r['ms'] for r in view):.4f} ms, plain "
-              f"{sum(r['plain_ms'] for r in view):.4f} ms, bound "
-              f"{sum(r['bound_ms'] for r in view):.4f} ms")
+                  f"bound {b:.4f} ms ({b / r['ms']:.1%})", flush=True)
+        del leaf
+    one = [r for r in rows if r["leaf"] != "view"]
+    print(f"K7 draft view 8->6: 1 launch {rows[0]['ms']:.4f} ms against 8 "
+          f"one-leaf launches {sum(r['ms'] for r in one):.4f} ms, bound "
+          f"{rows[0]['bound_ms']:.4f} ms")
     return rows
 
 
@@ -1039,7 +1315,7 @@ def spec_serve(torch, ops, base):
         # one draft view is built where the draft width is not the
         # serving width (8)
         views = int(k > 0 and eng.spec.draft_bits != 8)
-        check(counts["requant_pack"] == 8 * views,
+        check(counts["requant_pack"] == views,
               f"{name}: K7 launched {counts['requant_pack']} times for "
               f"{views} draft views")
         check(sum(seen.values()) == counts["paged_attend"],
@@ -1930,6 +2206,43 @@ def k1_sweep(torch, ops, ref, fmt):
     return rows
 
 
+def k6_sweep(torch, ops, ref, fmt):
+    """``--k6-sweep``: K6 at 4 x 49152 and 16 x 49152, greedy and seeded,
+    for each cluster size (blocks a row) and block size, tokens held to
+    the plain version at every setting."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    plan = ops.fused_sample_plan
+    rows = []
+    try:
+        for B in (4, 16):
+            lg, _, temp, seed, step = k6_inputs(torch, B, 49152, gen)
+            for case in ("greedy", "seeded"):
+                if case == "greedy":
+                    kern = lambda: ops.fused_sample(lg, None, None)
+                    want = ref.fused_sample(lg, None, None)
+                else:
+                    kern = lambda: ops.fused_sample_seeded(lg, temp, seed,
+                                                           step)
+                    want = ref.fused_sample_seeded(lg, temp, seed, step)
+                for blocks in (1, 2, 4, 8, 16):
+                    for threads in (128, 256, 512, 1024):
+                        ops.fused_sample_plan = lambda B_, V_, b=blocks, \
+                            t=threads: dict(blocks=b, threads=t)
+                        check(torch.equal(kern(), want), f"K6 sweep {case} "
+                              f"{B} rows {blocks}/{threads}: tokens differ")
+                        rows.append(dict(shape=[B, 49152], case=case,
+                                         blocks=blocks, threads=threads,
+                                         ms=cuda_ms(torch, kern)))
+                best = sorted((r for r in rows if r["shape"][0] == B
+                               and r["case"] == case), key=lambda r: r["ms"])
+                print(f"K6 sweep {case} {B}x49152: " + ", ".join(
+                    f"{r['blocks']}/{r['threads']} {r['ms']:.4f}"
+                    for r in best[:8]), flush=True)
+    finally:
+        ops.fused_sample_plan = plan
+    return rows
+
+
 @contextlib.contextmanager
 def k8_forced(ops, cfg, splits, repl):
     """Route every K8 call through tile config ``cfg`` with ``splits``
@@ -2196,11 +2509,11 @@ def main() -> int:
 
     t_start = time.monotonic()
     sweeps = {"--k1-sweep": k1_sweep, "--k2-sweep": k2_sweep,
-              "--k8-sweep": k8_sweep}
+              "--k6-sweep": k6_sweep, "--k8-sweep": k8_sweep}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
-              f"--k8-sweep]", file=sys.stderr)
+              f"--k6-sweep | --k8-sweep]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -2292,6 +2605,7 @@ def main() -> int:
         ("decode f32 pool page 32 hd 128", 2, 1, [100, 160], False,
          (8, 2, 128), {"PAGE": 32, "pool": torch.float32})])
     k6 = k6_check(torch, ops, ref)
+    sampler = sampler_check(torch, ops, ref)
     k7 = k7_check(torch, ops, ref)
 
     # every K2 shape of phases 4-14 is recorded and checked after them
@@ -2398,6 +2712,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "bound_share": r["bound_ms"] / r["ms"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
+        if name == "fused_sample":
+            kernels[-1]["cases"] = [
+                {k: x[k] for k in ("case", "shape", "ms", "plain_ms",
+                                   "bound_ms", "library_ms")}
+                for x in rows if "ms" in x]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     full = {"card": card.stdout.strip(), "build_s": build_s,
@@ -2405,6 +2724,7 @@ def main() -> int:
             "qmatmul_decode": k2_decode, "qmatmul_driven": k2_driven,
             "encode_pack_edge_calls": k1_edge_calls,
             "encode_pack_one_launch": k1_launch,
+            "sample_logits": sampler,
             "shapes": {"encode_pack": k1, "qmatmul": k2,
                        "qmatmul_decode_pass": k2_pass, "paged_attend": k5,
                        "fused_sample": k6, "requant_pack": k7, **k34,

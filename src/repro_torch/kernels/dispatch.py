@@ -11,7 +11,7 @@ here: the caller picks the device, and the device picks the path.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -21,8 +21,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.madam_stats import madam_stats_dict, requant_spec
 
 __all__ = ["route", "encode_pack", "qmatmul", "qmatmul_decode",
-           "paged_attend", "fused_sample",
+           "paged_attend", "fused_sample", "fused_sample_seeded",
            "madam_step", "madam_step_unpacked", "requant_pack",
+           "requant_pack_many",
            "lns_matmul_packed", "lns_matmul"]
 
 
@@ -79,12 +80,37 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
     return impl(logits, gumbel, temp)
 
 
+def fused_sample_seeded(logits: torch.Tensor, temp, seed, step, *,
+                        noise_out: bool = False):
+    """K6, seeded: ``logits (B,V)`` and host rows ``temp`` (f32), ``seed``
+    (uint32), ``step`` (int32) -> ``(B,)`` int32 tokens, the gumbel noise
+    of ``ref.gumbel_noise`` drawn in the kernel; with ``noise_out`` also
+    that noise ``(B,V)``."""
+    impl = (ops.fused_sample_seeded if route(logits) == "kernel"
+            else ref.fused_sample_seeded)
+    return impl(logits, temp, seed, step, noise_out=noise_out)
+
+
 def requant_pack(packed: torch.Tensor, src: LNSFormat,
                  dst: LNSFormat) -> torch.Tensor:
     """K7: re-grid packed words of any rank from ``src`` to ``dst`` bits
     (the self-speculative draft view; integer-only, scales untouched)."""
     impl = ops.requant_pack if route(packed) == "kernel" else ref.requant_pack
     return impl(packed, src, dst)
+
+
+def requant_pack_many(leaves: Sequence[torch.Tensor], src,
+                      dst) -> List[torch.Tensor]:
+    """K7 over leaves that share ``(src, dst)``: one launch on the card
+    (``ops.K7_MAX_LEAVES`` leaves at most), the plain version of each on
+    the CPU. The leaves share one kind of device."""
+    kinds = {route(p) for p in leaves}
+    if len(kinds) != 1:
+        raise ValueError(f"requant_pack_many: leaves must share one kind of "
+                         f"device, got {sorted(kinds) or 'no leaves'}")
+    impl = (ops.requant_pack_many if kinds == {"kernel"}
+            else ref.requant_pack_many)
+    return impl(leaves, src, dst)
 
 
 def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,

@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import conversion
@@ -20,12 +21,14 @@ from repro_torch.kernels import _build, ref
 
 __all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "QMATMUL_DECODE",
            "PAGED_ATTEND", "QMATMUL_WGMMA_MIN_M", "qmatmul_plan",
-           "arith_decode",
+           "arith_decode", "K6_MAX_ROWS", "K7_MAX_LEAVES", "fused_sample_plan",
+           "regrid_shift",
            "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "REQUANT_PACK",
            "LNS_MATMUL_PACKED", "MADAM_STEP_UNPACKED", "launch_counts",
            "reset_launch_counts", "lns_matmul_plan", "encode_pack",
            "qmatmul", "qmatmul_decode", "paged_attend",
-           "fused_sample", "madam_step", "madam_step_stats", "requant_pack",
+           "fused_sample", "fused_sample_seeded", "madam_step",
+           "madam_step_stats", "requant_pack", "requant_pack_many",
            "lns_matmul_packed", "madam_step_unpacked"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -68,13 +71,14 @@ PAGED_ATTEND = Kernel("paged_attend", "repro_paged_attend",
                       [_P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P])
 FUSED_SAMPLE = Kernel("fused_sample", "repro_fused_sample",
-                      [_P, _P, _P, _P, _I, _I, _P])
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
 _MADAM_ARGS = [_P, _I, _P, _I, _P, _P, _P, _LL, _I, _I, _F, _F, _F, _F, _F]
 MADAM_STEP = Kernel("madam_step", "repro_madam_step", _MADAM_ARGS + [_I, _P])
 MADAM_STEP_STATS = Kernel("madam_step_stats", "repro_madam_step_stats",
                           _MADAM_ARGS + [_I, _I, _P, _I, _P])
+_LLP = ctypes.POINTER(_LL)
 REQUANT_PACK = Kernel("requant_pack", "repro_requant_pack",
-                      [_P, _P, _LL, _I, _I, _I, _I, _P])
+                      [_LLP, _LLP, _LLP, _I, _I, _I, _I, _I, _I, _P])
 LNS_MATMUL_PACKED = Kernel("lns_matmul_packed", "repro_lns_matmul",
                            [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _P])
@@ -334,9 +338,52 @@ def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
     return out
 
 
+# K6's plan: a row is split over a cluster of up to _K6_MAX_BLOCKS blocks
+# (a power of two), each with at least _K6_MIN_CHUNK logits and at most
+# _K6_FILL blocks in all; _K6_THREADS threads a block. From `chip_smoke.py
+# --k6-sweep` (PERF.md); the plan reads them when it is called.
+_K6_THREADS = 256
+_K6_MAX_BLOCKS = 16
+_K6_MIN_CHUNK = 2048
+_K6_FILL = 2 * 132
+# the seeded mode's per-row arguments travel by value in the launch
+# (sampler.cu `SampleRows`): at most this many rows a launch
+K6_MAX_ROWS = 64
+
+
+class _SampleRows(ctypes.Structure):
+    _fields_ = [("temp", ctypes.c_float * K6_MAX_ROWS),
+                ("seed", ctypes.c_uint32 * K6_MAX_ROWS),
+                ("step", ctypes.c_int32 * K6_MAX_ROWS)]
+
+
+def fused_sample_plan(B: int, V: int) -> Dict[str, int]:
+    """K6's launch: ``blocks`` a row (the cluster size) and ``threads`` a
+    block, for a ``(B, V)`` batch."""
+    blocks = 1
+    while (2 * blocks <= _K6_MAX_BLOCKS and V >= 2 * blocks * _K6_MIN_CHUNK
+           and 2 * blocks * B <= _K6_FILL):
+        blocks *= 2
+    return dict(blocks=blocks, threads=_K6_THREADS)
+
+
+def _k6_launch(logits, g_p, t_p, rows, noise_out):
+    B, V = logits.shape
+    plan = fused_sample_plan(B, V)
+    out = torch.empty((B,), dtype=torch.int32, device=logits.device)
+    FUSED_SAMPLE(logits.data_ptr(), g_p, t_p,
+                 0 if rows is None else ctypes.addressof(rows),
+                 0 if noise_out is None else noise_out.data_ptr(),
+                 out.data_ptr(), B, V, plan["blocks"], plan["threads"],
+                 _stream(logits))
+    return out
+
+
 def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
                  temp: Optional[torch.Tensor]) -> torch.Tensor:
-    """K6 on the card: ``(B, V)`` f32 logits -> ``(B,)`` int32 tokens."""
+    """K6 on the card: ``(B, V)`` f32 logits -> ``(B,)`` int32 tokens,
+    greedy, or with the noise ``gumbel (B, V)`` fed in and a device
+    ``temp (B,)`` (the TPU kernel's function)."""
     _check(logits, "logits", (torch.float32,), 2)
     B, V = logits.shape
     g_p = t_p = 0
@@ -346,10 +393,37 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
         if tuple(gumbel.shape) != (B, V) or temp.shape[0] != B:
             raise ValueError("gumbel must be (B, V) and temp (B,)")
         g_p, t_p = gumbel.data_ptr(), temp.data_ptr()
-    out = torch.empty((B,), dtype=torch.int32, device=logits.device)
-    FUSED_SAMPLE(logits.data_ptr(), g_p, t_p, out.data_ptr(), B, V,
-                 _stream(logits))
-    return out
+    return _k6_launch(logits, g_p, t_p, None, None)
+
+
+_SEEDED_ROWS = (("temp", np.float32), ("seed", np.uint32), ("step", np.int32))
+
+
+def fused_sample_seeded(logits: torch.Tensor, temp: np.ndarray,
+                        seed: np.ndarray, step: np.ndarray, *,
+                        noise_out: bool = False):
+    """K6 on the card, seeded: ``(B, V)`` f32 logits and host rows ``temp``
+    (f32), ``seed`` (uint32) and ``step`` (int32) -> ``(B,)`` int32
+    tokens, the noise drawn in the kernel from (seed, step, token id) as
+    ``ref.gumbel_noise`` draws it; with ``noise_out`` also that noise
+    ``(B, V)`` f32 for every row. The rows go by value in the launch, so
+    at most :data:`K6_MAX_ROWS` rows a call."""
+    _check(logits, "logits", (torch.float32,), 2)
+    B, V = logits.shape
+    if B > K6_MAX_ROWS:
+        raise ValueError(f"K6's seeded mode takes at most {K6_MAX_ROWS} rows "
+                         f"a launch, got {B}")
+    rows = _SampleRows()
+    for (name, dt), a in zip(_SEEDED_ROWS, (temp, seed, step)):
+        if not isinstance(a, np.ndarray) or a.dtype != dt or a.shape != (B,):
+            raise ValueError(f"{name}: expected a ({B},) {np.dtype(dt)} host "
+                             f"array, got {getattr(a, 'dtype', type(a))} "
+                             f"{getattr(a, 'shape', '')}")
+        getattr(rows, name)[:B] = a.tolist()
+    noise = (torch.empty((B, V), dtype=torch.float32, device=logits.device)
+             if noise_out else None)
+    out = _k6_launch(logits, 0, 0, rows, noise)
+    return (out, noise) if noise_out else out
 
 
 # K3/K4 launch geometry: 256 threads, enough blocks to fill the 132 SMs
@@ -418,27 +492,70 @@ def madam_step_stats(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     return w_out, v_out, partials.sum(dim=0)
 
 
-def requant_pack(packed: torch.Tensor, src: LNSFormat,
-                 dst: LNSFormat) -> torch.Tensor:
-    """K7 on the card: re-grid packed uint8 words of any rank from ``src``
-    to ``dst`` bits (same shape, uint8)."""
-    if packed.device.type != "cuda":
-        raise ValueError(f"packed: expected a CUDA tensor, got "
-                         f"{packed.device}")
-    if packed.dtype != torch.uint8:
-        raise ValueError(f"packed: dtype {packed.dtype} is not uint8")
-    if not packed.is_contiguous():
-        raise ValueError("packed: must be contiguous")
+# K7: at most this many leaves a launch (lns_requant.cu `RequantTable`,
+# passed by value); threads a block
+K7_MAX_LEAVES = 16
+_K7_THREADS = 256
+
+
+def regrid_shift(src: LNSFormat, dst: LNSFormat):
+    """``(up, s)``: the re-grid multiplies codes by 2**s (``up``) or
+    divides them by 2**s rounding half up; s is clamped where a larger
+    shift gives the same words (every code saturates, or rounds to 0)."""
+    if dst.gamma >= src.gamma:
+        return 1, min((dst.gamma // src.gamma).bit_length() - 1, 7)
+    return 0, min((src.gamma // dst.gamma).bit_length() - 1, 8)
+
+
+def requant_pack_many(leaves, src, dst):
+    """K7 on the card: re-grid the packed uint8 words of up to
+    :data:`K7_MAX_LEAVES` leaves (any rank each) from ``src`` to ``dst``
+    bits in one launch -> a list of uint8 tensors of the leaves' shapes.
+    ``src`` and ``dst`` are one format for all, or one a leaf (equal)."""
+    leaves = list(leaves)
+    if not 1 <= len(leaves) <= K7_MAX_LEAVES:
+        raise ValueError(f"K7 takes 1..{K7_MAX_LEAVES} leaves a launch, got "
+                         f"{len(leaves)}")
+    for p in leaves:
+        if p.device.type != "cuda":
+            raise ValueError(f"packed: expected a CUDA tensor, got "
+                             f"{p.device}")
+        if p.dtype != torch.uint8:
+            raise ValueError(f"packed: dtype {p.dtype} is not uint8")
+        if not p.is_contiguous():
+            raise ValueError("packed: must be contiguous")
+    src = ref.shared_format(src, len(leaves), "src")
+    dst = ref.shared_format(dst, len(leaves), "dst")
     _check_fmt(src)
     _check_fmt(dst)
-    if dst.gamma >= src.gamma:
-        mul, div = dst.gamma // src.gamma, 0
-    else:
-        mul, div = 0, src.gamma // dst.gamma
-    out = torch.empty_like(packed)
-    REQUANT_PACK(packed.data_ptr(), out.data_ptr(), packed.numel(), src.bits,
-                 dst.bits, mul, div, _stream(packed))
-    return out
+    outs = []
+    for p in leaves:
+        n = p.numel()
+        if p.data_ptr() % 16 == 0:
+            outs.append(torch.empty_like(p))
+            continue
+        # a misaligned slice: its output takes the same 16-byte residue
+        buf = torch.empty((n + 16,), dtype=torch.uint8, device=p.device)
+        off = (p.data_ptr() - buf.data_ptr()) % 16
+        outs.append(buf[off:off + n].view(p.shape))
+    work = [(p, o) for p, o in zip(leaves, outs) if p.numel()]
+    if not work:
+        return outs
+    arr = ctypes.c_longlong * len(work)
+    up, s = regrid_shift(src, dst)
+    REQUANT_PACK(arr(*(p.data_ptr() for p, _ in work)),
+                 arr(*(o.data_ptr() for _, o in work)),
+                 arr(*(p.numel() for p, _ in work)), len(work), src.bits,
+                 dst.bits, up, s, _K7_THREADS, _stream(work[0][0]))
+    return outs
+
+
+def requant_pack(packed: torch.Tensor, src: LNSFormat,
+                 dst: LNSFormat) -> torch.Tensor:
+    """K7 on the card: re-grid one leaf of packed uint8 words of any rank
+    from ``src`` to ``dst`` bits (same shape, uint8); the grouped kernel
+    with one entry."""
+    return requant_pack_many([packed], src, dst)[0]
 
 
 _CODE_DT = {torch.uint8: 8, torch.int16: 16, torch.int32: 16}  # widest B

@@ -7,8 +7,9 @@ kernel against its plain version on the card.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import conversion
@@ -19,9 +20,10 @@ from repro_torch.kernels.madam_stats import madam_stats_vec
 
 __all__ = ["SAT24", "WG_MN", "WG_K", "row_scale", "encode_pack", "qmatmul",
            "qmatmul_decode", "paged_attend",
-           "fused_sample", "bias_correction", "step_math", "madam_step",
+           "fused_sample", "gumbel_uniform", "gumbel_noise", "fused_sample_seeded",
+           "bias_correction", "step_math", "madam_step",
            "madam_step_stats", "madam_step_unpacked", "requant_pack",
-           "lns_matmul_packed"]
+           "shared_format", "requant_pack_many", "lns_matmul_packed"]
 
 SAT24 = (1 << 23) - 1  # the 24-bit accumulation collector's bound (Table 1)
 # K2's wgmma tiles: its decode pass pads M and N to WG_MN, K to WG_K
@@ -130,6 +132,69 @@ def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
     return torch.where(temp > 0.0, toks, greedy)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, m: int) -> torch.Tensor:
+    """``(x * m) mod 2**32`` for int64 ``x`` in [0, 2**32): ``m`` in 16-bit
+    halves, so no product reaches 2**63."""
+    return (x * (m & 0xFFFF) + (((x * (m >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """The 32-bit xor-shift-multiply finalizer of K6's noise (sampler.cu
+    ``mix32``), a bijection of [0, 2**32), on int64 tensors."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _u32(a, device) -> torch.Tensor:
+    """Host integers, or an integer tensor, mod 2**32 as int64 ``(B,)``."""
+    if isinstance(a, torch.Tensor):
+        return (a.to(device=device, dtype=torch.int64) & _M32).reshape(-1)
+    return torch.as_tensor(np.asarray(a).astype(np.int64) & _M32,
+                           device=device).reshape(-1)
+
+
+def gumbel_uniform(seed, step, vocab: int, device=None) -> torch.Tensor:
+    """The uniforms ``(B, vocab)`` f32 behind :func:`gumbel_noise`: per row
+    ``key = mix32(mix32(seed) ^ step)``, per token id ``i``
+    ``h = mix32(mix32(key ^ i) + key)`` and ``u = ((h >> 9) + 0.5) ·
+    2**-23``, exact in f32 and strictly inside (0, 1). ``seed`` and
+    ``step`` are ``(B,)`` integers (host arrays or tensors), taken mod
+    2**32."""
+    key = _mix32(_mix32(_u32(seed, device)) ^ _u32(step, device))[:, None]
+    tok = torch.arange(vocab, dtype=torch.int64, device=device)[None]
+    h = _mix32((_mix32(key ^ tok) + key) & _M32)
+    return ((h >> 9).to(torch.float32) + 0.5) * 2.0 ** -23
+
+
+def gumbel_noise(seed, step, vocab: int, device=None) -> torch.Tensor:
+    """K6's counter-based gumbel noise ``(B, vocab)`` f32,
+    ``-log(-log(u))`` of :func:`gumbel_uniform`: a function of (seed,
+    step, token id) alone, so a sample event draws the same noise on any
+    device (up to ``log``'s last bit) and whichever rows share its
+    batch."""
+    return -torch.log(-torch.log(gumbel_uniform(seed, step, vocab, device)))
+
+
+def fused_sample_seeded(logits: torch.Tensor, temp, seed, step, *,
+                        noise_out: bool = False):
+    """K6, seeded: :func:`fused_sample` with the noise of
+    :func:`gumbel_noise` and the rows ``temp``, ``seed``, ``step`` (host
+    arrays, or tensors on the logits' device); with ``noise_out`` also
+    returns that noise ``(B, V)``."""
+    lg = logits.to(torch.float32)
+    noise = gumbel_noise(seed, step, lg.shape[1], lg.device)
+    t = (temp.to(torch.float32) if isinstance(temp, torch.Tensor) else
+         torch.as_tensor(np.asarray(temp, np.float32), device=lg.device))
+    out = fused_sample(lg, noise, t)
+    return (out, noise) if noise_out else out
+
+
 def bias_correction(beta: float, count: int) -> float:
     """``1 - beta**count`` as the JAX package computes it: an f32 pow of
     f32 ``beta``, then an f32 subtract (not Python's double pow, which
@@ -206,6 +271,29 @@ def requant_pack(packed: torch.Tensor, src: LNSFormat,
     the integer function :func:`~repro_torch.core.lns.lns_requant_packed`
     itself, as the TPU kernel's body is."""
     return lns_requant_packed(packed, src, dst)
+
+
+def shared_format(fmts, n: int, what: str) -> LNSFormat:
+    """``fmts``: one format, or one for each of ``n`` leaves, all equal
+    (the leaves of one K7 launch share ``src`` and ``dst``)."""
+    if isinstance(fmts, LNSFormat):
+        return fmts
+    fmts = list(fmts)
+    if len(fmts) != n or any(f != fmts[0] for f in fmts):
+        raise ValueError(f"K7 re-grids leaves that share one (src, dst); "
+                         f"the {what} formats differ or do not match the {n} "
+                         f"leaves: {fmts}")
+    return fmts[0]
+
+
+def requant_pack_many(leaves: Sequence[torch.Tensor], src,
+                      dst) -> List[torch.Tensor]:
+    """K7 over several leaves that share ``(src, dst)`` (one format each,
+    or one a leaf): :func:`requant_pack` of each."""
+    leaves = list(leaves)
+    src = shared_format(src, len(leaves), "src")
+    dst = shared_format(dst, len(leaves), "dst")
+    return [requant_pack(p, src, dst) for p in leaves]
 
 
 def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,

@@ -6,13 +6,19 @@ host-side as ``(B,)`` numpy rows. ``sample_logits`` turns a ``(B, V)``
 logits batch into token ids:
 
 * an all-greedy batch is one K6 launch (``dispatch.fused_sample``);
-* a temperature-only batch adds gumbel noise and is one K6 launch too;
-* a batch with an active top-k/top-p row takes a plain torch sort path.
+* a batch with a sampled row is one seeded K6 launch
+  (``dispatch.fused_sample_seeded``), which draws each row's gumbel noise
+  from (seed, step, token id) itself; the rows' parameters travel in the
+  launch, so no noise tensor and no per-row torch op exist;
+* a batch with an active top-k/top-p row also takes a plain torch sort
+  path for its sampled rows, with the noise K6 wrote (``noise_out``).
 
-The gumbel noise of a row comes from a ``torch.Generator`` on the logits'
-device seeded from (seed, step), so a seeded request replays
-token for token within the port. It does not replay the JAX package's
-``jax.random`` stream: the two frameworks draw different numbers.
+The noise is a counter-based hash of (seed, step, token id)
+(``kernels.ref.gumbel_noise``), so a seeded request replays token for
+token within the port, whichever rows share its batch, and the CPU and
+the card draw the same noise up to the last bit of ``log``. It is not the
+JAX package's ``jax.random`` stream: the two frameworks draw different
+numbers.
 """
 from __future__ import annotations
 
@@ -22,10 +28,10 @@ from typing import Dict, FrozenSet, Optional
 import numpy as np
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ops
 
 __all__ = ["SamplingParams", "GREEDY", "sampling_rows", "set_row",
-           "sample_logits", "row_gumbel"]
+           "sample_logits"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,26 +85,6 @@ def set_row(rows: Dict[str, np.ndarray], slot: int,
     rows["step"][slot] = 0
 
 
-def _mix64(x: int) -> int:
-    """splitmix64 finalizer: spreads (seed, step) over all 64 bits, since
-    the CPU generator keeps only the low 32 bits of its seed."""
-    m = (1 << 64) - 1
-    x = (x + 0x9E3779B97F4A7C15) & m
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & m
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & m
-    return x ^ (x >> 31)
-
-
-def row_gumbel(seed: int, step: int, vocab: int,
-               device: torch.device) -> torch.Tensor:
-    """Gumbel noise ``(V,)`` for one sample event of one request."""
-    gen = torch.Generator(device=device).manual_seed(
-        _mix64((int(seed) << 32) | (int(step) & 0xFFFFFFFF)))
-    u = torch.rand((vocab,), generator=gen, device=device)
-    u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
-
-
 def _mask_sample(scaled: torch.Tensor, top_k: int, top_p: float,
                  gumbel: torch.Tensor) -> torch.Tensor:
     """Top-k / top-p masked gumbel-argmax of one row ``(V,)``; the noise
@@ -116,6 +102,11 @@ def _mask_sample(scaled: torch.Tensor, top_k: int, top_p: float,
     return order[torch.argmax(ranked + gumbel[order])].to(torch.int32)
 
 
+def _cat(ts):
+    """One tensor as it is (no copy kernel), several concatenated."""
+    return ts[0] if len(ts) == 1 else torch.cat(ts)
+
+
 def sample_logits(logits: torch.Tensor, rows: Dict[str, np.ndarray], *,
                   step_offset=None) -> torch.Tensor:
     """``logits (B, V)`` + per-slot rows -> token ids ``(B,)`` int32.
@@ -128,18 +119,20 @@ def sample_logits(logits: torch.Tensor, rows: Dict[str, np.ndarray], *,
     temp = rows["temp"]
     if not np.any(temp > 0.0):
         return dispatch.fused_sample(lg, None, None)
-    B, V = lg.shape
     step = rows["step"].astype(np.int64)
     if step_offset is not None:
         step = step + step_offset
-    gumbel = torch.zeros_like(lg)
-    for b in np.flatnonzero(temp > 0.0):
-        gumbel[b] = row_gumbel(rows["seed"][b], step[b], V, lg.device)
-    temp_t = torch.as_tensor(temp, dtype=torch.float32, device=lg.device)
+    step = step.astype(np.int32)
     masked = (rows["top_k"] > 0) | (rows["top_p"] < 1.0)
-    if not np.any(masked):
-        return dispatch.fused_sample(lg, gumbel, temp_t)
-    out = dispatch.fused_sample(lg, None, None)
+    draw = bool(np.any(masked & (temp > 0.0)))
+    n = ops.K6_MAX_ROWS                    # rows a seeded launch takes
+    parts = [dispatch.fused_sample_seeded(
+        lg[i:i + n], temp[i:i + n], rows["seed"][i:i + n], step[i:i + n],
+        noise_out=draw) for i in range(0, lg.shape[0], n)]
+    if not draw:
+        return _cat(parts)
+    out, gumbel = (_cat(list(x)) for x in zip(*parts))
+    temp_t = torch.as_tensor(temp, dtype=torch.float32, device=lg.device)
     scaled = lg / torch.clamp_min(temp_t, 1e-6)[:, None]
     for b in np.flatnonzero(temp > 0.0):
         out[b] = _mask_sample(scaled[b], int(rows["top_k"][b]),

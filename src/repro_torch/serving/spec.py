@@ -2,9 +2,10 @@
 autotuner (the PyTorch counterpart of ``repro.serving.spec``).
 
 The draft model costs no second checkpoint in LNS-Madam: a bitwidth is a
-re-grid of the packed wire word (``lns_requant_packed``, K7 on the card),
-so a B=6/7 draft is the same 8-bit weights on a coarser exponent grid
-with the scale tensors shared (paper §6.1.1). The engine builds a view
+re-grid of the packed wire word (``lns_requant_packed``; on the card one
+K7 launch re-grids every leaf of a view), so a B=6/7 draft is the same
+8-bit weights on a coarser exponent grid with the scale tensors shared
+(paper §6.1.1). The engine builds a view
 per draft bitwidth on first use (:func:`build_draft_params`), runs k
 greedy draft steps per slot, then scores all k tokens with the serving
 weights in one S=k verify pass (``serving/engine.py``).
@@ -21,9 +22,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.lns import LNSWeight, is_lns_weight, lns_decode_packed
-from repro_torch.kernels import dispatch
-from repro_torch.tree import leaves, tree_map
+from repro_torch.core.lns import (LNSFormat, LNSWeight, is_lns_weight,
+                                  lns_decode_packed)
+from repro_torch.kernels import dispatch, ops
+from repro_torch.tree import leaves, tree_set
 
 __all__ = ["SpecConfig", "spec_supported", "build_draft_params",
            "draft_requant_error", "request_class", "SpecAutotuner"]
@@ -90,28 +92,35 @@ def spec_supported(cfg) -> Optional[str]:
 
 
 def build_draft_params(params, bits: int):
-    """Re-grid every ``LNSWeight`` leaf of ``params`` to ``bits`` wire bits
-    through ``dispatch.requant_pack`` (K7 on CUDA tensors).
+    """Re-grid every ``LNSWeight`` leaf of ``params`` to ``bits`` wire bits.
+    The leaves are grouped by ``(src, dst)`` format and each group goes
+    through one ``dispatch.requant_pack_many`` call (one K7 launch on CUDA
+    tensors; a group of more than ``ops.K7_MAX_LEAVES`` leaves takes one
+    call per that many), so smollm-135m's view is one launch.
 
     Scale tensors and every non-LNS leaf are shared by reference, so the
     view costs one uint8 tree. When no leaf changes (``bits`` is the
     serving width) the result is ``params`` itself: the identity arm.
     """
-    changed = False
-
-    def one(leaf):
-        nonlocal changed
-        if not is_lns_weight(leaf):
-            return leaf
-        dst = leaf.fmt.with_bits(bits)
-        if dst == leaf.fmt:
-            return leaf
-        changed = True
-        return LNSWeight(dispatch.requant_pack(leaf.packed, leaf.fmt, dst),
-                         leaf.scale, dst)
-
-    view = tree_map(one, params)
-    return view if changed else params
+    groups: Dict[Tuple[LNSFormat, LNSFormat], List] = {}
+    for path, leaf in leaves(params):
+        if is_lns_weight(leaf) and leaf.fmt.with_bits(bits) != leaf.fmt:
+            groups.setdefault((leaf.fmt, leaf.fmt.with_bits(bits)),
+                              []).append((path, leaf))
+    if not groups:
+        return params
+    new = {}
+    for (src, dst), members in groups.items():
+        for i in range(0, len(members), ops.K7_MAX_LEAVES):
+            part = members[i:i + ops.K7_MAX_LEAVES]
+            words = dispatch.requant_pack_many([w.packed for _, w in part],
+                                               src, dst)
+            for (path, leaf), packed in zip(part, words):
+                new[path] = LNSWeight(packed, leaf.scale, dst)
+    view: Dict = {}
+    for path, leaf in leaves(params):
+        tree_set(view, path, new.get(path, leaf))
+    return view
 
 
 def draft_requant_error(params, draft_params) -> Dict[str, float]:

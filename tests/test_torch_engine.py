@@ -10,6 +10,7 @@ is under the 1e-5 logit tolerance, and with the logits agreeing to ~1e-7
 on this trace no step needs it. Every request completes and the slot and
 page bookkeeping ends empty.
 """
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -85,10 +86,11 @@ def test_engine_streams_match_jax(smoke, page_size, alloc_policy):
 @pytest.mark.parametrize("top_k", [0, 5])
 def test_seeded_sampling_replays(smoke, top_k):
     """Seeded sampling replays token for token within the port (the
-    gumbel noise comes from a generator seeded by (seed, step)); the
-    top-k leg takes the plain sort path, the temperature-only leg K6's
-    plain version. Token equality with JAX's seeded stream is not
-    claimed: the two frameworks draw different noise."""
+    gumbel noise is a counter-based hash of (seed, step, token id),
+    ``ref.gumbel_noise``); the top-k leg takes the plain sort path with
+    that noise, the temperature-only leg K6's seeded plain version. Token
+    equality with JAX's seeded stream is not claimed: the two frameworks
+    draw different noise."""
     from repro_torch.server.sampling import SamplingParams
 
     _, _, _, params = smoke
@@ -109,3 +111,56 @@ def test_seeded_sampling_replays(smoke, top_k):
     first, second = run(), run()
     assert first == second
     assert len({tuple(s) for s in first.values()}) > 1
+
+
+def _rows(n, over=None):
+    """``n`` sampled rows (temperature 0.8, seed 42, step 6); ``over``
+    maps a row to more SamplingParams fields."""
+    from repro_torch.server.sampling import (SamplingParams, sampling_rows,
+                                             set_row)
+    rows = sampling_rows(n)
+    for b in range(n):
+        set_row(rows, b, SamplingParams(temperature=0.8, seed=42,
+                                        **(over or {}).get(b, {})))
+        rows["step"][b] = 6
+    return rows
+
+
+def test_masked_and_unmasked_rows_draw_the_same_noise():
+    """Two rows with the same seed, step and logits, one sort-free (top-k
+    0) and one through the masked sort path (top-k = V keeps every
+    token): the same token, since the noise is indexed by token id. And a
+    row's token does not depend on whether a masked neighbour sends the
+    batch down the sort path."""
+    from repro_torch.server.sampling import sample_logits
+    rows = _rows(2, {1: dict(top_k=64)})
+    rng = np.random.default_rng(8)
+    V = 64
+    for trial in range(20):
+        one = torch.from_numpy(rng.standard_normal((1, V)).astype(np.float32))
+        lg = one.repeat(2, 1)
+        rows["step"][:] = trial
+        toks = sample_logits(lg, rows)
+        assert toks[0] == toks[1]
+        alone = {k: v[:1] for k, v in rows.items()}
+        assert sample_logits(one, alone)[0] == toks[0]
+
+
+def test_sample_logits_draws_ref_gumbel_noise():
+    """A temperature-only batch is the seeded K6 on ``ref.gumbel_noise``;
+    ``step_offset`` shifts the counter as the verify does, so a verify
+    row at offset j samples what step + j samples."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.server.sampling import sample_logits
+    rows = _rows(3)
+    rows["seed"][:] = [1, 2, 3]
+    rows["step"][:] = [0, 4, 9]
+    rng = np.random.default_rng(9)
+    lg = torch.from_numpy(rng.standard_normal((3, 50)).astype(np.float32))
+    noise = ref.gumbel_noise(rows["seed"], rows["step"], 50)
+    want = dispatch.fused_sample(lg, noise, torch.from_numpy(rows["temp"]))
+    assert torch.equal(sample_logits(lg, rows), want)
+    shifted = sample_logits(lg, rows, step_offset=np.array([2, 0, 1]))
+    moved = {k: v.copy() for k, v in rows.items()}
+    moved["step"] += np.array([2, 0, 1], np.int32)
+    assert torch.equal(shifted, sample_logits(lg, moved))

@@ -348,3 +348,110 @@ def test_k2_wrapper_refuses_other_out_dtypes(out_dtype):
                                                            (8, 4))
     with pytest.raises(ValueError, match="out_dtype"):
         ops.qmatmul(pa, pb, LNSFormat(8, 8), out_dtype=out_dtype)
+
+
+def _host_rows(B, temp=np.float32, seed=np.uint32, step=np.int32):
+    return (np.ones(B, temp), np.arange(B).astype(seed),
+            np.zeros(B, step))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(temp=np.float64), "temp"),
+    (dict(seed=np.int64), "seed"),
+    (dict(step=np.int64), "step"),
+])
+def test_k6_seeded_wrapper_refuses_wrong_row_dtypes(bad, match):
+    """K6's seeded rows go by value into the launch as f32 temp, uint32
+    seed and int32 step: anything else is refused before a launch."""
+    lg = _cuda_words(torch.float32, (4, 50))
+    with pytest.raises(ValueError, match=match):
+        ops.fused_sample_seeded(lg, *_host_rows(4, **bad))
+    with pytest.raises(ValueError, match="temp"):
+        ops.fused_sample_seeded(lg, torch.ones(4), *_host_rows(4)[1:])
+    with pytest.raises(ValueError, match="not in"):
+        ops.fused_sample_seeded(_cuda_words(torch.bfloat16, (4, 50)),
+                                *_host_rows(4))
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ops.fused_sample_seeded(torch.zeros(4, 50), *_host_rows(4))
+
+
+def test_k6_seeded_wrapper_refuses_more_rows_than_a_launch_holds():
+    B = ops.K6_MAX_ROWS + 1
+    with pytest.raises(ValueError, match=f"at most {ops.K6_MAX_ROWS} rows"):
+        ops.fused_sample_seeded(_cuda_words(torch.float32, (B, 50)),
+                                *_host_rows(B))
+
+
+def test_sample_logits_splits_batches_over_the_row_limit(monkeypatch):
+    """A batch of more rows than K6's seeded launch holds goes in launches
+    of at most ``K6_MAX_ROWS`` rows, and samples as one batch would."""
+    from repro_torch.server.sampling import sample_logits, sampling_rows
+    B = ops.K6_MAX_ROWS + 6
+    rows = sampling_rows(B)
+    rows["temp"][:] = 0.9
+    rows["seed"][:] = np.arange(B)
+    sizes = []
+    seeded = dispatch.fused_sample_seeded
+
+    def record(lg, *a, **k):
+        sizes.append(lg.shape[0])
+        return seeded(lg, *a, **k)
+
+    monkeypatch.setattr(dispatch, "fused_sample_seeded", record)
+    lg = torch.randn(B, 30, generator=torch.Generator().manual_seed(0))
+    toks = sample_logits(lg, rows)
+    assert sizes == [ops.K6_MAX_ROWS, 6]
+    assert torch.equal(toks, ref.fused_sample_seeded(
+        lg, rows["temp"], rows["seed"], rows["step"]))
+
+
+def _cuda_leaf(n=64, dtype=torch.uint8):
+    return types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                                 is_contiguous=lambda: True,
+                                 numel=lambda: n)
+
+
+def test_k7_grouped_wrapper_refuses_what_one_launch_cannot_take():
+    """At most ``K7_MAX_LEAVES`` leaves (the by-value table), at least
+    one, all uint8 on the card, sharing one (src, dst)."""
+    fmt = LNSFormat(8, 8)
+    six = fmt.with_bits(6)
+    with pytest.raises(ValueError, match=f"1..{ops.K7_MAX_LEAVES} leaves"):
+        ops.requant_pack_many([_cuda_leaf()] * (ops.K7_MAX_LEAVES + 1), fmt,
+                              six)
+    with pytest.raises(ValueError, match="1..16 leaves"):
+        ops.requant_pack_many([], fmt, six)
+    with pytest.raises(ValueError, match="not uint8"):
+        ops.requant_pack_many([_cuda_leaf(), _cuda_leaf(dtype=torch.int32)],
+                              fmt, six)
+    with pytest.raises(ValueError, match="share one"):
+        ops.requant_pack_many([_cuda_leaf()] * 2, [fmt, LNSFormat(8, 16)],
+                              six)
+    with pytest.raises(ValueError, match="share one"):
+        ops.requant_pack_many([_cuda_leaf()] * 2, fmt, [six, fmt.with_bits(7)])
+    with pytest.raises(ValueError, match="share one"):
+        ops.requant_pack_many([_cuda_leaf()] * 2, fmt, [six])
+    with pytest.raises(ValueError, match="expected a CUDA tensor"):
+        ops.requant_pack_many([_cuda_leaf(), torch.zeros(4, dtype=torch.uint8)],
+                              fmt, six)
+
+
+def test_new_dispatch_entries_never_reach_plain_path(no_cuda, monkeypatch):
+    """The seeded K6 and the grouped K7 route CUDA stand-ins to their
+    wrappers; leaves on two kinds of device are refused, not split."""
+    called = []
+    cuda = _CudaStandIn()
+    for name in ("fused_sample_seeded", "requant_pack_many"):
+        monkeypatch.setattr(ref, name, lambda *a, _n=name, **k: pytest.fail(
+            f"plain {_n} reached from a CUDA tensor"))
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, **k:
+                            called.append(_n))
+    dispatch.fused_sample_seeded(cuda, *_host_rows(2), noise_out=True)
+    dispatch.requant_pack_many([cuda, cuda], LNSFormat(8, 8),
+                               LNSFormat(6, 2))
+    assert called == ["fused_sample_seeded", "requant_pack_many"]
+    with pytest.raises(ValueError, match="one kind of device"):
+        dispatch.requant_pack_many([torch.zeros(3, dtype=torch.uint8), cuda],
+                                   LNSFormat(8, 8), LNSFormat(6, 2))
+    with pytest.raises(ValueError, match="one kind of device"):
+        dispatch.requant_pack_many([], LNSFormat(8, 8), LNSFormat(6, 2))

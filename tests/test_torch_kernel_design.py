@@ -1,4 +1,5 @@
-"""The Hopper designs of K1, K2, K5 and K8, checked on their plain versions.
+"""The Hopper designs of K1, K2, K5, K6, K7 and K8, checked on their plain
+versions.
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them
 against their plain versions there). What the CPU can check is that the
@@ -34,6 +35,13 @@ it, so the two cannot drift apart):
   carried as ``acc -> clamp(acc + c, lo, hi)``, applied in K order)
   replays the 24-bit collector exactly, saturating both ways and on a
   partial last slice; its plan.
+* K7's re-grid of four packed bytes in one 32-bit word (no lane carries
+  into its neighbour) equals ``ref.requant_pack`` for every byte value in
+  every lane, up- and down-grids; its 16-byte units cover each byte of a
+  leaf once, misaligned or ragged.
+* K6's row split (chunks of a multiple of 4, a scalar head, float4
+  groups, a tail, blocks merged in rank order) gives the first maximum
+  under any split; its plan.
 """
 import math
 import sys
@@ -688,3 +696,161 @@ def test_k8_plan_at_the_measured_shapes():
     assert [(got[(2048, k, n)]["cfg"], got[(2048, k, n)]["splits"])
             for k, n in GEMMS] == [("mid", 1), ("mid", 1), ("wide", 1),
                                    ("mid", 3)]
+
+
+# ---------------------------------------------------------------------------
+# K7: the re-grid four bytes at a time (lns_requant.cu `regrid4`) and the
+# 16-byte units of a launch, modelled in numpy uint32 arithmetic
+
+
+def _regrid4(w, src, dst):
+    """numpy model of `regrid4` on uint32 words (four packed bytes)."""
+    u32 = np.uint32
+    up, s = ops.regrid_shift(src, dst)
+    src_max, dst_max = src.max_code, dst.max_code
+    ones = u32(0x01010101)
+    dmax4 = u32(dst_max * 0x01010101)
+
+    def gt_mask4(a, b):
+        d = ((a | u32(0x80808080)) - b - ones) & u32(0x80808080)
+        return (d >> u32(7)) * u32(0xFF)
+
+    sign = (w >> u32(src.bits - 1)) & ones
+    c = w & u32(src_max * 0x01010101)
+    if up:
+        sat = gt_mask4(c, u32((dst_max >> s) * 0x01010101))
+        r = (sat & dmax4) | ((c & ~sat) << u32(s))
+    else:
+        r = (((c >> u32(s)) & u32((0xFF >> s) * 0x01010101))
+             + ((c >> u32(s - 1)) & ones))
+        sat = gt_mask4(r, dmax4)
+        r = (sat & dmax4) | (r & ~sat)
+    return (sign << u32(dst.bits - 1)) | r
+
+
+_K7_PAIRS = [((8, 8), b) for b in (2, 3, 4, 5, 6, 7, 8)] + [
+    ((6, 2), 8), ((8, 1), 8), ((8, 4), 3), ((7, 8), 2), ((8, 128), 2),
+    ((2, 1), 8), ((4, 2), 7), ((8, 8), 8)]
+
+
+@pytest.mark.parametrize("src,bits", _K7_PAIRS)
+def test_k7_regrid_four_bytes_at_a_time_matches_plain(src, bits):
+    """Every byte value in every lane of a word, up- and down-grids
+    (shifts 0..7 up, 1..8 down, the clamped ones too): the words of
+    ``ref.requant_pack``; no lane carries into its neighbour."""
+    src = LNSFormat(*src)
+    dst = src.with_bits(bits)
+    b = np.arange(256, dtype=np.uint32)
+    rng = np.random.default_rng(bits)
+    for lane in range(4):
+        others = rng.integers(0, 256, (3, 256)).astype(np.uint32)
+        lanes = list(others)
+        lanes.insert(lane, b)
+        w = sum(x << np.uint32(8 * i) for i, x in enumerate(lanes))
+        got = _regrid4(w.astype(np.uint32), src, dst)
+        for i, x in enumerate(lanes):
+            want = ref.requant_pack(torch.from_numpy(x.astype(np.uint8)),
+                                    src, dst).numpy()
+            np.testing.assert_array_equal(
+                ((got >> np.uint32(8 * i)) & np.uint32(0xFF)).astype(
+                    np.uint8), want)
+
+
+def _k7_units(ptr, n):
+    """The 16-byte units of a leaf at address ``ptr``: (lo, hi, vector)
+    byte ranges of the leaf, as `requant_kernel` cuts them."""
+    head = ptr % 16
+    units = (head + n + 15) // 16 if n else 0
+    out = []
+    for u in range(units):
+        lo, hi = u * 16 - head, u * 16 - head + 16
+        vec = lo >= 0 and hi <= n
+        out.append((max(lo, 0), min(hi, n), vec))
+    return out
+
+
+@pytest.mark.parametrize("ptr,n", [(0, 1 << 12), (3, 1000003), (17, 15),
+                                   (0, 17), (15, 1), (8, 0), (1, 31)])
+def test_k7_units_cover_each_byte_once(ptr, n):
+    """Units cover every byte of a leaf exactly once; only the first and
+    the last unit can take the byte path, and a vector unit starts on a
+    16-byte boundary of the address."""
+    units = _k7_units(ptr, n)
+    seen = np.zeros(n, np.int64)
+    for i, (lo, hi, vec) in enumerate(units):
+        seen[lo:hi] += 1
+        assert vec or i in (0, len(units) - 1)
+        assert not vec or (ptr + lo) % 16 == 0
+    assert (seen == 1).all()
+
+
+# ---------------------------------------------------------------------------
+# K6: a row split over a cluster of blocks, each block's chunk in a scalar
+# head, 16-byte loads and a scalar tail, merged in rank order
+# (sampler.cu), modelled on the plain values
+
+
+def _k6_split(v, blocks, residue):
+    """First-max-wins argmax of ``v`` as the kernel computes it: the row
+    starts ``residue`` floats past a 16-byte boundary, cut into
+    ``blocks`` chunks of a multiple of 4; in each chunk a thread keeps
+    (max, first index) over a head, float4 groups and a tail, threads
+    merge, then blocks merge in rank order."""
+    V = v.size
+    chunk = -(-V // blocks)
+    chunk = (chunk + 3) & ~3
+
+    def better(a, b):
+        return b if (b[0] > a[0] or (b[0] == a[0] and b[1] < a[1])) else a
+
+    best = (-np.inf, V)
+    for rank in range(blocks):
+        lo = min(V, rank * chunk)
+        hi = min(V, lo + chunk)
+        head = min((4 - (residue + lo) % 4) % 4, hi - lo)
+        part = (-np.inf, V)
+        groups = [range(lo, lo + head)]
+        v0 = lo + head
+        n4 = (hi - v0) // 4
+        groups += [range(v0 + 4 * j, v0 + 4 * j + 4) for j in range(n4)]
+        groups.append(range(v0 + 4 * n4, hi))
+        for g in reversed(groups):          # any order: the merge decides
+            for i in g:
+                part = better(part, (v[i], i))
+        best = better(best, part)
+    return best[1] if best[1] < V else 0
+
+
+@pytest.mark.parametrize("V,blocks,residue", [
+    (49152, 8, 0), (49152, 16, 0), (1000, 4, 1), (37, 8, 3), (5, 16, 2),
+    (49152, 1, 2)])
+def test_k6_split_argmax_is_the_first_maximum(V, blocks, residue):
+    """Ties within a float4, across float4s, across blocks and at the
+    head and tail, -inf rows: the split's merge gives torch.argmax's first
+    maximum under any split (nothing is summed)."""
+    rng = np.random.default_rng(V + blocks)
+    v = rng.integers(-3, 4, V).astype(np.float32)  # many ties
+    for _ in range(6):
+        want = int(np.argmax(v))
+        assert _k6_split(v, blocks, residue) == want
+        assert int(torch.argmax(torch.from_numpy(v))) == want
+        v[rng.integers(0, V)] = v.max()            # add a later tie
+        v[rng.integers(0, V)] = v.max() + 1        # and a new maximum
+    assert _k6_split(np.full(V, -np.inf, np.float32), blocks, residue) == 0
+
+
+def test_k6_plan():
+    """Blocks a row: a power of two up to ``_K6_MAX_BLOCKS``, each with
+    at least ``_K6_MIN_CHUNK`` logits, at most ``_K6_FILL`` blocks in
+    all; the decode (4 rows) and verify (16 rows) batches of smollm-135m
+    take the largest cluster."""
+    for B, V in ((4, 49152), (16, 49152), (64, 49152), (1, 256), (3, 4096),
+                 (64, 1000)):
+        p = ops.fused_sample_plan(B, V)
+        b = p["blocks"]
+        assert b & (b - 1) == 0 and 1 <= b <= ops._K6_MAX_BLOCKS
+        assert b == 1 or (V >= b * ops._K6_MIN_CHUNK
+                          and B * b <= ops._K6_FILL)
+        assert p["threads"] % 32 == 0
+    assert ops.fused_sample_plan(4, 49152)["blocks"] == ops._K6_MAX_BLOCKS
+    assert ops.fused_sample_plan(16, 49152)["blocks"] == ops._K6_MAX_BLOCKS

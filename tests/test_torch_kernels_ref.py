@@ -21,7 +21,7 @@ jnp = pytest.importorskip("jax.numpy")
 from repro.core.lns import LNSFormat as JFormat  # noqa: E402
 from repro.kernels import dispatch as jd  # noqa: E402
 from repro_torch.core.lns import LNSFormat  # noqa: E402
-from repro_torch.kernels import dispatch, ops  # noqa: E402
+from repro_torch.kernels import dispatch, ops, ref  # noqa: E402
 
 FMT, JFMT = LNSFormat(8, 8), JFormat(8, 8)
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -151,3 +151,146 @@ def test_k6_fused_sample_tokens_equal(noise):
     np.testing.assert_array_equal(out.numpy(), ref)
     if not noise:
         assert out[0] == 7 and out[1] == 0
+
+
+def test_k6_noise_in_equals_jax_pallas_interpret():
+    """The noise-in K6 plain version against JAX's Pallas kernel itself
+    (interpret mode) on fed noise; and the seeded plain version equals
+    that kernel fed the port's own counter noise, so the seeded mode is
+    the TPU kernel's function on ``ref.gumbel_noise``."""
+    from repro.kernels import ops as jops
+    rng = np.random.default_rng(16)
+    B, V = 5, 700
+    lg = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+    lg[0, [11, 650]] = 40.0               # greedy row 0: a tie
+    t = np.array([0.0, 0.6, 1.0, 1.7, 1e-9], np.float32)
+    seed = np.array([1, 2, 3, 4, 0xFFFFFFFF], np.uint32)
+    step = np.array([0, 1, 7, 2 ** 31 - 1, 5], np.int32)
+    own = ref.gumbel_noise(seed, step, V).numpy()
+    for g in (rng.gumbel(size=(B, V)).astype(np.float32), own):
+        want = np.asarray(jops.fused_sample(jnp.asarray(lg), jnp.asarray(g),
+                                            jnp.asarray(t), interpret=True))
+        got = dispatch.fused_sample(torch.from_numpy(lg), torch.from_numpy(g),
+                                    torch.from_numpy(t))
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert want[0] == 11
+    toks, noise = dispatch.fused_sample_seeded(torch.from_numpy(lg), t, seed,
+                                               step, noise_out=True)
+    np.testing.assert_array_equal(noise.numpy(), own)
+    np.testing.assert_array_equal(toks.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# K6's counter noise (ref.gumbel_noise) against an independent numpy
+# version of the hash. Tolerance: u bit for bit (integer hash, exact
+# conversion); g = -log(-log(u)) within 2^-21 max(1, |g|) of numpy's f64
+# logs (two f32 roundings of log, as chip_smoke.K6_NOISE_ATOL states).
+
+
+def _np_mix32(x):
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x7FEB352D)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def _np_uniform(seed, step, V):
+    key = _np_mix32(_np_mix32(np.asarray(seed, np.uint32))
+                    ^ np.asarray(step).astype(np.int64).astype(np.uint32))
+    tok = np.arange(V, dtype=np.uint32)
+    h = _np_mix32(_np_mix32(key[:, None] ^ tok[None]) + key[:, None])
+    return (((h >> np.uint32(9)).astype(np.float32) + np.float32(0.5))
+            * np.float32(2.0 ** -23))
+
+
+_ROWS = (np.array([0, 1, 1, 123456789, 0xFFFFFFFF], np.uint32),
+         np.array([0, 0, 1, 41, 2 ** 31 - 1], np.int64))
+
+
+def test_gumbel_noise_is_a_function_of_seed_step_token():
+    seed, step = _ROWS
+    a = ref.gumbel_noise(seed, step, 300)
+    b = ref.gumbel_noise(seed[::-1].copy(), step[::-1].copy(), 300)
+    torch.testing.assert_close(a, b.flip(0), rtol=0, atol=0)
+    # a row's noise does not depend on the vocabulary it is cut to
+    torch.testing.assert_close(ref.gumbel_noise(seed, step, 40), a[:, :40],
+                               rtol=0, atol=0)
+    assert a.dtype == torch.float32 and torch.isfinite(a).all()
+    assert len({tuple(r) for r in a.numpy().round(6)}) == len(seed)
+
+
+def test_gumbel_uniform_exact_and_strictly_inside_the_unit_interval():
+    rng = np.random.default_rng(0)
+    seed = rng.integers(0, 2 ** 32, 64, dtype=np.uint64).astype(np.uint32)
+    u = ref.gumbel_uniform(seed, rng.integers(0, 1000, 64), 4096).double()
+    assert bool((u > 0).all()) and bool((u < 1).all())
+    k = u * 2 ** 23 - 0.5                  # (h >> 9): an integer < 2^23
+    assert bool((k == torch.round(k)).all())
+    assert float(k.min()) >= 0 and float(k.max()) <= 2 ** 23 - 1
+
+
+def test_gumbel_hash_bit_equal_to_numpy():
+    seed, step = _ROWS
+    u = ref.gumbel_uniform(seed, step, 5000).numpy()
+    np.testing.assert_array_equal(u.view(np.uint32),
+                                  _np_uniform(seed, step, 5000).view(np.uint32))
+    g = ref.gumbel_noise(seed, step, 5000).numpy().astype(np.float64)
+    want = -np.log(-np.log(u.astype(np.float64)))
+    assert np.all(np.abs(g - want) <= 2.0 ** -21 * np.maximum(1, np.abs(want)))
+
+
+def test_gumbel_noise_is_gumbel_distributed():
+    """10^5 draws (100 sample events x 1000 tokens): Kolmogorov-Smirnov
+    distance to Gumbel(0, 1) below 1.95/sqrt(n), its 0.1% critical value;
+    mean and variance (0.5772, pi^2/6) within 5 standard errors."""
+    n_rows, V = 100, 1000
+    seed = np.full(n_rows, 77, np.uint32)
+    g = np.sort(ref.gumbel_noise(seed, np.arange(n_rows), V).numpy()
+                .astype(np.float64).ravel())
+    n = g.size
+    cdf = np.exp(-np.exp(-g))
+    ks = max(np.max(np.arange(1, n + 1) / n - cdf),
+             np.max(cdf - np.arange(n) / n))
+    assert ks < 1.95 / np.sqrt(n)
+    mean, var = np.euler_gamma, np.pi ** 2 / 6
+    assert abs(g.mean() - mean) < 5 * np.sqrt(var / n)
+    # Var of the sample variance: (mu4 - var^2)/n, mu4 = 12/5 var^2 + 3var^2
+    assert abs(g.var() - var) < 5 * np.sqrt((5.4 - 1) * var ** 2 / n)
+
+
+def test_gumbel_keys_distinct_for_adjacent_steps():
+    """Adjacent steps (and adjacent seeds) give distinct row keys and
+    uncorrelated noise rows (|r| < 5/sqrt(V))."""
+    steps = np.arange(2000)
+    # token 0's 23 bits under each step's key: equal keys would repeat them
+    u = ref.gumbel_uniform(np.full(2000, 9, np.uint32), steps, 1)
+    bits = (u.numpy()[:, 0] * 2 ** 23).astype(np.int64)
+    assert len(set(bits.tolist())) > 1990
+    V = 4096
+    g = ref.gumbel_noise(np.array([9, 9, 10], np.uint32),
+                         np.array([5, 6, 5]), V).numpy()
+    for a, b in ((0, 1), (0, 2)):
+        assert abs(np.corrcoef(g[a], g[b])[0, 1]) < 5 / np.sqrt(V)
+    # and neighbouring tokens of one row
+    assert abs(np.corrcoef(g[0, :-1], g[0, 1:])[0, 1]) < 5 / np.sqrt(V)
+
+
+def test_k6_seeded_equals_noise_in_on_its_noise():
+    """The seeded plain version is the noise-in one fed
+    ``ref.gumbel_noise``; greedy rows (temp 0) take the argmax."""
+    rng = np.random.default_rng(5)
+    B, V = 4, 333
+    lg = torch.from_numpy(rng.standard_normal((B, V)).astype(np.float32))
+    t = np.array([0.0, 0.5, 1.0, 3.0], np.float32)
+    seed = np.array([5, 6, 7, 8], np.uint32)
+    step = np.array([0, 3, 3, 9], np.int32)
+    toks, noise = dispatch.fused_sample_seeded(lg, t, seed, step,
+                                               noise_out=True)
+    assert toks.dtype == torch.int32 and noise.shape == (B, V)
+    torch.testing.assert_close(noise, ref.gumbel_noise(seed, step, V),
+                               rtol=0, atol=0)
+    want = dispatch.fused_sample(lg, noise, torch.from_numpy(t))
+    torch.testing.assert_close(toks, want, rtol=0, atol=0)
+    assert toks[0] == torch.argmax(lg[0])
+    assert torch.equal(dispatch.fused_sample_seeded(lg, t, seed, step), toks)

@@ -111,6 +111,86 @@ def test_k7_requant_words_equal_jax_pallas(smoke, src, dst):
     assert ops.launch_counts()["requant_pack"] == 0
 
 
+@pytest.mark.parametrize("dst", [6, 7])
+def test_k7_many_leaves_equal_one_at_a_time_and_jax_pallas(smoke, dst):
+    """``requant_pack_many`` over every packed leaf of the smoke config
+    (one K7 launch on the card) gives the words of one leaf at a time and
+    of JAX's Pallas kernel in interpret mode, leaf for leaf."""
+    jparams, tparams = smoke[3], smoke[4]
+    src = LNSFormat(8, 8)
+    tl = [leaf.packed for _, leaf in leaves(tparams) if is_lns_weight(leaf)]
+    jl = [leaf.packed for leaf in jax.tree.leaves(
+        jparams, is_leaf=lambda x: hasattr(x, "packed"))
+        if hasattr(leaf, "packed")]
+    assert len(tl) == len(jl) == 8
+    many = dispatch.requant_pack_many(tl, src, src.with_bits(dst))
+    # one format a leaf is accepted where they agree
+    again = dispatch.requant_pack_many(tl, [src] * 8,
+                                       [src.with_bits(dst)] * 8)
+    for w, jw, m, a in zip(tl, jl, many, again):
+        one = dispatch.requant_pack(w, src, src.with_bits(dst))
+        want = np.asarray(jops.requant_pack(jw, JFormat(8, 8),
+                                            JFormat(8, 8).with_bits(dst),
+                                            interpret=True))
+        assert m.dtype == torch.uint8 and m.shape == w.shape
+        np.testing.assert_array_equal(m.numpy(), one.numpy())
+        np.testing.assert_array_equal(m.numpy(), want)
+        np.testing.assert_array_equal(a.numpy(), want)
+    assert ops.launch_counts()["requant_pack"] == 0
+
+
+def _count_grouped_calls(monkeypatch):
+    calls = []
+    many = dispatch.requant_pack_many
+
+    def record(packed, src, dst):
+        calls.append((len(packed), src, dst))
+        return many(packed, src, dst)
+
+    monkeypatch.setattr(dispatch, "requant_pack_many", record)
+    return calls
+
+
+@pytest.mark.parametrize("bits", [6, 7, 8])
+def test_draft_view_is_one_grouped_call(smoke, monkeypatch, bits):
+    """``build_draft_params`` groups the LNS leaves by (src, dst) and
+    makes one ``dispatch.requant_pack_many`` call a group: the smoke
+    config's 8 leaves share (8, 8), so one call (none at the serving
+    width)."""
+    calls = _count_grouped_calls(monkeypatch)
+    view = spec.build_draft_params(smoke[4], bits)
+    src = LNSFormat(8, 8)
+    assert calls == ([] if bits == 8 else [(8, src, src.with_bits(bits))])
+    assert (view is smoke[4]) == (bits == 8)
+
+
+def test_draft_view_groups_by_format(smoke, monkeypatch):
+    """Leaves of two formats make two calls; a group of more than
+    ``ops.K7_MAX_LEAVES`` leaves takes one call per that many; the words
+    equal the one-leaf plain version either way."""
+    from repro_torch.core.lns import LNSWeight
+    tparams = smoke[4]
+    lns = [(p, w) for p, w in leaves(tparams) if is_lns_weight(w)]
+    tree = {f"a{i}": w for i, (_, w) in enumerate(lns)}
+    six = LNSFormat(8, 16)
+    tree.update({f"b{i}": LNSWeight(w.packed, w.scale, six)
+                 for i, (_, w) in enumerate(lns)})
+    tree.update({f"c{i}": w for i, (_, w) in enumerate(lns * 2)})
+    calls = _count_grouped_calls(monkeypatch)
+    view = spec.build_draft_params(tree, 6)
+    src = LNSFormat(8, 8)
+    assert sorted(calls, key=lambda c: (c[1].gamma, -c[0])) == [
+        (16, src, src.with_bits(6)), (8, src, src.with_bits(6)),
+        (8, six, six.with_bits(6))]
+    for name, leaf in tree.items():
+        want = dispatch.requant_pack(leaf.packed, leaf.fmt,
+                                     leaf.fmt.with_bits(6))
+        assert view[name].fmt == leaf.fmt.with_bits(6)
+        assert view[name].scale is leaf.scale
+        np.testing.assert_array_equal(view[name].packed.numpy(),
+                                      want.numpy())
+
+
 # ---------------------------------------------------------------------------
 # draft views
 
