@@ -112,6 +112,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and the LUT-4/2/1 losses (the controls) must lie outside it;
     step wall time and peak memory printed, and one LUT-1 step profiled.
 
+18. The paper's baselines at full width (each step prints one JSON
+    line): (a) ``fp_quantize`` at e4m3 and e5m10, per tensor and per
+    row, bf16 and f32, 2048x1536: two calls bit-identical, the normalized
+    values equal to the ``float8_e4m3fn``/``float16`` round trip bit for
+    bit, differences from the same call on the CPU printed, ms and device
+    kernels a call; (b) ``launch.train --format fp8`` (smollm-135m, 4
+    steps of 8 x 256): K3 8 times a step, K1 and K2 never, no retry,
+    finite losses, and one fp8 step profiled beside phase 10's lns8 step;
+    (c) BERT-base at full width (12 layers, d 768, untied head, ungated
+    GELU, bf16), 8 x 384 tokens: 2 lns8 and 2 fp8 steps, K3 once per
+    packed leaf a step, K1/K2 on lns8 only, every K2 shape the lns8 steps
+    ran held against the plain version (as phase 14) and timed beside
+    ``torch.matmul`` bf16, one step of each profiled; (d) Fig. 7 on
+    smollm-135m with dense f32 weights: sgd_q and adamw_q at Q_U 16 and
+    10 bits, and ``madam_fp``, 3 steps each: finite losses, no kernel
+    launched, every >=2-D leaf a fixed point of Q_log at Q_U; (e) Fig. 4
+    at d = 2^20 on the card and the CPU from the same uniforms: r_t within
+    ``FIG4_RTOL``, MUL and signMUL below GD, Madam printed beside GD.
+
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
 ``chiprun_out/chip_smoke.json``. Nothing here imports JAX.
@@ -228,6 +247,25 @@ K6_OPS = {"greedy": 1, "noise-in": 3, "seeded": 3 + 16 + 4 + 2 + 4}
 # adds 2^-24 |g|; so |dg| <= 2^-21 max(1, |g|) bounds two such roundings
 # with room
 K6_NOISE_ATOL = 2.0 ** -21
+# phase 18: the paper's baselines at full width
+FP_SHAPE = (2048, 1536)
+FP8_STEPS = 4
+FP8_TRAIN_ARGV = ["--arch", "smollm-135m", "--format", "fp8", "--steps",
+                  str(FP8_STEPS), "--batch", "8", "--seq", "256"]
+BERT_BATCH, BERT_SEQ = 8, 384
+FIG7_STEPS = 3
+FIG4_D, FIG4_ETA, FIG4_GAMMA = 1 << 20, 2.0 ** -6, 2.0 ** 10
+# Fig. 4 on the card against the CPU from the same uniforms: CUDA's and
+# the CPU's log2/exp2 round an ulp or two apart (as across frameworks,
+# H1), which moves a stochastic rounding across its threshold where the
+# uniform lies within gamma·eps of it: tens of the 2^20 terms, each by
+# under a grid step squared, in either direction. GD, MUL and Madam (r_t
+# 0.03-0.17) are held to 2e-3 relative. signMUL at gamma·eta = 16 moves
+# every exponent by exactly 16 codes, so its r_t is nothing but that
+# noise: each term flips with probability gamma·|eps| and costs (1/gamma)^2,
+# so E r_t = sum |eps|/gamma; with |eps| <= 4 ulps of log2|w| < 16 (2^-18)
+# both sides must stay under d·2^-18/gamma
+FIG4_RTOL = 2e-3
 # the packed leaves of smollm-135m as K7 re-grids them, in tree order
 K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
              ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
@@ -1966,6 +2004,34 @@ def train_step_check(torch, setup):
     return res
 
 
+def step_profile(torch, step, state, batch, timed=1, n_top=8):
+    """One train step's wall time unprofiled (after a warm-up, over
+    ``timed`` steps), then one profiled step: wall, device busy time and
+    share, the device work (the port's kernels, torch's, copies) and the
+    top kernels by device time. Returns the numbers and the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    float(step(state, batch)[1]["loss"])        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(timed):
+        float(step(state, batch)[1]["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t0) * 1e3 / timed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        float(step(state, batch)[1]["loss"])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy_us, top = device_time(torch, prof, n_top)
+    return {"step_ms": step_ms, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy_us / 1e3 if busy_us else None,
+            "device_busy_share": busy_us / 1e6 / wall if busy_us else None,
+            "launches": launch_split(torch, prof, 1),
+            "top": [[e.key, e.self_device_time_total / 1e3, e.count]
+                    for e in top]}, prof
+
+
 def profile_train(torch, setup):
     """Phase 10: device busy share of one full-width train step, its
     device work (port and torch kernels), and one more step with K1's
@@ -1975,21 +2041,7 @@ def profile_train(torch, setup):
     from repro_torch.training.steps import build_train_step
     cfg, qcfg, mcfg, state, batch = setup
     step = build_train_step(cfg, qcfg, mcfg)
-    float(step(state, batch)[1]["loss"])        # warm-up
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    for _ in range(3):
-        float(step(state, batch)[1]["loss"])
-    torch.cuda.synchronize()
-    step_ms = (time.monotonic() - t0) * 1e3 / 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        float(step(state, batch)[1]["loss"])
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    busy_us, top = device_time(torch, prof, 10)
-    launches = launch_split(torch, prof, 1)
+    res, prof = step_profile(torch, step, state, batch, timed=3, n_top=10)
     with k1_scale_in_torch(ops, ref), profile(
             activities=[ProfilerActivity.CPU,
                         ProfilerActivity.CUDA]) as prof_ts:
@@ -1997,28 +2049,23 @@ def profile_train(torch, setup):
         torch.cuda.synchronize()
     busy_ts, _ = device_time(torch, prof_ts, 1)
     launches_ts = launch_split(torch, prof_ts, 1)
-    share = busy_us / 1e6 / wall if busy_us else None
-    print(f"train step without the profiler: {step_ms:.1f} ms "
-          f"({2048 / step_ms * 1e3:.0f} tok/s)")
-    print(f"profile, 1 train step: wall {wall * 1e3:.1f} ms, device busy "
-          + (f"{busy_us / 1e3:.1f} ms ({share:.1%})" if busy_us
+    busy, launches = res["device_busy_ms"], res["launches"]
+    print(f"train step without the profiler: {res['step_ms']:.1f} ms "
+          f"({2048 / res['step_ms'] * 1e3:.0f} tok/s)")
+    print(f"profile, 1 train step: wall {res['wall_ms']:.1f} ms, device busy "
+          + (f"{busy:.1f} ms ({res['device_busy_share']:.1%})" if busy
              else "not measured (no device time in the trace)"))
     print(f"  device work a train step: {launches['port']:.0f} port "
           f"kernels, {launches['torch']:.0f} torch kernels, "
           f"{launches['copies']:.0f} copies; with K1's scale in torch "
           f"first: {launches_ts['torch']:.0f} torch kernels, busy "
           f"{busy_ts / 1e3:.1f} ms")
-    for e in top:
-        print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms, "
-              f"{e.count} calls")
-    shares = kernel_shares(torch, prof, busy_us, 1, "step")
-    return {"step_ms": step_ms, "wall_ms": wall * 1e3, "k2_k5": shares,
-            "device_busy_ms": busy_us / 1e3 if busy_us else None,
-            "device_busy_share": share, "launches": launches,
-            "k1_scale_in_torch": {"launches": launches_ts,
-                                  "device_busy_ms": busy_ts / 1e3},
-            "top": [[e.key, e.self_device_time_total / 1e3, e.count]
-                    for e in top]}
+    for key, ms, n in res["top"]:
+        print(f"  {key[:60]}: {ms:.3f} ms, {n} calls")
+    res["k2_k5"] = kernel_shares(torch, prof, (busy or 0) * 1e3, 1, "step")
+    res["k1_scale_in_torch"] = {"launches": launches_ts,
+                                "device_busy_ms": busy_ts / 1e3}
+    return res
 
 
 def once_ms(torch, fn):
@@ -2504,6 +2551,342 @@ def approx_train(torch, ops, setup):
                 floor_rel=rel_floor)
 
 
+def profile_line(tag, p):
+    busy = ("not measured (no device time in the trace)"
+            if p["device_busy_ms"] is None else
+            f"{p['device_busy_ms']:.1f} ms ({p['device_busy_share']:.1%})")
+    ls = p["launches"]
+    return (f"{tag}: {p['step_ms']:.1f} ms a step unprofiled, profiled "
+            f"wall {p['wall_ms']:.1f} ms, device busy {busy}; "
+            f"{ls['port']:.0f} port kernels, {ls['torch']:.0f} torch "
+            f"kernels, {ls['copies']:.0f} copies a step; top "
+            + ", ".join(f"{k[:40]} {ms:.2f} ms ({n})"
+                        for k, ms, n in p["top"][:4]))
+
+
+def fp_check(torch):
+    """Phase 18a: ``fp_quantize`` on the card at e4m3 and e5m10, per
+    tensor and per row, in bf16 and f32: two calls bit-identical, the
+    normalized values equal to the ``float8_e4m3fn``/``float16`` round
+    trip bit for bit (the oracle), the result held against the same call
+    on the CPU (differences printed), timed, its device kernels counted."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.numerics.fp import FPFormat, fp_quantize, fp_round
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    base = torch.randn(FP_SHAPE, generator=gen, device="cuda") * torch.exp2(
+        2.0 * torch.randn(FP_SHAPE, generator=gen, device="cuda"))
+    tiny = torch.finfo(torch.float32).tiny
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = []
+    for bits, cast in {(4, 3): torch.float8_e4m3fn,
+                       (5, 10): torch.float16}.items():
+        fmt = FPFormat(*bits)
+        for axis in (None, -1):
+            for dt in (torch.bfloat16, torch.float32):
+                x = base.to(dt)
+                got = fp_quantize(x, fmt, axis)
+                tag = (f"fp_quantize e{bits[0]}m{bits[1]} "
+                       f"{'per row' if axis is not None else 'per tensor'} "
+                       f"{str(dt)[6:]} {FP_SHAPE[0]}x{FP_SHAPE[1]}")
+                check(got.dtype == dt and torch.isfinite(got).all(),
+                      f"{tag}: not finite or not {dt}")
+                check(torch.equal(got, fp_quantize(x, fmt, axis)),
+                      f"{tag}: two calls differ")
+                xf = x.to(torch.float32)
+                amax = (xf.abs().amax() if axis is None
+                        else xf.abs().amax(dim=0, keepdim=True))
+                v = xf / (torch.clamp_min(amax, tiny) / fmt.max_value)
+                oracle = int((fp_round(v, fmt).view(torch.int32)
+                              != v.to(cast).to(torch.float32).view(
+                                  torch.int32)).sum())
+                check(oracle == 0, f"{tag}: {oracle} normalized values "
+                      f"differ from the {cast} round trip")
+                cpu = fp_quantize(x.cpu(), fmt, axis).to(torch.float32)
+                diff = got.cpu().to(torch.float32) - cpu
+                n_diff = int((diff != 0).sum())
+                # profiled after a synchronize and before this step's
+                # graph captures, as k1_one_launch does; a trace with no
+                # device event reads "not measured"
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fp_quantize(x, fmt, axis)
+                    torch.cuda.synchronize()
+                rows.append(dict(
+                    case=tag, cpu_diffs=n_diff,
+                    cpu_max_abs_diff=float(diff.abs().max()),
+                    oracle_diffs=oracle, device_kernels=sum(
+                        e.device_type == cuda for e in prof.events()) or None,
+                    call=(x, fmt, axis)))
+    for r in rows:
+        x, fmt, axis = r.pop("call")
+        r["ms"] = cuda_ms(torch, lambda: fp_quantize(x, fmt, axis))
+        print(f"{r['case']}: oracle equal, vs CPU {r['cpu_diffs']} elements "
+              f"differ (max {r['cpu_max_abs_diff']:.3e}), {r['ms']:.4f} ms "
+              f"a call, {r['device_kernels'] or 'not measured'} device "
+              f"kernels a call")
+    return rows
+
+
+def fp8_train(torch, ops, lns8_profile):
+    """Phase 18b: ``launch.train --format fp8`` at full width through
+    ``main()`` (K3 once per packed leaf a step, K1/K2 never, no retry,
+    finite losses), then one fp8 step profiled beside phase 10's lns8
+    step."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.training.steps import build_train_step
+    with tempfile.TemporaryDirectory() as ckpt:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = train_main(FP8_TRAIN_ARGV + ["--ckpt-dir", ckpt])
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    steps = out["steps"]
+    check(steps == FP8_STEPS, f"fp8 training took {steps} steps")
+    check(out["failures_recovered"] == 0,
+          f"fp8 training recovered from {out['failures_recovered']} failures")
+    check(all(math.isfinite(x) for x in out["losses"]),
+          f"non-finite fp8 training loss: {out['losses']}")
+    check(counts["madam_step"] == 8 * steps,
+          f"fp8: K3 launched {counts['madam_step']} times, not 8 a step")
+    check(counts["encode_pack"] == counts["qmatmul"]
+          == counts["qmatmul_decode"] == 0,
+          f"fp8: a GEMM routed through K1/K2: {counts}")
+    cfg, _, mcfg, state, batch = train_setup(torch)
+    prof, _ = step_profile(torch, build_train_step(cfg, QuantConfig.fp8(),
+                                                   mcfg), state, batch)
+    del state
+    print(f"fp8 train: {steps} steps x {batch['tokens'].numel()} tokens, "
+          f"{out['tokens_per_s']:.0f} tok/s, loss "
+          + " ".join(f"{x:.4f}" for x in out["losses"])
+          + f", launches {counts}")
+    print("  " + profile_line("fp8 step", prof))
+    extra = prof["launches"]["torch"] - lns8_profile["launches"]["torch"]
+    print("  " + profile_line("lns8 step (phase 10)", lns8_profile))
+    print(f"  fp8 adds {extra:.0f} torch kernels a step to lns8's")
+    return dict(out, launches=counts, profile=prof)
+
+
+def bert_train(torch, ops, ref, fmt):
+    """Phase 18c: BERT-base at full width (untied head, ungated GELU,
+    bf16), 2 lns8 and 2 fp8 train steps through ``build_train_step``: K3
+    once per packed leaf a step, K1/K2 on lns8 only; every K2 shape the
+    lns8 steps ran held against the plain version and timed beside
+    ``torch.matmul``; one step of each profiled."""
+    from repro_torch.configs.paper_models import BERT_BASE
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import (batch_to_device,
+                                            build_train_step,
+                                            init_train_state)
+    from repro_torch.tree import leaves
+    cfg, mcfg = BERT_BASE, MadamConfig()
+    state = init_train_state(cfg, mcfg, seed=0, device="cuda")
+    n_packed = sum(hasattr(p, "packed") for _, p in leaves(state.params))
+    data = SyntheticLM(cfg, batch=BERT_BATCH, seq=BERT_SEQ)
+    batches = [batch_to_device(data.batch_at(i), "cuda") for i in range(2)]
+    res = {"packed_leaves": n_packed}
+    with k2_shapes_seen(torch, ops) as seen:
+        for name, qcfg in (("lns8", QuantConfig.lns_madam()),
+                           ("fp8", QuantConfig.fp8())):
+            step = build_train_step(cfg, qcfg, mcfg)
+            st, losses = state, []
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.monotonic()
+            for b in batches:
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t0) / len(batches)
+            counts = ops.launch_counts()
+            check(all(math.isfinite(x) for x in losses),
+                  f"BERT-base {name}: non-finite loss {losses}")
+            check(counts["madam_step"] == n_packed * len(batches),
+                  f"BERT-base {name}: K3 launched {counts['madam_step']} "
+                  f"times for {n_packed} packed leaves a step")
+            if name == "lns8":
+                check(counts["encode_pack"] > 0 and counts["qmatmul"] > 0,
+                      f"BERT-base lns8: K1/K2 not launched: {counts}")
+            else:
+                check(counts["encode_pack"] == counts["qmatmul"] == 0,
+                      f"BERT-base fp8: a GEMM routed: {counts}")
+            prof, _ = step_profile(torch, step, st, batches[0])
+            res[name] = dict(losses=losses, step_s=wall, launches=counts,
+                             profile=prof)
+            print(f"BERT-base {name}: 2 steps x {BERT_BATCH}x{BERT_SEQ} "
+                  f"tokens, {wall * 1e3:.1f} ms a step, loss "
+                  + " ".join(f"{x:.4f}" for x in losses)
+                  + f", K1 {counts['encode_pack']} K2 {counts['qmatmul']} "
+                  f"K3 {counts['madam_step']}")
+            print("  " + profile_line(f"BERT-base {name} step", prof))
+            del st
+    torch.cuda.empty_cache()
+    res["k2_driven"] = k2_driven_check(torch, ops, ref, fmt, seen)
+    shapes = sorted({(M, K, N) for M, K, N, _, _ in seen})
+    res["k2"] = k2_check(torch, ops, ref, fmt, [
+        (M, K, N, {"out": torch.bfloat16, "brief": True})
+        for M, K, N in shapes])
+    del state
+    torch.cuda.empty_cache()
+    return res
+
+
+def fig7(torch, ops):
+    """Phase 18d: Fig. 7's optimizers on smollm-135m at full width with
+    dense f32 weights (``init_params``) on the fake-quant leg under
+    ``QuantConfig.lns_madam()``: sgd_q and adamw_q at Q_U 16 and 10 bits,
+    and ``madam_fp``, 3 steps each. Finite losses, no kernel launched,
+    every updated leaf of rank >= 2 a fixed point of Q_log at Q_U."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import LNSFormat, lns_quantize
+    from repro_torch.core.quantizer import QuantConfig, quantize_grads
+    from repro_torch.models.model import init_params, lm_loss
+    from repro_torch.optim import adamw, madam_fp, quantized_update, sgd
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import batch_to_device
+    from repro_torch.tree import leaves, tree_map
+    cfg = dataclasses.replace(get_config("smollm-135m"), dtype="float32")
+    qcfg = QuantConfig.lns_madam()
+    data = SyntheticLM(cfg, batch=8, seq=256)
+    batches = [batch_to_device(data.batch_at(i), "cuda")
+               for i in range(FIG7_STEPS)]
+    arms = []
+    for bits in (16, 10):
+        fmt = LNSFormat(8, 8).with_bits(bits)
+        arms += [(f"sgd_q_u{bits}", quantized_update(
+                     sgd(lr=0.3, weight_decay=0.0), fmt), fmt),
+                 (f"adamw_q_u{bits}", quantized_update(adamw(lr=3e-3), fmt),
+                  fmt)]
+    arms.append(("madam_fp", madam_fp(), None))
+    res = {}
+    for name, (init, update), fmt in arms:
+        params = init_params(cfg, seed=0, device="cuda")
+        st = init(params)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for b in batches:
+            t0 = time.monotonic()
+            proxies = tree_map(lambda p: p.detach().requires_grad_(True),
+                               params)
+            loss = lm_loss(proxies, b, cfg, qcfg)
+            loss.backward()
+            grads = quantize_grads(tree_map(lambda p: p.grad, proxies), qcfg)
+            params, st = update(grads, st, params)
+            losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+        counts = ops.launch_counts()
+        check(all(math.isfinite(x) for x in losses),
+              f"Fig. 7 {name}: non-finite loss {losses}")
+        check(not any(counts.values()),
+              f"Fig. 7 {name}: a kernel launched on the dense path: {counts}")
+        off = []
+        if fmt is not None:
+            off = [".".join(path) for path, p in leaves(params)
+                   if p.dim() >= 2 and not torch.equal(
+                       lns_quantize(p, fmt, scale_axis=-1), p)]
+            check(not off, f"Fig. 7 {name}: leaves off the Q_U grid: {off}")
+        res[name] = dict(losses=losses, step_ms=[t * 1e3 for t in times])
+        print(f"Fig. 7 {name}: loss " + " ".join(f"{x:.4f}" for x in losses)
+              + f", {sum(times[1:]) / len(times[1:]) * 1e3:.1f} ms a step "
+              f"(after the first), 0 kernel launches"
+              + ("" if fmt is None else
+                 f", every >=2-D leaf on the B={fmt.bits} grid"))
+        del params, st
+    torch.cuda.empty_cache()
+    return res
+
+
+def fig4(torch):
+    """Phase 18e: Fig. 4's measurement at d = 2^20 on the card and on the
+    CPU from the same uniforms (``benchmarks/quant_error.py``'s
+    distributions): r_t within ``FIG4_RTOL``, MUL and signMUL below GD;
+    Madam's r_t printed beside GD's and the closed form d/(6γ²)."""
+    from repro_torch.core import error_analysis as ea
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    d = FIG4_D
+    w = torch.exp2(2.0 * torch.randn(d, generator=gen, device="cuda"))
+    g = 0.003 * torch.randn(d, generator=gen, device="cuda")
+    g2 = torch.full((d,), 0.003 ** 2, device="cuda")
+    u = [torch.rand(d, generator=gen, device="cuda") for _ in ea.RULES]
+    card = {k: float(v) for k, v in ea.measure_all(
+        None, w, g, FIG4_ETA, FIG4_GAMMA, g2, u=u).items()}
+    cpu = {k: float(v) for k, v in ea.measure_all(
+        None, w.cpu(), g.cpu(), FIG4_ETA, FIG4_GAMMA, g2.cpu(),
+        u=[x.cpu() for x in u]).items()}
+    noise = d * 2.0 ** -18 / FIG4_GAMMA
+    for k in ea.RULES:
+        ok = (max(card[k], cpu[k]) <= noise if k == "signmul" else
+              abs(card[k] - cpu[k]) <= FIG4_RTOL * abs(cpu[k]))
+        check(ok, f"Fig. 4 {k}: r_t {card[k]} on the card, {cpu[k]} on "
+              f"the CPU")
+    check(card["mul"] < card["gd"] and card["signmul"] < card["gd"],
+          f"Fig. 4: a multiplicative rule is not below GD: {card}")
+    ms = cuda_ms(torch, lambda: ea.measure_all(None, w, g, FIG4_ETA,
+                                               FIG4_GAMMA, g2, u=u))
+    closed = d / (6 * FIG4_GAMMA ** 2)
+    print(f"Fig. 4 at d={d}, eta={FIG4_ETA}, gamma={FIG4_GAMMA:.0f}: r_t "
+          f"on the card "
+          + ", ".join(f"{k} {card[k]:.4e}" for k in ea.RULES)
+          + f" (CPU " + ", ".join(f"{cpu[k]:.4e}" for k in ea.RULES)
+          + f"; rtol {FIG4_RTOL}, signMUL under the noise floor "
+          f"{noise:.2e}); MUL and signMUL below GD; Madam "
+          f"{card['madam'] / card['gd']:.2f}x GD (d/(6 gamma^2) = "
+          f"{closed:.4e}: g* = g/sqrt(g2) moves every exponent by about "
+          f"gamma*eta*|g*| = 16 codes, SR's largest variance); "
+          f"{ms:.3f} ms a measurement")
+    return dict(card=card, cpu=cpu, ms=ms, madam_closed_form=closed,
+                signmul_noise_floor=noise)
+
+
+def baselines(torch, ops, ref, fmt, lns8_profile):
+    """Phase 18: the paper's baselines at full width. Each step prints one
+    JSON line of its main numbers and its seconds (the full results go to
+    the JSON file)."""
+    def run(step, fn, summary):
+        t = time.monotonic()
+        res = fn()
+        print(json.dumps({"phase18": step, "s": time.monotonic() - t,
+                          "result": summary(res)}))
+        return res
+
+    t0 = time.monotonic()
+    out = {
+        "fp": run("fp_quantize", lambda: fp_check(torch), lambda r: [
+            [x["case"], x["cpu_diffs"], x["ms"], x["device_kernels"]]
+            for x in r]),
+        "fp8_train": run(
+            "fp8_train", lambda: fp8_train(torch, ops, lns8_profile),
+            lambda r: {"losses": r["losses"], "launches": r["launches"],
+                       **step_summary(r["profile"])}),
+        "bert": run("bert_base", lambda: bert_train(torch, ops, ref, fmt),
+                    lambda r: {**{q: {"losses": r[q]["losses"],
+                                      "launches": r[q]["launches"],
+                                      **step_summary(r[q]["profile"])}
+                                  for q in ("lns8", "fp8")},
+                               "k2": [[x["shape"], x["path"], x["ms"],
+                                       x["library_ms"], x["bound_ms"],
+                                       x["max_abs_err"]] for x in r["k2"]]}),
+        "fig7": run("fig7", lambda: fig7(torch, ops), lambda r: r),
+        "fig4": run("fig4", lambda: fig4(torch), lambda r: r),
+    }
+    out["seconds"] = time.monotonic() - t0
+    print(f"phase 18 took {out['seconds']:.1f}s")
+    return out
+
+
+def step_summary(p):
+    return {"step_ms": p["step_ms"], "device_busy_ms": p["device_busy_ms"],
+            "device_busy_share": p["device_busy_share"],
+            "torch_kernels": p["launches"]["torch"],
+            "copies": p["launches"]["copies"]}
+
+
 def main() -> int:
     import torch
 
@@ -2673,6 +3056,8 @@ def main() -> int:
         (17280, 576, 8, 8, torch.float32, u8)])
     approx = approx_train(torch, ops, train_setup(torch))
     torch.cuda.empty_cache()
+    paper = baselines(torch, ops, ref, fmt, train_prof)
+    torch.cuda.empty_cache()
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -2732,7 +3117,7 @@ def main() -> int:
                        "lns_matmul_packed_lut_sweep": k8_luts,
                        "madam_step_unpacked": k9},
             "table10": table10, "k8_rate_inputs": k8_rate_inputs,
-            "approx_train": approx,
+            "approx_train": approx, "baselines": paper,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

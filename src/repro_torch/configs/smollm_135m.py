@@ -17,10 +17,11 @@ CONFIG = ArchConfig(
     d_ff=1536,
     vocab_size=49152,
     rope_theta=1e4,
+    tie_embeddings=True,
 )
 
 SMOKE = ArchConfig(
     name="smollm-smoke", family="dense", num_layers=3, d_model=48,
     num_heads=3, num_kv_heads=1, head_dim=16, d_ff=128, vocab_size=512,
-    dtype="float32",
+    tie_embeddings=True, dtype="float32",
 )

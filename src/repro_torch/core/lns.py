@@ -37,6 +37,7 @@ __all__ = [
     "lns_decode_packed",
     "lns_requant_packed",
     "lns_weight_encode",
+    "quantization_gap",
 ]
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -57,16 +58,26 @@ class LNSFormat:
             raise ValueError(f"gamma must be a power of two, got {self.gamma}")
 
     @property
+    def exponent_bits(self) -> int:
+        return self.bits - 1
+
+    @property
     def max_code(self) -> int:
         return (1 << (self.bits - 1)) - 1
 
-    def with_bits(self, bits: int) -> "LNSFormat":
-        """The format at another bitwidth with the same dynamic range
-        ``(0, max_code/γ)``: γ scales by ``2**(bits - B)`` (paper §6.1.1,
-        how Q_U is widened)."""
-        if bits >= self.bits:
+    @property
+    def dynamic_range(self) -> float:
+        """The width ``max_code/γ`` of the exponent range (0, max_code/γ)."""
+        return self.max_code / self.gamma
+
+    def with_bits(self, bits: int, keep_range: bool = True) -> "LNSFormat":
+        """The format at another bitwidth. With ``keep_range`` the dynamic
+        range ``(0, max_code/γ)`` stays: γ scales by ``2**(bits - B)``
+        (paper §6.1.1, how Q_U is widened); without it γ stays."""
+        gamma = self.gamma
+        if keep_range and bits >= self.bits:
             gamma = self.gamma * (1 << (bits - self.bits))
-        else:
+        elif keep_range:
             gamma = max(1, self.gamma >> (self.bits - bits))
         return LNSFormat(bits=bits, gamma=gamma)
 
@@ -233,3 +244,10 @@ def lns_weight_encode(x: torch.Tensor, fmt: LNSFormat, scale_axis=None,
         scale = compute_scale(x, axis=scale_axis)
     sign, code = lns_encode(x, fmt, scale)
     return LNSWeight(lns_pack(sign, code, fmt), scale, fmt)
+
+
+def quantization_gap(x: torch.Tensor, fmt: LNSFormat) -> torch.Tensor:
+    """Distance from ``|x|`` to the next representable value above it,
+    ``|x|·(2^(1/γ) - 1)``: the gap that grows with the weight and breaks
+    additive updates (paper Fig. 1). A diagnostic."""
+    return x.abs() * (2.0 ** (1.0 / fmt.gamma) - 1.0)

@@ -8,9 +8,10 @@
   (``dispatch.encode_pack``, K1) and multiplied against the weight's words
   (``dispatch.qmatmul``, K2) with the scales in the epilogue;
 * anything else takes the fake-quant leg: Q_A and Q_W put both operands on
-  the LNS grid with straight-through gradients, then a plain
-  ``torch.einsum`` (the tied LM head goes here, as it does in the JAX
-  package, where XLA runs that product);
+  their grid (LNS, or a miniature float for the paper's FP8 baseline)
+  with straight-through gradients, then a plain ``torch.einsum`` (the
+  tied LM head goes here, as it does in the JAX package, where XLA runs
+  that product);
 * with ``QuantConfig.approx_lut`` set, no GEMM routes: packed weights
   decode per leaf and every GEMM simulates the hybrid conversion
   approximation (``core.quant_training.approx_qeinsum``, paper Table 10).
@@ -25,7 +26,7 @@ and the quantizers build no autograd node at all.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -33,9 +34,19 @@ from repro_torch.core.lns import (LNSFormat, LNSWeight, is_lns_weight,
                                   lns_decode_packed, lns_quantize,
                                   lns_requant_packed)
 from repro_torch.kernels import dispatch
+from repro_torch.numerics.fp import FPFormat, fp_quantize
 
-__all__ = ["QuantConfig", "qeinsum", "quantize", "ste_quantize",
+__all__ = ["Format", "QuantConfig", "qeinsum", "quantize", "ste_quantize",
            "backward_quantize", "cot_boundary", "quantize_grads"]
+
+Format = Union[LNSFormat, FPFormat]
+
+
+def _apply_format(x: torch.Tensor, fmt: Format,
+                  scale_axis: Optional[int]) -> torch.Tensor:
+    if isinstance(fmt, LNSFormat):
+        return lns_quantize(x, fmt, scale_axis=scale_axis)
+    return fp_quantize(x, fmt, scale_axis=scale_axis)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +57,11 @@ class QuantConfig:
     store the optimizer keeps. Scale axes: ``None`` is per tensor, an int
     keeps resolution on that axis."""
 
-    weight: Optional[LNSFormat] = None
-    act: Optional[LNSFormat] = None
-    err: Optional[LNSFormat] = None
-    grad: Optional[LNSFormat] = None
-    update: Optional[LNSFormat] = None
+    weight: Optional[Format] = None
+    act: Optional[Format] = None
+    err: Optional[Format] = None
+    grad: Optional[Format] = None
+    update: Optional[Format] = None
     weight_scale_axis: Optional[int] = -1
     act_scale_axis: Optional[int] = None
     err_scale_axis: Optional[int] = None
@@ -69,6 +80,15 @@ class QuantConfig:
                    update=fmt.with_bits(update_bits), approx_lut=approx_lut)
 
     @classmethod
+    def fp8(cls) -> "QuantConfig":
+        """The paper's FP8 baseline: e4m3 for Q_W, Q_A, Q_E and Q_G;
+        Q_U names FP16 (e5m10), which the train step does not read (as
+        in the JAX package, the update store stays Madam's)."""
+        fmt = FPFormat(exp_bits=4, man_bits=3)
+        return cls(weight=fmt, act=fmt, err=fmt, grad=fmt,
+                   update=FPFormat(exp_bits=5, man_bits=10))
+
+    @classmethod
     def full_precision(cls) -> "QuantConfig":
         return cls()
 
@@ -78,10 +98,11 @@ class QuantConfig:
                                            self.grad))
 
 
-def quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
+def quantize(x: torch.Tensor, fmt: Optional[Format],
              scale_axis: Optional[int] = None) -> torch.Tensor:
-    """Q_log onto ``fmt``'s grid (identity for ``fmt=None``)."""
-    return x if fmt is None else lns_quantize(x, fmt, scale_axis=scale_axis)
+    """Onto ``fmt``'s grid: Q_log for an LNS format, the miniature-float
+    grid for an ``FPFormat`` (identity for ``fmt=None``)."""
+    return x if fmt is None else _apply_format(x, fmt, scale_axis)
 
 
 def _needs_grad(x: torch.Tensor) -> bool:
@@ -99,7 +120,7 @@ def ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return x + (q - x).detach()
 
 
-def ste_quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
+def ste_quantize(x: torch.Tensor, fmt: Optional[Format],
                  scale_axis: Optional[int] = None) -> torch.Tensor:
     """Forward: onto the grid. Backward: identity (straight through)."""
     if fmt is None:
@@ -119,13 +140,13 @@ class _BackwardQuantize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if ctx.fmt is not None:
-            g = lns_quantize(g, ctx.fmt, scale_axis=ctx.scale_axis)
+            g = _apply_format(g, ctx.fmt, ctx.scale_axis)
         if ctx.cot_dtype is not None:
             g = g.to(ctx.cot_dtype)
         return g, None, None, None
 
 
-def backward_quantize(x: torch.Tensor, fmt: Optional[LNSFormat],
+def backward_quantize(x: torch.Tensor, fmt: Optional[Format],
                       scale_axis: Optional[int] = None,
                       cot_dtype: Optional[torch.dtype] = None
                       ) -> torch.Tensor:
@@ -151,7 +172,7 @@ def quantize_grads(grads, cfg: Optional[QuantConfig]):
         return grads
     if isinstance(grads, dict):
         return {k: quantize_grads(v, cfg) for k, v in grads.items()}
-    return lns_quantize(grads, cfg.grad, scale_axis=cfg.grad_scale_axis)
+    return _apply_format(grads, cfg.grad, cfg.grad_scale_axis)
 
 
 def _route_plan(eq: str) -> bool:
@@ -167,12 +188,13 @@ def _route_plan(eq: str) -> bool:
 
 def _routable(eq: str, w: LNSWeight, cfg: Optional[QuantConfig]) -> bool:
     """Can this GEMM take the packed kernel path? Both operands on one
-    LNS grid, a per-tensor activation scale, a 2-D weight whose scale is
-    constant along the contraction axis, and no conversion-approximation
-    simulation."""
+    LNS grid (a miniature-float format never routes), a per-tensor
+    activation scale, a 2-D weight whose scale is constant along the
+    contraction axis, and no conversion-approximation simulation."""
     if cfg is None or cfg.approx_lut is not None:
         return False
-    if cfg.weight is None or cfg.act is None:
+    if not (isinstance(cfg.weight, LNSFormat)
+            and isinstance(cfg.act, LNSFormat)):
         return False
     if cfg.weight != cfg.act or cfg.act_scale_axis is not None:
         return False

@@ -7,9 +7,12 @@ prints the parameter count, then throughput and the loss trajectory.
   python -m repro_torch.launch.train --arch smollm-135m \
       --steps 6 --batch 8 --seq 256
 
-``--device cpu`` runs the plain PyTorch versions of the kernels (use it
-with ``--smoke``). Without ``--ckpt-dir`` the checkpoints go to a
-temporary directory that is removed at the end.
+``--format`` picks the quantizers: ``lns8`` (the paper's B=8, γ=8),
+``fp8`` (the paper's e4m3 baseline: no GEMM routes, the weights stay in
+the LNS store that Madam steps) or ``fp32``. ``--device cpu`` runs the
+plain PyTorch versions of the kernels (use it with ``--smoke``). Without
+``--ckpt-dir`` the checkpoints go to a temporary directory that is
+removed at the end.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ import tempfile
 import time
 
 from repro_torch.configs import get_config, get_smoke_config
-from repro_torch.core.lns import is_lns_weight
+from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
@@ -62,10 +65,7 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _quant_config(fmt: str) -> QuantConfig:
-    if fmt == "fp8":
-        raise NotImplementedError(
-            "--format fp8 needs numerics/fp.py, which is not ported yet")
-    return {"lns8": QuantConfig.lns_madam(),
+    return {"lns8": QuantConfig.lns_madam(), "fp8": QuantConfig.fp8(),
             "fp32": QuantConfig.full_precision()}[fmt]
 
 
@@ -81,10 +81,11 @@ def main(argv=None) -> dict:
     qcfg = _quant_config(args.format)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    # Q_U, the store Madam steps, is the quantizer config's (the default
-    # store when the format quantizes nothing)
-    mcfg = (MadamConfig(lr=args.lr) if qcfg.update is None else
-            MadamConfig(lr=args.lr, update_format=qcfg.update))
+    # Q_U, the store Madam steps, is the quantizer config's where it is
+    # an LNS format; otherwise (fp32, and fp8's FP16 Q_U, which the step
+    # does not read) Madam's default store, as the JAX CLI builds it
+    mcfg = (MadamConfig(lr=args.lr, update_format=qcfg.update)
+            if isinstance(qcfg.update, LNSFormat) else MadamConfig(lr=args.lr))
     state = init_train_state(cfg, mcfg, seed=0, device=device)
     n = sum(p.packed.numel() + p.scale.numel() if is_lns_weight(p)
             else p.numel() for _, p in leaves(state.params))

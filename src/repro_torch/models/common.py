@@ -12,9 +12,9 @@ __all__ = ["ArchConfig"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     """Shapes and options of one decoder, named as in
-    ``repro.models.common.ArchConfig``. Only what smollm-135m uses is
-    ported: the dense family, a gated SiLU MLP, tied embeddings, every
-    attention GEMM quantized."""
+    ``repro.models.common.ArchConfig``, with its defaults. Ported: the
+    dense family, a gated or ungated MLP (``mlp_gated``, ``act_fn``),
+    tied or untied embeddings, every attention GEMM quantized."""
 
     name: str
     family: str
@@ -26,7 +26,10 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     rope_theta: float = 1e4
+    tie_embeddings: bool = False
     norm_eps: float = 1e-6
+    act_fn: str = "silu"
+    mlp_gated: bool = True
     attn_logit_softcap: Optional[float] = None
     # store the KV cache as packed LNS words (+ a per-position, per-head
     # scale) at this many bits; None keeps it in the compute dtype

@@ -1,5 +1,6 @@
-"""Building blocks: weight views, RMSNorm, rotary embedding, gated MLP,
-embedding lookup. Every GEMM goes through ``core.quantizer.qeinsum``.
+"""Building blocks: weight views, RMSNorm, rotary embedding, the MLP
+(gated or not), embedding lookup. Every GEMM goes through
+``core.quantizer.qeinsum``.
 
 The JAX package wraps the f32 islands (norms, rope) in ``cot_boundary``
 to keep their gradients in the network dtype; autograd already returns
@@ -17,7 +18,13 @@ from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.models.common import ArchConfig
 
 __all__ = ["dense_of", "decoded_of", "rms_norm", "rope", "apply_rope",
-           "mlp_apply", "embed_lookup"]
+           "mlp_apply", "embed_lookup", "ACT_FNS"]
+
+ACT_FNS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
 
 
 def dense_of(w, cfg: ArchConfig):
@@ -68,11 +75,16 @@ def apply_rope(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
 
 def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
               qcfg: Optional[QuantConfig]) -> torch.Tensor:
-    """Gated SiLU MLP: down(silu(gate(x)) * up(x))."""
+    """down(act(gate(x)) * up(x)), or down(act(up(x))) when
+    ``cfg.mlp_gated`` is off; ``act`` is ``ACT_FNS[cfg.act_fn]``."""
+    act = ACT_FNS[cfg.act_fn]
     up = qeinsum("bsd,df->bsf", x, dense_of(p["up"], cfg), qcfg)
-    gate = qeinsum("bsd,df->bsf", x, dense_of(p["gate"], cfg), qcfg)
-    return qeinsum("bsf,fd->bsd", F.silu(gate) * up, dense_of(p["down"], cfg),
-                   qcfg)
+    if cfg.mlp_gated:
+        gate = qeinsum("bsd,df->bsf", x, dense_of(p["gate"], cfg), qcfg)
+        up = act(gate) * up
+    else:
+        up = act(up)
+    return qeinsum("bsf,fd->bsd", up, dense_of(p["down"], cfg), qcfg)
 
 
 def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

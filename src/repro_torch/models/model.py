@@ -20,8 +20,8 @@ from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import (decoded_of, embed_lookup, mlp_apply,
-                                       rms_norm)
+from repro_torch.models.layers import (decoded_of, dense_of, embed_lookup,
+                                       mlp_apply, rms_norm)
 
 __all__ = ["init_params", "forward", "lm_loss", "lm_head", "init_caches",
            "decode_step", "layer", "to_device"]
@@ -36,10 +36,11 @@ def _trunc_normal(shape, std, dtype, gen: torch.Generator, device):
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device=None) -> Dict[str, Any]:
     """Random dense parameters from a ``torch.Generator`` seeded with
-    ``seed``: truncated normals (std 1/sqrt(fan_in), embeddings 0.02),
-    zero norm gains, as the JAX package draws them. The two frameworks'
-    streams differ; carry JAX parameters across with ``repro_torch.convert``
-    where the same weights are needed."""
+    ``seed``: truncated normals (std 1/sqrt(fan_in), embeddings and an
+    untied head ``embed.head (d, V)`` 0.02), zero norm gains, as the JAX
+    package draws them; no ``gate`` when the MLP is ungated. The two
+    frameworks' streams differ; carry JAX parameters across with
+    ``repro_torch.convert`` where the same weights are needed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.compute_dtype
@@ -53,7 +54,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=dev)
 
-    mlp = {"up": dense(d, f), "gate": dense(d, f), "down": dense(f, d)}
+    mlp = {"up": dense(d, f)}
+    if cfg.mlp_gated:
+        mlp["gate"] = dense(d, f)
+    mlp["down"] = dense(f, d)
     params: Dict[str, Any] = {
         "embed": {"tok": _trunc_normal((cfg.vocab_size, d), 0.02, dt, gen,
                                        dev)},
@@ -66,6 +70,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
             "mlp": mlp,
         }},
     }
+    if not cfg.tie_embeddings:     # drawn last: tied configs keep their draws
+        params["embed"]["head"] = _trunc_normal((d, cfg.vocab_size), 0.02,
+                                                dt, gen, dev)
     return params
 
 
@@ -76,12 +83,16 @@ def layer(tree, i: int):
     return tree[i]
 
 
-def lm_head(params, cfg: ArchConfig) -> torch.Tensor:
-    """The tied LM head ``(d, V)``: the decoded embedding (``delta``
+def lm_head(params, cfg: ArchConfig):
+    """The LM head ``(d, V)``. Tied: the decoded embedding (``delta``
     included, so the table's gradient gathers from the lookup and the
-    head), transposed. A pure function of the weights, so the engine
-    decodes it once; the fake-quant leg of ``qeinsum`` puts it on the
-    weight grid per call, as the JAX package does."""
+    head), transposed; a pure function of the weights, so the engine
+    decodes it once, and the fake-quant leg of ``qeinsum`` puts it on the
+    weight grid per call, as the JAX package does. Untied:
+    ``embed.head`` itself, still packed when it is, so ``qeinsum`` routes
+    it through K1 and K2."""
+    if not cfg.tie_embeddings:
+        return dense_of(params["embed"]["head"], cfg)
     return decoded_of(params["embed"]["tok"], cfg).T
 
 

@@ -37,7 +37,7 @@ from repro_torch.obs.numerics import path_name
 from repro_torch.tree import leaves, tree_get, tree_map, tree_set
 
 __all__ = ["MadamConfig", "MadamState", "init_lns_params", "materialize",
-           "grad_proxies", "attach_proxies", "madam_lns"]
+           "grad_proxies", "attach_proxies", "madam_lns", "madam_fp"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,5 +223,38 @@ def madam_lns(cfg: MadamConfig):
             tree_set(new_v, path, nv)
         out = (new_p, MadamState(g2=new_v, count=count))
         return out + (stats,) if with_stats else out
+
+    return init, update
+
+
+def madam_fp(lr: float = 2.0 ** -7, beta: float = 0.999, clip: float = 10.0,
+             eps: float = 1e-30):
+    """Full-precision Madam (Eq. 9) over a tree of dense tensors: the
+    paper's pre-quantization baseline and the Fig.-7 anchor. The
+    ``(init, update)`` pair; ``update(grads, state, params,
+    generator=None)`` returns ``(params, state)``, each leaf stepped in
+    f32 as ``p·exp(-lr·sign(p)·g/sqrt(v̂ + eps))``, clamped to ±``clip``
+    and cast back to its dtype."""
+
+    def init(params) -> MadamState:
+        return MadamState(g2=tree_map(
+            lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                  device=p.device), params), count=0)
+
+    @torch.no_grad()
+    def update(grads, state: MadamState, params,
+               generator: Optional[torch.Generator] = None):
+        count = state.count + 1
+        bc = ref.bias_correction(beta, count)
+        new_p: Dict = {}
+        new_v: Dict = {}
+        for path, p in leaves(params):
+            g = tree_get(grads, path).to(torch.float32)
+            v = (1.0 - beta) * g * g + beta * tree_get(state.g2, path)
+            gstar = g * torch.rsqrt(v / bc + eps)
+            w = p.to(torch.float32) * torch.exp(-lr * torch.sign(p) * gstar)
+            tree_set(new_p, path, torch.clamp(w, -clip, clip).to(p.dtype))
+            tree_set(new_v, path, v)
+        return new_p, MadamState(g2=new_v, count=count)
 
     return init, update

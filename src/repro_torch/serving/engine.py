@@ -94,6 +94,10 @@ class Engine:
         if observer is not None:
             raise NotImplementedError(
                 "observability hooks come with the gateway/obs slice")
+        if not cfg.tie_embeddings:
+            raise NotImplementedError(
+                "serving an untied LM head comes with a later slice (the "
+                "engine decodes the tied head once)")
         self.spec: Optional[SpecConfig] = None
         if speculate_k:
             reason = spec_supported(cfg)

@@ -72,10 +72,13 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     ``step`` (an int), and with ``numerics`` a ``"numerics"`` dict of
     per-layer update-site (K4's epilogue) and gradient-encode stats. The
     batch is moved to the parameters' device. ``generator`` is needed only
-    for a stochastic Q_U. Q_U (``qcfg.update``), where set, must be the
-    store the optimizer steps, ``mcfg.update_format``."""
+    for a stochastic Q_U. An LNS Q_U (``qcfg.update``) must be the store
+    the optimizer steps, ``mcfg.update_format``. A miniature-float Q_U
+    (``QuantConfig.fp8()``'s FP16) is not read, as in the JAX package,
+    whose step never reads ``qcfg.update``: the weights stay in Madam's
+    LNS store and K3 steps them on that path too."""
     q_u = getattr(qcfg, "update", None)
-    if q_u is not None and q_u != mcfg.update_format:
+    if isinstance(q_u, LNSFormat) and q_u != mcfg.update_format:
         raise ValueError(f"Q_U {q_u} differs from the optimizer's store "
                          f"{mcfg.update_format}")
     _, opt_update = madam_lns(mcfg)

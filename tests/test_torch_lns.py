@@ -145,3 +145,26 @@ def test_quantize_bf16_equal():
     tq = T.lns_quantize(torch.from_numpy(x).to(torch.bfloat16), tf)
     np.testing.assert_array_equal(np.asarray(jq).astype(np.float32),
                                   tq.float().numpy())
+
+
+@pytest.mark.parametrize("keep_range", [True, False])
+@pytest.mark.parametrize("bits,gamma", FORMATS)
+def test_format_fields_and_with_bits_match_jax(bits, gamma, keep_range):
+    """``exponent_bits``, ``max_code``, ``dynamic_range`` and ``with_bits``
+    (widening and narrowing, with and without ``keep_range``) as JAX's."""
+    jf, tf = _fmts(bits, gamma)
+    for f in ("exponent_bits", "max_code", "dynamic_range"):
+        assert getattr(tf, f) == getattr(jf, f), f
+    for b in (4, 8, 10, 12, 16):
+        j, t = jf.with_bits(b, keep_range), tf.with_bits(b, keep_range)
+        assert (t.bits, t.gamma) == (j.bits, j.gamma), b
+
+
+def test_quantization_gap_matches_jax():
+    """|x|·(2^(1/γ) - 1): the same f32 multiply on both sides."""
+    x = _inputs(7)
+    for bits, gamma in FORMATS:
+        jf, tf = _fmts(bits, gamma)
+        np.testing.assert_array_equal(
+            T.quantization_gap(torch.from_numpy(x), tf).numpy(),
+            np.asarray(J.quantization_gap(jnp.asarray(x), jf)))

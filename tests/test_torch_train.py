@@ -18,6 +18,13 @@ Tolerances and why:
   norms differ by up to 4% and 0.7% of the step-1 gradients change sign.
   So the losses are held to rtol 1e-3, grad norms to 10%, and step-1
   words may differ on at most 2%.
+* ``fp8`` quantizers (e4m3 Q_W/Q_A/Q_E/Q_G on the fake-quant leg, the
+  weights in the 16-bit LNS store that Madam steps): the e4m3 grid is
+  built exactly on both sides (its ulps are powers of two JAX's exp2
+  hits exactly), but the decoded weights and Q_E's inputs differ by
+  ulps (H1), which flip e4m3 roundings near ties and compound as in
+  lns8. Measured: step-0 loss 1.5e-7 apart, later losses 2.5e-4, grad
+  norms 4%, step-1 words 0.02%; held to the lns8 limits.
 * ``numerics=True`` (with Q_G only, so gradients agree): the same stat
   keys; at step 1 the counts agree to f32 rounding of the
   normalization, ``qerr_rel`` and ``code_mean`` to rtol 1e-5.
@@ -77,6 +84,7 @@ QCFGS = {
     "qg": (JQuantConfig(grad=JFormat(8, 8)), QuantConfig(grad=LNSFormat(8, 8))),
     "approx2": (JQuantConfig.lns_madam(approx_lut=2),
                 QuantConfig.lns_madam(approx_lut=2)),
+    "fp8": (JQuantConfig.fp8(), QuantConfig.fp8()),
 }
 
 
@@ -186,6 +194,47 @@ def test_train_step_lns8_tracks_jax(jax_state):
                                    err_msg=f"grad norm, step {i}")
     n, tot, _ = _word_diffs(out[0][2], out[0][3])
     assert n <= 0.02 * tot, (n, tot)
+
+
+def test_train_step_fp8_tracks_jax(jax_state):
+    out = _run_both(jax_state, "fp8")
+    np.testing.assert_allclose(float(out[0][1]["loss"]),
+                               float(out[0][0]["loss"]), rtol=1e-5)
+    for i, (jm, tm, jf, tf) in enumerate(out):
+        assert math.isfinite(float(tm["loss"]))
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   rtol=1e-3, err_msg=f"loss, step {i}")
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=0.1,
+                                   err_msg=f"grad norm, step {i}")
+    n, tot, _ = _word_diffs(out[0][2], out[0][3])
+    assert n <= 0.02 * tot, (n, tot)
+
+
+def test_fp8_step_never_reaches_k1_k2(monkeypatch):
+    """Under ``QuantConfig.fp8()`` no GEMM routes: ``dispatch.encode_pack``
+    and ``dispatch.qmatmul`` (K1, K2) are never called, while the Madam
+    step (K3's dispatch) still steps every packed leaf of rank >= 2 once,
+    as on the lns8 path."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.training.steps import init_train_state
+
+    def refuse(*a, **k):
+        raise AssertionError("a GEMM routed under the fp8 config")
+
+    monkeypatch.setattr(dispatch, "encode_pack", refuse)
+    monkeypatch.setattr(dispatch, "qmatmul", refuse)
+    calls = []
+    step_fn = dispatch.madam_step
+    monkeypatch.setattr(dispatch, "madam_step", lambda *a, **k: (
+        calls.append(a[0].shape), step_fn(*a, **k))[1])
+    cfg, mcfg = get_smoke_config("smollm-135m"), MadamConfig()
+    state = init_train_state(cfg, mcfg, device="cpu")
+    step = build_train_step(cfg, QuantConfig.fp8(), mcfg)
+    state, m = step(state, SyntheticLM(cfg, batch=2, seq=8).batch_at(0))
+    assert math.isfinite(float(m["loss"]))
+    packed = [p for _, p in leaves(state.params) if hasattr(p, "packed")]
+    assert len(calls) == len(packed) == 8
 
 
 def _jax_ste_approx(approx):
@@ -316,10 +365,21 @@ def test_train_cli_runs_on_cpu(capsys):
     assert all(math.isfinite(x) for x in out["losses"])
     text = capsys.readouterr().out
     assert "arch=smollm-smoke params=" in text and "done: 3 steps" in text
-    for argv in (["--format", "fp8"], ["--trace-dir", "x"],
-                 ["--quiet=false"], ["--kernel-stats"]):
+    for argv in (["--trace-dir", "x"], ["--quiet=false"],
+                 ["--kernel-stats"]):
         with pytest.raises(NotImplementedError):
             main(["--smoke", "--device", "cpu", "--steps", "1"] + argv)
+
+
+def test_train_cli_runs_fp8_on_cpu(capsys):
+    """``--format fp8`` trains: Madam's default 16-bit LNS store (Q_U's
+    FP16 is not read), e4m3 quantizers, finite losses."""
+    from repro_torch.launch.train import main
+    out = main(["--smoke", "--device", "cpu", "--format", "fp8", "--steps",
+                "3", "--batch", "4", "--seq", "16"])
+    assert out["steps"] == 3 and out["failures_recovered"] == 0
+    assert all(math.isfinite(x) for x in out["losses"])
+    assert "format=fp8" in capsys.readouterr().out
 
 
 def test_train_cli_matches_jax_param_count():
