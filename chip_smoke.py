@@ -6,6 +6,7 @@
     python3 chip_smoke.py --k2-sweep   # K2's skinny plan constants only
     python3 chip_smoke.py --k6-sweep   # K6's blocks a row and block size
     python3 chip_smoke.py --k8-sweep   # K8's tiles, splits, table copies
+    python3 chip_smoke.py --serving    # phases 1, 2 and 19 only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -130,6 +131,40 @@ Phases, each of which fails the run (non-zero exit, no result line):
     launched, every >=2-D leaf a fixed point of Q_log at Q_U; (e) Fig. 4
     at d = 2^20 on the card and the CPU from the same uniforms: r_t within
     ``FIG4_RTOL``, MUL and signMUL below GD, Madam printed beside GD.
+19. Online serving at full width. (a) smollm-135m, page 16, 4 slots,
+    greedy: 8 requests sharing one 64-token prefix (4 pages), each with
+    its own 16-32-token suffix and 32 new tokens, with the prefix cache
+    on and off (the same submissions): every admission's prefill logits
+    within ``LOGIT_RTOL`` of the uncached ones, and a stream may leave the
+    uncached one only at a top-2 margin within ``LOGIT_RTOL`` of max
+    |logit| (phase 5's rule; each divergence prints its token and margin:
+    Q_A's per-tensor scale spans the prefill's own suffix, so a reused
+    prefix was quantized under another request's scales, H7, which the
+    phase measures for requests 0 and 1: the K1 scales that differ and
+    the prefix KV's bit-equal share by layer), 7 prefix hits reusing
+    7 x 64 tokens, no page in use after, K1/K2/K5/K6 launched; at the
+    smoke config on the card (f32, page 4) the streams with the cache
+    equal those without exactly; each
+    admission's prefill timed with CUDA events, TTFT printed; a request
+    whose prompt is the prefix alone copies its boundary page on write:
+    the 15 shared tokens of every layer's K and V equal the source page
+    bit for bit, its stream equal to the uncached engine's; K5 at the
+    suffix prefill's S = 16 and 32 over lengths 64 + S (bf16 and packed
+    pools) against its plain version. (b) the same engine behind
+    ``Gateway`` on 127.0.0.1:0 over an ``EngineDriver``: one request,
+    then 7 at once (4 over SSE, one cancelled by DELETE after its 4th
+    frame, one seeded at temperature 0.8, which runs K6's seeded mode; 3
+    unary): every other request ends "length" with 32 tokens, every SSE
+    stream ends in ``data: [DONE]``, a submission past the watermark gets
+    429, no page is in use after, ``/metrics`` parses and carries the
+    TTFT/TPOT histograms and the prefix counters, ``/health`` names the
+    device and card; submit-to-first-frame times printed. (c) BERT-base
+    (untied head) paged, 4 slots, 8 requests of 32 + 32: the head's
+    decode GEMM 4x768 @ 768x30522 runs on K2 and matches its plain
+    version (ragged N), timed beside ``torch.matmul``; every K2 shape
+    held as phase 14 holds them; logits as phase 5; a k=4 draft view at
+    6 bits is one K7 launch with the head re-gridded; k=1 reproduces the
+    baseline's streams.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -247,6 +282,10 @@ K6_OPS = {"greedy": 1, "noise-in": 3, "seeded": 3 + 16 + 4 + 2 + 4}
 # adds 2^-24 |g|; so |dg| <= 2^-21 max(1, |g|) bounds two such roundings
 # with room
 K6_NOISE_ATOL = 2.0 ** -21
+# phase 19: online serving. 19a's trace: one 64-token prefix (4 pages of
+# 16) shared by 8 requests, a 16-32-token suffix each, 32 new tokens;
+# the copy-on-write request (the prefix alone) generates COW_GEN
+PREFIX_LEN, PREFIX_REQS, PREFIX_GEN, COW_GEN = 64, 8, 32, 8
 # phase 18: the paper's baselines at full width
 FP_SHAPE = (2048, 1536)
 FP8_STEPS = 4
@@ -761,9 +800,9 @@ def k2_decode_check(torch, ops, ref):
 
 
 def k5_inputs(torch, B, S, lengths, packed, fmt, gen, heads, PAGE=16,
-              pool=None):
-    (H, KV, HD), MP = heads, 5
-    P = 4 * MP + 1  # the serving pool: 4 slots x 5 pages + the null page
+              pool=None, MP=5):
+    H, KV, HD = heads
+    P = 4 * MP + 1  # the serving pool: 4 slots x MP pages + the null page
     q = torch.randn((B, S, H, HD), generator=gen, device="cuda").to(
         torch.bfloat16)
     perm = torch.randperm(P - 1, generator=gen, device="cuda")[:B * MP]
@@ -824,7 +863,8 @@ def k5_check(torch, ops, ref, fmt, cases):
                 <= qpos[:, :, None])[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
         elem, page = kp.element_size(), kp.shape[1]
-        n_pos = [min(-(-int(n) // page), 5) * page for n in lengths]
+        n_pos = [min(-(-int(n) // page), bt.shape[1]) * page
+                 for n in lengths]
         nbytes = (q.numel() * 2 + sum(n_pos) * 2 * KV * HD * elem
                   + (sum(n_pos) * 2 * KV * 2 if packed else 0)
                   + bt.numel() * 4 + B * 4 + q.numel() * 4)
@@ -1604,11 +1644,23 @@ def plain_versions(dispatch, ref):
             setattr(dispatch, n, f)
 
 
+def qmatmul_f64(pa, pb, fmt, scale_a=None, scale_b=None, *,
+                compute_dtype=None, out_dtype=None):
+    """K2's function with the plain decode and an f64-accumulated GEMM:
+    the noise floor of a pure change of summation order (phases 5, 9 and
+    19a)."""
+    import torch
+    from repro_torch.core.lns import lns_decode_packed
+    cdt = compute_dtype or torch.bfloat16
+    a = lns_decode_packed(pa, fmt, cdt).double()
+    b = lns_decode_packed(pb, fmt, cdt).double()
+    return ((a @ b).float() * scale_a * scale_b).to(out_dtype or torch.float32)
+
+
 def logits_check(torch, engine):
     """Phase 5: batch-1 prefill + 4 greedy decode steps at full width,
     through the kernels, through the plain versions, and through the
     plain versions with an f64-accumulating GEMM (the noise floor)."""
-    from repro_torch.core.lns import lns_decode_packed
     from repro_torch.kernels import dispatch, ref
     from repro_torch.models.model import forward, init_caches
 
@@ -1631,12 +1683,6 @@ def logits_check(torch, engine):
             out.append(lg)
             pos += toks.shape[1]
         return out
-
-    def qmatmul_f64(pa, pb, fmt, scale_a=None, scale_b=None, *,
-                    compute_dtype=torch.bfloat16, out_dtype=torch.float32):
-        a = lns_decode_packed(pa, fmt, compute_dtype).double()
-        b = lns_decode_packed(pb, fmt, compute_dtype).double()
-        return ((a @ b).float() * scale_a * scale_b).to(out_dtype)
 
     seq = [prompt]     # both runs follow the plain run's greedy tokens
     with plain_versions(dispatch, ref):
@@ -1928,7 +1974,6 @@ def train_step_check(torch, setup):
     through the kernels, the plain versions, and the plain versions with
     an f64-accumulating GEMM (the noise floor): loss and the share of
     packed words that differ after the update."""
-    from repro_torch.core.lns import lns_decode_packed
     from repro_torch.kernels import dispatch, ops, ref
     from repro_torch.training.steps import build_train_step
     from repro_torch.tree import leaves
@@ -1938,12 +1983,6 @@ def train_step_check(torch, setup):
     def run():
         new, m = step(state, batch)
         return float(m["loss"]), float(m["grad_norm"]), new.params
-
-    def qmatmul_f64(pa, pb, fmt, scale_a=None, scale_b=None, *,
-                    compute_dtype=torch.bfloat16, out_dtype=torch.float32):
-        a = lns_decode_packed(pa, fmt, compute_dtype).double()
-        b = lns_decode_packed(pb, fmt, compute_dtype).double()
-        return ((a @ b).float() * scale_a * scale_b).to(out_dtype)
 
     with plain_versions(dispatch, ref), plain_madam(ops, ref):
         plain = run()
@@ -2887,16 +2926,682 @@ def step_summary(p):
             "copies": p["launches"]["copies"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: online serving (the prefix cache, the gateway, an untied head)
+
+
+def prefix_requests(cfg):
+    """19a's trace: one shared PREFIX_LEN-token prefix (4 full pages of
+    16), then a distinct suffix of 16-32 tokens a request, PREFIX_GEN new
+    tokens each, greedy, all arriving at once."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(19)
+    head = rng.integers(0, cfg.vocab_size, (PREFIX_LEN,)).tolist()
+    return [Request(rid=i, prompt=head + rng.integers(
+        0, cfg.vocab_size, (int(rng.integers(16, 33)),)).tolist(),
+        max_new_tokens=PREFIX_GEN) for i in range(PREFIX_REQS)]
+
+
+@contextlib.contextmanager
+def prefill_events(torch, engine):
+    """CUDA events around every paged prefill of ``engine``: the stream
+    time of each admission's prefill (the host's launch gaps included),
+    its suffix bucket, ``n_cached``, the other arguments and the logits,
+    in admission order."""
+    rows = []
+    real = engine._prefill_paged
+
+    def timed(tokens, n_new, n_cached, *args):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = real(tokens, n_new, n_cached, *args)
+        b.record()
+        rows.append((a, b, tokens.shape[1], n_cached, args, out))
+        return out
+
+    engine._prefill_paged = timed
+    try:
+        yield rows
+    finally:
+        del engine._prefill_paged
+
+
+def first_divergence(torch, engine, prompt, a, b):
+    """Where greedy streams ``a`` and ``b`` of one prompt part: the token
+    index, and the top-2 logit margin and max |logit| there from one
+    uncached forward of the prompt and the shared tokens."""
+    from repro_torch.models.model import forward
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+             min(len(a), len(b)))
+    seq = torch.tensor([list(prompt) + list(a[:j])], dtype=torch.int32,
+                       device="cuda")
+    lg = forward(engine.params, seq, engine.cfg, engine.qcfg)[0, -1].float()
+    top2 = torch.topk(lg, 2).values
+    return j, float(top2[0] - top2[1]), float(lg.abs().max())
+
+
+K1_CALLS = ("wq", "wk", "wv", "wo", "up", "gate", "down")
+
+
+@contextlib.contextmanager
+def dispatch_scales(dispatch):
+    """Record the per-tensor scale of every ``dispatch.encode_pack`` call
+    (K1 or its plain version, whichever dispatch holds)."""
+    seen = []
+    launch = dispatch.encode_pack
+
+    def record(x, fmt, *args, **kw):
+        packed, scale = launch(x, fmt, *args, **kw)
+        seen.append(float(scale.reshape(-1)[0]))
+        return packed, scale
+
+    dispatch.encode_pack = record
+    try:
+        yield seen
+    finally:
+        dispatch.encode_pack = launch
+
+
+def scale_coupling(torch, engine, reqs):
+    """Why a prefix hit's stream may leave the uncached one (H7 at
+    prefill): uncached prefills of request 0 (whose pages the hits reuse)
+    and of request 1, one at a time, through the kernels and through the
+    plain versions with f64 GEMMs (no summation order left to differ).
+    Q_A's per-tensor scale spans every row of the prefill, the request's
+    own suffix and padding included, so the prefix rows of the two see
+    different scales where the suffixes' absmax crosses a power of two;
+    codes then shift by exactly gamma, except those at the flush-to-zero
+    rail, and 30 layers amplify the few that move. Returns, by mode, the
+    K1 calls whose scales differ (layer, GEMM input, both scales) and the
+    share of the prefix's K and V, by layer, equal bit for bit."""
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.serving import Request
+    out = {}
+    for mode in ("kernels", "plain_f64"):
+        runs = []
+        for r in reqs[:2]:
+            kv = {}
+            real = engine._prefill_paged
+
+            def grab(tokens, n_new, n_cached, n_total, slot, table, *a):
+                lg = real(tokens, n_new, n_cached, n_total, slot, table, *a)
+                big = engine.caches["period"]["pos0"]
+                pages = torch.as_tensor(table[:PREFIX_LEN // 16]).long()
+                kv["kv"] = [big[k][:, pages].clone() for k in ("kp", "vp")]
+                return lg
+
+            engine._prefill_paged = grab
+            engine.reset()
+            with contextlib.ExitStack() as stack:
+                if mode == "plain_f64":
+                    stack.enter_context(plain_versions(dispatch, ref))
+                    dispatch.qmatmul = qmatmul_f64
+                seen = stack.enter_context(dispatch_scales(dispatch))
+                engine.run([Request(rid=r.rid, prompt=list(r.prompt),
+                                    max_new_tokens=1)])
+            del engine._prefill_paged
+            runs.append((seen, kv["kv"]))
+        (s0, kv0), (s1, kv1) = runs
+        diff = [(i // len(K1_CALLS), K1_CALLS[i % len(K1_CALLS)], s0[i],
+                 s1[i]) for i in range(min(len(s0), len(s1)))
+                if s0[i] != s1[i]]
+        equal = [[float((a[l] == b[l]).float().mean())
+                  for l in range(a.shape[0])] for a, b in zip(kv0, kv1)]
+        out[mode] = {"scales_differing": diff, "k_equal_by_layer": equal[0],
+                     "v_equal_by_layer": equal[1]}
+    engine.reset()
+    return out
+
+
+def prefix_serve(torch, ops, ref, fmt):
+    """Phase 19a: smollm-135m at full width, page 16, 4 slots, greedy:
+    the shared-prefix trace with the prefix cache on and off (the same
+    submissions, so the same batch composition), then one request whose
+    prompt is the shared prefix alone (a copy-on-write boundary page);
+    K5 at the suffix prefill's shapes."""
+    from repro_torch.launch.serve import build_engine, parser
+    from repro_torch.serving import Engine, Request
+    args = parser().parse_args(["--arch", "smollm-135m", "--slots", "4",
+                                "--page-size", "16", "--max-len",
+                                str(PREFIX_LEN + 32 + PREFIX_GEN)])
+    on = build_engine(args)
+    off = Engine(on.cfg, on.qcfg, on.params, num_slots=4,
+                 max_len=on.max_len, page_size=16, prefix_cache=False,
+                 device="cuda")
+    res, out, first_logits = {}, {}, {}
+    for name, eng in (("cache_off", off), ("cache_on", on)):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with prefill_events(torch, eng) as ev, k5_query_rows(ops) as k5_rows:
+            agg = eng.run(prefix_requests(eng.cfg))
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check(agg["completed"] == PREFIX_REQS,
+              f"19a {name}: completed {int(agg['completed'])}/8")
+        check(all(counts[k] > 0 for k in ("encode_pack", "qmatmul",
+                                          "paged_attend", "fused_sample")),
+              f"19a {name}: a kernel of the path did not launch: {counts}")
+        check(eng.allocator.in_use == 0 and
+              eng.allocator.available == eng.num_pages,
+              f"19a {name}: pages leaked ({eng.allocator.in_use} in use)")
+        pre = [dict(ms=a.elapsed_time(b), bucket=bk, n_cached=nc)
+               for a, b, bk, nc, _, _ in ev]
+        first_logits[name] = [lg[0].float() for *_, lg in ev]
+        out[name] = streams(eng)
+        res[name] = dict(agg=agg, launches=counts, prefills=pre,
+                         k5_by_query_rows=dict(k5_rows),
+                         prefix_hits=eng.prefix_hits,
+                         prefix_reused_tokens=eng.prefix_reused_tokens,
+                         prefill_tokens=eng.prefill_tokens,
+                         decode_steps=eng.decode_steps,
+                         cached_pages=eng.allocator.cached)
+        print(f"19a {name}: completed 8/8, {agg['tokens_per_s']:.2f} tok/s, "
+              f"ttft mean {agg['ttft_mean_s'] * 1e3:.1f} ms, prefix hits "
+              f"{eng.prefix_hits}, reused {eng.prefix_reused_tokens} "
+              f"tokens, prefilled {eng.prefill_tokens} (buckets), decode "
+              f"steps {eng.decode_steps}, launches {counts}")
+    reqs = prefix_requests(on.cfg)
+    # exact stream equality cannot hold at full width: a hit reuses the
+    # prefix KV that request 0's prefill computed under Q_A scales that
+    # span request 0's suffix, where its own prefill would span its own
+    # (H7, measured below by scale_coupling); the random-weight model's
+    # greedy choices sit at top-2 margins of a few bf16 ulps. So the
+    # streams are held by phase 5's rule: every admission's prefill
+    # logits within LOGIT_RTOL of the uncached ones, and a stream may
+    # leave the uncached one only where the top-2 margin lies within
+    # LOGIT_RTOL of max |logit|
+    gaps = []
+    for lon, loff in zip(first_logits["cache_on"],
+                         first_logits["cache_off"]):
+        gaps.append(float((lon - loff).abs().max() / loff.abs().max()))
+    res["prefill_logits_rel_err"] = gaps
+    check(max(gaps) <= LOGIT_RTOL,
+          f"19a: a prefix hit's prefill logits are {max(gaps):.4f} of max "
+          f"|logit| from the uncached ones (limit {LOGIT_RTOL})")
+    diverged = {}
+    for r in reqs:
+        a, b = out["cache_on"][r.rid], out["cache_off"][r.rid]
+        if a != b:
+            diverged[r.rid] = first_divergence(torch, off, r.prompt, a, b)
+    res["diverged"] = {rid: dict(token=j, top2_margin=m, max_logit=t)
+                       for rid, (j, m, t) in diverged.items()}
+    coupling = res["scale_coupling"] = scale_coupling(torch, off, reqs)
+    same = PREFIX_REQS - len(diverged)
+    print(f"19a streams: {same}/8 equal with and without the cache; "
+          f"prefill logits of each admission within "
+          f"{max(gaps):.4f} of max |logit| (limit {LOGIT_RTOL})")
+    for rid, (j, m, t) in sorted(diverged.items()):
+        print(f"19a request {rid}: the cached stream leaves the uncached "
+              f"one at token {j}, top-2 logit margin there {m:.4g} "
+              f"({m / t:.4f} of max |logit|)")
+        check(m <= LOGIT_RTOL * t,
+              f"19a request {rid}: streams part at token {j} where the "
+              f"top-2 margin {m:.4g} exceeds {LOGIT_RTOL} of max |logit|")
+    for mode, cp in coupling.items():
+        d = cp["scales_differing"]
+        print(f"19a cause (H7 at prefill, {mode}): requests 0 and 1 "
+              f"prefilled alone differ in {len(d)} of K1's per-tensor "
+              f"scales"
+              + (f", first at layer {d[0][0]}'s {d[0][1]} input ({d[0][2]} "
+                 f"vs {d[0][3]})" if d else "")
+              + f"; their shared prefix's K equal bit for bit in "
+              f"{cp['k_equal_by_layer'][0]:.4f} of layer 0, "
+              f"{cp['k_equal_by_layer'][1]:.4f} of layer 1, "
+              f"{cp['k_equal_by_layer'][-1]:.4f} of layer "
+              f"{len(cp['k_equal_by_layer']) - 1}")
+    # every admission after the first matches the 4 prefix pages: the
+    # first registers them right after its prefill, inside the same
+    # step() that admits the next three
+    check(res["cache_on"]["prefix_hits"] == PREFIX_REQS - 1 and
+          res["cache_on"]["prefix_reused_tokens"]
+          == (PREFIX_REQS - 1) * PREFIX_LEN,
+          f"19a: prefix hits {res['cache_on']['prefix_hits']}, reused "
+          f"{res['cache_on']['prefix_reused_tokens']} tokens (want 7, 448)")
+    check(res["cache_off"]["prefix_hits"] == 0, "19a: hits with no cache")
+    miss = [p["ms"] for p in res["cache_off"]["prefills"]]
+    hit = [p["ms"] for p in res["cache_on"]["prefills"] if p["n_cached"]]
+    res["prefill_ms"] = {"uncached_mean": sum(miss) / len(miss),
+                         "hit_mean": sum(hit) / len(hit),
+                         "uncached": miss,
+                         "cached": [p["ms"]
+                                    for p in res["cache_on"]["prefills"]]}
+    print(f"19a prefill per admission (CUDA events, launch gaps included): "
+          f"uncached mean {res['prefill_ms']['uncached_mean']:.1f} ms "
+          f"(buckets {[p['bucket'] for p in res['cache_off']['prefills']]}),"
+          f" prefix hit mean {res['prefill_ms']['hit_mean']:.1f} ms "
+          f"(buckets {[p['bucket'] for p in res['cache_on']['prefills']]});"
+          f" TTFT mean {res['cache_off']['agg']['ttft_mean_s'] * 1e3:.1f} "
+          f"-> {res['cache_on']['agg']['ttft_mean_s'] * 1e3:.1f} ms")
+
+    # the copy-on-write boundary: a prompt that is the prefix alone
+    # matches all 4 pages; the last token is recomputed, so page 3 is
+    # copied onto a fresh page and token 63 written on the copy
+    prefix = reqs[0].prompt[:PREFIX_LEN]
+    cow_out = {}
+    for name, eng in (("cache_off", off), ("cache_on", on)):
+        hits0 = eng.prefix_hits
+        with prefill_events(torch, eng) as ev:
+            eng.run([Request(rid=100, prompt=list(prefix),
+                             max_new_tokens=COW_GEN)])
+        cow_out[name] = eng.finished[-1].generated
+        if name == "cache_on":
+            check(eng.prefix_hits == hits0 + 1 and ev[0][3] == PREFIX_LEN - 1,
+                  f"19a CoW: n_cached {ev[0][3]}, want {PREFIX_LEN - 1}")
+            _, _, _, src, dst = ev[0][4]   # n_total, slot, table, cow
+            check(src != dst, "19a CoW: no boundary page was copied")
+            big = eng.caches["period"]["pos0"]
+            keep = (PREFIX_LEN - 1) % 16
+            for key in ("kp", "vp", "kp_scale", "vp_scale"):
+                if key in big:
+                    check(torch.equal(big[key][:, dst, :keep],
+                                      big[key][:, src, :keep]),
+                          f"19a CoW: {key} of page {dst} differs from "
+                          f"page {src} over the shared tokens")
+            res["cow"] = dict(src=int(src), dst=int(dst), shared_tokens=keep)
+    check(cow_out["cache_on"] == cow_out["cache_off"],
+          "19a CoW: the stream differs from the uncached engine's")
+    print(f"19a copy-on-write: page {res['cow']['src']} -> "
+          f"{res['cow']['dst']}, the {res['cow']['shared_tokens']} shared "
+          f"tokens equal bit for bit in every layer's K and V; stream equal "
+          f"to the uncached engine's")
+    res["smoke"] = smoke_prefix(torch, ops)
+    # K5 at the suffix prefill: S = the suffix bucket, lengths = 64 + S,
+    # the serving pool's block table (8 pages a slot)
+    res["k5"] = k5_check(torch, ops, ref, fmt, [
+        (f"suffix prefill S={S} {kind} pool", 1, S, [PREFIX_LEN + S],
+         packed, (9, 3, 64), {"MP": 8})
+        for S in (16, 32) for kind, packed in (("bf16", False),
+                                               ("packed", True))])
+    return res, on
+
+
+def smoke_prefix(torch, ops):
+    """19a at the smoke config on the card (f32, 3 layers, page 4), where
+    the per-tensor scales do not couple the prefix rows to the suffix:
+    8 requests sharing a 16-token prefix (4 pages), a 4-8-token suffix
+    each, 8 new tokens, 4 slots; the streams with the cache equal those
+    without exactly, 7 hits reuse 7 x 16 tokens, K5 runs the suffix
+    prefills."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.madam import MadamConfig, init_lns_params
+    from repro_torch.serving import Engine, Request
+    cfg = get_smoke_config("smollm-135m")
+    params = init_lns_params(init_params(cfg, seed=0, device="cuda"),
+                             MadamConfig(update_format=LNSFormat(8, 8)))
+    rng = np.random.default_rng(19)
+    head = rng.integers(0, cfg.vocab_size, (16,)).tolist()
+    prompts = [head + rng.integers(0, cfg.vocab_size, (int(
+        rng.integers(4, 9)),)).tolist() for _ in range(8)]
+    got = {}
+    for cache in (False, True):
+        eng = Engine(cfg, QuantConfig.lns_madam(), params, num_slots=4,
+                     max_len=40, page_size=4, prefix_cache=cache,
+                     device="cuda")
+        ops.reset_launch_counts()
+        with k5_query_rows(ops) as seen:
+            eng.run([Request(rid=i, prompt=p, max_new_tokens=8)
+                     for i, p in enumerate(prompts)])
+        got[cache] = (streams(eng), eng.prefix_hits,
+                      eng.prefix_reused_tokens, dict(seen))
+    check(got[True][0] == got[False][0],
+          "19a smoke: streams with the cache differ from those without")
+    check(got[True][1:3] == (7, 7 * 16),
+          f"19a smoke: hits {got[True][1]}, reused {got[True][2]}")
+    print(f"19a at the smoke config: streams with the cache equal those "
+          f"without (8/8), {got[True][1]} hits reusing {got[True][2]} "
+          f"tokens; K5 launches by query rows {got[True][3]}")
+    return {"hits": got[True][1], "reused": got[True][2],
+            "k5_by_query_rows": got[True][3]}
+
+
+@contextlib.contextmanager
+def seeded_calls(ops):
+    """Count K6's seeded launches (the wrapper counts every K6 launch
+    under ``fused_sample`` itself)."""
+    seen = {"rows": 0, "calls": 0}
+    launch = ops.fused_sample_seeded
+
+    def record(logits, *args, **kw):
+        seen["calls"] += 1
+        seen["rows"] += logits.shape[0]
+        return launch(logits, *args, **kw)
+
+    ops.fused_sample_seeded = record
+    try:
+        yield seen
+    finally:
+        ops.fused_sample_seeded = launch
+
+
+async def http_call(host, port, method, path, body=None):
+    """One HTTP/1.1 request on a fresh connection: (status, body bytes)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    writer.write((f"{method} {path} HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), data
+
+
+async def sse_call(host, port, body, delete_after=None):
+    """One streaming completion: status, tokens, finish reason, the raw
+    frames and the seconds from sending the request to the first frame."""
+    import asyncio
+    from repro_torch.server.sse import DONE, SSEParser
+    t0 = time.monotonic()
+    reader, writer = await asyncio.open_connection(host, port)
+    payload = json.dumps({**body, "stream": True}).encode()
+    writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: t\r\n"
+                  f"Content-Length: {len(payload)}\r\n\r\n").encode()
+                 + payload)
+    await writer.drain()
+    buf = b""
+    while b"\r\n\r\n" not in buf:
+        chunk = await reader.read(4096)
+        if not chunk:
+            break
+        buf += chunk
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    status = int(head.split()[1])
+    parser, frames, tokens, reason, rid, first = SSEParser(), [], [], None, \
+        None, None
+    chunk = rest
+    while status == 200:
+        for ev in parser.feed(chunk):
+            if first is None:
+                first = time.monotonic() - t0
+            frames.append(ev)
+            if ev == DONE:
+                continue
+            obj = json.loads(ev)
+            rid = rid or obj["id"]
+            choice = obj["choices"][0]
+            tokens.extend(choice["delta"]["token_ids"])
+            reason = choice["finish_reason"] or reason
+        if frames and frames[-1] == DONE:
+            break
+        if delete_after is not None and len(frames) >= delete_after:
+            await http_call(host, port, "DELETE", f"/v1/requests/{rid}")
+            delete_after = None
+        chunk = await reader.read(4096)
+        if not chunk:
+            break
+    writer.close()
+    return dict(status=status, tokens=tokens, reason=reason, frames=frames,
+                first_frame_s=first, rid=rid)
+
+
+def gateway_trace(torch, ops, engine):
+    """Phase 19b: the 19a engine (reset) behind ``Gateway`` on
+    127.0.0.1:0 over an ``EngineDriver``: one request completes first,
+    so its pages are registered; then 7 at once, 4 streaming over SSE (one
+    cancelled by DELETE after its 4th frame, one sampled at temperature
+    0.8 with a seed, K6's seeded mode) and 3 not; one more past the
+    watermark gets 429."""
+    import asyncio
+    import threading
+    from repro_torch.obs.prom import parse_prometheus_text
+    from repro_torch.server.app import Gateway
+    from repro_torch.server.driver import EngineDriver
+    from repro_torch.server.sse import DONE
+
+    engine.reset()
+    reqs = prefix_requests(engine.cfg)
+    bodies = [{"prompt": list(r.prompt), "max_tokens": PREFIX_GEN}
+              for r in reqs]
+    bodies[2].update(temperature=0.8, seed=5)
+    driver = EngineDriver(engine, max_inflight=7)
+    loop = asyncio.new_event_loop()
+    box = {}
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        gw = loop.run_until_complete(Gateway(driver, host="127.0.0.1",
+                                             port=0, model="smollm-135m")
+                                     .start())
+        box["gw"], box["addr"] = gw, gw.address
+        loop.run_forever()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    res = {}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    driver.start()
+    thread.start()
+    try:
+        t_end = time.monotonic() + 30
+        while "addr" not in box and time.monotonic() < t_end:
+            time.sleep(0.01)
+        check("addr" in box, "19b: the gateway did not start")
+        host, port = box["addr"]
+
+        async def trace():
+            first = await http_call(host, port, "POST", "/v1/completions",
+                                    bodies[0])
+            streams_ = [asyncio.ensure_future(sse_call(
+                host, port, bodies[i], delete_after=4 if i == 1 else None))
+                for i in (1, 2, 3, 4)]
+            unary = [asyncio.ensure_future(http_call(
+                host, port, "POST", "/v1/completions", bodies[i]))
+                for i in (5, 6, 7)]
+            t_end = time.monotonic() + 60
+            while (driver.stats()["inflight"] < 7
+                   and time.monotonic() < t_end):
+                await asyncio.sleep(0.005)
+            over = await http_call(host, port, "POST", "/v1/completions",
+                                   bodies[0])
+            return (first, await asyncio.gather(*streams_),
+                    await asyncio.gather(*unary), over)
+
+        t0 = time.monotonic()
+        with seeded_calls(ops) as seeded:
+            first, sse_res, unary, over = asyncio.run(trace())
+        wall = time.monotonic() - t0
+        counts = ops.launch_counts()
+        t_end = time.monotonic() + 30
+        while (engine.scheduler.running or engine.queue
+               or engine.allocator.in_use) and time.monotonic() < t_end:
+            time.sleep(0.01)
+        health = json.loads(asyncio.run(http_call(host, port, "GET",
+                                                  "/health"))[1])
+        metrics = asyncio.run(http_call(host, port, "GET",
+                                        "/metrics"))[1].decode()
+        stats = json.loads(asyncio.run(http_call(host, port, "GET",
+                                                 "/metrics.json"))[1])
+    finally:
+        if "gw" in box:
+            asyncio.run_coroutine_threadsafe(box["gw"].stop(),
+                                             loop).result(10)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        driver.shutdown()
+    check(not thread.is_alive() and not driver.alive,
+          "19b: the gateway or driver thread did not stop")
+    check(first[0] == 200, f"19b: the first request got {first[0]}")
+    one = json.loads(first[1])["choices"][0]
+    check(len(one["token_ids"]) == PREFIX_GEN
+          and one["finish_reason"] == "length",
+          f"19b: the first request ended {one['finish_reason']} after "
+          f"{len(one['token_ids'])} tokens")
+    for i, s in zip((1, 2, 3, 4), sse_res):
+        check(s["status"] == 200 and s["frames"] and s["frames"][-1] == DONE,
+              f"19b: stream {i} did not end in data: [DONE] "
+              f"({s['status']}, {s['frames'][-1:]})")
+        if i == 1:
+            check(s["reason"] == "aborted" and 4 <= len(s["tokens"])
+                  < PREFIX_GEN, f"19b: the cancelled stream ended "
+                  f"{s['reason']} after {len(s['tokens'])} tokens")
+        else:
+            check(s["reason"] == "length" and len(s["tokens"]) == PREFIX_GEN,
+                  f"19b: stream {i} ended {s['reason']} after "
+                  f"{len(s['tokens'])} tokens")
+    for i, (status, data) in zip((5, 6, 7), unary):
+        c = json.loads(data)["choices"][0] if status == 200 else {}
+        check(status == 200 and c["finish_reason"] == "length"
+              and len(c["token_ids"]) == PREFIX_GEN,
+              f"19b: request {i} got {status} {c.get('finish_reason')}")
+    check(over[0] == 429, f"19b: the submission past the watermark got "
+                          f"{over[0]}, not 429")
+    check(engine.allocator.in_use == 0 and
+          engine.allocator.available == engine.num_pages,
+          f"19b: pages leaked: {engine.allocator.in_use} in use")
+    check(seeded["calls"] > 0, "19b: K6's seeded mode never ran")
+    check(all(counts[k] > 0 for k in ("encode_pack", "qmatmul",
+                                      "paged_attend", "fused_sample")),
+          f"19b: a kernel of the path did not launch: {counts}")
+    parsed = parse_prometheus_text(metrics)
+    for name, kind in (("repro_ttft_seconds", "histogram"),
+                       ("repro_tpot_seconds", "histogram"),
+                       ("repro_prefix_hits", "counter"),
+                       ("repro_prefix_reused_tokens", "gauge")):
+        check(parsed.get(name, {}).get("type") == kind,
+              f"19b: /metrics lacks {name} ({kind})")
+    name = torch.cuda.get_device_name(0)
+    check(health.get("device") == "cuda" and health.get("card") == name,
+          f"19b: /health names {health.get('device')} {health.get('card')}")
+    check(stats["prefix_hits"] == engine.prefix_hits >= 6,
+          f"19b: prefix hits {stats['prefix_hits']} (want >= 6: every "
+          f"request after the first matches the prefix)")
+    res = dict(wall_s=wall, launches=counts, seeded_k6=seeded,
+               first_frame_s={i: s["first_frame_s"]
+                              for i, s in zip((1, 2, 3, 4), sse_res)},
+               tokens_by_stream={i: len(s["tokens"])
+                                 for i, s in zip((1, 2, 3, 4), sse_res)},
+               prefix_hits=engine.prefix_hits,
+               prefix_reused_tokens=engine.prefix_reused_tokens,
+               health=health, stats={k: v for k, v in stats.items()
+                                     if isinstance(v, (int, float, str))})
+    print(f"19b gateway: 1 + 7 requests in {wall:.2f} s, 429 past the "
+          f"watermark, the DELETE after 4 frames ended 'aborted' with "
+          f"[DONE], no page in use after; prefix hits {engine.prefix_hits} "
+          f"({engine.prefix_reused_tokens} tokens); K6 seeded calls "
+          f"{seeded['calls']}; submit -> first SSE frame "
+          + ", ".join(f"#{i} {t * 1e3:.0f} ms"
+                      for i, t in res["first_frame_s"].items())
+          + f"; /health {health['device']} {health.get('card')}; launches "
+          f"{counts}")
+    return res
+
+
+def bert_serve(torch, ops, ref, fmt):
+    """Phase 19c: BERT-base (untied head) at full width through the
+    engine: paged, 4 slots, 8 requests of 32 + 32 tokens; K2 at the
+    head's decode shape 4x768 @ 768x30522 against its plain version and
+    ``torch.matmul``; the model's logits through the kernels against the
+    plain versions (phase 5's rule); a k=4 draft view at 6 bits in one K7
+    launch, the head included; k=1 reproduces the baseline's streams."""
+    from repro_torch.configs.paper_models import BERT_BASE
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.madam import MadamConfig, init_lns_params
+    from repro_torch.serving import Engine, synthetic_trace
+    cfg = BERT_BASE
+    params = init_lns_params(init_params(cfg, seed=0, device="cuda"),
+                             MadamConfig(update_format=LNSFormat(8, 8)))
+    trace = lambda: synthetic_trace(cfg, requests=8, prompt_len=32,
+                                    gen_len=32, seed=0)
+    res = {}
+    base_streams = None
+    with k2_shapes_seen(torch, ops) as seen:
+        for name, kw in (("baseline", {}),
+                         ("spec_k4_b6", dict(speculate_k=4,
+                                             draft_bitwidth=6)),
+                         ("spec_k1_b6", dict(speculate_k=1,
+                                             draft_bitwidth=6))):
+            eng = Engine(cfg, QuantConfig.lns_madam(), params, num_slots=4,
+                         max_len=66, page_size=16, device="cuda", **kw)
+            check(eng._head is eng.params["embed"]["head"],
+                  "19c: the untied head is not the packed embed.head")
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            agg = eng.run(trace())
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            got = streams(eng)
+            check(agg["completed"] == 8, f"19c {name}: completed "
+                  f"{int(agg['completed'])}/8")
+            check(all(counts[k] > 0 for k in ("encode_pack", "qmatmul",
+                                              "paged_attend",
+                                              "fused_sample")),
+                  f"19c {name}: a kernel did not launch: {counts}")
+            r = dict(agg=agg, launches=counts,
+                     decode_steps=eng.decode_steps,
+                     spec=eng.spec_snapshot())
+            if name == "baseline":
+                r["head_decode_launches"] = sum(
+                    n for s, n in seen.items() if s[:3] == (4, 768, 30522))
+                base_streams = got
+                logits = logits_check(torch, eng)
+                res["logits"] = logits
+            else:
+                view, head = eng._draft_params(6)
+                check(counts["requant_pack"] == 1,
+                      f"19c {name}: K7 launched {counts['requant_pack']} "
+                      f"times for one draft view")
+                check(head is view["embed"]["head"] and head.fmt.bits == 6,
+                      f"19c {name}: the draft head is not re-gridded")
+                same = sum(got[rid] == base_streams[rid]
+                           for rid in base_streams)
+                r["same_as_baseline"] = same / len(base_streams)
+                if name == "spec_k1_b6":
+                    check(same == len(base_streams),
+                          f"19c k=1: {same}/8 streams equal the baseline's")
+            res[name] = r
+            sp = r["spec"] or {}
+            print(f"19c BERT-base {name}: completed 8/8, "
+                  f"{agg['tokens_per_s']:.2f} tok/s, tpot p50 "
+                  f"{agg['tpot_p50_s'] * 1e3:.1f} ms, decode steps "
+                  f"{eng.decode_steps}, accept rate "
+                  f"{sp.get('spec_accept_rate')}, streams equal to the "
+                  f"baseline {r.get('same_as_baseline', 1.0):.3f}, "
+                  f"launches {counts}")
+            del eng
+    check((4, 768, 30522) in {s[:3] for s in seen},
+          f"19c: K2 never ran the head's decode shape: {sorted(seen)[:8]}")
+    res["k2_driven"] = k2_driven_check(torch, ops, ref, fmt, seen)
+    res["k2_head"] = k2_check(torch, ops, ref, fmt, [(4, 768, 30522)])
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def online_serving(torch, ops, ref, fmt):
+    """Phase 19: 19a, 19b over 19a's engine, 19c."""
+    t0 = time.monotonic()
+    prefix, engine = prefix_serve(torch, ops, ref, fmt)
+    gateway = gateway_trace(torch, ops, engine)
+    del engine
+    torch.cuda.empty_cache()
+    bert = bert_serve(torch, ops, ref, fmt)
+    secs = time.monotonic() - t0
+    print(f"phase 19 took {secs:.1f}s")
+    return {"prefix": prefix, "gateway": gateway, "bert": bert,
+            "seconds": secs}
+
+
 def main() -> int:
     import torch
 
     t_start = time.monotonic()
     sweeps = {"--k1-sweep": k1_sweep, "--k2-sweep": k2_sweep,
-              "--k6-sweep": k6_sweep, "--k8-sweep": k8_sweep}
+              "--k6-sweep": k6_sweep, "--k8-sweep": k8_sweep,
+              "--serving": online_serving}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
-              f"--k6-sweep | --k8-sweep]", file=sys.stderr)
+              f"--k6-sweep | --k8-sweep | --serving]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3058,6 +3763,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     paper = baselines(torch, ops, ref, fmt, train_prof)
     torch.cuda.empty_cache()
+    online = online_serving(torch, ops, ref, fmt)
+    torch.cuda.empty_cache()
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -3118,6 +3825,7 @@ def main() -> int:
                        "madam_step_unpacked": k9},
             "table10": table10, "k8_rate_inputs": k8_rate_inputs,
             "approx_train": approx, "baselines": paper,
+            "online_serving": online,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

@@ -1,18 +1,32 @@
-"""Serving CLI of the port: replay a synthetic trace through the engine.
+"""Serving CLI of the port.
 
 Builds the model in the packed 8-bit LNS serving format from random
-weights (seeded), and drives ``repro_torch.serving.Engine`` on the card;
-prints throughput, TTFT and each kernel's launch count.
+weights (seeded) and drives ``repro_torch.serving.Engine`` on the card.
+
+Offline (default): replays a synthetic trace; prints throughput, TTFT,
+the prefix cache's hits and each kernel's launch count.
 
   python -m repro_torch.launch.serve --arch smollm-135m \
       --requests 8 --slots 4 --prompt-len 32 --gen-len 32 --page-size 16 \
       [--alloc-policy ondemand] [--speculate-k 4 --draft-bitwidth 6]
+
+Online (``--http HOST:PORT``): serves the asyncio gateway
+(``repro_torch.server``) over the same engine: ``POST /v1/completions``
+(SSE with ``"stream": true``), ``DELETE /v1/requests/{id}``, ``GET
+/health``, ``/metrics`` and ``/metrics.json``. Ctrl-C shuts down cleanly
+(live requests are aborted, their slots and pages released).
+
+  python -m repro_torch.launch.serve --smoke --page-size 4 \
+      --http 127.0.0.1:8000
+  curl -N localhost:8000/v1/completions -d \
+      '{"prompt": [1,2,3], "max_tokens": 8, "stream": true}'
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lns import LNSFormat
@@ -35,10 +49,43 @@ def build_engine(args) -> Engine:
                                             lengths)
     return Engine(cfg, qcfg, params, num_slots=args.slots, max_len=max_len,
                   page_size=args.page_size, num_pages=args.num_pages,
+                  prefix_cache=not args.no_prefix_cache,
                   alloc_policy=args.alloc_policy,
                   speculate_k=args.speculate_k,
                   draft_bitwidth=args.draft_bitwidth,
-                  spec_autotune=args.spec_autotune, device=args.device)
+                  spec_autotune=args.spec_autotune,
+                  checkpoint_id=f"{cfg.name}-seed{args.seed}-init",
+                  device=args.device)
+
+
+def serve_http(engine: Engine, http: str, model: str,
+               max_queue: int) -> None:
+    """Run the gateway until interrupted; shutting down aborts the live
+    requests, so their slots and pages are released."""
+    from repro_torch.server.app import Gateway
+    from repro_torch.server.driver import EngineDriver
+
+    host, _, port = http.rpartition(":")
+    driver = EngineDriver(engine, max_inflight=max_queue).start()
+
+    async def run():
+        gw = await Gateway(driver, host=host or "127.0.0.1",
+                           port=int(port or 8000), model=model).start()
+        h, p = gw.address
+        print(f"gateway listening on http://{h}:{p}  "
+              f"(slots={engine.num_slots} max_len={engine.max_len} "
+              f"max_queue={max_queue})", flush=True)
+        try:
+            await gw.serve_forever()
+        finally:
+            await gw.stop()
+
+    try:
+        asyncio.run(run())
+    except KeyboardInterrupt:
+        print("shutting down: aborting live requests", flush=True)
+    finally:
+        driver.shutdown()
 
 
 def parser() -> argparse.ArgumentParser:
@@ -62,6 +109,8 @@ def parser() -> argparse.ArgumentParser:
                     help="KV page size in tokens (paged KV pools)")
     ap.add_argument("--num-pages", type=int, default=None,
                     help="pool pages per layer")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable shared-prefix page reuse")
     ap.add_argument("--alloc-policy", default="reserve",
                     choices=("reserve", "ondemand"),
                     help="paged-KV page claiming: 'reserve' takes the "
@@ -77,8 +126,15 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--spec-autotune", action="store_true",
                     help="explore (draft bitwidth, k) arms from "
                          "accept-rate/throughput feedback")
+    ap.add_argument("--http", default=None, metavar="HOST:PORT",
+                    help="serve online over HTTP/SSE instead of replaying "
+                         "a synthetic trace (port 0 = any free port)")
     ap.add_argument("--max-len", type=int, default=None,
-                    help="per-slot cache capacity (default: from the trace)")
+                    help="per-slot cache capacity (online mode; offline "
+                         "derives it from the trace)")
+    ap.add_argument("--max-queue", type=int, default=64,
+                    help="admission watermark: live requests beyond this "
+                         "are refused with 429")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
@@ -102,6 +158,9 @@ def main(argv=None) -> dict:
     print(f"arch={cfg.name} device={engine.device} serve weights "
           f"{nbytes / 2**20:.1f} MiB (packed {args.serve_bits}-bit LNS "
           f"codes + scales)")
+    if args.http:
+        serve_http(engine, args.http, cfg.name, args.max_queue)
+        return {}
     lengths = args.lengths or ("uniform" if args.mixed else "fixed")
     trace = synthetic_trace(cfg, requests=args.requests,
                             prompt_len=args.prompt_len, gen_len=args.gen_len,
@@ -114,7 +173,9 @@ def main(argv=None) -> dict:
         print(f"paged KV: page_size={engine.page_size} "
               f"pages={engine.num_pages} alloc_policy={engine.alloc_policy} "
               f"preemptions={engine.preemptions} "
-              f"decode_page_allocs={engine.decode_page_allocs}")
+              f"decode_page_allocs={engine.decode_page_allocs} "
+              f"prefix_hits={engine.prefix_hits} "
+              f"reused_tokens={engine.prefix_reused_tokens}")
     if engine.spec is not None:
         print(f"speculative: cycles={engine.spec_cycles} "
               f"k={engine._spec_arm[1]} draft_bits={engine._spec_arm[0]} "

@@ -1,21 +1,24 @@
 """Per-layer LNS numerics stats computed inside the train step.
 
 The in-graph helpers of ``repro.obs.numerics``: stable layer names for a
-parameter path, and the encode-site rail-saturation stats of the gradient
-quantizer Q_G. The update-site stats come from the Madam kernel's
-epilogue (``kernels/madam_stats.py``). The host-side observer and the
-trace export belong to the observability slice.
+parameter path, the encode-site rail-saturation stats of the gradient
+quantizer Q_G, and the serving tree's code-rail occupancy
+(``tree_code_stats``, read by ``Engine.numerics_snapshot``). The
+update-site stats come from the Madam kernel's epilogue
+(``kernels/madam_stats.py``). The host-side observer and the trace
+export belong to the observability slice.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.core.lns import LNSFormat, compute_scale
+from repro_torch.core.lns import LNSFormat, compute_scale, is_lns_weight
 from repro_torch.tree import leaves
 
-__all__ = ["path_name", "encode_sat_stats", "grad_encode_stats"]
+__all__ = ["path_name", "encode_sat_stats", "grad_encode_stats",
+           "tree_code_stats"]
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -53,3 +56,26 @@ def grad_encode_stats(grads, qcfg) -> Dict[str, Dict[str, torch.Tensor]]:
     axis = getattr(qcfg, "grad_scale_axis", None)
     return {path_name(p): encode_sat_stats(g, fmt, axis)
             for p, g in leaves(grads) if g.dim() >= 2}
+
+
+def tree_code_stats(params) -> Dict[str, Any]:
+    """Code-rail occupancy of every packed leaf: the share of codes at 0
+    (the largest magnitude) and at ``max_code`` (the flush-to-zero rail)
+    and the mean code, over all ``elements``. Codes piling at a rail mean
+    the serving copy lost resolution. One pass over the words on their
+    device, three integer sums a leaf back to the host (int64, so a
+    full-width tree's code sum does not wrap)."""
+    tot = lo = hi = code_sum = 0
+    for _, leaf in leaves(params):
+        if not is_lns_weight(leaf):
+            continue
+        fmt = leaf.fmt
+        code = leaf.packed.to(torch.int32) & fmt.max_code
+        lo += int((code == 0).sum())
+        hi += int((code == fmt.max_code).sum())
+        code_sum += int(code.sum())
+        tot += code.numel()
+    if tot == 0:
+        return {"elements": 0}
+    return {"elements": tot, "code0_frac": lo / tot,
+            "maxcode_frac": hi / tot, "code_mean": code_sum / tot}

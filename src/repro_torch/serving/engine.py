@@ -16,8 +16,12 @@ scheduling, so the same trace gives the same token streams:
   the slot's row;
 - **paged** layout (``page_size=...``): one pool of pages per layer shared
   through per-slot block tables, and the prefill writes through the
-  slot's own block table. ``alloc_policy="reserve"`` takes a request's
-  worst-case pages at admission (or it waits in the queue);
+  slot's own block table. With ``prefix_cache`` (the default) the
+  allocator keeps a chain hash over page-aligned prompt prefixes: a hit
+  maps the resident pages into the new slot's block table and prefills
+  only the suffix at ``pos_offset = n_cached`` (a partly reused boundary
+  page is copied first, copy-on-write). ``alloc_policy="reserve"`` takes a
+  request's worst-case pages at admission (or it waits in the queue);
   ``"ondemand"`` takes only the prefill's pages and maps decode pages as
   the cursor reaches them, preempting the youngest running request by
   recompute when the pool runs dry (its tokens are kept; re-admission
@@ -34,18 +38,26 @@ scheduling, so the same trace gives the same token streams:
   larger verify batch). A slot that cannot host k positions sends the
   whole batch down the one-token step for that step.
 
-Weights stay packed 8-bit LNS words: every projection runs K1 and K2,
-paged attention K5, every sampled token K6 and every draft view K7 (on
-CUDA tensors). Cache tensors are updated in place. ``abort`` cancels a
-queued or running request and returns its slot and pages.
+Weights stay packed 8-bit LNS words: every projection runs K1 and K2
+(an untied LM head too; a tied head is decoded once), paged attention K5,
+every sampled token K6 and every draft view K7 (on CUDA tensors). Cache
+tensors are updated in place. ``abort`` cancels a queued or running
+request and returns its slot and pages.
 
-Not in this slice, and raising ``NotImplementedError``: the prefix cache,
-serving across a device mesh, and the observability hooks.
+Online serving (``repro_torch.server``): each appended token fires
+``token_sink`` and each terminal transition ``finish_sink``;
+``drain_finished`` bounds the archives for long-lived callers; a request
+whose admission raises finishes alone with reason ``"error"`` (its slot
+and pages unwound), until ``ADMIT_FAIL_TRIP`` failures in a row say the
+engine itself is broken and ``step`` re-raises.
+
+Not in this slice, and raising ``NotImplementedError``: serving across a
+device mesh and the observer hooks.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -55,17 +67,29 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import forward, init_caches, lm_head, to_device
+from repro_torch.obs.numerics import tree_code_stats
 from repro_torch.server.sampling import sample_logits, sampling_rows, set_row
 from repro_torch.serving.metrics import RequestMetrics, summarize
 from repro_torch.serving.request import Request, RequestQueue, RequestState
 from repro_torch.serving.scheduler import BlockAllocator, Scheduler
 from repro_torch.serving.spec import (SpecAutotuner, SpecConfig,
-                                      build_draft_params, request_class,
+                                      build_draft_params,
+                                      draft_requant_error, request_class,
                                       spec_supported)
 
-__all__ = ["Engine", "DEFAULT_BUCKETS"]
+__all__ = ["Engine", "DEFAULT_BUCKETS", "ADMIT_FAIL_TRIP"]
 
 DEFAULT_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+
+# consecutive admission failures after which step() re-raises instead of
+# isolating them: one malformed request failing alone is serving as
+# intended, every admission failing means the engine itself is broken
+ADMIT_FAIL_TRIP = 8
+
+# layer kinds whose KV can live in a paged pool; prefix reuse needs every
+# stateful layer paged (others would never see the skipped tokens)
+_PAGED_KINDS = frozenset({"dense", "global", "moe", "shared_attn"})
+_POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
 
 class Engine:
@@ -76,28 +100,20 @@ class Engine:
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  page_size: Optional[int] = None,
                  num_pages: Optional[int] = None,
-                 prefix_cache: bool = False, alloc_policy: str = "reserve",
+                 prefix_cache: bool = True, alloc_policy: str = "reserve",
                  speculate_k: int = 0, draft_bitwidth: int = 6,
                  spec_autotune: bool = False, mesh=None, observer=None,
-                 device=None):
+                 checkpoint_id: Optional[str] = None, device=None):
         if alloc_policy not in ("reserve", "ondemand"):
             raise ValueError(f"alloc_policy must be 'reserve' or "
                              f"'ondemand', got {alloc_policy!r}")
-        if prefix_cache:
-            raise NotImplementedError(
-                "prefix_cache=True comes with the prefix-cache slice of the "
-                "port")
         if mesh is not None:
             raise NotImplementedError(
                 "serving across a device mesh comes with the distributed "
                 "slice")
         if observer is not None:
             raise NotImplementedError(
-                "observability hooks come with the gateway/obs slice")
-        if not cfg.tie_embeddings:
-            raise NotImplementedError(
-                "serving an untied LM head comes with a later slice (the "
-                "engine decodes the tied head once)")
+                "observer hooks come with the observability slice")
         self.spec: Optional[SpecConfig] = None
         if speculate_k:
             reason = spec_supported(cfg)
@@ -110,6 +126,8 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg, self.qcfg = cfg, qcfg
         self.params = to_device(params, self.device)
+        # tied: the decoded embedding, once; untied: the packed embed.head,
+        # which qeinsum routes through K1 and K2 every step
         self._head = lm_head(self.params, cfg)
         self.num_slots, self.max_len = num_slots, max_len
         self.buckets = tuple(sorted(b for b in buckets if b <= max_len))
@@ -118,13 +136,25 @@ class Engine:
             self._max_pages = -(-max_len // page_size)
             self.num_pages = num_pages or num_slots * self._max_pages
             self._null_page = self.num_pages
+            prefix, _, period = cfg.layer_pattern()
+            self._prefix_ok = (bool(prefix_cache)
+                               and set(prefix) | set(period) <= _PAGED_KINDS)
         else:
             self.num_pages = 0
+            self._prefix_ok = False
         self.alloc_policy = alloc_policy if self.page_size else None
         self._ondemand = self.alloc_policy == "ondemand"
-        # draft views (params, decoded tied head) by bitwidth, built on
-        # first use and kept across reset()
+        # draft views (params, head) by bitwidth, built on first use and
+        # kept across reset()
         self._draft_views: Dict[int, tuple] = {}
+        self._numerics_cache: Optional[Dict[str, Any]] = None
+        # the gateway driver's taps, called from step()/_admit() with
+        # (rid, token) and (rid, reason, RequestState | None)
+        self.token_sink: Optional[Callable[[int, Any], None]] = None
+        self.finish_sink: Optional[
+            Callable[[int, str, Optional[RequestState]], None]] = None
+        # identity of the loaded weights, for /health
+        self.checkpoint_id = checkpoint_id
         self._reset_state()
 
     def _reset_state(self) -> None:
@@ -150,7 +180,11 @@ class Engine:
         self._run_sink: Optional[List[RequestMetrics]] = None
         self.decode_steps = 0
         self.prefills = 0
-        self.prefill_tokens = 0
+        self.admit_failures = 0          # requests that raised in admission
+        self._admit_fail_streak = 0      # in a row; trips the engine
+        self.prefill_tokens = 0          # padded tokens prefilled
+        self.prefix_hits = 0             # admissions that reused pages
+        self.prefix_reused_tokens = 0    # prompt tokens skipped by reuse
         # on-demand paging: states parked by preemption (rid -> state; the
         # request itself waits at the queue head) and growth counters
         self._preempted: Dict[int, RequestState] = {}
@@ -196,19 +230,67 @@ class Engine:
         return -(-n_pos // self.page_size)
 
     def _reserve_pages(self, req: Request,
-                       n_tokens: int) -> Optional[List[int]]:
-        """The pages admission takes for ``req``, or None (nothing held)
-        if the pool cannot host it now. ``n_tokens`` is what the prefill
-        writes: the prompt, plus the tokens generated before a
-        preemption. ``reserve`` takes the whole budget up front,
-        ``ondemand`` only the prefill's pages."""
-        need = (-(-n_tokens // self.page_size) if self._ondemand
+                       n_tokens: int) -> Optional[Dict[str, Any]]:
+        """Match the prompt's cached prefix and reserve the pages
+        admission takes for ``req``; None (nothing held) if the pool
+        cannot host it now. ``n_tokens`` is what the prefill covers: the
+        prompt, plus the tokens generated before a preemption.
+        ``reserve`` takes the whole budget up front, ``ondemand`` only
+        the prefill's pages.
+
+        Under pressure the match degrades before the reservation fails:
+        first the copy-on-write hold goes (it pins one page beyond the
+        request's own demand, which on a pool sized exactly to that
+        demand would requeue the same reservation forever), then the
+        whole match (its pages go back to the evictable set), so any
+        request ``submit`` accepted is hosted with no reuse once slots
+        drain."""
+        alloc, page = self.allocator, self.page_size
+        need = (-(-n_tokens // page) if self._ondemand
                 else self._pages_for(req.prompt_len, req.max_new_tokens))
-        return self.allocator.alloc(need)
+        keys: List[bytes] = []
+        matched: List[int] = []
+        if self._prefix_ok:
+            # memoized on the request (a dry pool retries every step),
+            # tagged with the page size
+            memo = getattr(req, "_chain_keys", None)
+            if memo is None or memo[0] != page:
+                memo = (page, BlockAllocator.chain_keys(req.prompt, page))
+                req._chain_keys = memo
+            keys = memo[1]
+            matched = alloc.match(keys)
+        # the last prompt token is always recomputed (its logits seed
+        # decoding), so reuse stops at n_tokens - 1
+        n_cached = min(len(matched) * page, n_tokens - 1)
+        n_full = n_cached // page
+        cow = matched[n_full] if n_cached % page else None
+        shared = matched[:n_full]
+        alloc.retain(shared)
+        if cow is not None:
+            alloc.retain([cow])
+        fresh = alloc.alloc(need - n_full)
+        if fresh is None and cow is not None:
+            alloc.release([cow])           # forfeit the boundary reuse
+            cow = None
+            n_cached = n_full * page
+            fresh = alloc.alloc(need - n_full)
+        if fresh is None and shared:
+            alloc.release(shared)          # forfeit the prefix match
+            shared, n_full, n_cached = [], 0, 0
+            fresh = alloc.alloc(need)
+        if fresh is None:                  # the pool is dry: nothing held
+            return None
+        return {"n_cached": n_cached, "n_full": n_full, "cow": cow,
+                "shared": shared, "fresh": fresh, "keys": keys}
 
     def validate(self, prompt: Sequence, max_new_tokens: int = 0) -> None:
-        """Raise ValueError for a request that can never be hosted."""
-        arr = np.asarray(prompt)
+        """Raise ValueError for a request that can never be hosted (the
+        one admission formula of ``submit`` and the gateway's pre-flight
+        check, a 400 there)."""
+        try:
+            arr = np.asarray(prompt)
+        except ValueError:
+            raise ValueError("prompt rows must share one shape") from None
         if arr.size and not np.issubdtype(arr.dtype, np.integer):
             raise ValueError(f"prompt must hold integer token ids, got "
                              f"dtype {arr.dtype}")
@@ -231,14 +313,23 @@ class Engine:
                                  f"{self.num_pages}")
 
     def submit(self, req: Request) -> None:
-        try:
-            self.validate(req.prompt, req.max_new_tokens)
-        except ValueError as e:
-            raise ValueError(f"request {req.rid}: {e}") from None
+        # the online driver validates at its pre-flight and marks the
+        # request, so the scan is not paid twice
+        if not getattr(req, "_prevalidated", False):
+            try:
+                self.validate(req.prompt, req.max_new_tokens)
+            except ValueError as e:
+                raise ValueError(f"request {req.rid}: {e}") from None
         self.queue.push(req)
 
     def _now(self) -> float:
         return time.monotonic() - self._t0
+
+    def now(self) -> float:
+        """Engine-clock timestamp: online callers stamp
+        ``Request.arrival`` with it, so queue wait and TTFT share the
+        engine's timebase."""
+        return self._now()
 
     # ------------------------------------------------------------------
     # prefill
@@ -261,24 +352,36 @@ class Engine:
                 buf[:, slot] = small[key][:, 0]
         return logits
 
-    def _prefill_paged(self, tokens: np.ndarray, n: int, slot: int,
-                       table: np.ndarray):
-        """Batch-1 prefill that writes through the slot's block table into
-        the shared pools; bucket padding past the table's span drops."""
+    def _prefill_paged(self, tokens: np.ndarray, n_new: int, n_cached: int,
+                       n_total: int, slot: int, table: np.ndarray,
+                       cow_src: int, cow_dst: int):
+        """Batch-1 suffix prefill in place over the shared pools, through
+        the slot's real block table: cached prefix pages are read where
+        they live and fresh pages are written once. The copy-on-write
+        boundary page ``cow_src`` is copied onto its fresh twin
+        ``cow_dst`` first, in every pool leaf, so the suffix lands on a
+        page that already holds the shared tokens; without one both name
+        the null page (a self-copy, skipped). The suffix runs at
+        ``pos_offset = n_cached``; bucket padding past the table's span
+        drops; the cursor ends at ``n_total``."""
         big = self.caches["period"]["pos0"]
+        if cow_src != cow_dst:
+            for key in _POOL_KEYS:
+                if key in big:
+                    big[key][:, cow_dst] = big[key][:, cow_src]
         mini = {k: v for k, v in big.items() if k != "idx"}
-        mini["idx"] = torch.zeros((self.cfg.num_layers, 1), dtype=torch.int32,
-                                  device=self.device)
+        mini["idx"] = torch.full((self.cfg.num_layers, 1), n_cached,
+                                 dtype=torch.int32, device=self.device)
         logits = forward(self.params, self._tensor(tokens), self.cfg,
                          self.qcfg, caches={"period": {"pos0": mini}},
-                         pos_offset=0,
+                         pos_offset=n_cached,
                          block_tables=self._tensor(table[None]),
-                         head=self._head)[:, n - 1]
-        big["idx"][:, slot] = n
+                         head=self._head)[:, n_new - 1]
+        big["idx"][:, slot] = n_total
         return logits
 
     def _admit(self, rs: RequestState, clock,
-               pages: Optional[List[int]]) -> None:
+               resv: Optional[Dict[str, Any]]) -> None:
         req = rs.request
         prompt = np.asarray(req.prompt, np.int32)
         g = len(rs.generated)
@@ -290,16 +393,39 @@ class Engine:
             prompt = np.concatenate(
                 [prompt, np.asarray(rs.generated[:-1], np.int32)])
         plen = len(prompt)
-        bucket = self._bucket(plen)
-        tokens = np.zeros((1, bucket), np.int32)
-        tokens[0, :plen] = prompt
         if self.page_size:
+            n_cached, n_full = resv["n_cached"], resv["n_full"]
+            n_pages = n_full + len(resv["fresh"])
             bt = np.full((self._max_pages,), self._null_page, np.int32)
-            bt[:len(pages)] = pages
-            logits = self._prefill_paged(tokens, plen, rs.slot, bt)
+            bt[:n_full] = resv["shared"]
+            bt[n_full:n_pages] = resv["fresh"]
+            if resv["cow"] is not None:
+                cow_src, cow_dst = resv["cow"], int(bt[n_full])
+            else:
+                cow_src = cow_dst = self._null_page
+            n_new = plen - n_cached
+            bucket = self._bucket(n_new)
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :n_new] = prompt[n_cached:]
+            logits = self._prefill_paged(tokens, n_new, n_cached, plen,
+                                         rs.slot, bt, cow_src, cow_dst)
+            if resv["cow"] is not None:  # content copied; drop the hold
+                self.allocator.release([resv["cow"]])
+                resv["cow"] = None  # an unwind must not release it again
+            if self._prefix_ok:
+                # publish the original prompt's full pages (tokens
+                # generated before a preemption are never cache material)
+                for i, key in enumerate(resv["keys"]):
+                    self.allocator.register(key, int(bt[i]))
             self._block_tables[rs.slot] = bt
-            self._slot_pages[rs.slot] = pages
+            self._slot_pages[rs.slot] = resv["shared"] + resv["fresh"]
+            if n_cached:
+                self.prefix_hits += 1
+                self.prefix_reused_tokens += n_cached
         else:
+            bucket = self._bucket(plen)
+            tokens = np.zeros((1, bucket), np.int32)
+            tokens[0, :plen] = prompt
             logits = self._prefill_dense(tokens, plen, rs.slot)
         set_row(self._samp, rs.slot, req.sampling)  # sample event 0
         if g:
@@ -318,6 +444,8 @@ class Engine:
         if not g:
             rs.generated.append(tok)
             rs.t_first_token = clock()
+            if self.token_sink is not None:
+                self.token_sink(req.rid, tok)
         self._maybe_finish(rs, clock)
 
     # ------------------------------------------------------------------
@@ -343,17 +471,50 @@ class Engine:
             self._block_tables[rs.slot] = self._null_page
 
     def _finish(self, rs: RequestState, clock, reason: str) -> None:
+        """Terminal transition: stamp, release the slot and its pages,
+        archive, and fire ``finish_sink``."""
         rs.t_finish = clock()
         rs.finish_reason = reason
         self._release_slot(rs)
         if reason == "aborted":
             self.aborted.append(rs)
-            return
-        self.finished.append(rs)
-        m = RequestMetrics.from_state(rs, truncated=reason == "capacity")
-        self.completed.append(m)
-        if self._run_sink is not None:
-            self._run_sink.append(m)
+        else:
+            self.finished.append(rs)
+            m = RequestMetrics.from_state(rs, truncated=reason == "capacity")
+            self.completed.append(m)
+            if self._run_sink is not None:
+                self._run_sink.append(m)
+        if self.finish_sink is not None:
+            self.finish_sink(rs.request.rid, reason, rs)
+
+    def _archive_error(self, rs: RequestState) -> None:
+        """The shared tail of both admission-failure paths: stamp, count,
+        archive, fire the terminal event. Unwinding the slot and pages
+        stays with the caller (the reservation path bound no slot)."""
+        rs.finish_reason = "error"
+        self.admit_failures += 1
+        self._admit_fail_streak += 1
+        self.aborted.append(rs)
+        if self.finish_sink is not None:
+            self.finish_sink(rs.request.rid, "error", rs)
+
+    def _fail_admission(self, rs: RequestState, resv: Optional[Dict],
+                        clock) -> None:
+        """Unwind a failed ``_admit``: free the slot, return the page
+        reservation wherever the failure left it (the copy-on-write hold
+        included), and archive the state with reason ``"error"``."""
+        rs.t_finish = clock()
+        # pages recorded on the slot (the failure came after _admit's
+        # bookkeeping) go back with the slot; before that point the
+        # reservation is still ours to return
+        recorded = bool(self.page_size) and \
+            self._slot_pages[rs.slot] is not None
+        self._release_slot(rs)
+        if self.page_size and not recorded and resv is not None:
+            self.allocator.release(resv["shared"] + resv["fresh"])
+            if resv["cow"] is not None:
+                self.allocator.release([resv["cow"]])
+        self._archive_error(rs)
 
     def abort(self, rid: int, now: Optional[float] = None) -> bool:
         """Cancel a queued or running request. A running one releases its
@@ -368,6 +529,8 @@ class Engine:
                 rs.t_finish = clock()
                 rs.finish_reason = "aborted"
                 self.aborted.append(rs)
+            if self.finish_sink is not None:
+                self.finish_sink(rid, "aborted", rs)
             return True
         for rs in self.scheduler.running.values():
             if rs.request.rid == rid:
@@ -458,15 +621,37 @@ class Engine:
     # speculative decoding
 
     def _draft_params(self, bits: int):
-        """The cached draft view at ``bits`` and its decoded tied head;
-        at the serving width, the serving weights and head themselves."""
+        """The cached draft view at ``bits`` and its head (a tied head
+        decoded from the view's embedding; an untied one is the view's
+        re-gridded ``embed.head``, built in the same K7 launch as the
+        other leaves); at the serving width, the serving weights and head
+        themselves."""
         view = self._draft_views.get(bits)
         if view is None:
             dparams = build_draft_params(self.params, bits)
             head = (self._head if dparams is self.params
                     else lm_head(dparams, self.cfg))
             view = self._draft_views[bits] = (dparams, head)
+            self._numerics_cache = None  # a new view: re-derive health
         return view
+
+    def numerics_snapshot(self) -> Dict[str, Any]:
+        """The serving tree's code-rail occupancy (``tree_code_stats``)
+        and the re-grid error of every built draft view
+        (``draft_requant_error``), for ``/health``. Computed on the first
+        call and cached until a new draft view is built; it reads the
+        engine's tensors, so call it from the thread that steps the
+        engine."""
+        if self._numerics_cache is not None:
+            return self._numerics_cache
+        snap: Dict[str, Any] = {"weights": tree_code_stats(self.params)}
+        drafts = {f"b{bits}": draft_requant_error(self.params, view)
+                  for bits, (view, _) in sorted(self._draft_views.items())
+                  if view is not self.params}
+        if drafts:
+            snap["draft_requant"] = drafts
+        self._numerics_cache = snap
+        return snap
 
     def _spec_ready(self, k: int) -> bool:
         """Every running slot can host a k-token span: the dense row write
@@ -538,6 +723,7 @@ class Engine:
         t0 = time.monotonic()
         pos0 = self._slot_len.copy()
         s, acc, m = self._spec_cycle(bits, k)
+        self._admit_fail_streak = 0
         self.spec_cycles += 1
         self.spec_draft_steps += k
         self.spec_verify_steps += 1
@@ -560,6 +746,8 @@ class Engine:
             for j in range(int(m[slot])):
                 rs.generated.append(int(s[slot, j]))
                 emitted += 1
+                if self.token_sink is not None:
+                    self.token_sink(rs.request.rid, rs.generated[-1])
                 if rs.done:
                     # the run's later tokens are not in the baseline's
                     # stream: drop them
@@ -612,14 +800,24 @@ class Engine:
             req = self.queue.pop_ready(clock())
             if req is None:
                 break
-            pages = None
+            resv = None
             resume = self._preempted.get(req.rid)
             if self.page_size:
                 n_tok = req.prompt_len
                 if resume is not None:
                     n_tok += len(resume.generated) - 1
-                pages = self._reserve_pages(req, n_tok)
-                if pages is None:  # pool exhausted: wait for a release
+                try:
+                    resv = self._reserve_pages(req, n_tok)
+                except Exception:
+                    # a prompt the reservation cannot even hash fails
+                    # alone, before a slot is bound (slot -1)
+                    rs = RequestState(request=req, slot=-1, t_admit=clock())
+                    rs.t_finish = clock()
+                    self._archive_error(rs)
+                    if self._admit_fail_streak >= ADMIT_FAIL_TRIP:
+                        raise
+                    continue
+                if resv is None:  # pool exhausted: wait for a release
                     self.queue.requeue(req)
                     break
             rs = self.scheduler.admit(req, clock())
@@ -631,7 +829,24 @@ class Engine:
                           "spec_cycles", "spec_drafted", "spec_accepted",
                           "preemptions"):
                     setattr(rs, f, getattr(resume, f))
-            self._admit(rs, clock, pages)
+            try:
+                self._admit(rs, clock, resv)
+                self._admit_fail_streak = 0
+            except Exception:
+                # a request that raises inside admission fails alone: its
+                # slot and reservation unwind, its terminal event fires,
+                # the co-batched rows keep serving. The pool tensors are
+                # updated in place, never donated, and the failed prefill
+                # can only have written this request's own fresh pages,
+                # its copy-on-write target or the null page, so every
+                # other row's KV is intact
+                if rs.finish_reason is not None:
+                    # it finished inside _admit and the raise came after
+                    # (a sink): the teardown ran already
+                    raise
+                self._fail_admission(rs, resv, clock)
+                if self._admit_fail_streak >= ADMIT_FAIL_TRIP:
+                    raise
         spec_k = self._spec_arm[1] if self.spec is not None else 0
         if self._ondemand:
             self._grow_decode_pages(lookahead=max(spec_k, 1))
@@ -652,14 +867,30 @@ class Engine:
                          pos_offset=self._tensor(self._slot_len),
                          block_tables=block_tables, head=self._head)[:, -1]
         toks = sample_logits(logits, self._samp).cpu().numpy()
+        # a decode step that ran proves the engine healthy: keep
+        # isolating whatever admissions fail
+        self._admit_fail_streak = 0
         self.decode_steps += 1
         self._slot_len += 1
         self._samp["step"] += 1
         self._last_tok = toks.astype(np.int32)
         for slot, rs in list(self.scheduler.running.items()):
             rs.generated.append(int(toks[slot]))
+            if self.token_sink is not None:
+                self.token_sink(rs.request.rid, rs.generated[-1])
             self._maybe_finish(rs, clock)
         return True
+
+    def drain_finished(self) -> List[RequestState]:
+        """Hand over (and forget) the finished request states, and clear
+        the metrics and abort archives with them. Long-lived
+        ``submit``/``step`` callers drain now and then, or the kept token
+        lists grow without bound; ``run`` counts its completions in a
+        sink of its own, so draining is safe at any point."""
+        out, self.finished = self.finished, []
+        self.completed = []
+        self.aborted = []
+        return out
 
     def run(self, requests: Sequence[Request] = ()) -> Dict[str, float]:
         """Drive the requests to completion; aggregate metrics of the

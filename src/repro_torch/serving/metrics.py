@@ -58,6 +58,13 @@ class RequestMetrics:
             return None
         return (self.t_finish - self.t_first_token) / (self.new_tokens - 1)
 
+    @property
+    def decode_tps(self) -> Optional[float]:
+        """Tokens a second after the first; None for one token."""
+        if self.new_tokens < 2 or self.t_finish <= self.t_first_token:
+            return None
+        return (self.new_tokens - 1) / (self.t_finish - self.t_first_token)
+
     @classmethod
     def from_state(cls, rs: RequestState,
                    truncated: bool = False) -> "RequestMetrics":

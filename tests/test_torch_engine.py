@@ -62,7 +62,8 @@ def test_engine_streams_match_jax(smoke, page_size, alloc_policy):
         jagg = jeng.run(j_trace(cfg, **TRACE))
     teng = Engine(get_smoke_config("smollm-135m"), QuantConfig.lns_madam(),
                   params_from_flat(flat_params(params), LNSFormat(8, 8),
-                                   device="cpu"), device="cpu", **kw)
+                                   device="cpu"), device="cpu",
+                  prefix_cache=False, **kw)
     tagg = teng.run(synthetic_trace(teng.cfg, **TRACE))
 
     assert jagg["completed"] == tagg["completed"] == TRACE["requests"]

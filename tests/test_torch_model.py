@@ -276,9 +276,23 @@ def test_paper_model_lns8_train_step_matches_jax(name):
 
 
 def test_engine_refuses_an_untied_head():
-    """The engine decodes the tied head once; serving an untied config
-    is not in this slice and raises."""
-    from repro_torch.serving import Engine
+    """The engine no longer refuses an untied head: it serves the
+    narrowed BERT, whose packed ``embed.head`` stays the engine's head
+    (routed through K1+K2 every step). It still refuses ``mesh=`` and
+    ``observer=``. Serving parity with JAX on an untied config is in
+    ``test_torch_serving_hooks.py``."""
+    from repro_torch.optim.madam import MadamConfig as TMadamConfig
+    from repro_torch.optim.madam import init_lns_params
+    from repro_torch.serving import Engine, Request
     _, cfg = _paper_cfgs("bert_narrow")
-    with pytest.raises(NotImplementedError, match="untied"):
-        Engine(cfg, QuantConfig.lns_madam(), {}, device="cpu")
+    params = init_lns_params(tm.init_params(cfg, seed=0, device="cpu"),
+                             TMadamConfig(update_format=LNSFormat(8, 8)))
+    eng = Engine(cfg, QuantConfig.lns_madam(), params, num_slots=2,
+                 max_len=16, page_size=4, device="cpu")
+    assert eng._head is eng.params["embed"]["head"]
+    eng.run([Request(rid=i, prompt=[3 + i, 7, 9], max_new_tokens=3)
+             for i in range(2)])
+    assert sorted(len(rs.generated) for rs in eng.finished) == [3, 3]
+    for kw in (dict(mesh=object()), dict(observer=object())):
+        with pytest.raises(NotImplementedError):
+            Engine(cfg, QuantConfig.lns_madam(), params, device="cpu", **kw)

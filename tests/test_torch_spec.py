@@ -345,7 +345,7 @@ def test_spec_engine_equals_jax_greedy(smoke, kw):
     with jd.configured(backend="reference"):
         jeng = _j_engine(smoke, **kw, **spec_kw)
         jeng.run(_j_requests(reqs))
-    eng = _engine(smoke[4], **kw, **spec_kw)
+    eng = _engine(smoke[4], prefix_cache=False, **kw, **spec_kw)
     eng.run(reqs)
     assert _streams(eng) == _streams(jeng)
     for c in SPEC_COUNTERS:
@@ -369,7 +369,7 @@ def test_ondemand_preemption_equals_jax(smoke, k):
     with jd.configured(backend="reference"):
         jeng = _j_engine(smoke, **PREEMPT, **spec_kw)
         jeng.run(_j_requests(reqs))
-    eng = _engine(smoke[4], **PREEMPT, **spec_kw)
+    eng = _engine(smoke[4], prefix_cache=False, **PREEMPT, **spec_kw)
     agg = eng.run(reqs)
     assert agg["completed"] == 5
     assert _streams(eng) == _streams(jeng)
@@ -382,7 +382,8 @@ def test_ondemand_preemption_equals_jax(smoke, k):
     assert eng.allocator.in_use == 0 and not eng._preempted
     # a preempted request resumes to the same stream as an engine whose
     # pool never runs dry
-    roomy = _engine(smoke[4], **dict(PREEMPT, num_pages=30), **spec_kw)
+    roomy = _engine(smoke[4], prefix_cache=False,
+                    **dict(PREEMPT, num_pages=30), **spec_kw)
     roomy.run(reqs)
     assert roomy.preemptions == 0
     assert _streams(roomy) == _streams(eng)
