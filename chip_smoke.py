@@ -7,6 +7,7 @@
     python3 chip_smoke.py --k6-sweep   # K6's blocks a row and block size
     python3 chip_smoke.py --k8-sweep   # K8's tiles, splits, table copies
     python3 chip_smoke.py --serving    # phases 1, 2 and 19 only
+    python3 chip_smoke.py --obs        # phases 1, 2 and 20 only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -165,6 +166,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     held as phase 14 holds them; logits as phase 5; a k=4 draft view at
     6 bits is one K7 launch with the head re-gridded; k=1 reproduces the
     baseline's streams.
+20. Observability at full width (``repro_torch.obs``). (a) Phase 4's
+    paged trace through the serve CLI's engine with an ``EngineObserver``
+    attached and ``kernel_stats`` on, then the same trace at k=4, 6 bits,
+    from cold: every request completes, the trace validates (spec spans
+    required on the spec run), the timeline's prefill/decode/spec rows
+    equal the engine's admissions, decode steps and spec cycles, its
+    emitted tokens total 8 x 32, each op's ``kernel_stats`` calls equal
+    its kernel's launch count over the same run; the time breakdown
+    (host share included) printed. (b) On that engine, 4 requests
+    decoding: windows of 3 decode steps under torch.profiler with the
+    observer and ``kernel_stats`` (``block_every=0``) off, on, off, on
+    after a warm window: every window issues the same kernel launches
+    and copies (the CUDA runtime calls that put work on the card, by
+    name; the profiler's device records, which lose a few a window, are
+    printed beside them); the walls printed side by side, not limited.
+    (c) 3 decode
+    steps at ``block_every=1``: K1's, K2's, K5's and K6's mean blocked time
+    a call beside the profiler's device time a launch, the blocked time
+    at least ``OBS_BLOCKED_MIN`` of it. (d) ``launch.train`` for 2 steps of
+    8 x 256 with ``--trace-dir --numerics-log --kernel-stats --quiet=false
+    --progress-every 1``, then without them: K4 8 times a step and K3
+    never, then the reverse; losses equal bit for bit (else the first
+    leaf and word where the checkpoints part are printed); 2 jsonl rows
+    of finite stats, fractions in [0, 1]; the trace passes
+    ``validate_train_trace``; ``record_step``'s wall time a step printed.
+    (e) ``python -m repro_torch.obs.validate`` exits 0 on the spec run's
+    export (``--require-spec``) and the train export (``--train``). (f) A 2-request ``launch.serve --torch-profile``: its Chrome
+    trace holds device events of K1, K2, K5 and K6.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -174,6 +203,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -305,6 +335,39 @@ FIG4_D, FIG4_ETA, FIG4_GAMMA = 1 << 20, 2.0 ** -6, 2.0 ** 10
 # so E r_t = sum |eps|/gamma; with |eps| <= 4 ulps of log2|w| < 16 (2^-18)
 # both sides must stay under d·2^-18/gamma
 FIG4_RTOL = 2e-3
+# phase 20: observability. 20b/20c take windows of OBS_DECODE_STEPS decode
+# steps over 4 requests of 32 + OBS_GEN tokens (room for the admission
+# step and six windows); 20d trains OBS_TRAIN_STEPS steps of 8 x 256
+OBS_DECODE_STEPS = 3
+OBS_GEN = 28
+OBS_TRAIN_STEPS = 2
+OBS_TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", str(OBS_TRAIN_STEPS),
+                  "--batch", "8", "--seq", "256"]
+# 20c: a blocked call drains the stream before its clock starts and waits
+# for its kernel after, so its time holds the launch and the kernel and
+# reads above the kernel's device time; 0.9 allows for the profiler's and
+# the host clock's granularity at kernels of a few microseconds
+OBS_BLOCKED_MIN = 0.9
+# the profiler's kernel names of the ops 20c and 20f read
+OBS_BLOCKED_KERNELS = {
+    "encode_pack": ("k1_tensor_kernel", "k1_row_kernel"),
+    "qmatmul": ("qmatmul_skinny_kernel", "qmatmul_wgmma_kernel",
+                "qmatmul_f32_kernel"),
+    "paged_attend": ("paged_attend_kernel",),
+    "fused_sample": ("fused_sample_kernel",)}
+# 20b: the CUDA runtime calls that put a kernel or a copy on the card. The
+# observer's cost is held to them, counted on the host: the profiler's
+# device records of the same windows lose a few of ~17,600 a window
+# (CUPTI), in windows whose runtime calls are identical
+OBS_WORK_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                   "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                   "cudaMemcpy", "cudaMemsetAsync", "cudaMemset")
+# kernel_stats ops and launch counts grouped by the kernel they launch
+OBS_OP_KERNEL = {"fused_sample_seeded": "fused_sample",
+                 "requant_pack_many": "requant_pack",
+                 "madam_step_stats": "madam_step"}
+# the numerics stats that are shares of a leaf's elements
+OBS_FRACTIONS = ("sat_lo", "sat_hi", "dead_frac", "requant_sat_hi")
 # the packed leaves of smollm-135m as K7 re-grids them, in tree order
 K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
              ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
@@ -3591,17 +3654,391 @@ def online_serving(torch, ops, ref, fmt):
             "seconds": secs}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: observability at full width
+
+
+def obs_groups(stats, launches):
+    """kernel_stats' calls and the kernels' launch counts, both grouped by
+    kernel: an op counts toward the kernel its wrapper launches (seeded K6
+    and grouped K7 share their kernels' counts, K3 and K4 share
+    ``madam_step``). Returns (calls, launches), zero groups dropped."""
+    calls = collections.Counter()
+    for row in stats.values():
+        check(row["backend"] == "kernel" and row["traces"] == 0,
+              f"kernel_stats row off the kernel path: {row}")
+        calls[OBS_OP_KERNEL.get(row["op"], row["op"])] += row["calls"]
+    got = collections.Counter()
+    for name, n in launches.items():
+        got[OBS_OP_KERNEL.get(name, name)] += n
+    return ({k: v for k, v in calls.items() if v},
+            {k: v for k, v in got.items() if v})
+
+
+def obs_serve(torch, ops, argv, spec, tmp):
+    """20a: the serve CLI's engine over phase 4's paged trace with an
+    observer attached and kernel_stats on, from cold (a speculating
+    engine builds its draft view, one K7 launch, inside the run)."""
+    from repro_torch.launch.serve import build_engine, parser
+    from repro_torch.obs import EngineObserver, kernel_stats
+    from repro_torch.obs.spans import validate_chrome_trace
+    from repro_torch.serving import synthetic_trace
+
+    args = parser().parse_args(argv)
+    engine = build_engine(args)
+    obs = EngineObserver()
+    engine.attach_observer(obs)
+    trace = synthetic_trace(engine.cfg, requests=args.requests,
+                            prompt_len=args.prompt_len, gen_len=args.gen_len,
+                            seed=args.seed)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    stats = kernel_stats.enable()
+    try:
+        agg = engine.run(trace)
+        torch.cuda.synchronize()
+    finally:
+        kernel_stats.disable()
+    launches = ops.launch_counts()
+    tag = "spec" if spec else "baseline"
+    check(agg["completed"] == args.requests,
+          f"20a {tag}: {agg['completed']} of {args.requests} completed")
+    per = validate_chrome_trace(obs.to_chrome(), require_spec=spec)
+    check(sorted(per) == list(range(args.requests)),
+          f"20a {tag}: spans of requests {sorted(per)}")
+    s = obs.summary()
+    steps = {"decode": engine.decode_steps, "spec": engine.spec_cycles,
+             "prefill": engine.prefills}
+    for kind, n in steps.items():
+        check(s[f"{kind}_steps"] == n,
+              f"20a {tag}: {s[f'{kind}_steps']} {kind} rows, engine {n}")
+    check(engine.prefills == args.requests and engine.preemptions == 0,
+          f"20a {tag}: {engine.prefills} admissions, "
+          f"{engine.preemptions} preemptions")
+    check(s["emitted_tokens"] == args.requests * args.gen_len,
+          f"20a {tag}: the timeline emitted {s['emitted_tokens']} tokens")
+    rows = stats.snapshot()
+    calls, got = obs_groups(rows, launches)
+    check(calls == got, f"20a {tag}: kernel_stats calls {calls} != launch "
+                        f"counts {got}")
+    need = {"encode_pack", "qmatmul", "paged_attend", "fused_sample"}
+    need |= {"requant_pack"} if spec else set()
+    check(need <= set(calls), f"20a {tag}: no call of {need - set(calls)}")
+    bd = obs.time_breakdown(agg["wall_s"])
+    path = obs.export(str(tmp), tag=f"smollm-135m-{tag}")
+    print(f"20a {tag}: {int(agg['completed'])}/{args.requests} requests, "
+          f"{agg['tokens_per_s']:.1f} tok/s, {s['prefill_steps']} prefill / "
+          f"{s['decode_steps']} decode / {s['spec_steps']} spec rows (= the "
+          f"engine's), {s['emitted_tokens']} tokens emitted, "
+          f"{s['span_events']} span events; time breakdown: "
+          + ", ".join(f"{k[:-6]} {bd[k]:.1%}" for k in
+                      ("prefill_share", "decode_share", "spec_share",
+                       "host_share") if k in bd)
+          + f" of {bd['wall_s']:.2f} s; kernel_stats calls = launches "
+          f"{dict(sorted(calls.items()))}")
+    return engine, {"agg": agg, "summary": s, "time_breakdown": bd,
+                    "calls": calls, "launches": launches, "trace": path,
+                    "kernel_stats": rows}
+
+
+def obs_windows(torch, engine, ops):
+    """20b and 20c on the baseline engine: 4 requests decoding, then
+    windows of ``OBS_DECODE_STEPS`` decode steps under torch.profiler:
+    a warm window, then observer and kernel_stats off, on, off, on (the
+    same kernel launches and copies issued, counted at the CUDA runtime
+    calls; walls printed side by side), then one window at ``block_every=1`` (each call's blocked
+    time beside the profiler's device time a launch)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import EngineObserver, kernel_stats
+    from repro_torch.serving import synthetic_trace
+
+    engine.reset()
+    obs = EngineObserver()
+    for r in synthetic_trace(engine.cfg, requests=4, prompt_len=32,
+                             gen_len=OBS_GEN, seed=1):
+        engine.submit(r)
+    engine.step()              # admissions and the first decode
+    torch.cuda.synchronize()
+
+    def window(on, block_every=0):
+        engine.attach_observer(obs if on else None)
+        if on:
+            kernel_stats.enable(block_every=block_every)
+        before = engine.decode_steps
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.monotonic()
+                for _ in range(OBS_DECODE_STEPS):
+                    engine.step()
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+        finally:
+            rows = kernel_stats.get()
+            kernel_stats.disable()
+            engine.attach_observer(None)
+        check(engine.decode_steps - before == OBS_DECODE_STEPS
+              and len(engine.scheduler.running) == 4,
+              "20b: a window held more than decode steps of 4 requests")
+        return prof, wall * 1e3 / OBS_DECODE_STEPS, rows
+
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def issued(prof):
+        """The runtime calls that put work on the card, by name."""
+        return collections.Counter({e.key: e.count
+                                    for e in prof.key_averages()
+                                    if e.device_type != cuda
+                                    and e.key in OBS_WORK_CALLS})
+
+    window(False)              # warm: the profiler's first window
+    walls, work, calls = {"off": [], "on": []}, [], []
+    for on in (False, True, False, True):
+        prof, wall, _ = window(on)
+        walls["on" if on else "off"].append(wall)
+        w = launch_split(torch, prof, OBS_DECODE_STEPS)
+        work.append({k: w[k] * OBS_DECODE_STEPS
+                     for k in ("port", "torch", "copies")})
+        calls.append(issued(prof))
+    for i in range(1, len(calls)):
+        check(calls[i] == calls[0],
+              f"20b: window {i} ({'on' if i % 2 else 'off'}) issued "
+              f"{dict(calls[i])}, window 0 (off) {dict(calls[0])}")
+    print(f"20b decode step wall, observer and kernel_stats off / on "
+          f"(interleaved, ms): "
+          + ", ".join(f"{a:.1f} / {b:.1f}"
+                      for a, b in zip(walls["off"], walls["on"]))
+          + f"; every window of {OBS_DECODE_STEPS} steps issued "
+          f"{dict(calls[0])}; device records kept by the profiler (port "
+          f"kernels, torch kernels, copies): "
+          + ", ".join(f"{w['port']:.0f}/{w['torch']:.0f}/{w['copies']:.0f}"
+                      for w in work))
+
+    prof, wall_b, rows = window(True, block_every=1)
+    blocked = {}
+    for op, names in OBS_BLOCKED_KERNELS.items():
+        n = sum(r.get("blocked_calls", 0) for r in rows.values()
+                if r["op"] == op)
+        b_s = sum(r.get("blocked_s", 0.0) for r in rows.values()
+                  if r["op"] == op)
+        evs = [e for e in prof.key_averages() if e.device_type == cuda
+               and any(k in e.key for k in names)]
+        cnt = sum(e.count for e in evs)
+        dev_us = sum(e.self_device_time_total for e in evs)
+        check(n > 0 and cnt > 0, f"20c: {op} blocked {n} calls, profiler "
+                                 f"saw {cnt} launches")
+        blocked[op] = {"blocked_ms": b_s * 1e3 / n, "calls": n,
+                       "device_ms": dev_us / 1e3 / cnt, "launches": cnt}
+        check(blocked[op]["blocked_ms"] >= OBS_BLOCKED_MIN
+              * blocked[op]["device_ms"],
+              f"20c: {op} blocked {blocked[op]['blocked_ms']:.4f} ms a call "
+              f"under {OBS_BLOCKED_MIN} x its device time "
+              f"{blocked[op]['device_ms']:.4f} ms")
+    print(f"20c blocked (block_every=1, {wall_b:.1f} ms a step): "
+          + "; ".join(f"{op} {r['blocked_ms']:.4f} ms a call (device "
+                      f"{r['device_ms']:.4f} ms a launch, {r['calls']} "
+                      f"calls)" for op, r in blocked.items()))
+    return {"wall_ms_per_step": walls, "issued_per_window": calls[0],
+            "device_records_per_window": work, "blocked": blocked,
+            "blocked_wall_ms_per_step": wall_b}
+
+
+def first_word_apart(a_dir, b_dir, step):
+    """The first leaf (in key order) and flat word where two checkpoints
+    of ``step`` differ, or None."""
+    import numpy as np
+    d = [Path(x) / f"step_{step:08d}" for x in (a_dir, b_dir)]
+    keys = json.loads((d[0] / "manifest.json").read_text())["keys"]
+    for k in keys:
+        a, b = (np.load(x / (k.replace("/", "_") + ".npy")) for x in d)
+        diff = np.flatnonzero(a.reshape(-1) != b.reshape(-1))
+        if diff.size:
+            i = int(diff[0])
+            return {"leaf": k, "word": i, "differing": int(diff.size),
+                    "values": [a.reshape(-1)[i].item(),
+                               b.reshape(-1)[i].item()]}
+    return None
+
+
+def obs_train(torch, ops, tmp):
+    """20d: ``launch.train`` for 2 full-width steps with the observer's
+    flags, then the same 2 steps without them."""
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.obs import NumericsObserver
+    from repro_torch.obs.numerics import validate_train_trace
+
+    record_s = []
+    real = NumericsObserver.record_step
+
+    def timed(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self, *a, **k)
+        record_s.append(time.perf_counter() - t0)
+        return out
+
+    log = tmp / "train-steps.jsonl"
+    flags = ["--trace-dir", str(tmp), "--numerics-log", str(log),
+             "--kernel-stats", "--quiet=false", "--progress-every", "1"]
+    runs = {}
+    NumericsObserver.record_step = timed
+    try:
+        for tag, extra in (("observed", flags), ("control", [])):
+            ckpt = tmp / f"ckpt-{tag}"
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            out = train_main(OBS_TRAIN_ARGV + ["--ckpt-dir", str(ckpt)]
+                             + extra)
+            torch.cuda.synchronize()
+            runs[tag] = dict(out, launches=ops.launch_counts(),
+                             ckpt=str(ckpt))
+    finally:
+        NumericsObserver.record_step = real
+    steps = OBS_TRAIN_STEPS
+    for tag, k4, k3 in (("observed", 8 * steps, 0), ("control", 0, 8 * steps)):
+        r = runs[tag]
+        got = (r["launches"]["madam_step_stats"], r["launches"]["madam_step"])
+        check(r["steps"] == steps and r["failures_recovered"] == 0,
+              f"20d {tag}: {r['steps']} steps, {r['failures_recovered']} "
+              f"retried")
+        check(got == (k4, k3), f"20d {tag}: K4/K3 launched {got}, not "
+                               f"{(k4, k3)}")
+    lo, lc = runs["observed"]["losses"], runs["control"]["losses"]
+    apart = None
+    if lo != lc:
+        apart = first_word_apart(runs["observed"]["ckpt"],
+                                 runs["control"]["ckpt"], steps)
+        print(f"20d: losses {lo} vs {lc}; the states part at {apart}")
+    check(lo == lc, f"20d: observed losses {lo} != control {lc}")
+    rows = [json.loads(x) for x in log.read_text().splitlines()]
+    check(len(rows) == steps, f"20d: the step log holds {len(rows)} rows")
+    n_stats = 0
+    for row in rows:
+        for site, layers in row["numerics"].items():
+            for layer, st in layers.items():
+                for k, v in st.items():
+                    n_stats += 1
+                    check(math.isfinite(v), f"20d: {site}.{layer}.{k} = {v}")
+                    check(k not in OBS_FRACTIONS or 0.0 <= v <= 1.0,
+                          f"20d: fraction {site}.{layer}.{k} = {v}")
+    trace = runs["observed"]["trace"]["trace"]
+    info = validate_train_trace(json.loads(Path(trace).read_text()))
+    ks = runs["observed"]["kernel_stats"]
+    madam = ks.get("madam_step|kernel|b16", {}).get("calls")
+    check(madam == 8 * steps, f"20d: kernel_stats saw {madam} Madam calls")
+    print(f"20d train, {steps} steps of 8 x 256: observed K4 "
+          f"{runs['observed']['launches']['madam_step_stats']} / K3 "
+          f"{runs['observed']['launches']['madam_step']}, control K4 "
+          f"{runs['control']['launches']['madam_step_stats']} / K3 "
+          f"{runs['control']['launches']['madam_step']}; losses equal bit "
+          f"for bit ({', '.join(f'{x:.6f}' for x in lo)}); {len(rows)} "
+          f"jsonl rows, {n_stats} stats finite; trace: {info['steps']} "
+          f"train steps, {len(info['tracks'])} tracks; record_step "
+          + ", ".join(f"{x * 1e3:.2f}" for x in record_s)
+          + " ms a step; step wall observed "
+          f"{runs['observed']['wall_s'] / steps * 1e3:.1f} ms, control "
+          f"{runs['control']['wall_s'] / steps * 1e3:.1f} ms (2 steps, "
+          f"checkpoints included)")
+    return {"runs": {k: {x: v[x] for x in ("losses", "launches", "wall_s")}
+                     for k, v in runs.items()},
+            "record_step_s": record_s, "trace": trace, "trace_info": info,
+            "rows": len(rows), "stats": n_stats, "apart": apart,
+            "kernel_stats": ks}
+
+
+def obs_validate_cli(serve_trace, train_trace):
+    """20e: ``python -m repro_torch.obs.validate`` on the speculating
+    serve export (spec spans required) and the train export, each in a
+    subprocess: exit 0 on each."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    cases = [(serve_trace, ["--require-spec"]), (train_trace, ["--train"])]
+    for path, flags in cases:
+        out = subprocess.run([sys.executable, "-m", "repro_torch.obs.validate",
+                              path] + flags, env=env, capture_output=True,
+                             text=True, timeout=120)
+        check(out.returncode == 0, f"20e: validate {flags} exited "
+                                   f"{out.returncode}: {out.stdout}"
+                                   f"{out.stderr}")
+        print("20e " + out.stdout.strip().replace(str(ROOT) + "/", ""))
+    return len(cases)
+
+
+def obs_torch_profile(torch, tmp):
+    """20f: a 2-request ``launch.serve --torch-profile``; its Chrome trace
+    must hold device events of K1, K2, K5 and K6."""
+    from repro_torch.launch.serve import main as serve_main
+    out_dir = tmp / "torch-profile"
+    serve_main(["--requests", "2", "--slots", "2", "--prompt-len", "32",
+                "--gen-len", "2", "--page-size", "16", "--torch-profile",
+                str(out_dir)])
+    files = sorted(out_dir.glob("torch_profile-*.json"))
+    check(len(files) == 1, f"20f: {len(files)} profiler traces written")
+    doc = json.loads(files[0].read_text())
+    kernels = collections.Counter()
+    for e in doc["traceEvents"]:
+        if e.get("cat") == "kernel":
+            for k, names in OBS_BLOCKED_KERNELS.items():
+                if any(n in e.get("name", "") for n in names):
+                    kernels[k] += 1
+    check(set(kernels) == set(OBS_BLOCKED_KERNELS),
+          f"20f: the profiler trace's device events hold {dict(kernels)}")
+    print(f"20f --torch-profile: {files[0].stat().st_size / 2**20:.1f} MiB "
+          f"trace, device events {dict(kernels)}")
+    return dict(kernels)
+
+
+def observability(torch, ops, card):
+    """Phase 20: the obs modules on the card at full width."""
+    t0 = time.monotonic()
+    marks = [("start", t0)]
+    mark = lambda name: marks.append((name, time.monotonic()))
+    print(f"phase 20 (observability) on {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        engine, base = obs_serve(torch, ops, SERVE_PAGED, False, tmp)
+        mark("20a baseline")
+        windows = obs_windows(torch, engine, ops)
+        mark("20b+c")
+        del engine
+        torch.cuda.empty_cache()
+        spec_engine, spec = obs_serve(
+            torch, ops, SERVE_PAGED + ["--speculate-k", str(SPEC_K),
+                                       "--draft-bitwidth", "6"], True, tmp)
+        mark("20a spec")
+        del spec_engine
+        torch.cuda.empty_cache()
+        train = obs_train(torch, ops, tmp)
+        mark("20d")
+        torch.cuda.empty_cache()
+        n_cli = obs_validate_cli(spec["trace"], train["trace"])
+        mark("20e")
+        prof = obs_torch_profile(torch, tmp)
+        mark("20f")
+    secs = time.monotonic() - t0
+    parts = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    print(f"phase 20 took {secs:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
+    strip = lambda d: {k: v for k, v in d.items() if k != "trace"}
+    return {"serve": strip(base), "spec": strip(spec), "windows": windows,
+            "train": {k: v for k, v in train.items() if k != "trace"},
+            "validate_cli_files": n_cli, "torch_profile_kernels": prof,
+            "seconds": secs, "seconds_by_part": parts}
+
+
 def main() -> int:
     import torch
 
     t_start = time.monotonic()
     sweeps = {"--k1-sweep": k1_sweep, "--k2-sweep": k2_sweep,
               "--k6-sweep": k6_sweep, "--k8-sweep": k8_sweep,
-              "--serving": online_serving}
+              "--serving": online_serving,
+              "--obs": lambda torch, ops, ref, fmt: observability(
+                  torch, ops, card.stdout.strip())}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
-              f"--k6-sweep | --k8-sweep | --serving]", file=sys.stderr)
+              f"--k6-sweep | --k8-sweep | --serving | --obs]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3765,6 +4202,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     online = online_serving(torch, ops, ref, fmt)
     torch.cuda.empty_cache()
+    observed = observability(torch, ops, card.stdout.strip())
+    torch.cuda.empty_cache()
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -3825,7 +4264,7 @@ def main() -> int:
                        "madam_step_unpacked": k9},
             "table10": table10, "k8_rate_inputs": k8_rate_inputs,
             "approx_train": approx, "baselines": paper,
-            "online_serving": online,
+            "online_serving": online, "observability": observed,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

@@ -22,17 +22,30 @@ Online (``--http HOST:PORT``): serves the asyncio gateway
       '{"prompt": [1,2,3], "max_tokens": 8, "stream": true}'
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
+
+Observability: ``--trace-dir DIR`` attaches an ``EngineObserver`` (request
+spans and the step timeline), prints the run's time breakdown and exports
+a Chrome trace into DIR at the end (online: at shutdown);
+``--kernel-stats`` prints the time of every dispatched kernel call by
+(op, backend, bits); ``--torch-profile DIR`` writes a ``torch.profiler``
+Chrome trace of the offline run into DIR.
+
+  python -m repro_torch.launch.serve --smoke --device cpu --page-size 4 \
+      --speculate-k 2 --trace-dir /tmp/trace --kernel-stats
+  python -m repro_torch.obs.validate /tmp/trace/*.trace.json --require-spec
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lns import LNSFormat
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.models.model import init_params
+from repro_torch.obs import EngineObserver, kernel_stats
 from repro_torch.optim.madam import MadamConfig, init_lns_params
 from repro_torch.serving import Engine, max_trace_len, synthetic_trace
 
@@ -135,6 +148,16 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-queue", type=int, default=64,
                     help="admission watermark: live requests beyond this "
                          "are refused with 429")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="trace request spans and the step timeline; "
+                         "export Chrome trace-event JSON (opens in "
+                         "Perfetto) into DIR when the run ends")
+    ap.add_argument("--torch-profile", default=None, metavar="DIR",
+                    help="wrap the offline run in torch.profiler and "
+                         "write its Chrome trace into DIR")
+    ap.add_argument("--kernel-stats", action="store_true",
+                    help="per-(op, backend, bits) kernel-time "
+                         "attribution, printed after an offline run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
@@ -145,6 +168,8 @@ def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     engine = build_engine(args)
     cfg = engine.cfg
+    observer = EngineObserver() if args.trace_dir else None
+    engine.attach_observer(observer)
     nbytes = 0
     stack = [engine.params]
     while stack:
@@ -159,14 +184,27 @@ def main(argv=None) -> dict:
           f"{nbytes / 2**20:.1f} MiB (packed {args.serve_bits}-bit LNS "
           f"codes + scales)")
     if args.http:
-        serve_http(engine, args.http, cfg.name, args.max_queue)
+        try:
+            serve_http(engine, args.http, cfg.name, args.max_queue)
+        finally:
+            if observer is not None:
+                print("trace:", observer.export(args.trace_dir,
+                                                tag=cfg.name))
         return {}
     lengths = args.lengths or ("uniform" if args.mixed else "fixed")
     trace = synthetic_trace(cfg, requests=args.requests,
                             prompt_len=args.prompt_len, gen_len=args.gen_len,
                             lengths=lengths, rate=args.rate, seed=args.seed)
     ops.reset_launch_counts()
-    agg = engine.run(trace)
+    with contextlib.ExitStack() as stack:
+        stats = None
+        if args.kernel_stats:
+            stats = kernel_stats.enable()
+            stack.callback(kernel_stats.disable)
+        if args.torch_profile:
+            stack.enter_context(
+                kernel_stats.profiler_trace(args.torch_profile))
+        agg = engine.run(trace)
     print(f"slots={args.slots} requests={args.requests} "
           f"decode_steps={engine.decode_steps} prefills={engine.prefills}")
     if engine.page_size:
@@ -192,6 +230,19 @@ def main(argv=None) -> dict:
     for rs in sorted(engine.finished, key=lambda r: r.request.rid)[:4]:
         print(f"  req {rs.request.rid}: prompt {rs.request.prompt_len} -> "
               f"{len(rs.generated)} new tokens, sample {rs.generated[:8]}")
+    if observer is not None:
+        bd = agg["time_breakdown"] = observer.time_breakdown(agg["wall_s"])
+        print(f"time breakdown: prefill {bd.get('prefill_share', 0):.1%} "
+              f"decode {bd.get('decode_share', 0):.1%} "
+              f"spec {bd.get('spec_share', 0):.1%} "
+              f"host {bd.get('host_share', 0):.1%}")
+        agg["trace"] = observer.export(args.trace_dir, tag=cfg.name)
+        print("trace:", agg["trace"])
+    if stats is not None:
+        agg["kernel_stats"] = stats.snapshot()
+        for name, row in agg["kernel_stats"].items():
+            print(f"  kernel {name}: calls={row['calls']} "
+                  f"traces={row['traces']} time={row['time_s']:.4f}s")
     return agg
 
 

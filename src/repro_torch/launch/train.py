@@ -13,10 +13,25 @@ the LNS store that Madam steps) or ``fp32``. ``--device cpu`` runs the
 plain PyTorch versions of the kernels (use it with ``--smoke``). Without
 ``--ckpt-dir`` the checkpoints go to a temporary directory that is
 removed at the end.
+
+Observability: ``--trace-dir``, ``--numerics-log`` or ``--quiet=false``
+attach a ``NumericsObserver`` and build the step with ``numerics=True``
+(K4 steps the weights and returns per-layer stats; K3 otherwise): the
+trace (``train_step`` spans and numerics counter tracks) is exported into
+``--trace-dir`` at the end, the jsonl step log goes to
+``--numerics-log``, and a progress line is printed every
+``--progress-every`` steps. ``--kernel-stats`` prints the time of every
+dispatched kernel call by (op, backend, bits); ``--torch-profile DIR``
+writes a ``torch.profiler`` Chrome trace of the run into DIR.
+
+  python -m repro_torch.launch.train --smoke --device cpu --steps 3 \
+      --trace-dir /tmp/trace --numerics-log /tmp/trace/steps.jsonl \
+      --kernel-stats --quiet=false --progress-every 1
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import tempfile
 import time
 
@@ -25,17 +40,12 @@ from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
+from repro_torch.obs import NumericsObserver, kernel_stats
 from repro_torch.optim.madam import MadamConfig
 from repro_torch.training.data import SyntheticLM
 from repro_torch.training.loop import SupervisorConfig, run_supervised
 from repro_torch.training.steps import build_train_step, init_train_state
 from repro_torch.tree import leaves
-
-_UNPORTED = {
-    "trace_dir": "--trace-dir", "numerics_log": "--numerics-log",
-    "jax_profile": "--jax-profile", "kernel_stats": "--kernel-stats",
-}
-
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -54,13 +64,26 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
-    # the observer's flags: accepted for the JAX CLI's sake, not ported yet
-    ap.add_argument("--trace-dir", default=None)
-    ap.add_argument("--numerics-log", default=None)
-    ap.add_argument("--jax-profile", default=None)
-    ap.add_argument("--kernel-stats", action="store_true")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="collect per-layer numerics stats and export a "
+                         "Chrome trace (train_step spans and numerics "
+                         "counter tracks; opens in Perfetto) into DIR at "
+                         "the end")
+    ap.add_argument("--numerics-log", default=None, metavar="FILE",
+                    help="jsonl step log (a line a step: loss, wall time, "
+                         "per-layer LNS health)")
+    ap.add_argument("--torch-profile", default=None, metavar="DIR",
+                    help="wrap the run in torch.profiler and write its "
+                         "Chrome trace into DIR")
+    ap.add_argument("--kernel-stats", action="store_true",
+                    help="per-(op, backend, bits) kernel-time attribution, "
+                         "printed after the run")
     ap.add_argument("--quiet", default=True,
-                    type=lambda s: s.lower() not in ("0", "false", "no"))
+                    type=lambda s: s.lower() not in ("0", "false", "no"),
+                    metavar="BOOL",
+                    help="--quiet=false prints a progress line every "
+                         "--progress-every steps through the observer")
+    ap.add_argument("--progress-every", type=int, default=10)
     return ap
 
 
@@ -71,13 +94,6 @@ def _quant_config(fmt: str) -> QuantConfig:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    for attr, flag in _UNPORTED.items():
-        if getattr(args, attr):
-            raise NotImplementedError(f"{flag} needs the observer, which is "
-                                      f"not ported yet")
-    if not args.quiet:
-        raise NotImplementedError("--quiet=false needs the observer, which "
-                                  "is not ported yet")
     qcfg = _quant_config(args.format)
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -91,25 +107,57 @@ def main(argv=None) -> dict:
             else p.numel() for _, p in leaves(state.params))
     print(f"arch={cfg.name} params={n:,} format={args.format} "
           f"device={device}")
-    step_fn = build_train_step(cfg, qcfg, mcfg, accum_steps=args.accum_steps)
+    observed = bool(args.trace_dir or args.numerics_log or not args.quiet)
+    observer = stats = None
+    step_fn = build_train_step(cfg, qcfg, mcfg, accum_steps=args.accum_steps,
+                               numerics=observed)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            contextlib.ExitStack() as stack:
         ckpt = CheckpointManager(args.ckpt_dir or tmp, keep=3)
+        if observed:
+            observer = NumericsObserver(log_path=args.numerics_log,
+                                        quiet=args.quiet,
+                                        progress_every=args.progress_every)
+            stack.callback(observer.close)
+        if args.kernel_stats:
+            stats = kernel_stats.enable()
+            stack.callback(kernel_stats.disable)
+        if args.torch_profile:
+            stack.enter_context(
+                kernel_stats.profiler_trace(args.torch_profile))
         t0 = time.monotonic()
         report = run_supervised(
             step_fn, state, data, ckpt,
             SupervisorConfig(max_steps=args.steps,
-                             save_every=args.save_every))
+                             save_every=args.save_every),
+            observer=observer)
         dt = time.monotonic() - t0
     tok = args.steps * args.batch * args.seq
     print(f"done: {report.steps_done} steps in {dt:.1f}s "
           f"({tok / dt:.0f} tok/s) loss {report.losses[0]:.4f} -> "
           f"{report.losses[-1]:.4f}; recovered={report.failures_recovered} "
           f"stragglers={report.straggler_events}")
-    return {"params": n, "steps": report.steps_done, "wall_s": dt,
-            "tokens_per_s": tok / dt, "losses": report.losses,
-            "failures_recovered": report.failures_recovered,
-            "straggler_events": report.straggler_events}
+    out = {"params": n, "steps": report.steps_done, "wall_s": dt,
+           "tokens_per_s": tok / dt, "losses": report.losses,
+           "failures_recovered": report.failures_recovered,
+           "straggler_events": report.straggler_events}
+    if observer is not None:
+        summary = out["numerics"] = observer.summary()
+        worst = summary.get("worst_sat_frac")
+        if worst is not None:
+            print(f"numerics: worst saturation {worst:.4f} "
+                  f"({summary['worst_sat_site']}), update qerr mean "
+                  f"{summary.get('update.qerr_rel_mean', 0):.2e}")
+        if args.trace_dir:
+            out["trace"] = observer.export(args.trace_dir, tag=cfg.name)
+            print("trace:", out["trace"]["trace"])
+    if stats is not None:
+        out["kernel_stats"] = stats.snapshot()
+        for name, row in out["kernel_stats"].items():
+            print(f"  kernel {name}: calls={row['calls']} "
+                  f"traces={row['traces']} time={row['time_s']:.4f}s")
+    return out
 
 
 if __name__ == "__main__":

@@ -250,6 +250,9 @@ class EngineDriver:
             sink(("token", tok))
 
     def _on_finish(self, rid: int, reason: str, rs) -> None:
+        # archive the metrics first: a client that reads /metrics once its
+        # response ends must find its own request counted
+        self._archive_completed()
         sink = self._sinks.pop(rid, None)
         with self._lock:
             self._inflight -= 1
@@ -324,21 +327,28 @@ class EngineDriver:
                 self._fail_pending()  # submits mailed during the fatal step
                 self._refresh_stats()
                 raise
-            # archive completions and keep the engine's retained state
-            # bounded (token lists already reached the sinks)
-            if eng.completed:
-                with self._lock:
-                    self._metrics.extend(eng.completed)
-                    self._completed_total += len(eng.completed)
-                    for m in eng.completed:
-                        self._hists["ttft_seconds"].observe(m.ttft)
-                        self._hists["queue_wait_seconds"].observe(
-                            m.queued_s)
-                        if m.tpot is not None:
-                            self._hists["tpot_seconds"].observe(m.tpot)
+            # keep the engine's retained state bounded (token lists
+            # already reached the sinks)
+            self._archive_completed()
             if eng.finished or eng.aborted:
                 eng.drain_finished()
             self._refresh_stats()
+
+    def _archive_completed(self) -> None:
+        """Move the engine's completed-request metrics into the driver's
+        window, lifetime count and histograms (driver thread)."""
+        eng = self._engine
+        if not eng.completed:
+            return
+        with self._lock:
+            self._metrics.extend(eng.completed)
+            self._completed_total += len(eng.completed)
+            for m in eng.completed:
+                self._hists["ttft_seconds"].observe(m.ttft)
+                self._hists["queue_wait_seconds"].observe(m.queued_s)
+                if m.tpot is not None:
+                    self._hists["tpot_seconds"].observe(m.tpot)
+        eng.completed.clear()
 
     def _refresh_stats(self) -> None:
         eng = self._engine

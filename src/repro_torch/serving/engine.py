@@ -51,8 +51,15 @@ whose admission raises finishes alone with reason ``"error"`` (its slot
 and pages unwound), until ``ADMIT_FAIL_TRIP`` failures in a row say the
 engine itself is broken and ``step`` re-raises.
 
+Observability (``repro_torch.obs``): an attached ``EngineObserver``
+(``observer=`` or ``attach_observer``) sees admission, prefill,
+preemption, finish, a queued abort, every decode step and every spec
+cycle, at the JAX engine's hook sites, stamped with ``now()``. Each site
+is one ``if obs is not None``: without an observer no clock is read and
+nothing is allocated.
+
 Not in this slice, and raising ``NotImplementedError``: serving across a
-device mesh and the observer hooks.
+device mesh.
 """
 from __future__ import annotations
 
@@ -111,9 +118,6 @@ class Engine:
             raise NotImplementedError(
                 "serving across a device mesh comes with the distributed "
                 "slice")
-        if observer is not None:
-            raise NotImplementedError(
-                "observer hooks come with the observability slice")
         self.spec: Optional[SpecConfig] = None
         if speculate_k:
             reason = spec_supported(cfg)
@@ -155,6 +159,8 @@ class Engine:
             Callable[[int, str, Optional[RequestState]], None]] = None
         # identity of the loaded weights, for /health
         self.checkpoint_id = checkpoint_id
+        # repro_torch.obs.EngineObserver, or None (every hook site checks)
+        self.observer = observer
         self._reset_state()
 
     def _reset_state(self) -> None:
@@ -213,6 +219,26 @@ class Engine:
     def reset(self) -> None:
         """Clear all request and slot state (a warm engine re-runs)."""
         self._reset_state()
+
+    # ------------------------------------------------------------------
+    # observability (touched only with an observer attached)
+
+    def attach_observer(self, observer) -> None:
+        """Attach a ``repro_torch.obs.EngineObserver`` (None detaches).
+        Spans and timeline rows are stamped with the engine clock, which
+        ``run`` restarts: attach before the run whose events you want."""
+        self.observer = observer
+
+    def _obs_gauges(self) -> Dict[str, int]:
+        """The timeline's gauge row (the allocator's counts are O(1))."""
+        alloc = self.allocator
+        g = {"running": len(self.scheduler.running),
+             "queued": len(self.queue),
+             "preempts": self.preemptions}
+        if alloc is not None:
+            g["pages_free"] = alloc.free
+            g["pages_cached"] = alloc.cached
+        return g
 
     # ------------------------------------------------------------------
     # admission checks
@@ -486,6 +512,8 @@ class Engine:
                 self._run_sink.append(m)
         if self.finish_sink is not None:
             self.finish_sink(rs.request.rid, reason, rs)
+        if self.observer is not None:
+            self.observer.finished(rs, reason)
 
     def _archive_error(self, rs: RequestState) -> None:
         """The shared tail of both admission-failure paths: stamp, count,
@@ -531,6 +559,8 @@ class Engine:
                 self.aborted.append(rs)
             if self.finish_sink is not None:
                 self.finish_sink(rid, "aborted", rs)
+            if self.observer is not None:
+                self.observer.aborted_queued(rid, clock())
             return True
         for rs in self.scheduler.running.values():
             if rs.request.rid == rid:
@@ -556,6 +586,8 @@ class Engine:
         self._preempted[rs.request.rid] = rs
         self._release_slot(rs)
         self.queue.requeue(rs.request)
+        if self.observer is not None:
+            self.observer.preempted(rs, self._now())
 
     def _write_span(self, rs: RequestState, lookahead: int) -> tuple:
         """Positions ``[n, last]`` the next ``lookahead`` decode writes of
@@ -720,7 +752,9 @@ class Engine:
         emitted count (idle rows too, as the baseline advances every row
         by one), and return overshoot pages."""
         bits, _ = self._spec_arm
+        obs = self.observer
         t0 = time.monotonic()
+        t_s0 = self._now() if obs is not None else 0.0
         pos0 = self._slot_len.copy()
         s, acc, m = self._spec_cycle(bits, k)
         self._admit_fail_streak = 0
@@ -732,8 +766,11 @@ class Engine:
         self._last_tok = s[np.arange(self.num_slots), m - 1].astype(np.int32)
         emitted = 0
         per_class: Dict[str, Any] = {}
+        obs_rows: Optional[List] = [] if obs is not None else None
         for slot, rs in list(self.scheduler.running.items()):
             a = int(acc[slot])
+            if obs_rows is not None:
+                obs_rows.append((rs.request.rid, a, int(m[slot])))
             self.spec_drafted += k
             self.spec_accepted += a
             rs.spec_cycles += 1
@@ -756,6 +793,9 @@ class Engine:
             if self._ondemand and self.scheduler.running.get(slot) is rs:
                 self._trim_overshoot(rs)
         self.spec_emitted += emitted
+        if obs is not None:
+            obs.spec_cycle(t_s0, self._now(), k=k, rows=obs_rows,
+                           emitted=emitted, gauges=self._obs_gauges())
         if self._tuner is not None:
             self._tuner.observe(self._spec_arm, emitted,
                                 time.monotonic() - t0, per_class)
@@ -796,6 +836,7 @@ class Engine:
         slot one token, or one speculative cycle (1..k tokens). Returns
         False when nothing ran."""
         clock = self._now if now is None else (lambda: now)
+        obs = self.observer
         while self.scheduler.has_free():
             req = self.queue.pop_ready(clock())
             if req is None:
@@ -829,9 +870,14 @@ class Engine:
                           "spec_cycles", "spec_drafted", "spec_accepted",
                           "preemptions"):
                     setattr(rs, f, getattr(resume, f))
+            t_p0 = self._now() if obs is not None else 0.0
             try:
                 self._admit(rs, clock, resv)
                 self._admit_fail_streak = 0
+                if obs is not None:
+                    obs.admitted(rs, resumed=resume is not None)
+                    obs.prefill(rs, t_p0, self._now(),
+                                gauges=self._obs_gauges())
             except Exception:
                 # a request that raises inside admission fails alone: its
                 # slot and reservation unwind, its terminal event fires,
@@ -860,6 +906,7 @@ class Engine:
             # pressure: every row advances one plain token this step
             self.spec_fallbacks += 1
 
+        t_d0 = self._now() if obs is not None else 0.0
         block_tables = (self._tensor(self._block_tables)
                         if self.page_size else None)
         logits = forward(self.params, self._tensor(self._last_tok[:, None]),
@@ -874,11 +921,15 @@ class Engine:
         self._slot_len += 1
         self._samp["step"] += 1
         self._last_tok = toks.astype(np.int32)
-        for slot, rs in list(self.scheduler.running.items()):
+        live = list(self.scheduler.running.items())
+        for slot, rs in live:
             rs.generated.append(int(toks[slot]))
             if self.token_sink is not None:
                 self.token_sink(rs.request.rid, rs.generated[-1])
             self._maybe_finish(rs, clock)
+        if obs is not None:
+            obs.decode_step(t_d0, self._now(), emitted=len(live),
+                            gauges=self._obs_gauges())
         return True
 
     def drain_finished(self) -> List[RequestState]:

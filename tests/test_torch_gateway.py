@@ -497,6 +497,27 @@ def test_stop_token_finishes_stream_with_reason_stop(live):
     assert reason == "stop" and frames[-1] == sse.DONE
 
 
+def test_finish_is_counted_before_its_sink_fires(engine_factory):
+    """A request's metrics reach the driver's counters and histograms
+    before its terminal event reaches the client, so a scrape right
+    after a response ends counts it."""
+    engine = engine_factory()
+    driver = EngineDriver(engine, max_inflight=2).start()
+    seen, done = [], threading.Event()
+
+    def sink(ev):
+        if ev[0] == "finish":
+            seen.append((driver.stats()["completed_total"],
+                         driver._hists["ttft_seconds"].count))
+            done.set()
+    try:
+        assert driver.submit([1, 2, 3], 2, sink=sink) is not None
+        assert done.wait(30)
+    finally:
+        driver.shutdown()
+    assert seen == [(1, 1)]
+
+
 def test_shutdown_gives_503(engine_factory):
     engine = engine_factory()
     driver = EngineDriver(engine, max_inflight=2).start()

@@ -278,8 +278,8 @@ def test_paper_model_lns8_train_step_matches_jax(name):
 def test_engine_refuses_an_untied_head():
     """The engine no longer refuses an untied head: it serves the
     narrowed BERT, whose packed ``embed.head`` stays the engine's head
-    (routed through K1+K2 every step). It still refuses ``mesh=`` and
-    ``observer=``. Serving parity with JAX on an untied config is in
+    (routed through K1+K2 every step). It still refuses ``mesh=``, and
+    attaches an ``observer=``, which sees the run. Serving parity with JAX on an untied config is in
     ``test_torch_serving_hooks.py``."""
     from repro_torch.optim.madam import MadamConfig as TMadamConfig
     from repro_torch.optim.madam import init_lns_params
@@ -293,6 +293,13 @@ def test_engine_refuses_an_untied_head():
     eng.run([Request(rid=i, prompt=[3 + i, 7, 9], max_new_tokens=3)
              for i in range(2)])
     assert sorted(len(rs.generated) for rs in eng.finished) == [3, 3]
-    for kw in (dict(mesh=object()), dict(observer=object())):
-        with pytest.raises(NotImplementedError):
-            Engine(cfg, QuantConfig.lns_madam(), params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        Engine(cfg, QuantConfig.lns_madam(), params, device="cpu",
+               mesh=object())
+    from repro_torch.obs import EngineObserver
+    obs = EngineObserver()
+    eng = Engine(cfg, QuantConfig.lns_madam(), params, num_slots=2,
+                 max_len=16, page_size=4, device="cpu", observer=obs)
+    assert eng.observer is obs
+    eng.run([Request(rid=0, prompt=[3, 7, 9], max_new_tokens=3)])
+    assert obs.summary()["prefill_steps"] == 1

@@ -42,6 +42,7 @@ Tolerances and why:
   too: the port alone, with only its weight decodes swapped for JAX's
   exp2, changed 3.1% of the step-1 words (measured); against JAX 3.7%.
 """
+import json
 import math
 
 import numpy as np
@@ -357,18 +358,35 @@ def test_checkpoints_round_trip_both_ways(jax_state, tmp_path):
     assert packed.dtype == torch.int32
 
 
-def test_train_cli_runs_on_cpu(capsys):
+def test_train_cli_runs_on_cpu(capsys, tmp_path):
+    """The CLI trains; with the observer's flags it also writes a trace
+    and a step log that ``repro_torch.obs.validate`` accepts, prints a
+    progress line a step and the kernel attribution rows, and writes a
+    ``torch.profiler`` trace."""
     from repro_torch.launch.train import main
+    from repro_torch.obs import validate
     out = main(["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4",
                 "--seq", "16"])
     assert out["steps"] == 3 and len(out["losses"]) == 3
     assert all(math.isfinite(x) for x in out["losses"])
     text = capsys.readouterr().out
     assert "arch=smollm-smoke params=" in text and "done: 3 steps" in text
-    for argv in (["--trace-dir", "x"], ["--quiet=false"],
-                 ["--kernel-stats"]):
-        with pytest.raises(NotImplementedError):
-            main(["--smoke", "--device", "cpu", "--steps", "1"] + argv)
+    log = tmp_path / "steps.jsonl"
+    obs = main(["--smoke", "--device", "cpu", "--steps", "2", "--batch", "4",
+                "--seq", "16", "--trace-dir", str(tmp_path),
+                "--numerics-log", str(log), "--kernel-stats",
+                "--quiet=false", "--progress-every", "1",
+                "--torch-profile", str(tmp_path / "prof")])
+    text = capsys.readouterr().out
+    assert "[train] step 1  loss" in text and "[train] step 2  loss" in text
+    assert "kernel madam_step|plain|b16: calls=16" in text
+    assert obs["losses"][0] == out["losses"][0]  # the same first forward
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2]
+    assert set(rows[0]["numerics"]) == {"update", "grad_encode"}
+    assert validate.main([obs["trace"]["trace"], "--train"]) == 0
+    assert obs["kernel_stats"]["madam_step|plain|b16"]["traces"] == 0
+    assert len(list((tmp_path / "prof").glob("torch_profile-*.json"))) == 1
 
 
 def test_train_cli_runs_fp8_on_cpu(capsys):
