@@ -8,6 +8,7 @@
     python3 chip_smoke.py --k8-sweep   # K8's tiles, splits, table copies
     python3 chip_smoke.py --serving    # phases 1, 2 and 19 only
     python3 chip_smoke.py --obs        # phases 1, 2 and 20 only
+    python3 chip_smoke.py --dense-variants  # 1, 2, K5 at hd 256, and 21
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -35,7 +36,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    wgmma path's decode pass (``qmatmul_decode``, a kernel of its own)
    must give the plain version's padded operands bit for bit; every K2
    and K5 case is called twice and must repeat bit for bit. K5 also runs
-   an f32 pool whose pages take one stage a warp. TF32 must be off.
+   an f32 pool whose pages take one stage a warp, and gemma3-12b's
+   global layers at head_dim 256 (``K5_HD256_CASES``: decode over a bf16
+   and a packed pool, the verify's S=4, warps that see no position, an
+   f32 pool at page 16, one stage a warp), each timed beside SDPA over
+   gathered pages. TF32 must be off.
    ``sample_logits`` on a 4-row temperature batch and its 16-row verify
    batch must launch K6 once a call (its count) and run no torch kernel,
    no copy (torch.profiler) and no ``torch.Generator``; its wall time and device work are printed
@@ -194,6 +199,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (e) ``python -m repro_torch.obs.validate`` exits 0 on the spec run's
     export (``--require-spec``) and the train export (``--train``). (f) A 2-request ``launch.serve --torch-profile``: its Chrome
     trace holds device events of K1, K2, K5 and K6.
+21. The dense variants at full width, random packed 8-bit LNS weights
+    from seed 0, each model's launch counts zeroed before its counted run
+    and read after. (a) gemma3-12b (48 layers, d 3840, head_dim 256,
+    vocab 262,144, untied; 5:1 local:global, sliding-window rings on the
+    local layers) through the serve CLI's engine: phase 4's paged trace,
+    then the dense layout: every request completes; every forward
+    launches K2 (and K1) once a projection, the head included, K5 once a
+    global layer (8; none on the 40 ring layers) and K6 once; the weights'
+    packed size and the peak allocated memory printed. (b) Its logits
+    through the kernels against the plain versions, as phase 5. (f) 3
+    decode steps profiled as phase 6, and the device time a step of the
+    local layers' plain ring attention beside the global layers' K5.
+    (c) gemma3's smoke config (window 8, f32) with the JAX package's
+    sliding-window spec test setup (4 mixed requests, 2 slots, max_len
+    32, page 8, 8 pages, ondemand): the baseline and k=3 at 7 bits, on
+    the card and on the CPU, all four streams equal, no page in use
+    after. (d) granite-8b (36 x 4096, tied) and qwen2.5-32b (64 x 5120,
+    QKV bias, untied 152,064 head), 4 requests of 16 + 16 tokens, paged,
+    with (a)'s checks. (e) One train step of gemma3-12b at full width one
+    period deep (6 layers), 4 x 256 tokens, remat on and then off: a
+    finite loss, K1, K2 with its wgmma decode pass and K3 once a packed
+    leaf; step time and peak memory printed.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -201,6 +228,7 @@ line is ``{"ok": true, "device": {...}}``. Full results also go to
 """
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -368,6 +396,28 @@ OBS_OP_KERNEL = {"fused_sample_seeded": "fused_sample",
                  "madam_step_stats": "madam_step"}
 # the numerics stats that are shares of a leaf's elements
 OBS_FRACTIONS = ("sat_lo", "sat_hi", "dead_frac", "requant_sat_hi")
+# phase 21: granite-8b's and qwen2.5-32b's paged trace (4 slots, page 16)
+VARIANT_SERVE = ["--requests", "4", "--slots", "4", "--prompt-len", "16",
+                 "--gen-len", "16", "--page-size", "16"]
+# gemma3-12b's decode GEMMs (M = 4 slots): wq, wk/wv, wo, up/gate, down,
+# the untied head
+GEMMA3_DECODE_GEMMS = [(4, 3840, 4096), (4, 3840, 2048), (4, 4096, 3840),
+                       (4, 3840, 15360), (4, 15360, 3840), (4, 3840, 262144)]
+# K5 at gemma3-12b's global layers (16 heads over 8 KV heads, head_dim
+# 256), phase 3 and --dense-variants
+K5_HD256 = (16, 8, 256)
+K5_HD256_CASES = [
+    ("gemma3 decode bf16 pool hd 256", 4, 1, [33, 48, 61, 66], False,
+     K5_HD256),
+    ("gemma3 decode packed pool hd 256", 4, 1, [33, 48, 61, 66], True,
+     K5_HD256),
+    ("gemma3 verify bf16 pool hd 256", 4, SPEC_K, [36, 45, 52, 63], False,
+     K5_HD256),
+    ("gemma3 decode empty warps hd 256", 4, 1, [9, 1, 16, 5], True,
+     K5_HD256),
+    # two stages a warp exceed 227 KB here: one stage a warp
+    ("gemma3 decode f32 pool page 16 hd 256", 2, 1, [60, 70], False,
+     K5_HD256, {"pool": "float32"})]
 # the packed leaves of smollm-135m as K7 re-grids them, in tree order
 K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
              ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
@@ -577,6 +627,42 @@ def k2_path(ops, path):
 
 
 @contextlib.contextmanager
+def k1_shapes_seen(torch, ops):
+    """Record every K1 call's (R, C, dtype, scale_axis) while the main
+    paths run (the wrapper still counts every launch itself)."""
+    seen = collections.Counter()
+    launch = ops.encode_pack
+
+    def record(x, fmt, scale_axis=None):
+        seen[(x.shape[0], x.shape[1], x.dtype, scale_axis)] += 1
+        return launch(x, fmt, scale_axis)
+
+    ops.encode_pack = record
+    try:
+        yield seen
+    finally:
+        ops.encode_pack = launch
+
+
+def k1_driven_check(torch, ops, ref, fmt, seen):
+    """Every (R, C, dtype, scale_axis) that K1 took on the main paths
+    (``k1_shapes_seen``), on fresh random inputs: scales equal and words
+    equal away from the near-half ties (``k1_pair``)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    ties = 0
+    for R, C, dt, axis in sorted(seen, key=str):
+        x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0).to(dt)
+        ties += k1_pair(torch, ops, ref, x, fmt, axis,
+                        f"driven {R}x{C} {dt} axis={axis}")[0]
+    print(f"K1 on the main paths: {len(seen)} distinct shapes "
+          f"({sum(seen.values())} calls), scales equal and words equal "
+          f"away from the ties ({ties} words at ties)")
+    return {"shapes": [[R, C, str(dt), axis, n] for (R, C, dt, axis), n
+                       in sorted(seen.items(), key=str)],
+            "tie_words": ties}
+
+
+@contextlib.contextmanager
 def k2_shapes_seen(torch, ops):
     """Record every K2 call's (M, K, N, compute dtype, out dtype) while
     the main paths run (the wrapper still counts every launch itself)."""
@@ -623,7 +709,9 @@ def k2_check(torch, ops, ref, fmt, shapes):
         # as in a step that walks 30 layers of weights. The packed
         # activation (<= 3 MB) stays in the L2, as it is in a step, where
         # K1 writes it just before K2 reads it
-        n_buf = max(64, -(-100_000_000 // (K * N)))
+        # (a weight past 100 MB misses the L2 on its own: two copies)
+        n_buf = (max(64, -(-100_000_000 // (K * N)))
+                 if K * N <= 100_000_000 else 2)
         pbs = [torch.randint(0, 256, (K, N), generator=gen, device="cuda",
                              dtype=torch.uint8) for _ in range(n_buf)]
         sb = torch.exp2(torch.randint(-6, -2, (1, N), generator=gen,
@@ -701,7 +789,9 @@ def k2_decode_pass_check(torch, ops, ref, fmt, shapes):
     for M, K, N in shapes:
         pa = torch.randint(0, 256, (M, K), generator=gen, device="cuda",
                            dtype=torch.uint8)
-        n_buf = max(64, -(-100_000_000 // (K * N)))
+        # (a weight past 100 MB misses the L2 on its own: two copies)
+        n_buf = (max(64, -(-100_000_000 // (K * N)))
+                 if K * N <= 100_000_000 else 2)
         pbs = [torch.randint(0, 256, (K, N), generator=gen, device="cuda",
                              dtype=torch.uint8) for _ in range(n_buf)]
         got = ops.qmatmul_decode(pa, pbs[0], fmt)
@@ -881,10 +971,12 @@ def k5_inputs(torch, B, S, lengths, packed, fmt, gen, heads, PAGE=16,
         vs = torch.exp2(torch.randint(-2, 3, (P, PAGE, KV, 1), generator=gen,
                                       device="cuda").float()).to(torch.bfloat16)
     else:
+        dt = getattr(torch, pool) if isinstance(pool, str) else (
+            pool or torch.bfloat16)
         kp = torch.randn((P, PAGE, KV, HD), generator=gen, device="cuda").to(
-            pool or torch.bfloat16)
+            dt)
         vp = torch.randn((P, PAGE, KV, HD), generator=gen, device="cuda").to(
-            pool or torch.bfloat16)
+            dt)
         ks = vs = None
     return q, kp, vp, ks, vs, bt, ln
 
@@ -1778,12 +1870,15 @@ def logits_check(torch, engine):
             "margin_steps": clear}
 
 
-def device_time(torch, prof, n_top):
+def device_time(torch, prof, n_top, exclude=()):
     """Total kernel time (us) in a profile and its ``n_top`` kernels. Only
     device events count: a CPU op's self device time repeats the time of
-    the kernels it launched, so summing both would count them twice."""
+    the kernels it launched, so summing both would count them twice.
+    ``exclude``: names of profiler ranges, whose device-side annotations
+    span the kernels inside them."""
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == cuda and e.key not in exclude]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:n_top]
@@ -1819,15 +1914,15 @@ PORT_KERNELS = ("k1_tensor_kernel", "k1_row_kernel", "qmatmul_",
                 "requant_kernel", "lns_matmul_kernel")
 
 
-def launch_split(torch, prof, per, n_top=8):
+def launch_split(torch, prof, per, n_top=8, exclude=()):
     """Device work items per ``per`` in a profile: the port's kernels,
     torch's kernels, memcpy/memset operations, and torch's ``n_top``
-    kernels by launches."""
+    kernels by launches (``exclude`` as in ``device_time``)."""
     cuda = torch.autograd.DeviceType.CUDA
     n = {"port": 0, "torch": 0, "copies": 0}
     torch_k = []
     for e in prof.key_averages():
-        if e.device_type != cuda:
+        if e.device_type != cuda or e.key in exclude:
             continue
         kind = ("port" if any(k in e.key for k in PORT_KERNELS) else
                 "copies" if e.key.startswith(("Memcpy", "Memset")) else
@@ -4025,6 +4120,531 @@ def observability(torch, ops, card):
             "seconds": secs, "seconds_by_part": parts}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the dense variants (gemma3-12b, granite-8b, qwen2.5-32b)
+
+
+def packed_bytes(params):
+    """Bytes of a serving tree: packed words and scales, and the f32
+    leaves."""
+    from repro_torch.core.lns import is_lns_weight
+    from repro_torch.tree import leaves
+    n = 0
+    for _, x in leaves(params):
+        n += (x.packed.nbytes + x.scale.nbytes) if is_lns_weight(x) \
+            else x.nbytes
+    return n
+
+
+def gemms_per_forward(cfg):
+    """K2 launches of one forward: every projection of every layer, and
+    an untied head (a tied head is a decoded matrix, not packed)."""
+    return cfg.num_layers * (6 + cfg.mlp_gated) + (not cfg.tie_embeddings)
+
+
+def variant_serve(torch, ops, arch, argv, tag):
+    """One full-width serve of ``arch`` through the serve CLI's engine
+    (a warm run, then the counted one); returns the summary row and the
+    engine. Every request completes, and every forward launches K2 on
+    every projection (the head included when untied), K5 once a
+    full-context layer (none on ring layers), and K6 once a sampled
+    token."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    agg, engine, counts = serve(torch, ["--arch", arch] + argv, ops)
+    secs = time.monotonic() - t0
+    cfg = engine.cfg
+    n_req = int(argv[argv.index("--requests") + 1])
+    check(agg["completed"] == n_req,
+          f"21 {tag}: {int(agg['completed'])}/{n_req} requests completed")
+    fwd = engine.decode_steps + engine.prefills
+    prefix, n_periods, period = cfg.layer_pattern()
+    full_ctx = sum(k != "local" for k in prefix) \
+        + n_periods * sum(k != "local" for k in period)
+    paged = engine.page_size is not None
+    want = {"qmatmul": gemms_per_forward(cfg) * fwd,
+            "paged_attend": full_ctx * fwd if paged else 0,
+            "fused_sample": fwd}
+    for k, n in want.items():
+        check(counts[k] == n, f"21 {tag}: {k} launched {counts[k]} times, "
+              f"expected {n} ({fwd} forwards)")
+    check(counts["encode_pack"] == counts["qmatmul"],
+          f"21 {tag}: K1 launched {counts['encode_pack']} times for "
+          f"{counts['qmatmul']} K2 GEMMs")
+    peak = torch.cuda.max_memory_allocated()
+    size = packed_bytes(engine.params)
+    row = {"arch": arch, "layout": "paged" if paged else "dense",
+           "completed": int(agg["completed"]),
+           "tokens_per_s": agg["tokens_per_s"],
+           "ttft_mean_ms": agg["ttft_mean_s"] * 1e3,
+           "tpot_p50_ms": agg["tpot_p50_s"] * 1e3,
+           "decode_steps": engine.decode_steps, "prefills": engine.prefills,
+           "launches": counts, "k5_layers_a_forward": full_ctx if paged
+           else 0, "weights_gb": size / 1e9, "peak_gb": peak / 1e9,
+           "seconds": secs}
+    print(f"21 {tag}: {arch} {row['layout']} {row['completed']}/{n_req} "
+          f"requests, {agg['tokens_per_s']:.1f} tok/s, tpot p50 "
+          f"{row['tpot_p50_ms']:.2f} ms, {fwd} forwards, launches {counts}; "
+          f"weights {size / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} GB "
+          f"({secs:.1f}s with the build and the warm run)")
+    return row, engine
+
+
+def profile_variant(torch, engine):
+    """21f: 3 decode steps of a full engine under torch.profiler, as phase
+    6 profiles smollm's (wall, device busy share, top kernels, K2's and
+    K5's shares), with each layer's attention call in a profiler range:
+    the device time a step of the local layers' plain ring attention and
+    of the global layers' KV scatter and K5 (a host-side range's device
+    time sums the kernels launched inside it)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.serving import synthetic_trace
+    names = {"_ring_attend": "ring_attend", "_paged_attend": "paged_layer"}
+    saved = {f: getattr(attn_mod, f) for f in names}
+
+    def ranged(name, fn):
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    engine.reset()
+    for r in synthetic_trace(engine.cfg, requests=4, prompt_len=32,
+                             gen_len=16, seed=1):
+        engine.submit(r)
+    engine.step()              # admissions + first decode
+    torch.cuda.synchronize()
+    for f, name in names.items():
+        setattr(attn_mod, f, ranged(name, saved[f]))
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(3):
+                engine.step()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        for f, fn in saved.items():
+            setattr(attn_mod, f, fn)
+    ranged_names = tuple(names.values())
+    busy_us, top = device_time(torch, prof, 6, exclude=ranged_names)
+    share = busy_us / 1e6 / wall if busy_us else None
+    launches = launch_split(torch, prof, 3, exclude=ranged_names)
+    print(f"21f: {engine.cfg.name}, 3 decode steps: wall "
+          f"{wall * 1e3 / 3:.1f} ms/step, device busy "
+          + (f"{busy_us / 3e3:.2f} ms/step ({share:.1%})" if busy_us
+             else "not measured (no device time in the trace)")
+          + f"; {launches['port']:.0f} port kernels, "
+          f"{launches['torch']:.0f} torch kernels, {launches['copies']:.0f} "
+          f"copies a step")
+    for e in top:
+        print(f"  {e.key[:60]}: {e.self_device_time_total / 3e3:.3f} "
+              f"ms/step, {e.count // 3} calls/step")
+    shares = kernel_shares(torch, prof, busy_us, 3, "step")
+    cpu = torch.autograd.DeviceType.CPU
+    ranges = {}
+    for name in ranged_names:
+        evs = [e for e in prof.key_averages()
+               if e.key == name and e.device_type == cpu]
+        us = sum(e.device_time_total for e in evs)
+        ranges[name] = {"ms_per_step": us / 3e3 if us else None,
+                        "calls_per_step": sum(e.count for e in evs) // 3}
+    fmt_ms = lambda r: (f"{r['ms_per_step']:.3f} ms" if r["ms_per_step"]
+                        else "not measured")
+    print(f"  attention a step: local ring (plain torch) "
+          f"{fmt_ms(ranges['ring_attend'])} over "
+          f"{ranges['ring_attend']['calls_per_step']} layers; global "
+          f"(KV scatter + K5) {fmt_ms(ranges['paged_layer'])} over "
+          f"{ranges['paged_layer']['calls_per_step']} layers")
+    return {"wall_ms_per_step": wall * 1e3 / 3, "k2_k5": shares,
+            "device_busy_ms_per_step": busy_us / 3e3 if busy_us else None,
+            "device_busy_share": share, "launches_per_step": launches,
+            "attention_ranges": ranges,
+            "top": [[e.key, e.self_device_time_total / 3e3, e.count // 3]
+                    for e in top]}
+
+
+def smoke_ring_spec(torch, ops):
+    """21c: gemma3's smoke config (window 8, f32) with JAX's
+    ``test_spec_equals_baseline_sliding_window`` setup (4 mixed requests,
+    2 slots, max_len 32, page 8, 8 pages, ondemand), on the card and on
+    the CPU. Exact: on the card, k=1 at 7 bits reproduces the baseline
+    under the paper's Q_A (the S=1 verify isolates the ring rewind and
+    the KV overwrite from the batch); with Q_A off (no activation
+    quantizer to couple the verify's rows, H7), k=3 at 7 bits reproduces
+    the baseline on the card and on the CPU, and the card's streams equal
+    the CPU's. Measured: k=3 against the baseline under the paper's Q_A,
+    and the card against the CPU there (H7, H1): the reference parts the
+    same way on this draw (``tests/test_torch_dense_variants.py`` carries
+    it into JAX's engine), and on JAX's draw k=3 equals the baseline.
+    Every run completes and leaves no page in use."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.model import init_params, to_device
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    from repro_torch.server.sampling import SamplingParams
+    from repro_torch.serving import Engine, Request
+
+    def requests(vocab, n=4, gen=10, seed=3):
+        rng = np.random.default_rng(seed)
+        out = []
+        for i in range(n):
+            sp = None if i % 2 == 0 else SamplingParams(
+                temperature=0.9, top_k=0 if i % 4 == 1 else 8, seed=100 + i)
+            prompt = rng.integers(0, vocab, (4 + (i % 3) * 3,)).tolist()
+            out.append(Request(rid=i, prompt=prompt,
+                               max_new_tokens=gen - (i % 4), sampling=sp))
+        return out
+
+    cfg = get_smoke_config("gemma3-12b")
+    params = init_params(cfg, seed=0, device="cpu", leaf_fn=lns_leaf_encoder(
+        MadamConfig(update_format=LNSFormat(8, 8))))
+    paper = QuantConfig.lns_madam()
+    quant = {"paper": paper, "no_qa": dataclasses.replace(paper, act=None)}
+    kw = dict(num_slots=2, max_len=32, page_size=8, num_pages=8,
+              prefix_cache=False, alloc_policy="ondemand")
+    runs = [("cuda", "paper", 0), ("cuda", "paper", 1), ("cuda", "paper", 3),
+            ("cuda", "no_qa", 0), ("cuda", "no_qa", 3), ("cpu", "paper", 0),
+            ("cpu", "paper", 3), ("cpu", "no_qa", 0), ("cpu", "no_qa", 3)]
+    got, cycles = {}, {}
+    for dev, q, k in runs:
+        spec = dict(speculate_k=k, draft_bitwidth=7) if k else {}
+        eng = Engine(cfg, quant[q], to_device(params, dev), device=dev,
+                     **kw, **spec)
+        eng.run(requests(cfg.vocab_size))
+        check(len(eng.finished) == 4 and eng.allocator.in_use == 0,
+              f"21c {dev} {q} k={k}: {len(eng.finished)}/4 finished, "
+              f"{eng.allocator.in_use} pages in use")
+        check(eng.caches["period"]["pos0"]["k"].shape[2] == 8 + k,
+              f"21c {dev} {q} k={k}: ring of "
+              f"{eng.caches['period']['pos0']['k'].shape[2]} positions")
+        got[dev, q, k] = streams(eng)
+        cycles[dev, q, k] = eng.spec_cycles
+
+    def parts(a, b):
+        return [r for r in got[a] if got[a][r] != got[b][r]]
+
+    def same_tokens(a, b):
+        return sum(x == y for r in got[a]
+                   for x, y in zip(got[a][r], got[b][r]))
+
+    base = ("cuda", "paper", 0)
+    check(not parts(("cuda", "paper", 1), base) and cycles[
+        "cuda", "paper", 1] > 0,
+          f"21c: k=1 streams part from the baseline's on the card at "
+          f"{parts(('cuda', 'paper', 1), base)}")
+    exact = [("cuda", "no_qa", 3), ("cpu", "no_qa", 0), ("cpu", "no_qa", 3)]
+    for key in exact:
+        check(not parts(key, ("cuda", "no_qa", 0)),
+              f"21c: Q_A off, {key} parts from the card's baseline at "
+              f"{parts(key, ('cuda', 'no_qa', 0))}")
+    n_tok = sum(len(v) for v in got[base].values())
+    measured = {
+        "card_k3_vs_baseline": parts(("cuda", "paper", 3), base),
+        "cpu_k3_vs_baseline": parts(("cpu", "paper", 3),
+                                    ("cpu", "paper", 0)),
+        "card_vs_cpu_baseline": parts(base, ("cpu", "paper", 0)),
+        "card_k3_same_tokens": same_tokens(("cuda", "paper", 3), base),
+        "card_vs_cpu_same_tokens": same_tokens(base, ("cpu", "paper", 0)),
+        "tokens": n_tok}
+    print(f"21c: gemma3-smoke rings (8 + k positions) and spec rewinds: on "
+          f"the card k=1/B=7 equals the baseline (paper Q_A, "
+          f"{cycles['cuda', 'paper', 1]} cycles); Q_A off, k=3/B=7 equals "
+          f"the baseline on the card and the CPU and the card equals the "
+          f"CPU (4/4 requests, {cycles['cuda', 'no_qa', 3]} cycles); no page "
+          f"in use after any run. Paper Q_A, measured: k=3 parts from the "
+          f"baseline at requests {measured['card_k3_vs_baseline']} on the "
+          f"card ({measured['card_k3_same_tokens']}/{n_tok} tokens equal) "
+          f"and {measured['cpu_k3_vs_baseline']} on the CPU; the card's "
+          f"baseline parts from the CPU's at "
+          f"{measured['card_vs_cpu_baseline']} "
+          f"({measured['card_vs_cpu_same_tokens']}/{n_tok} tokens equal)")
+    return {"exact": True, "cycles": {f"{d}_{q}_k{k}": v for (d, q, k), v
+                                      in cycles.items()},
+            "measured": measured}
+
+
+def gemma3_train(torch, ops):
+    """21e: one train step of gemma3-12b at full width, one period deep
+    (6 layers: 5 local, 1 global), 4 x 256 tokens, remat on, then off."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import is_lns_weight
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import (batch_to_device, build_train_step,
+                                            init_train_state)
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config("gemma3-12b"), num_layers=6)
+    mcfg = MadamConfig()
+    batch = batch_to_device(SyntheticLM(cfg, batch=4, seq=256).batch_at(0),
+                            "cuda")
+    rows = {}
+    for remat in (True, False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(cfg, mcfg, seed=0, device="cuda")
+        n_leaves = sum(is_lns_weight(x) and x.ndim >= 2
+                       for _, x in leaves(state.params))
+        step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg,
+                                remat=remat)
+        try:
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.monotonic()
+            state, met = step(state, batch)
+            loss = float(met["loss"])
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+        except torch.cuda.OutOfMemoryError:
+            check(not remat, "21e: the remat step ran out of memory")
+            rows["no_remat"] = {"fits": False}
+            print("21e: gemma3 step without remat does not fit the card")
+            break
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check(math.isfinite(loss), f"21e: loss {loss} (remat={remat})")
+        check(counts["encode_pack"] > 0 and counts["qmatmul"] > 0
+              and counts["qmatmul_decode"] > 0,
+              f"21e: K1/K2 (wgmma) not launched: {counts}")
+        check(counts["madam_step"] == n_leaves,
+              f"21e: K3 launched {counts['madam_step']} times for "
+              f"{n_leaves} packed leaves")
+        rows["remat" if remat else "no_remat"] = {
+            "fits": True, "loss": loss, "step_s": secs,
+            "peak_gb": peak / 1e9, "launches": counts}
+        print(f"21e: gemma3-12b 6 layers (5 local + 1 global) x 4 x 256 "
+              f"tokens, remat={remat}: loss {loss:.4f}, step {secs:.2f}s "
+              f"(first call), peak allocated {peak / 1e9:.2f} GB, launches "
+              f"{counts}")
+        del state, met
+    return rows
+
+
+def gemma3_draft_view(torch, ops, ref, engine):
+    """21a: a 6-bit draft view of gemma3-12b's serving weights: 44 packed
+    leaves (6 positions x 7 stacked projections, the embedding, the
+    untied head) over ``K7_MAX_LEAVES`` = 16 leaves a launch is 3 K7
+    launches; the qk-norm gains and every scale are the serving tree's own
+    tensors, and every re-gridded leaf equals the plain version's words.
+    Then each of the 3 launches is made twice more on the same leaves,
+    the second time between two CUDA events (a launch re-grids ~4 GB of
+    words, so the events' own cost is lost in it), beside the byte bound
+    of the words read once and written once."""
+    from repro_torch.core.lns import is_lns_weight
+    from repro_torch.serving.spec import build_draft_params
+    from repro_torch.tree import leaves
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    view = build_draft_params(engine.params, 6)
+    torch.cuda.synchronize()
+    n = ops.launch_counts()["requant_pack"]
+    check(n == 3, f"21a: a gemma3 draft view took {n} K7 launches, not 3")
+    src = dict(leaves(engine.params))
+    regrid = []
+    for path, leaf in leaves(view):
+        old = src[path]
+        shared = (leaf.scale is old.scale if hasattr(leaf, "scale")
+                  else leaf is old)
+        check(shared, f"21a: the draft view copied {path}")
+        if is_lns_weight(leaf) and leaf.packed is not old.packed:
+            want = ref.requant_pack(old.packed, old.fmt, leaf.fmt)
+            check(torch.equal(leaf.packed, want),
+                  f"21a: K7 {path} 8->6: {int((leaf.packed != want).sum())}"
+                  f" words differ from the plain version")
+            regrid.append((old.packed, old.fmt, leaf.fmt))
+            del want
+    del view
+    words = sum(p.numel() for p, _, _ in regrid)
+    ms = 0.0
+    for i in range(0, len(regrid), ops.K7_MAX_LEAVES):
+        part = regrid[i:i + ops.K7_MAX_LEAVES]
+        args = ([p for p, _, _ in part], part[0][1], part[0][2])
+        # a first call takes the outputs' memory from the driver; the
+        # timed call reuses it from the caching allocator
+        ops.requant_pack_many(*args)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = ops.requant_pack_many(*args)
+        end.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(end)
+        del out
+    b, by = bound_ms(2 * words, 5 * words, F32_FLOPS)
+    print(f"21a: gemma3-12b draft view at 6 bits: 3 K7 launches over "
+          f"{words / 1e9:.2f}e9 words, every word equal to the plain "
+          f"version's, scales and f32 leaves shared; the launches "
+          f"{ms:.3f} ms (CUDA events), bound {b:.3f} ms ({by}; "
+          f"{b / ms:.1%})")
+    return {"k7_launches": n, "words": words, "ms": ms, "bound_ms": b,
+            "bound_by": by}
+
+
+def k3_large_leaf(torch, ops, ref, R, C):
+    """K3 at the largest leaf of 21e's train step (gemma3-12b's embedding
+    and head, 1.0e9 16-bit words in int32, bf16 gradients) against its
+    plain version, computed a block of rows at a time: v' bit-equal,
+    words equal away from the near-ties (``k34_check``'s rule). Timed
+    with CUDA events around single launches: 8 GB of outputs a call is
+    too much for a graph of repeats."""
+    from repro_torch.core.lns import LNSFormat
+    fmt, bits = LNSFormat(16, 2048), 16
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    w, g, v = madam_inputs(torch, R, C, bits, torch.bfloat16, gen)
+    bc = ref.bias_correction(0.999, 7)
+    kw = dict(lr=2.0 ** -7, beta=0.999, eps=1e-30)
+    times = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        kw_w, kv_w = ops.madam_step(w, g, v, bc, fmt, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    rows = max(1, (1 << 26) // C)
+    ties = near_n = err = 0
+    plain_ms = 0.0
+    for i in range(0, R, rows):
+        sl = slice(i, i + rows)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        pw, pv = ref.madam_step(w[sl], g[sl], v[sl], bc, fmt, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
+        check(torch.equal(kv_w[sl].view(torch.int32), pv.view(torch.int32)),
+              f"K3 {R}x{C} rows {i}..: v' differs from the plain version")
+        ws = w[sl]
+        sign = 1 - 2 * ((ws >> (bits - 1)) & 1)
+        _, _, target = ref.step_math(ws & fmt.max_code, sign, g[sl], v[sl],
+                                     bc, gamma=fmt.gamma,
+                                     max_code=fmt.max_code, **kw)
+        frac = target - torch.floor(target)
+        ulp = torch.abs(torch.nextafter(target, target + 1) - target)
+        near = (frac - 0.5).abs() <= MADAM_TIE_ULPS * ulp
+        diff = kw_w[sl] != pw
+        bad = int((diff & ~near).sum())
+        check(bad == 0, f"K3 {R}x{C} rows {i}..: {bad} words differ away "
+              f"from a tie")
+        ties += int(diff.sum())
+        near_n += int(near.sum())
+        err = max(err, int((kw_w[sl] - pw).abs().max()))
+        del pw, pv, target, frac, ulp, near, diff, sign
+    n = R * C
+    b, by = bound_ms(n * (2 * 4 + 2 + 2 * 4), 15 * n, F32_FLOPS)
+    ms = min(times)
+    print(f"K3 madam_step {R}x{C} B=16 g bf16 (21e's largest leaf): v' "
+          f"equal, words differing at ties {ties} (near-tie {near_n}), "
+          f"kernel {ms:.3f} ms (one launch, CUDA events), plain "
+          f"{plain_ms:.3f} ms (in blocks of {rows} rows), bound {b:.3f} ms "
+          f"({by}; {b / ms:.1%})")
+    del w, g, v, kw_w, kv_w
+    return dict(shape=[R, C], bits=bits, g_dtype="bfloat16", tie_words=ties,
+                near_tie=near_n, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+
+
+def k6_variant(torch, ops, ref, B, V):
+    """K6 greedy at a variant's decode batch ``B x V``: tokens equal to
+    the plain version's, timed beside it and ``torch.argmax``."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lg = k6_inputs(torch, B, V, gen)[0]
+    kern = lambda: ops.fused_sample(lg, None, None)
+    plain = lambda: ref.fused_sample(lg, None, None)
+    check(torch.equal(kern(), plain()), f"K6 greedy {B}x{V}: tokens differ")
+    b, by = bound_ms(B * V * 4 + B * 4 * 2, B * V * K6_OPS["greedy"],
+                     F32_FLOPS)
+    row = dict(shape=[B, V], case="greedy", max_abs_err=0,
+               blocks=ops.fused_sample_plan(B, V)["blocks"],
+               ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain),
+               library_ms=cuda_ms(torch, lambda: torch.argmax(lg, dim=-1)),
+               bound_ms=b, bound_by=by)
+    print(f"K6 fused_sample greedy {B}x{V} ({row['blocks']} blocks a row): "
+          f"tokens equal, kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, argmax {row['library_ms']:.4f} ms, "
+          f"bound {b:.5f} ms")
+    return row
+
+
+def dense_variants(torch, ops, ref, fmt, card):
+    """Phase 21: the dense variants at full width on the card. Every K1
+    and K2 call of 21a, 21d and 21e is recorded, and after them each
+    shape is held against the plain version (K2's decode pass too, at
+    the shapes that took the wgmma path)."""
+    t0 = time.monotonic()
+    marks = [("start", t0)]
+    mark = lambda name: marks.append((name, time.monotonic()))
+    print(f"phase 21 (dense variants) on {card}")
+    out = {}
+    with k1_shapes_seen(torch, ops) as k1_seen, \
+            k2_shapes_seen(torch, ops) as k2_seen:
+        row, engine = variant_serve(torch, ops, "gemma3-12b", SERVE_PAGED,
+                                    "a paged")
+        out["gemma3_paged"] = row
+        out["gemma3_draft_view"] = gemma3_draft_view(torch, ops, ref,
+                                                     engine)
+        mark("21a paged")
+        out["gemma3_logits"] = logits_check(torch, engine)
+        mark("21b")
+        out["gemma3_profile"] = profile_variant(torch, engine)
+        mark("21f")
+        del engine
+        row, engine = variant_serve(torch, ops, "gemma3-12b", SERVE_DENSE,
+                                    "a dense")
+        out["gemma3_dense"] = row
+        del engine
+        mark("21a dense")
+        torch.cuda.empty_cache()
+        out["smoke_ring_spec"] = smoke_ring_spec(torch, ops)
+        mark("21c")
+        for arch in ("granite-8b", "qwen2.5-32b"):
+            row, engine = variant_serve(torch, ops, arch, VARIANT_SERVE,
+                                        "d paged")
+            out[arch] = row
+            del engine
+            mark(f"21d {arch}")
+        torch.cuda.empty_cache()
+        out["gemma3_train"] = gemma3_train(torch, ops)
+        mark("21e")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the kernels at the shapes these paths ran: K1 and K2 (timed at
+    # gemma3's decode and 21e's shapes; every recorded shape checked),
+    # K2's decode pass where the wgmma path ran, K3 at 21e's largest
+    # leaf, K6 at gemma3's decode batch
+    out["gemma3_k1"] = k1_check(torch, ops, ref, fmt, [
+        (4, 3840), (4, 4096), (4, 15360), (1024, 3840), (1024, 15360)])
+    out["k1_driven"] = k1_driven_check(torch, ops, ref, fmt, k1_seen)
+    out["gemma3_k2"] = k2_check(torch, ops, ref, fmt, GEMMA3_DECODE_GEMMS)
+    out["k2_driven"] = k2_driven_check(torch, ops, ref, fmt, k2_seen)
+    wgmma = sorted({(M, K, N) for M, K, N, cdt, _ in k2_seen
+                    if ops.qmatmul_plan(M, N, K, cdt)["path"] == "wgmma"})
+    check(wgmma, "21e: no K2 call took the wgmma path")
+    out["gemma3_k2_decode_pass"] = k2_decode_pass_check(torch, ops, ref,
+                                                        fmt, wgmma)
+    torch.cuda.empty_cache()
+    out["gemma3_k3"] = k3_large_leaf(torch, ops, ref, 262144, 3840)
+    torch.cuda.empty_cache()
+    out["gemma3_k6"] = k6_variant(torch, ops, ref, 4, 262144)
+    mark("21 kernels")
+    torch.cuda.empty_cache()
+    secs = time.monotonic() - t0
+    parts = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    print(f"phase 21 took {secs:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
+    out.update(seconds=secs, seconds_by_part=parts)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4033,11 +4653,17 @@ def main() -> int:
               "--k6-sweep": k6_sweep, "--k8-sweep": k8_sweep,
               "--serving": online_serving,
               "--obs": lambda torch, ops, ref, fmt: observability(
-                  torch, ops, card.stdout.strip())}
+                  torch, ops, card.stdout.strip()),
+              "--dense-variants": lambda torch, ops, ref, fmt: {
+                  "paged_attend_hd256": k5_check(torch, ops, ref, fmt,
+                                                 K5_HD256_CASES),
+                  **dense_variants(torch, ops, ref, fmt,
+                                   card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
-              f"--k6-sweep | --k8-sweep | --serving | --obs]",
+              f"--k6-sweep | --k8-sweep | --serving | --obs | "
+              f"--dense-variants]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4074,6 +4700,10 @@ def main() -> int:
         (out_dir / f"{name}.json").write_text(json.dumps(
             {"card": card.stdout.strip(), "rows": rows}, indent=1))
         return 0
+    # each phase's seconds, printed at the end (the run must stay inside
+    # its time limit, so the next cut knows where the time goes)
+    marks = [("build", time.monotonic())]
+    mark = lambda name: marks.append((name, time.monotonic()))
     # serving shapes (M = 4 decode, 32 prefill), then the training step's
     # M = 8 x 256 = 2048
     k1 = k1_check(torch, ops, ref, fmt, [(4, 576), (4, 1536), (32, 576),
@@ -4081,6 +4711,7 @@ def main() -> int:
                                          (2048, 1536)])
     k1_edge_calls = k1_edges(torch, ops, ref, fmt)
     k1_launch = k1_one_launch(torch, ops, fmt)
+    mark("3 K1")
     gemms = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
     # the main path's shapes first (decode M=4, prefill M=32, training
     # M=2048), then the verify's M=16 and M=24 (two 8-row tiles a block,
@@ -4108,6 +4739,7 @@ def main() -> int:
     k2_pass = k2_decode_pass_check(torch, ops, ref, fmt,
                                    [(2048, k, n) for k, n in gemms]
                                    + [(2047, 584, 1543)])
+    mark("3 K2")
     # the packed leaves of smollm-135m: embed, then wq/wo, up/gate, down
     # and wk/wv stacked over 30 layers, folded to (-1, last); B=16 words
     # with bf16 gradients as the train step gives them, and B=8 once
@@ -4128,11 +4760,13 @@ def main() -> int:
         ("decode empty warps", 4, 1, [9, 1, 16, 5], True),
         # two stages a warp exceed 227 KB here: one stage a warp
         ("decode f32 pool page 32 hd 128", 2, 1, [100, 160], False,
-         (8, 2, 128), {"PAGE": 32, "pool": torch.float32})])
+         (8, 2, 128), {"PAGE": 32, "pool": torch.float32})]
+        + K5_HD256_CASES)
     k6 = k6_check(torch, ops, ref)
     sampler = sampler_check(torch, ops, ref)
     k7 = k7_check(torch, ops, ref)
 
+    mark("3 K3-K7")
     # every K2 shape of phases 4-14 is recorded and checked after them
     k2_seen_ctx = k2_shapes_seen(torch, ops)
     k2_seen = k2_seen_ctx.__enter__()
@@ -4163,11 +4797,13 @@ def main() -> int:
     dense = dict(agg=dagg, decode_steps=deng.decode_steps,
                  launches=dcounts)
 
+    mark("4")
     logits = logits_check(torch, engine)
     prof = profile_decode(torch, engine, ops)
     del engine, deng
     torch.cuda.empty_cache()
 
+    mark("5-6")
     train = train_run(torch, ops)
     setup = train_setup(torch)
     numerics = numerics_step(torch, ops, setup)
@@ -4176,6 +4812,7 @@ def main() -> int:
     del setup
     torch.cuda.empty_cache()
 
+    mark("7-10")
     spec_runs, spec_engine = spec_serve(torch, ops, paged)
     smoke = smoke_spec(torch)
     spec_prof = profile_spec(torch, spec_engine,
@@ -4184,10 +4821,13 @@ def main() -> int:
     coupling = verify_coupling(torch, ops)
     k2_seen_ctx.__exit__(None, None, None)
     torch.cuda.empty_cache()
+    mark("11-14")
     k2_driven = k2_driven_check(torch, ops, ref, fmt, k2_seen)
 
+    mark("K2 driven")
     k8, k8_luts, table10, k8_counts, k8_rate_inputs = k8_check(
         torch, ops, ref, fmt, [(m, k, n) for m in (4, 2048) for k, n in gemms])
+    mark("15")
     # K9 at phase 3's leaves with int32 codes, the embedding once with
     # int16 codes (JAX's madam_update_pallas takes int16) and B=8 in uint8
     i32, i16, u8 = torch.int32, torch.int16, torch.uint8
@@ -4196,14 +4836,21 @@ def main() -> int:
         (17280, 1536, 16, 2048, bf16, i32), (46080, 576, 16, 2048, bf16, i32),
         (17280, 192, 16, 2048, bf16, i32), (49152, 576, 16, 2048, bf16, i16),
         (17280, 576, 8, 8, torch.float32, u8)])
+    mark("16")
     approx = approx_train(torch, ops, train_setup(torch))
     torch.cuda.empty_cache()
+    mark("17")
     paper = baselines(torch, ops, ref, fmt, train_prof)
     torch.cuda.empty_cache()
+    mark("18")
     online = online_serving(torch, ops, ref, fmt)
     torch.cuda.empty_cache()
+    mark("19")
     observed = observability(torch, ops, card.stdout.strip())
     torch.cuda.empty_cache()
+    mark("20")
+    variants = dense_variants(torch, ops, ref, fmt, card.stdout.strip())
+    mark("21")
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -4248,6 +4895,7 @@ def main() -> int:
                 {k: x[k] for k in ("case", "shape", "ms", "plain_ms",
                                    "bound_ms", "library_ms")}
                 for x in rows if "ms" in x]
+    phases = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     full = {"card": card.stdout.strip(), "build_s": build_s,
@@ -4265,16 +4913,20 @@ def main() -> int:
             "table10": table10, "k8_rate_inputs": k8_rate_inputs,
             "approx_train": approx, "baselines": paper,
             "online_serving": online, "observability": observed,
+            "dense_variants": variants,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,
             "train_profile": train_prof,
             "spec": {"runs": spec_runs, "smoke": smoke,
                      "profile": spec_prof, "verify_coupling": coupling},
+            "seconds_by_phase": phases,
             "seconds": time.monotonic() - t_start, "device": device}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(full, indent=1))
+    print("phases took: " + ", ".join(f"{k} {v:.1f}s"
+                                      for k, v in phases.items()))
     print(f"chip_smoke took {full['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))

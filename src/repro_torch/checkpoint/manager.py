@@ -34,14 +34,17 @@ _SEP = "::"
 
 
 def _items(node, path: Tuple[str, ...] = ()) -> Iterator:
-    """``(path, leaf, fmt)`` over named tuples, dicts, packed weights,
-    tensors and ints; ``fmt`` is the word format of a packed leaf."""
+    """``(path, leaf, fmt)`` over named tuples, dicts, lists, packed
+    weights, tensors and ints; ``fmt`` is the word format of a packed leaf."""
     if isinstance(node, tuple) and hasattr(node, "_fields"):
         for f in node._fields:
             yield from _items(getattr(node, f), path + (f,))
     elif isinstance(node, dict):
         for k, v in node.items():
             yield from _items(v, path + (str(k),))
+    elif isinstance(node, list):
+        for i, v in enumerate(node):
+            yield from _items(v, path + (str(i),))
     elif is_lns_weight(node):
         yield path + ("packed",), node.packed, node.fmt
         yield path + ("scale",), node.scale, None
@@ -74,6 +77,9 @@ def _rebuild(like, path, load):
     if isinstance(like, dict):
         return {k: _rebuild(v, path + (str(k),), load)
                 for k, v in like.items()}
+    if isinstance(like, list):
+        return [_rebuild(v, path + (str(i),), load)
+                for i, v in enumerate(like)]
     if is_lns_weight(like):
         return LNSWeight(load(path + ("packed",), like.packed),
                          load(path + ("scale",), like.scale), like.fmt)

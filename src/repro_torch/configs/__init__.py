@@ -1,4 +1,4 @@
-"""Architecture registry of the port (smollm-135m only in this slice)."""
+"""Architecture registry of the port: the dense decoders."""
 from __future__ import annotations
 
 import importlib
@@ -8,7 +8,12 @@ from repro_torch.models.common import ArchConfig
 
 __all__ = ["ARCHS", "get_config", "get_smoke_config"]
 
-ARCHS: Dict[str, str] = {"smollm-135m": "smollm_135m"}
+ARCHS: Dict[str, str] = {
+    "gemma3-12b": "gemma3_12b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "granite-8b": "granite_8b",
+    "smollm-135m": "smollm_135m",
+}
 
 
 def _module(arch: str):

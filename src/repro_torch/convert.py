@@ -2,10 +2,11 @@
 
 The input is what ``repro.checkpoint.CheckpointManager`` writes: a flat
 dict of numpy arrays keyed by ``::``-joined pytree paths, where a packed
-weight is two leaves, ``<path>::packed`` and ``<path>::scale``.
+weight is two leaves, ``<path>::packed`` and ``<path>::scale``, and a
+list's items are keyed by their index (``prefix::0::...``).
 :func:`params_from_flat` reads the ``params`` subtree (or a bare
-parameter dict) into the port's parameter dict: nested dicts of tensors
-and :class:`LNSWeight` leaves. :func:`train_state_from_flat` reads a
+parameter dict) into the port's parameter dict: nested dicts (and the
+lists the JAX pytree holds) of tensors and :class:`LNSWeight` leaves. :func:`train_state_from_flat` reads a
 whole train state (``params::…``, ``opt::g2::…``, ``opt::count``,
 ``step``) into a :class:`~repro_torch.training.steps.TrainState`.
 
@@ -41,8 +42,12 @@ def _build(node: Dict[str, Any], fmt: LNSFormat, device):
         return LNSWeight(_tensor(node["packed"], device),
                          _tensor(node["scale"], device).to(torch.float32),
                          fmt)
-    return {k: (_build(v, fmt, device) if isinstance(v, dict)
-                else _tensor(v, device)) for k, v in node.items()}
+    out = {k: (_build(v, fmt, device) if isinstance(v, dict)
+               else _tensor(v, device)) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out):
+        # a pytree list (``prefix::0::...``): indices 0..n-1
+        return [out[str(i)] for i in range(len(out))]
+    return out
 
 
 def params_from_flat(flat: Dict[str, np.ndarray], fmt: LNSFormat, *,

@@ -18,6 +18,7 @@ convention the kernels share with the reference.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -88,17 +89,65 @@ def pow2_scale(absmax: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.ceil(torch.log2(a)))
 
 
+# elementwise work on a tensor past this many elements runs a chunk of its
+# leading axis at a time, so the f32 and int64 temporaries stay a chunk's
+# size (gemma3-12b's 262,144 x 3840 head: 1.0e9 elements); the results
+# are those of one whole pass (elementwise maps, and maxima, which are
+# exact in any order)
+_CHUNK_ELEMS = 1 << 26
+
+
+def _chunks(x: torch.Tensor):
+    """Slices of ``x``'s leading axis a chunk each, or ``[slice(None)]``
+    when ``x`` is small."""
+    if x.dim() == 0 or x.numel() <= _CHUNK_ELEMS:
+        return [slice(None)]
+    n = max(1, _CHUNK_ELEMS // max(1, x[0].numel()))
+    return [slice(i, i + n) for i in range(0, x.shape[0], n)]
+
+
+def _along(t: torch.Tensor, x: torch.Tensor, sl: slice) -> torch.Tensor:
+    """The part of ``t`` (a scale) that meets chunk ``sl`` of ``x``: its
+    slice where it runs along ``x``'s leading axis, else all of it."""
+    if t.dim() == x.dim() and t.shape[0] == x.shape[0]:
+        return t[sl]
+    return t
+
+
+def _chunked_map(fn, x: torch.Tensor, dtype: torch.dtype,
+                 *aux: torch.Tensor) -> torch.Tensor:
+    """``fn(x, *aux)`` for an elementwise ``fn`` (``aux`` broadcasts
+    against ``x``), a chunk at a time."""
+    parts = _chunks(x)
+    if len(parts) == 1:
+        return fn(x, *aux)
+    out = torch.empty(x.shape, dtype=dtype, device=x.device)
+    for sl in parts:
+        out[sl] = fn(x[sl], *(_along(t, x, sl) for t in aux))
+    return out
+
+
 def compute_scale(x: torch.Tensor, axis=None) -> torch.Tensor:
     """Absmax scale snapped to 2**k: per tensor (``axis=None``, a 0-d
     tensor) or keeping resolution on ``axis`` (an int or a tuple), reduced
     over every other axis with the dims kept."""
-    xf = x.to(torch.float32).abs()
-    if axis is None:
-        return pow2_scale(xf.amax())
-    keep = {a % x.dim() for a in ((axis,) if isinstance(axis, int) else axis)}
+    keep = set() if axis is None else {
+        a % x.dim() for a in ((axis,) if isinstance(axis, int) else axis)}
     reduce = tuple(i for i in range(x.dim()) if i not in keep)
-    amax = xf.amax(dim=reduce, keepdim=True) if reduce else xf
-    return pow2_scale(amax)
+
+    def amax(c):
+        cf = c.to(torch.float32).abs()
+        if axis is None:
+            return cf.amax()
+        return cf.amax(dim=reduce, keepdim=True) if reduce else cf
+
+    chunks = _chunks(x)
+    if len(chunks) == 1:
+        return pow2_scale(amax(x))
+    parts = [amax(x[sl]) for sl in chunks]
+    if 0 in keep:      # a chunk's rows keep their own maxima
+        return pow2_scale(torch.cat(parts))
+    return pow2_scale(functools.reduce(torch.maximum, parts))
 
 
 def lns_encode(x: torch.Tensor, fmt: LNSFormat, scale: torch.Tensor):
@@ -124,8 +173,11 @@ def lns_quantize(x: torch.Tensor, fmt: LNSFormat, scale_axis=None,
     """Q_log: fake-quantize ``x`` onto the LNS grid, keeping its dtype."""
     if scale is None:
         scale = compute_scale(x, axis=scale_axis)
-    sign, code = lns_encode(x, fmt, scale)
-    return lns_decode(sign, code, fmt, scale, dtype=x.dtype)
+
+    def q(c, s):
+        return lns_decode(*lns_encode(c, fmt, s), fmt, s, dtype=x.dtype)
+
+    return _chunked_map(q, x, x.dtype, scale)
 
 
 def lns_word_dtype(fmt: LNSFormat) -> torch.dtype:
@@ -162,16 +214,20 @@ def lns_requant_packed(packed: torch.Tensor, src: LNSFormat,
                        dst: LNSFormat) -> torch.Tensor:
     """Integer re-grid of packed words from ``src`` to ``dst``: upscale
     multiplies by the γ ratio, downscale rounds ``(c + r/2) // r``."""
-    w = packed.to(torch.int64)
-    sign_bit = (w >> (src.bits - 1)) & 1
-    code = w & src.max_code
-    if dst.gamma >= src.gamma:
-        code = code * (dst.gamma // src.gamma)
-    else:
-        r = src.gamma // dst.gamma
-        code = torch.div(code + r // 2, r, rounding_mode="floor")
-    code = torch.clamp(code, 0, dst.max_code)
-    return ((sign_bit << (dst.bits - 1)) | code).to(lns_word_dtype(dst))
+
+    def regrid(p):
+        w = p.to(torch.int64)
+        sign_bit = (w >> (src.bits - 1)) & 1
+        code = w & src.max_code
+        if dst.gamma >= src.gamma:
+            code = code * (dst.gamma // src.gamma)
+        else:
+            r = src.gamma // dst.gamma
+            code = torch.div(code + r // 2, r, rounding_mode="floor")
+        code = torch.clamp(code, 0, dst.max_code)
+        return ((sign_bit << (dst.bits - 1)) | code).to(lns_word_dtype(dst))
+
+    return _chunked_map(regrid, packed, lns_word_dtype(dst))
 
 
 class LNSWeight:
@@ -240,10 +296,13 @@ def is_lns_weight(leaf) -> bool:
 
 def lns_weight_encode(x: torch.Tensor, fmt: LNSFormat, scale_axis=None,
                       scale: Optional[torch.Tensor] = None) -> LNSWeight:
+    """``x`` as packed words and a power-of-two scale, a chunk of the
+    leading axis at a time where ``x`` is large."""
     if scale is None:
         scale = compute_scale(x, axis=scale_axis)
-    sign, code = lns_encode(x, fmt, scale)
-    return LNSWeight(lns_pack(sign, code, fmt), scale, fmt)
+    packed = _chunked_map(lambda c, s: lns_pack(*lns_encode(c, fmt, s), fmt),
+                          x, lns_word_dtype(fmt), scale)
+    return LNSWeight(packed, scale, fmt)
 
 
 def quantization_gap(x: torch.Tensor, fmt: LNSFormat) -> torch.Tensor:

@@ -166,12 +166,14 @@ def cot_boundary(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize_grads(grads, cfg: Optional[QuantConfig]):
-    """Q_G on a gradient tree (nested dicts of tensors), per-tensor
+    """Q_G on a gradient tree (nested dicts and lists of tensors), per-tensor
     scales unless ``cfg.grad_scale_axis`` says otherwise."""
     if cfg is None or cfg.grad is None:
         return grads
     if isinstance(grads, dict):
         return {k: quantize_grads(v, cfg) for k, v in grads.items()}
+    if isinstance(grads, list):
+        return [quantize_grads(v, cfg) for v in grads]
     return _apply_format(grads, cfg.grad, cfg.grad_scale_axis)
 
 

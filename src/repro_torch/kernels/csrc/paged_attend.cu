@@ -35,10 +35,14 @@
 //   buffered per warp: the warp's next page (and its scales, and the page
 //   ids, read before the length is known) are in flight while it attends
 //   this one. Where two stages a warp do not fit in shared memory (f32
-//   pools of long pages: head_dim 128 at page 32, 64 at page 64), one
-//   stage does, filled after the page in it is used. Packed words decode through a 2^(B-1)-entry exp2f table in
+//   pools of long pages: head_dim 256 at page 16, 128 at page 32, 64 at
+//   page 64), one stage does, filled after the page in it is used.
+//   Packed words decode through a 2^(B-1)-entry exp2f table in
 //   shared memory (bit-equal to exp2f per element) times the row's scale,
 //   in the plain version's order.
+// Instantiated at head_dim 16, 32, 64, 128 and 256 (gemma3's global
+// layers: a lane holds 8 dims of each of the 4 rows' accumulators, and a
+// bf16 K row is 32 16-byte pieces).
 // Splitting one row's KV over several blocks (flash-decoding) is not done:
 // at the trace's lengths (<= 96 positions, <= 6 pages) one block per group
 // holds enough pages for its four warps. Masked positions are skipped,
@@ -427,6 +431,7 @@ REPRO_EXPORT int repro_paged_attend(
     case 32: BY_KIND(32); break;
     case 64: BY_KIND(64); break;
     case 128: BY_KIND(128); break;
+    case 256: BY_KIND(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef BY_KIND

@@ -20,7 +20,8 @@ from repro_torch.core.lns import LNSFormat
 from repro_torch.kernels import _build, ref
 
 __all__ = ["Kernel", "KERNELS", "ENCODE_PACK", "QMATMUL", "QMATMUL_DECODE",
-           "PAGED_ATTEND", "QMATMUL_WGMMA_MIN_M", "qmatmul_plan",
+           "PAGED_ATTEND", "PAGED_ATTEND_HEAD_DIMS", "QMATMUL_WGMMA_MIN_M",
+           "qmatmul_plan",
            "arith_decode", "K6_MAX_ROWS", "K7_MAX_LEAVES", "fused_sample_plan",
            "regrid_shift",
            "FUSED_SAMPLE", "MADAM_STEP", "MADAM_STEP_STATS", "REQUANT_PACK",
@@ -283,13 +284,21 @@ def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
 # K5 stages pages in dynamic shared memory, two stages a warp where they fit
 # an H100 block's 227 KB, else one (the kernel reports the bytes)
 _SMEM_MAX = 232448
+# the head_dims K5 is instantiated for (paged_attend.cu's switch)
+PAGED_ATTEND_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
                  fmt: Optional[LNSFormat] = None,
                  softcap: Optional[float] = None,
                  sm_scale: float) -> torch.Tensor:
-    """K5 on the card: paged GQA attention -> f32 ``(B,S,h,hd)``."""
+    """K5 on the card: paged GQA attention -> f32 ``(B,S,h,hd)``. The
+    head_dim must be one of ``PAGED_ATTEND_HEAD_DIMS`` (checked first,
+    from the shapes alone)."""
+    hd = q.shape[-1]
+    if hd not in PAGED_ATTEND_HEAD_DIMS:
+        raise ValueError(f"paged_attend: head_dim {hd} is not one of the "
+                         f"supported head_dims {PAGED_ATTEND_HEAD_DIMS}")
     _check(q, "q", _FLOATS, 4)
     B, S, H, hd = q.shape
     pool_dt = (torch.uint8,) if fmt is not None else _FLOATS
@@ -298,10 +307,9 @@ def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
     if vp.shape != kp.shape or kp.dtype != vp.dtype:
         raise ValueError("kp and vp must share shape and dtype")
     _, page, KV, hd2 = kp.shape
-    if hd2 != hd or H % KV or hd not in (16, 32, 64, 128):
+    if hd2 != hd or H % KV:
         raise ValueError(f"q {tuple(q.shape)} vs pool {tuple(kp.shape)}: "
-                         f"need equal head_dim in (16, 32, 64, 128) and "
-                         f"KV | H")
+                         f"need equal head_dims and KV | H")
     smem_fn = _build.library().repro_paged_attend_smem
     smem_fn.argtypes, smem_fn.restype = [_I, _I, _I, _I], ctypes.c_longlong
     nbuf = 2 if smem_fn(hd, _DT[kp.dtype], page, 2) <= _SMEM_MAX else 1

@@ -40,13 +40,15 @@ import argparse
 import asyncio
 import contextlib
 
+import torch
+
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.lns import LNSFormat
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.kernels import ops
 from repro_torch.models.model import init_params
 from repro_torch.obs import EngineObserver, kernel_stats
-from repro_torch.optim.madam import MadamConfig, init_lns_params
+from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
 from repro_torch.serving import Engine, max_trace_len, synthetic_trace
 
 
@@ -55,8 +57,8 @@ def build_engine(args) -> Engine:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     qcfg = QuantConfig.lns_madam()
     mcfg = MadamConfig(update_format=LNSFormat(bits=args.serve_bits, gamma=8))
-    params = init_lns_params(
-        init_params(cfg, seed=args.seed, device=args.device), mcfg)
+    params = init_params(cfg, seed=args.seed, device=args.device,
+                         leaf_fn=lns_leaf_encoder(mcfg))
     lengths = args.lengths or ("uniform" if args.mixed else "fixed")
     max_len = args.max_len or max_trace_len(args.prompt_len, args.gen_len,
                                             lengths)
@@ -176,6 +178,8 @@ def main(argv=None) -> dict:
         node = stack.pop()
         if isinstance(node, dict):
             stack.extend(node.values())
+        elif isinstance(node, list):
+            stack.extend(node)
         elif hasattr(node, "packed"):
             nbytes += node.packed.nbytes + node.scale.nbytes
         else:
@@ -183,6 +187,11 @@ def main(argv=None) -> dict:
     print(f"arch={cfg.name} device={engine.device} serve weights "
           f"{nbytes / 2**20:.1f} MiB (packed {args.serve_bits}-bit LNS "
           f"codes + scales)")
+    if engine.device.type == "cuda":
+        # the draw and the layer-chunked encode's peak, and the caches
+        print(f"peak allocated after the engine is built: "
+              f"{torch.cuda.max_memory_allocated(engine.device) / 2**30:.2f}"
+              f" GiB")
     if args.http:
         try:
             serve_http(engine, args.http, cfg.name, args.max_queue)

@@ -1,5 +1,5 @@
-"""GQA attention: the training path without a cache, and the two
-serving cache layouts.
+"""GQA attention (± QKV bias / qk-norm / sliding window / softcap): the
+training path without a cache, and the serving cache layouts.
 
 Without a cache (training) the KV heads are repeated to the query heads
 and attended by :func:`flash_attention`, an online softmax over KV blocks
@@ -10,10 +10,13 @@ Two KV layouts, as in ``repro.models.attention``:
 
 * **dense**: a ``(batch, max_len)`` buffer per layer with a per-row write
   cursor ``idx``; attention is plain torch (the JAX package leaves it to
-  XLA as well);
+  XLA as well). A sliding-window layer's buffer is a ring of
+  ``min(window, max_len)`` positions (``init_kv_cache(window=)``), also
+  plain torch: ring slot ``s`` holds the position ``p = s (mod cap)``;
 * **paged**: one pool of ``page``-token pages per layer, shared by all
   rows through the engine's block table; attention is the paged kernel
-  (``dispatch.paged_attend``, K5).
+  (``dispatch.paged_attend``, K5). Paged pools serve full-context layers
+  only: a window layer keeps its ring.
 
 Unlike the JAX package, cache tensors are updated **in place**: the
 engine owns them and nothing else holds a reference, so the functional
@@ -23,7 +26,7 @@ packed LNS words plus a per-(position, head) bf16 scale.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,17 +35,27 @@ from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode,
 from repro_torch.core.quantizer import QuantConfig, qeinsum, ste_quantize
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_of, rope
+from repro_torch.models.layers import apply_rope, dense_of, rms_norm, rope
 
-__all__ = ["attn_apply", "flash_attention", "init_kv_cache",
-           "init_paged_kv_cache", "is_paged_cache"]
+__all__ = ["attn_apply", "attn_zero_leaves", "flash_attention",
+           "init_kv_cache", "init_paged_kv_cache", "is_paged_cache"]
 
 
-def _qa(x: torch.Tensor, qcfg: Optional[QuantConfig]):
-    """Q_A on the attention operands (per tensor, straight through)."""
-    if qcfg is not None and qcfg.act is not None:
+def _qa(x: torch.Tensor, cfg: ArchConfig, qcfg: Optional[QuantConfig]):
+    """Q_A on the attention operands (per tensor, straight through),
+    unless ``cfg.quantize_attention`` is off."""
+    if qcfg is not None and cfg.quantize_attention and qcfg.act is not None:
         return ste_quantize(x, qcfg.act, None)
     return x
+
+
+def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+          window: Optional[int]) -> torch.Tensor:
+    """Causal, and within ``window`` positions when one is given."""
+    m = k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        m &= k_pos[None, :] > (q_pos[:, None] - window)
+    return m
 
 
 def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -50,9 +63,11 @@ def _softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     block_k: int = 512) -> torch.Tensor:
-    """Causal online-softmax attention over KV blocks of ``block_k``.
+    """Causal online-softmax attention over KV blocks of ``block_k``,
+    each query seeing the last ``window`` positions when one is given.
     q, k, v: (B, S, H, D) with the KV heads already repeated. f32 inside,
     ``q.dtype`` out."""
     B, Sq, H, D = q.shape
@@ -72,7 +87,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v_blk = v[:, start:start + block_k].to(torch.float32)
         k_pos = start + torch.arange(block_k, device=q.device)
         logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, k_blk), softcap)
-        mask = k_pos[None, :] <= q_pos[:, None]                   # (Sq, blk)
+        mask = _mask(q_pos, k_pos, window)                        # (Sq, blk)
         logits = torch.where(mask[None, None], logits, neg)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
@@ -84,50 +99,87 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def attn_zero_leaves(cfg: ArchConfig) -> Dict[str, Tuple[Tuple[int, ...],
+                                                         torch.dtype]]:
+    """``name -> (shape, dtype)`` of the attention leaves that start at
+    zero, in the JAX package's order: ``bq/bk/bv`` (compute dtype) with
+    ``qkv_bias``, ``q_norm`` and ``k_norm`` (f32 gains, applied as
+    ``1 + gain``) with ``qk_norm``."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if cfg.qkv_bias:
+        out["bq"] = ((h * hd,), cfg.compute_dtype)
+        out["bk"] = ((kv * hd,), cfg.compute_dtype)
+        out["bv"] = ((kv * hd,), cfg.compute_dtype)
+    if cfg.qk_norm:
+        out["q_norm"] = ((hd,), torch.float32)
+        out["k_norm"] = ((hd,), torch.float32)
+    return out
+
+
 def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
                qcfg: Optional[QuantConfig], *, positions: torch.Tensor,
+               window: Optional[int] = None, theta: Optional[float] = None,
                cache: Optional[Dict[str, torch.Tensor]] = None,
                block_table: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One attention block over ``x`` (B, S, D). Without ``cache``
     (training) the S positions attend causally among themselves; with one
     (append mode) they are written to ``cache`` and attended with what it
-    holds."""
+    holds. ``window`` limits what a query sees to the last ``window``
+    positions; ``theta`` is the rope base (default ``cfg.rope_theta``).
+    The order is the JAX package's: projections, bias, qk-norm, rope,
+    Q_A."""
     B, S, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    theta = theta if theta is not None else cfg.rope_theta
     q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg)
     k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg)
     v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg)
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
     q = q.reshape(B, S, h, hd)
     k = k.reshape(B, S, kv, hd)
     v = v.reshape(B, S, kv, hd)
-    rot = rope(positions, hd, cfg.rope_theta)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    rot = rope(positions, hd, theta)
     if rot.dim() == 3:
         rot = rot[None]
-    q = _qa(apply_rope(q, rot), qcfg)
-    k = _qa(apply_rope(k, rot), qcfg)
-    v = _qa(v, qcfg)
+    q = _qa(apply_rope(q, rot), cfg, qcfg)
+    k = _qa(apply_rope(k, rot), cfg, qcfg)
+    v = _qa(v, cfg, qcfg)
     if cache is None:
         rep = h // kv
         out = flash_attention(q, k.repeat_interleave(rep, dim=2),
-                              v.repeat_interleave(rep, dim=2),
+                              v.repeat_interleave(rep, dim=2), window=window,
                               softcap=cfg.attn_logit_softcap)
     elif is_paged_cache(cache):
+        if window is not None:
+            raise ValueError("paged KV pools do not serve ring buffers")
         if block_table is None:
             raise ValueError("a paged cache needs the block table")
         out = _paged_attend(q, k, v, cache, cfg, block_table)
+    elif window:
+        out = _ring_attend(q, k, v, cache, cfg, window)
     else:
         out = _decode_attend(q, k, v, cache, cfg)
     out = out.reshape(B, S, h * hd)
     return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
 
 
-def init_kv_cache(batch: int, max_len: int, cfg: ArchConfig,
-                  device) -> Dict[str, torch.Tensor]:
+def init_kv_cache(batch: int, max_len: int, cfg: ArchConfig, device,
+                  window: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A ``(batch, max_len)`` buffer per layer, or with ``window`` a ring
+    of ``min(window, max_len)`` positions."""
+    cap = min(window, max_len) if window else max_len
     kv, hd = cfg.num_kv_heads, cfg.head_dim
-    shape = (batch, max_len, kv, hd)
+    shape = (batch, cap, kv, hd)
     idx = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.kv_cache_bits:
-        sshape = (batch, max_len, kv, 1)
+        sshape = (batch, cap, kv, 1)
         return {"k": torch.zeros(shape, dtype=torch.uint8, device=device),
                 "v": torch.zeros(shape, dtype=torch.uint8, device=device),
                 "k_scale": torch.ones(sshape, dtype=torch.bfloat16,
@@ -186,8 +238,7 @@ def _kv_decode(packed: torch.Tensor, scale: torch.Tensor, cfg: ArchConfig):
 def _decode_attend(q, k_new, v_new, cache, cfg: ArchConfig):
     """Write S new positions at each row's cursor (clamped to the buffer,
     as a dynamic slice update clamps) and attend with a causal mask."""
-    B, S, h, hd = q.shape
-    kv = cfg.num_kv_heads
+    B, S = q.shape[:2]
     idx = cache["idx"].long()
     cap = cache["k"].shape[1]
     ar = torch.arange(S, device=q.device)
@@ -210,17 +261,71 @@ def _decode_attend(q, k_new, v_new, cache, cfg: ArchConfig):
         k_att, v_att = cache["k"], cache["v"]
     slot = torch.arange(cap, device=q.device)
     valid = slot[None, :] < (idx[:, None] + S)                  # (B, cap)
-    rep = h // kv
+    out = _attend_plain(q, k_att, v_att, q_abs, slot[None, :].expand(B, cap),
+                        valid, cfg, None)
+    cache["idx"] += S
+    return out.to(q.dtype)
+
+
+def _attend_plain(q, k_att, v_att, q_abs, abs_pos, valid, cfg: ArchConfig,
+                  window: Optional[int]):
+    """Plain softmax attention of ``q (B,S,h,hd)`` over the keys
+    ``k_att/v_att (B,K,kv,hd)`` at absolute positions ``abs_pos (B,K)``;
+    ``valid (B,K)`` marks keys that hold a position."""
+    B, S, h, hd = q.shape
+    rep = h // cfg.num_kv_heads
     kf = k_att.repeat_interleave(rep, dim=2).to(torch.float32)
     vf = v_att.repeat_interleave(rep, dim=2).to(torch.float32)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           kf) / math.sqrt(hd)
     logits = _softcap(logits, cfg.attn_logit_softcap)
-    mask = valid[:, None, :] & (slot[None, None, :] <= q_abs[:, :, None])
+    mask = valid[:, None, :] & (abs_pos[:, None, :] <= q_abs[:, :, None])
+    if window:
+        mask &= abs_pos[:, None, :] > (q_abs[:, :, None] - window)
     logits = torch.where(mask[:, None], logits,
                          torch.full((), -1e30, device=q.device))
     p_attn = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p_attn, vf)
+    return torch.einsum("bhqk,bkhd->bqhd", p_attn, vf)
+
+
+def _ring_attend(q, k_new, v_new, cache, cfg: ArchConfig, window: int):
+    """A sliding-window layer's append: attend over the old ring's
+    contents and the S new keys, then write the new keys into the ring.
+    Inserting first would evict keys that earlier queries of the call
+    still see. Ring slot ``s`` holds the position ``p = s (mod cap)`` with
+    ``p <= idx - 1``; the last ``min(S, cap)`` new positions are written
+    (with ``S >= cap`` the call's own tail fills the whole ring)."""
+    B, S = q.shape[:2]
+    idx = cache["idx"].long()
+    cap = cache["k"].shape[1]
+    ar = torch.arange(S, device=q.device)
+    q_abs = idx[:, None] + ar                                   # (B, S)
+    slot = torch.arange(cap, device=q.device)
+    last_prev = idx[:, None] - 1
+    abs_prev = last_prev - torch.remainder(last_prev - slot[None, :], cap)
+    quant = bool(cfg.kv_cache_bits)
+    if quant:
+        pk, sk = _kv_encode(k_new, cfg)
+        pv, sv = _kv_encode(v_new, cfg)
+        k_old = _kv_decode(cache["k"], cache["k_scale"], cfg)
+        v_old = _kv_decode(cache["v"], cache["v_scale"], cfg)
+        store = (("k", pk), ("v", pv), ("k_scale", sk), ("v_scale", sv))
+    else:
+        k_old, v_old = cache["k"], cache["v"]
+        store = (("k", k_new), ("v", v_new))
+    k_att = torch.cat([k_old, k_new.to(k_old.dtype)], dim=1)
+    v_att = torch.cat([v_old, v_new.to(v_old.dtype)], dim=1)
+    abs_pos = torch.cat([abs_prev, q_abs], dim=1)               # (B, cap+S)
+    valid = torch.cat([abs_prev >= 0,
+                       torch.ones((B, S), dtype=torch.bool,
+                                  device=q.device)], dim=1)
+    out = _attend_plain(q, k_att, v_att, q_abs, abs_pos, valid, cfg, window)
+    m = min(S, cap)
+    rows = torch.arange(B, device=q.device)[:, None]
+    cols = torch.remainder(idx[:, None] + (S - m)
+                           + torch.arange(m, device=q.device), cap)
+    for key, new in store:
+        cache[key][rows, cols] = new[:, S - m:].to(cache[key].dtype)
     cache["idx"] += S
     return out.to(q.dtype)
 

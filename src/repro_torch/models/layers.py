@@ -8,6 +8,7 @@ each gradient in its input's dtype, so the port needs no boundary there.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -88,9 +89,12 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
 
 
 def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Rows of the embedding table for ``tokens``. A packed table decodes
-    only the gathered rows: decoding is elementwise, so this equals
-    gathering from the decoded table (``delta`` included)."""
+    """Rows of the embedding table for ``tokens``, times sqrt(d_model)
+    with ``cfg.embed_scale``. A packed table decodes only the gathered
+    rows: decoding is elementwise, so this equals gathering from the
+    decoded table (``delta`` included). The scale is rounded to the
+    compute dtype before the product, as the JAX package's weakly typed
+    constant is."""
     if is_lns_weight(table):
         rows = lns_decode_packed(table.packed[tokens], table.fmt,
                                  torch.float32)
@@ -99,4 +103,8 @@ def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
             x = x + table.delta[tokens].to(cfg.compute_dtype)
     else:
         x = table[tokens]
-    return x.to(cfg.compute_dtype)
+    x = x.to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x

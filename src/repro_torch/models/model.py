@@ -2,19 +2,25 @@
 loss, decode step.
 
 Parameters are a nested dict laid out leaf for leaf as the JAX package's
-pytree: the layer ("period") parameters carry a leading stack axis of
-``num_layers`` (``period/pos0/...``), which this module walks with a
-Python loop where the JAX package scans. Weights may be packed
-:class:`LNSWeight` leaves; the 2-D slices of a stacked packed leaf route
-through the kernels. There is no rematerialization: at smollm-135m's
-width a 2048-token training step keeps its activations in a few GB.
+pytree: ``ArchConfig.layer_pattern()`` gives ``prefix`` unrolled layers
+(a list, ``prefix/<i>/...``) and ``n_periods`` repetitions of a period of
+layer kinds, each position's parameters stacked on a leading axis
+(``period/pos<j>/...``), which this module walks with a Python loop where
+the JAX package scans. Weights may be packed :class:`LNSWeight` leaves;
+the 2-D slices of a stacked packed leaf route through the kernels.
+
+Layer kinds: ``dense`` (full-context attention), and gemma3's ``local``
+(sliding window, ring cache) and ``global`` (full context, its own rope
+theta). ``forward(remat=True)`` recomputes each layer in the backward
+pass (``torch.utils.checkpoint``) instead of keeping its activations.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
@@ -24,55 +30,101 @@ from repro_torch.models.layers import (decoded_of, dense_of, embed_lookup,
                                        mlp_apply, rms_norm)
 
 __all__ = ["init_params", "forward", "lm_loss", "lm_head", "init_caches",
-           "decode_step", "layer", "to_device"]
+           "decode_step", "layer", "layers", "to_device"]
+
+# a draw whose f32 temporary would pass this many bytes is made in slices
+# of its leading axis (whole layers of a stack, rows of a table), one
+# after another from the same generator. The values differ from a whole
+# draw's (trunc_normal_ resamples what falls outside [-2, 2] over the
+# whole tensor), so only leaves past it draw differently: none of
+# smollm-135m or BERT-base/large comes near it, and their draws are
+# unchanged
+_DRAW_SLICE_BYTES = 1 << 30
 
 
-def _trunc_normal(shape, std, dtype, gen: torch.Generator, device):
+def _draw(shape, std, dtype, gen: torch.Generator, device) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (std * t).to(dtype)
 
 
-def init_params(cfg: ArchConfig, *, seed: int = 0,
-                device=None) -> Dict[str, Any]:
+def _trunc_normal(shape, std, dtype, gen: torch.Generator, device):
+    """``std`` times a normal truncated to [-2, 2], in ``dtype``."""
+    row = 4 * math.prod(shape[1:])
+    if len(shape) < 2 or row * shape[0] <= _DRAW_SLICE_BYTES:
+        return _draw(shape, std, dtype, gen, device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    n = max(1, _DRAW_SLICE_BYTES // row)
+    for i in range(0, shape[0], n):
+        out[i:i + n] = _draw(out[i:i + n].shape, std, dtype, gen, device)
+    return out
+
+
+def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
+                leaf_fn: Optional[Callable] = None) -> Dict[str, Any]:
     """Random dense parameters from a ``torch.Generator`` seeded with
     ``seed``: truncated normals (std 1/sqrt(fan_in), embeddings and an
-    untied head ``embed.head (d, V)`` 0.02), zero norm gains, as the JAX
-    package draws them; no ``gate`` when the MLP is ungated. The two
-    frameworks' streams differ; carry JAX parameters across with
-    ``repro_torch.convert`` where the same weights are needed."""
+    untied head ``embed.head (d, V)`` 0.02), zero norm gains and biases,
+    as the JAX package draws them; no ``gate`` when the MLP is ungated.
+    The draw order: every layer stack's MLP, the embedding, every
+    stack's attention, the head. The two frameworks' streams differ;
+    carry JAX parameters across with ``repro_torch.convert`` where the
+    same weights are needed.
+
+    ``leaf_fn(path, tensor)``, when given, replaces each leaf as soon as
+    it is made (``optim.madam.lns_leaf_encoder`` encodes it), so at most
+    one dense leaf exists at a time."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.compute_dtype
-    d, L = cfg.d_model, cfg.num_layers
-    h, kv, hd, f = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    fn = leaf_fn or (lambda path, w: w)
+    prefix, n_periods, period = cfg.layer_pattern()
+    # (path, stack size or None): the period positions, then the prefix
+    stacks = [(("period", f"pos{j}"), n_periods)
+              for j in range(len(period)) if n_periods]
+    stacks += [(("prefix", i), None) for i in range(len(prefix))]
 
-    def dense(d_in, d_out):
-        return _trunc_normal((L, d_in, d_out), 1.0 / math.sqrt(d_in), dt, gen,
-                             dev)
+    def dense(path, n, d_in, d_out):
+        lead = (n,) if n else ()
+        return fn(path, _trunc_normal(lead + (d_in, d_out),
+                                      1.0 / math.sqrt(d_in), dt, gen, dev))
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    def zeros(path, *shape, dtype=torch.float32):
+        return fn(path, torch.zeros(shape, dtype=dtype, device=dev))
 
-    mlp = {"up": dense(d, f)}
-    if cfg.mlp_gated:
-        mlp["gate"] = dense(d, f)
-    mlp["down"] = dense(f, d)
-    params: Dict[str, Any] = {
-        "embed": {"tok": _trunc_normal((cfg.vocab_size, d), 0.02, dt, gen,
-                                       dev)},
-        "final_norm": zeros(d),
-        "period": {"pos0": {
-            "ln1": zeros(L, d),
-            "attn": {"wq": dense(d, h * hd), "wk": dense(d, kv * hd),
-                     "wv": dense(d, kv * hd), "wo": dense(h * hd, d)},
-            "ln2": zeros(L, d),
-            "mlp": mlp,
-        }},
-    }
+    mlps = {}
+    for path, n in stacks:
+        mlp = {"up": dense(path + ("mlp", "up"), n, d, f)}
+        if cfg.mlp_gated:
+            mlp["gate"] = dense(path + ("mlp", "gate"), n, d, f)
+        mlp["down"] = dense(path + ("mlp", "down"), n, f, d)
+        mlps[path] = mlp
+    embed = {"tok": fn(("embed", "tok"), _trunc_normal(
+        (cfg.vocab_size, d), 0.02, dt, gen, dev))}
+    params: Dict[str, Any] = {"embed": embed,
+                              "final_norm": zeros(("final_norm",), d)}
+    blocks = {}
+    for path, n in stacks:
+        lead = (n,) if n else ()
+        a = {"wq": dense(path + ("attn", "wq"), n, d, h * hd),
+             "wk": dense(path + ("attn", "wk"), n, d, kv * hd),
+             "wv": dense(path + ("attn", "wv"), n, d, kv * hd),
+             "wo": dense(path + ("attn", "wo"), n, h * hd, d)}
+        for k, (shape, dtype) in attn_mod.attn_zero_leaves(cfg).items():
+            a[k] = zeros(path + ("attn", k), *lead, *shape, dtype=dtype)
+        blocks[path] = {"ln1": zeros(path + ("ln1",), *lead, d), "attn": a,
+                        "ln2": zeros(path + ("ln2",), *lead, d),
+                        "mlp": mlps[path]}
     if not cfg.tie_embeddings:     # drawn last: tied configs keep their draws
-        params["embed"]["head"] = _trunc_normal((d, cfg.vocab_size), 0.02,
-                                                dt, gen, dev)
+        embed["head"] = fn(("embed", "head"), _trunc_normal(
+            (d, cfg.vocab_size), 0.02, dt, gen, dev))
+    if prefix:
+        params["prefix"] = [blocks[("prefix", i)] for i in range(len(prefix))]
+    if n_periods:
+        params["period"] = {f"pos{j}": blocks[("period", f"pos{j}")]
+                            for j in range(len(period))}
     return params
 
 
@@ -81,6 +133,41 @@ def layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def layers(cfg: ArchConfig, params, caches=None) -> Iterator:
+    """``(kind, block params, block cache or None)`` in layer order: the
+    prefix, then every period's positions."""
+    prefix, n_periods, period = cfg.layer_pattern()
+    for i, kind in enumerate(prefix):
+        c = caches["prefix"][i] if caches is not None else None
+        yield kind, params["prefix"][i], c
+    for li in range(n_periods):
+        for j, kind in enumerate(period):
+            key = f"pos{j}"
+            c = (layer(caches["period"][key], li) if caches is not None
+                 else None)
+            yield kind, layer(params["period"][key], li), c
+
+
+def _attn_kind_args(cfg: ArchConfig, kind: str):
+    """(window, rope theta) of a layer kind."""
+    window = cfg.sliding_window if kind == "local" else None
+    theta = ((cfg.rope_theta_global or cfg.rope_theta) if kind == "global"
+             else cfg.rope_theta)
+    return window, theta
+
+
+def _block(kind: str, bp, x: torch.Tensor, cfg: ArchConfig, qcfg,
+           positions, cache, block_tables) -> torch.Tensor:
+    window, theta = _attn_kind_args(cfg, kind)
+    hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+    x = x + attn_mod.attn_apply(bp["attn"], hdn, cfg, qcfg,
+                                positions=positions, window=window,
+                                theta=theta, cache=cache,
+                                block_table=block_tables)
+    hdn = rms_norm(x, bp["ln2"], cfg.norm_eps)
+    return x + mlp_apply(bp["mlp"], hdn, cfg, qcfg)
 
 
 def lm_head(params, cfg: ArchConfig):
@@ -100,12 +187,15 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             qcfg: Optional[QuantConfig] = None, *,
             caches: Optional[Dict[str, Any]] = None,
             pos_offset=0, block_tables: Optional[torch.Tensor] = None,
-            head: Optional[torch.Tensor] = None) -> torch.Tensor:
+            head: Optional[torch.Tensor] = None,
+            remat: bool = False) -> torch.Tensor:
     """Run the decoder over ``tokens (B, S)``. Without ``caches``
     (training) the sequence attends causally to itself; with them (append
     mode) the new positions are written into ``caches`` in place.
     ``pos_offset`` is a scalar or a (B,) tensor of per-row offsets.
-    Returns logits ``(B, S, V)``."""
+    ``remat`` (training only) recomputes each layer in the backward pass.
+    Returns logits ``(B, S, V)``, softcapped by
+    ``cfg.final_logit_softcap``."""
     x = embed_lookup(params["embed"]["tok"], tokens, cfg)
     S = x.shape[1]
     off = torch.as_tensor(pos_offset, device=x.device)
@@ -113,21 +203,23 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
         torch.int32)
     if positions.dim() > 1 and positions.shape[0] == 1:
         positions = positions[0]
-    stack = params["period"]["pos0"]
-    cstack = caches["period"]["pos0"] if caches is not None else None
-    for i in range(cfg.num_layers):
-        bp = layer(stack, i)
-        c = layer(cstack, i) if cstack is not None else None
-        hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-        x = x + attn_mod.attn_apply(bp["attn"], hdn, cfg, qcfg,
-                                    positions=positions, cache=c,
-                                    block_table=block_tables)
-        hdn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + mlp_apply(bp["mlp"], hdn, cfg, qcfg)
+    remat = remat and caches is None and torch.is_grad_enabled()
+    for kind, bp, c in layers(cfg, params, caches):
+        if remat:
+            # nothing in a block draws random numbers (its rounding is
+            # deterministic), so the recompute gives the forward's values
+            x = checkpoint(_block, kind, bp, x, cfg, qcfg, positions, None,
+                           None, use_reentrant=False)
+        else:
+            x = _block(kind, bp, x, cfg, qcfg, positions, c, block_tables)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if head is None:
         head = lm_head(params, cfg)
-    return qeinsum("bsd,dv->bsv", x, head, qcfg)
+    logits = qeinsum("bsd,dv->bsv", x, head, qcfg)
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -140,31 +232,51 @@ def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
-            qcfg: Optional[QuantConfig] = None) -> torch.Tensor:
+            qcfg: Optional[QuantConfig] = None, *,
+            remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy of ``batch["tokens"]`` against
     ``batch["labels"]`` (the dense family has no auxiliary loss)."""
-    logits = forward(params, batch["tokens"], cfg, qcfg)
+    logits = forward(params, batch["tokens"], cfg, qcfg, remat=remat)
     return _xent(logits, batch["labels"])
 
 
 def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
                 page_size: Optional[int] = None,
-                num_pages: Optional[int] = None, device=None):
-    """Decode caches, stacked over layers: a dense ``(batch, max_len)``
-    buffer per layer, or with ``page_size`` a paged pool per layer
-    (default ``batch * ceil(max_len / page_size)`` pages)."""
+                num_pages: Optional[int] = None, window_slack: int = 0,
+                device=None):
+    """Decode caches shaped like the trunk (``prefix`` list, ``period``
+    stacks): a ``local`` layer gets a ring of ``sliding_window +
+    window_slack`` positions (at most ``max_len``); a full-context layer
+    a dense ``(batch, max_len)`` buffer, or with ``page_size`` a paged
+    pool (default ``batch * ceil(max_len / page_size)`` pages).
+    Speculative decoding passes its k as ``window_slack``: draft writes
+    past a rewound cursor then land only on ring slots no query can see
+    any more."""
     dev = resolve_device(device)
-    if page_size is not None:
-        if num_pages is None:
-            num_pages = batch * (-(-max_len // page_size))
-        one = attn_mod.init_paged_kv_cache(batch, num_pages, page_size, cfg,
-                                           dev)
-    else:
-        one = attn_mod.init_kv_cache(batch, max_len, cfg, dev)
-    L = cfg.num_layers
-    stacked = {k: v.unsqueeze(0).repeat((L,) + (1,) * v.dim())
-               for k, v in one.items()}
-    return {"period": {"pos0": stacked}}
+    prefix, n_periods, period = cfg.layer_pattern()
+    if page_size is not None and num_pages is None:
+        num_pages = batch * (-(-max_len // page_size))
+
+    def one(kind):
+        if kind == "local":
+            return attn_mod.init_kv_cache(
+                batch, max_len, cfg, dev,
+                window=cfg.sliding_window + window_slack)
+        if page_size is not None:
+            return attn_mod.init_paged_kv_cache(batch, num_pages, page_size,
+                                                cfg, dev)
+        return attn_mod.init_kv_cache(batch, max_len, cfg, dev)
+
+    caches: Dict[str, Any] = {}
+    if prefix:
+        caches["prefix"] = [one(k) for k in prefix]
+    if n_periods:
+        caches["period"] = {
+            f"pos{j}": {k: v.unsqueeze(0).repeat((n_periods,)
+                                                 + (1,) * v.dim())
+                        for k, v in one(kind).items()}
+            for j, kind in enumerate(period)}
+    return caches
 
 
 def decode_step(params, caches, tokens: torch.Tensor, cfg: ArchConfig,
@@ -181,4 +293,6 @@ def to_device(tree, device):
     """Move a parameter tree (tensors and packed weights) to ``device``."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
     return tree.to(device)

@@ -17,7 +17,7 @@ gains) take a full-precision Madam step.
 Gradients come from zero ``delta`` carriers (:func:`grad_proxies`): their
 gradient is dL/dW at W = decode(packed).
 
-Trees are nested dicts; a factored second moment is a ``{"r", "c"}`` dict
+Trees are nested dicts and lists; a factored second moment is a ``{"r", "c"}`` dict
 at its leaf's path, so leaves are walked by the parameter tree's paths.
 """
 from __future__ import annotations
@@ -36,7 +36,8 @@ from repro_torch.numerics.rounding import round_nearest, stochastic_round
 from repro_torch.obs.numerics import path_name
 from repro_torch.tree import leaves, tree_get, tree_map, tree_set
 
-__all__ = ["MadamConfig", "MadamState", "init_lns_params", "materialize",
+__all__ = ["MadamConfig", "MadamState", "init_lns_params",
+           "lns_leaf_encoder", "materialize",
            "grad_proxies", "attach_proxies", "madam_lns", "madam_fp"]
 
 
@@ -69,28 +70,45 @@ class MadamState(NamedTuple):
     count: int    # steps taken: a host int, so no device sync reads it
 
 
-def _lns_leaf_filter(path: Tuple[str, ...], leaf: torch.Tensor) -> bool:
-    """>=2-D tensors live in LNS, 1-D gains stay f32. A stacked ``period``
-    leaf's leading layer axis does not count toward the rank."""
+def _lns_leaf_filter(path: Tuple, leaf: torch.Tensor) -> bool:
+    """>=2-D tensors live in LNS, 1-D gains and biases stay f32. A
+    stacked ``period`` leaf's leading layer axis does not count toward the
+    rank; the unrolled ``prefix`` layers carry none."""
     stacked = "period" in path
     return leaf.dim() - (1 if stacked else 0) >= 2
 
 
-def init_lns_params(params, cfg: MadamConfig,
-                    leaf_filter: Callable = _lns_leaf_filter):
-    """Encode a dense tree into packed :class:`LNSWeight` and f32 leaves.
-    Every axis but the contraction axis (-2) keeps its own scale, so a
-    stacked weight gets per-layer, per-output-channel scales that factor
-    out of the routed GEMM."""
+def lns_leaf_encoder(cfg: MadamConfig,
+                     leaf_filter: Callable = _lns_leaf_filter) -> Callable:
+    """``enc(path, w)``: one dense leaf as a packed :class:`LNSWeight`
+    (or f32 where ``leaf_filter`` says no). Every axis but the contraction
+    axis (-2) keeps its own scale, so a stacked weight gets per-layer,
+    per-output-channel scales that factor out of the routed GEMM."""
     fmt = cfg.update_format
 
     def enc(path, w):
-        if isinstance(w, dict):
-            return {k: enc(path + (k,), v) for k, v in w.items()}
         if not leaf_filter(path, w):
             return w.to(torch.float32)
         ax = tuple(i for i in range(w.dim()) if i != w.dim() - 2)
         return lns_weight_encode(w, fmt, scale_axis=ax)
+
+    return enc
+
+
+def init_lns_params(params, cfg: MadamConfig,
+                    leaf_filter: Callable = _lns_leaf_filter):
+    """Encode a dense tree (nested dicts and lists) into packed
+    :class:`LNSWeight` and f32 leaves through :func:`lns_leaf_encoder`.
+    ``models.model.init_params(leaf_fn=lns_leaf_encoder(cfg))`` gives the
+    same tree without the dense one in memory."""
+    enc_leaf = lns_leaf_encoder(cfg, leaf_filter)
+
+    def enc(path, w):
+        if isinstance(w, dict):
+            return {k: enc(path + (k,), v) for k, v in w.items()}
+        if isinstance(w, list):
+            return [enc(path + (i,), v) for i, v in enumerate(w)]
+        return enc_leaf(path, w)
 
     return enc((), params)
 

@@ -13,7 +13,13 @@ scheduling, so the same trace gives the same token streams:
   true prompt length;
 - **dense** KV layout (default): one ``(num_slots, max_len)`` buffer per
   layer; the prefill runs over a fresh batch-1 buffer that is copied into
-  the slot's row;
+  the slot's row of every layer;
+- sliding-window layers (gemma3's ``local`` kind) keep a per-slot ring of
+  ``sliding_window`` positions in either layout, plus ``k`` with
+  speculation so a rewind never lets the write head lap a position still
+  in the window; a prefill bucket never exceeds the window (the exact
+  prompt length is used instead), and the prefix cache is off, as the
+  rings would miss the skipped tokens;
 - **paged** layout (``page_size=...``): one pool of pages per layer shared
   through per-slot block tables, and the prefill writes through the
   slot's own block table. With ``prefix_cache`` (the default) the
@@ -99,6 +105,50 @@ _PAGED_KINDS = frozenset({"dense", "global", "moe", "shared_attn"})
 _POOL_KEYS = ("kp", "vp", "kp_scale", "vp_scale")
 
 
+def _layer_caches(caches):
+    """``(layer cache, stacked)`` of every cache group: each ``prefix``
+    layer's, then each ``period`` position's stack (a leading layer
+    axis)."""
+    for c in caches.get("prefix", ()):
+        yield c, False
+    for c in caches.get("period", {}).values():
+        yield c, True
+
+
+def _map_layers(caches, fn):
+    """The cache tree of ``fn(layer cache, stacked)``, shaped like
+    ``caches``."""
+    out: Dict[str, Any] = {}
+    if "prefix" in caches:
+        out["prefix"] = [fn(c, False) for c in caches["prefix"]]
+    if "period" in caches:
+        out["period"] = {k: fn(c, True) for k, c in caches["period"].items()}
+    return out
+
+
+def _set_cursors(caches, n) -> None:
+    """Set every layer's cursor to ``n`` (a number or a ``(B,)`` row
+    vector): ring layers and pools alike, so a speculative rewind moves
+    them together."""
+    for c, _ in _layer_caches(caches):
+        c["idx"][...] = n
+
+
+def _set_cursor_row(caches, slot: int, n: int) -> None:
+    """Set row ``slot``'s cursor of every layer to ``n``."""
+    for c, _ in _layer_caches(caches):
+        c["idx"][..., slot] = n
+
+
+def _scatter_row(big, small, slot: int, stacked: bool) -> None:
+    """Copy a batch-1 layer cache into row ``slot`` of ``big``."""
+    for key, buf in big.items():
+        if stacked:
+            buf[:, slot] = small[key][:, 0]
+        else:
+            buf[slot] = small[key][0]
+
+
 class Engine:
     """Continuous-batching serving engine. See module docstring."""
 
@@ -127,6 +177,16 @@ class Engine:
             self.spec = SpecConfig(k=int(speculate_k),
                                    draft_bits=int(draft_bitwidth),
                                    autotune=bool(spec_autotune))
+        prefix, _, period = cfg.layer_pattern()
+        kinds = set(prefix) | set(period)
+        self._window = cfg.sliding_window if "local" in kinds else None
+        # ring layers over-allocate by the largest k a cycle drafts, so a
+        # rewind never lets the write head lap a position still in the
+        # window
+        self._spec_slack = 0
+        if self.spec is not None and self._window is not None:
+            self._spec_slack = max(k for _, k in self.spec.arms()) \
+                if self.spec.autotune else self.spec.k
         self.device = resolve_device(device)
         self.cfg, self.qcfg = cfg, qcfg
         self.params = to_device(params, self.device)
@@ -140,9 +200,9 @@ class Engine:
             self._max_pages = -(-max_len // page_size)
             self.num_pages = num_pages or num_slots * self._max_pages
             self._null_page = self.num_pages
-            prefix, _, period = cfg.layer_pattern()
-            self._prefix_ok = (bool(prefix_cache)
-                               and set(prefix) | set(period) <= _PAGED_KINDS)
+            # a skipped prefix is sound only when no layer keeps state
+            # outside the pools (a ring would miss those tokens)
+            self._prefix_ok = bool(prefix_cache) and kinds <= _PAGED_KINDS
         else:
             self.num_pages = 0
             self._prefix_ok = False
@@ -167,6 +227,7 @@ class Engine:
         self.caches = init_caches(self.num_slots, self.max_len, self.cfg,
                                   page_size=self.page_size,
                                   num_pages=self.num_pages or None,
+                                  window_slack=self._spec_slack,
                                   device=self.device)
         allocator = None
         if self.page_size:
@@ -244,8 +305,11 @@ class Engine:
     # admission checks
 
     def _bucket(self, plen: int) -> int:
+        """The prefill's padded length: the smallest bucket that holds the
+        prompt and, with ring layers, no more than the window (pads past
+        it would wrap onto live keys); else the exact length."""
         for b in self.buckets:
-            if b >= plen:
+            if b >= plen and (self._window is None or b <= self._window):
                 return b
         return plen
 
@@ -365,17 +429,17 @@ class Engine:
 
     def _prefill_dense(self, tokens: np.ndarray, n: int, slot: int):
         """Batch-1 prefill over a fresh zero cache, copied into the slot's
-        row with the cursor at the true prompt length ``n``."""
-        mini = init_caches(1, self.max_len, self.cfg, device=self.device)
+        row of every layer with the cursor at the true prompt length
+        ``n``."""
+        mini = init_caches(1, self.max_len, self.cfg,
+                           window_slack=self._spec_slack, device=self.device)
         logits = forward(self.params, self._tensor(tokens), self.cfg,
                          self.qcfg, caches=mini, pos_offset=0,
                          head=self._head)[:, n - 1]
-        big, small = self.caches["period"]["pos0"], mini["period"]["pos0"]
-        for key, buf in big.items():
-            if key == "idx":
-                buf[:, slot] = n
-            else:
-                buf[:, slot] = small[key][:, 0]
+        for (big, stacked), (small, _) in zip(_layer_caches(self.caches),
+                                              _layer_caches(mini)):
+            _scatter_row(big, small, slot, stacked)
+        _set_cursor_row(self.caches, slot, n)
         return logits
 
     def _prefill_paged(self, tokens: np.ndarray, n_new: int, n_cached: int,
@@ -389,21 +453,38 @@ class Engine:
         page that already holds the shared tokens; without one both name
         the null page (a self-copy, skipped). The suffix runs at
         ``pos_offset = n_cached``; bucket padding past the table's span
-        drops; the cursor ends at ``n_total``."""
-        big = self.caches["period"]["pos0"]
-        if cow_src != cow_dst:
-            for key in _POOL_KEYS:
-                if key in big:
-                    big[key][:, cow_dst] = big[key][:, cow_src]
-        mini = {k: v for k, v in big.items() if k != "idx"}
-        mini["idx"] = torch.full((self.cfg.num_layers, 1), n_cached,
-                                 dtype=torch.int32, device=self.device)
+        drops. A ring layer prefills over a zero batch-1 ring that is then
+        copied into the slot's row. Every cursor ends at ``n_total``."""
+
+        def mini_layer(c, stacked):
+            lead = (c["idx"].shape[0], 1) if stacked else (1,)
+            if "kp" not in c:     # a ring: a zero batch-1 row
+                ax = 1 if stacked else 0
+                return {k: torch.zeros(v.shape[:ax] + (1,) + v.shape[ax + 1:],
+                                       dtype=v.dtype, device=v.device)
+                        for k, v in c.items()}
+            if cow_src != cow_dst:
+                for key in _POOL_KEYS:
+                    if key in c:
+                        if stacked:
+                            c[key][:, cow_dst] = c[key][:, cow_src]
+                        else:
+                            c[key][cow_dst] = c[key][cow_src]
+            m = {k: v for k, v in c.items() if k != "idx"}
+            m["idx"] = torch.full(lead, n_cached, dtype=torch.int32,
+                                  device=self.device)
+            return m
+
+        mini = _map_layers(self.caches, mini_layer)
         logits = forward(self.params, self._tensor(tokens), self.cfg,
-                         self.qcfg, caches={"period": {"pos0": mini}},
-                         pos_offset=n_cached,
+                         self.qcfg, caches=mini, pos_offset=n_cached,
                          block_tables=self._tensor(table[None]),
                          head=self._head)[:, n_new - 1]
-        big["idx"][:, slot] = n_total
+        for (big, stacked), (small, _) in zip(_layer_caches(self.caches),
+                                              _layer_caches(mini)):
+            if "kp" not in big:
+                _scatter_row(big, small, slot, stacked)
+        _set_cursor_row(self.caches, slot, n_total)
         return logits
 
     def _admit(self, rs: RequestState, clock,
@@ -715,7 +796,6 @@ class Engine:
         masked once the cursors move back, and overwritten before they
         become visible."""
         dparams, dhead = self._draft_params(bits)
-        idx = self.caches["period"]["pos0"]["idx"]
         bt = (self._tensor(self._block_tables) if self.page_size else None)
         pos = self._tensor(self._slot_len)
         last = self._tensor(self._last_tok)
@@ -728,7 +808,7 @@ class Engine:
                                         None, None)
             drafts.append(cur)
         draft = torch.stack(drafts, dim=1)                      # (B, k)
-        idx[:] = pos
+        _set_cursors(self.caches, pos)
         x = torch.cat([last[:, None], draft[:, :-1]], dim=1)
         logits = forward(self.params, x, self.cfg, self.qcfg,
                          caches=self.caches, pos_offset=pos,
@@ -740,7 +820,7 @@ class Engine:
                           step_offset=np.tile(np.arange(k), B)).reshape(B, k)
         acc = torch.cumprod((draft == s).to(torch.int64), dim=1).sum(dim=1)
         m = torch.clamp(acc + 1, max=k)
-        idx[:] = (pos + m).to(idx.dtype)
+        _set_cursors(self.caches, (pos + m).to(torch.int32))
         out = torch.cat([s.to(torch.int64), acc[:, None], m[:, None]],
                         dim=1).cpu().numpy()
         return out[:, :k], out[:, k], out[:, k + 1]

@@ -11,7 +11,11 @@
    ``numerics``) in one pass per leaf.
 
 ``accum_steps > 1`` runs the microbatches one after another and sums
-their quantized gradients, as the JAX package's scan does.
+their quantized gradients, as the JAX package's scan does. ``remat`` (on
+by default, as in the JAX package) recomputes each layer's forward in the
+backward pass (``torch.utils.checkpoint``): nothing inside a layer draws
+random numbers, so the recompute repeats the forward bit for bit and the
+loss, gradients and words are the same as without it.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import init_params, lm_loss
 from repro_torch.obs.numerics import grad_encode_stats
 from repro_torch.optim.madam import (MadamConfig, MadamState, attach_proxies,
-                                     grad_proxies, init_lns_params, madam_lns)
+                                     grad_proxies, lns_leaf_encoder,
+                                     madam_lns)
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["TrainState", "init_train_state", "build_train_step",
@@ -42,11 +47,12 @@ class TrainState(NamedTuple):
 
 def init_train_state(cfg: ArchConfig, mcfg: MadamConfig, *, seed: int = 0,
                      device=None) -> TrainState:
-    """Random parameters (``models.model.init_params``), encoded straight
-    into the update store, and a fresh optimizer state, on ``device``
-    (default CUDA)."""
+    """Random parameters (``models.model.init_params``), each leaf encoded
+    into the update store as it is drawn, and a fresh optimizer state, on
+    ``device`` (default CUDA)."""
     dev = resolve_device(device)
-    params = init_lns_params(init_params(cfg, seed=seed, device=dev), mcfg)
+    params = init_params(cfg, seed=seed, device=dev,
+                         leaf_fn=lns_leaf_encoder(mcfg))
     init_opt, _ = madam_lns(mcfg)
     return TrainState(params=params, opt=init_opt(params), step=0)
 
@@ -66,7 +72,7 @@ def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
                      mcfg: MadamConfig, *, accum_steps: int = 1,
-                     numerics: bool = False) -> Callable:
+                     remat: bool = True, numerics: bool = False) -> Callable:
     """``train_step(state, batch, generator=None) -> (state, metrics)``:
     ``metrics`` holds ``loss`` and ``grad_norm`` (0-d tensors) and
     ``step`` (an int), and with ``numerics`` a ``"numerics"`` dict of
@@ -89,7 +95,8 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
 
     def one_microbatch(params, mb):
         proxies = grad_proxies(params, cfg.compute_dtype)
-        loss = lm_loss(attach_proxies(params, proxies), mb, cfg, qcfg)
+        loss = lm_loss(attach_proxies(params, proxies), mb, cfg, qcfg,
+                       remat=remat)
         loss.backward()
         grads = tree_map(lambda d: d.grad, proxies)
         # encode-site stats read the raw gradients Q_G is about to encode
@@ -124,6 +131,10 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
             enc_stats = tree_map(lambda *xs: torch.stack(xs).mean(dim=0),
                                  *encs)
         with torch.no_grad():
+            # the norm's f32 temporaries come and go before the update
+            # allocates the new words and moments
+            gnorm = torch.sqrt(sum(torch.sum(torch.square(
+                g.to(torch.float32))) for _, g in leaves(grads)))
             if numerics:
                 new_params, new_opt, upd_stats = opt_update(
                     grads, state.opt, params, generator, with_stats=True,
@@ -131,8 +142,6 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
             else:
                 new_params, new_opt = opt_update(grads, state.opt, params,
                                                  generator)
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(
-                g.to(torch.float32))) for _, g in leaves(grads)))
         metrics = {"loss": loss, "grad_norm": gnorm, "step": state.step}
         if numerics:
             metrics["numerics"] = {"update": upd_stats,
