@@ -9,6 +9,7 @@
     python3 chip_smoke.py --serving    # phases 1, 2 and 19 only
     python3 chip_smoke.py --obs        # phases 1, 2 and 20 only
     python3 chip_smoke.py --dense-variants  # 1, 2, K5 at hd 256, and 21
+    python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -39,8 +40,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    an f32 pool whose pages take one stage a warp, and gemma3-12b's
    global layers at head_dim 256 (``K5_HD256_CASES``: decode over a bf16
    and a packed pool, the verify's S=4, warps that see no position, an
-   f32 pool at page 16, one stage a warp), each timed beside SDPA over
-   gathered pages. TF32 must be off.
+   f32 pool at page 16, one stage a warp), and phi-3-vision's at
+   head_dim 96 (``K5_HD96_CASES``: bf16 and packed decode and verify
+   S=4, warps that see no position, an f32 pool), each timed beside SDPA
+   over gathered pages. TF32 must be off.
    ``sample_logits`` on a 4-row temperature batch and its 16-row verify
    batch must launch K6 once a call (its count) and run no torch kernel,
    no copy (torch.profiler) and no ``torch.Generator``; its wall time and device work are printed
@@ -77,20 +80,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     top kernels, device work (as phase 6), and one more step with K1's
     scale computed by torch first.
 11. Speculative serving at full width through the serve CLI's engine:
-    phase 4's paged trace with ``--speculate-k 4`` at draft bitwidths 6,
-    7 and 8, then bitwidth 6 and the non-speculating engine under
-    ``--alloc-policy ondemand``, then ``--speculate-k 1``, with the
+    phase 4's paged trace cut to 4 requests of 32 + 16 tokens
+    (``SPEC_SERVE``: one batch of the 4 slots) with ``--speculate-k 4``
+    at draft bitwidths 6, 7 and 8, then bitwidth 6 and the
+    non-speculating engine under ``--alloc-policy ondemand``, then
+    ``--speculate-k 1``, with the
     non-speculating reserve engine first and last. Every run completes
-    8/8; K7 launches once per draft view built; K5 runs at S=k once
-    per layer per cycle; the ondemand pool ends full; the baselines, the
-    ondemand baseline and the k=1 run reproduce phase 4's streams
-    exactly. Accept rates, stream agreement with phase 4, tok/s and the
-    tok/s ratio to the two baseline runs are printed, not limited.
+    4/4; K7 launches once per draft view built; K5 runs at S=k once
+    per layer per cycle; the ondemand pool ends full; the last baseline,
+    the ondemand baseline and the k=1 run reproduce the first baseline's
+    streams exactly. Accept rates, stream agreement with the baseline,
+    tok/s and the tok/s ratio to the two baseline runs are printed, not
+    limited.
 12. At the smoke config on the card: a mixed greedy/seeded trace gives
     the speculating engine's streams equal to the baseline's, dense and
     ondemand.
 13. Profile 2 speculative cycles as phase 6 profiles decode steps.
-14. Measure why k>1 streams leave phase 4's: from 8 states of the paged
+14. Measure why k>1 streams leave phase 4's: from 4 states of the paged
     trace, 4 greedy one-token steps against one S=4 verify over the same
     tokens, counting differing tokens and differing per-tensor
     activation scales (printed, not limited). Then every K2 shape that
@@ -112,7 +118,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``dispatch.madam_step_unpacked`` it launches once per call.
 17. Approximation-aware training of smollm-135m at full width, from phase
     9's state and batch: one step each under ``QuantConfig.lns_madam()``
-    and ``approx_lut`` 8 and 1, then 3 more steps at LUT 1, with TF32 off.
+    and ``approx_lut`` 8 and 1, then 1 more step at LUT 1, with TF32 off.
     Losses finite; K3 launches 8 times a step, K1 and K2 none under the
     approximation; the LUT-8 loss equals the exact fake-quant forward's
     within ``APPROX_LOSS_RTOL``, printed beside an f64-accumulation floor,
@@ -200,8 +206,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     export (``--require-spec``) and the train export (``--train``). (f) A 2-request ``launch.serve --torch-profile``: its Chrome
     trace holds device events of K1, K2, K5 and K6.
 21. The dense variants at full width, random packed 8-bit LNS weights
-    from seed 0, each model's launch counts zeroed before its counted run
-    and read after. (a) gemma3-12b (48 layers, d 3840, head_dim 256,
+    from seed 0, each serve warmed by its first request for 2 tokens,
+    each model's launch counts zeroed before its counted run and read
+    after. (a) gemma3-12b (48 layers, d 3840, head_dim 256,
     vocab 262,144, untied; 5:1 local:global, sliding-window rings on the
     local layers) through the serve CLI's engine: phase 4's paged trace,
     then the dense layout: every request completes; every forward
@@ -221,6 +228,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
     period deep (6 layers), 4 x 256 tokens, remat on and then off: a
     finite loss, K1, K2 with its wgmma decode pass and K3 once a packed
     leaf; step time and peak memory printed.
+22. The modality stubs at full width, random packed 8-bit LNS weights
+    from seed 0, each serve warmed by its first request for 2 tokens,
+    then counted as 21a counts. (a) phi-3-vision-4.2b (32 layers, d
+    3072, 32 heads at head_dim 96, vocab 32,064, untied) paged, 8 x (32
+    + 32), 4 slots, page 16: every request completes; K2 (and K1) 225,
+    K5 32 and K6 1 launches a forward; the words' size, peak memory,
+    TPOT p50 and tok/s printed. (b) One forward 2 layers deep over 576
+    stub patches (``models.stubs``) and 64 text tokens, through the
+    kernels, the plain versions and an f64-GEMM floor: every position's
+    logits within ``LOGIT_RTOL`` of max |logit| (phase 5's rule). (c) One
+    train step at full width, 16 of 32 layers, 2 x (576 + 256), remat
+    on: a finite loss over the text positions, K3 once a packed leaf, the
+    peak printed. (d) musicgen-medium (48 layers, d 1536, 4 codebooks of
+    2,048) paged as (a) with (32, 4)-id prompts: every request completes,
+    K2 289, K5 48, K6 1 a forward, K6 at 16 rows a decode step (4 at a
+    prefill), every token 4 ids; then one request at temperature 0.8
+    served alone twice replays token for token, and in each of its K6
+    launches its 4 codebook rows carry ``codebook_seed``'s seeds and draw
+    pairwise different noise (rerun with ``noise_out``: equal to
+    ``ref.gumbel_noise``, the same tokens). (e) One musicgen train step
+    at full depth, 4 x 256 x 4: a finite loss, K3 once a packed leaf.
+    Then every K1 and K2 shape 22a-22e ran is held to the plain versions
+    (``k1_shapes_seen``, ``k2_shapes_seen``); K1 timed at both models'
+    decode activations (4 x 3072/8192/1536/6144); K2 at their decode
+    GEMMs beside ``torch.matmul`` bf16; K6 greedy, noise-in and seeded at
+    16 x 2048 and 4 x 32,064 beside ``torch.argmax``; K3 at 22c's largest
+    leaf (up/gate, 49,152 x 8192).
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -290,7 +324,11 @@ SERVE_PAGED = ["--requests", "8", "--slots", "4", "--prompt-len", "32",
                "--gen-len", "32", "--page-size", "16"]
 SERVE_DENSE = ["--requests", "4", "--slots", "4", "--prompt-len", "32",
                "--gen-len", "8"]
-# phase 11: the paged trace with speculation, by run name
+# phase 11: phase 4's paged trace cut to 4 requests (one batch of the 4
+# slots) of 32 + 16 tokens, with speculation, by run name; the first run
+# is the reference the others are held to
+SPEC_SERVE = ["--requests", "4", "--slots", "4", "--prompt-len", "32",
+              "--gen-len", "16", "--page-size", "16"]
 SPEC_K = 4
 SPEC_RUNS = [
     ("baseline", []),
@@ -327,7 +365,7 @@ SMEM_LOADS_PER_SM = 32
 # the same check as controls that must fail it, so LUT-4 factors in place
 # of LUT-8 ones would not pass
 APPROX_LOSS_RTOL = 1.1e-4
-APPROX_EXTRA_STEPS = 3
+APPROX_EXTRA_STEPS = 1
 # K6's operations an element, for its bound: greedy a compare; noise-in a
 # divide, an add and a compare; seeded also the noise (two mix32 rounds of
 # 8 integer ops, 4 more to key, shift and convert, 2 to scale, two logs
@@ -418,6 +456,40 @@ K5_HD256_CASES = [
     # two stages a warp exceed 227 KB here: one stage a warp
     ("gemma3 decode f32 pool page 16 hd 256", 2, 1, [60, 70], False,
      K5_HD256, {"pool": "float32"})]
+# K5 at phi-3-vision-4.2b's layers (32 heads over 32 KV heads, head_dim
+# 96), phase 3 and --modality
+K5_HD96 = (32, 32, 96)
+K5_HD96_CASES = [
+    ("phi-3-vision decode bf16 pool hd 96", 4, 1, [33, 48, 61, 66], False,
+     K5_HD96),
+    ("phi-3-vision decode packed pool hd 96", 4, 1, [33, 48, 61, 66], True,
+     K5_HD96),
+    ("phi-3-vision verify bf16 pool hd 96", 4, SPEC_K, [36, 45, 52, 63],
+     False, K5_HD96),
+    ("phi-3-vision verify packed pool hd 96", 4, SPEC_K, [36, 45, 52, 63],
+     True, K5_HD96),
+    ("phi-3-vision decode empty warps hd 96", 4, 1, [9, 1, 16, 5], True,
+     K5_HD96),
+    ("phi-3-vision decode f32 pool hd 96", 2, 1, [60, 70], False, K5_HD96,
+     {"pool": "float32"})]
+# phase 22: the decode GEMMs (M = 4 slots) of phi-3-vision (wq/wk/wv/wo,
+# up/gate, down, the untied head) and musicgen-medium (the same, ungated)
+PHI3V_DECODE_GEMMS = [(4, 3072, 3072), (4, 3072, 8192), (4, 8192, 3072),
+                      (4, 3072, 32064)]
+MUSICGEN_DECODE_GEMMS = [(4, 1536, 1536), (4, 1536, 6144), (4, 6144, 1536),
+                         (4, 1536, 8192)]
+# 22b: phi-3-vision's forward over the stub's patches and 64 text tokens,
+# cut to 2 of its 32 layers: over 640 positions the f64-accumulation
+# floor alone moves the random model's logits by 15.2% of max |logit| at
+# full depth and 11.7% at 8 layers, near or past LOGIT_RTOL, so no kernel
+# error could show there (PERF.md, phase 22);
+# 22c: its train step, cut to half depth (the store, its moments and the
+# update's new copies of 32 layers would pass 80 GB: ROADMAP 6.7)
+PHI3V_TEXT = 64
+PHI3V_LOGIT_LAYERS = 2
+PHI3V_TRAIN_LAYERS = 16
+PHI3V_TRAIN_SEQ = 256
+MUSICGEN_TRAIN_SEQ = 256
 # the packed leaves of smollm-135m as K7 re-grids them, in tree order
 K7_LEAVES = [("embed", (49152, 576)), ("wq", (30, 576, 576)),
              ("wk", (30, 576, 192)), ("wv", (30, 576, 192)),
@@ -555,22 +627,34 @@ def k1_edges(torch, ops, ref, fmt):
     return cases
 
 
+def device_kernels(torch, fn, tries=3):
+    """Names of the device kernels one call of ``fn`` runs, from
+    torch.profiler's device events. A capture holding no device event at
+    all (CUPTI recorded nothing, as a run's first capture on one H100
+    machine did) is taken again, up to ``tries`` captures in all."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
 def k1_one_launch(torch, ops, fmt):
     """One ``ops.encode_pack`` call issues K1's own kernel and no torch
     kernel, per tensor and per row (torch.profiler's device events)."""
-    from torch.profiler import ProfilerActivity, profile
     res = {}
     for R, C, axis in ((4, 1536, None), (2048, 1536, None),
                        (2048, 1536, 0)):
         x = torch.randn((R, C), device="cuda").to(torch.bfloat16)
         ops.encode_pack(x, fmt, axis)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            ops.encode_pack(x, fmt, axis)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = device_kernels(torch, lambda: ops.encode_pack(x, fmt, axis))
         check(names, "K1: the profiler saw no device event")
         check(len(names) == 1 and names[0].startswith("void k1_"),
               f"K1 {R}x{C} (scale_axis={axis}): one call ran {names}")
@@ -1053,7 +1137,7 @@ def k6_inputs(torch, B, V, gen):
     case, and host rows: row 0 greedy, the rest sampled."""
     import numpy as np
     lg = torch.randn((B, V), generator=gen, device="cuda") * 4.0
-    lg[0, 100] = lg[0, 20000] = 50.0
+    lg[0, 100] = lg[0, 20000 if V > 20000 else V - 1] = 50.0
     u = torch.rand((B, V), generator=gen, device="cuda").clamp_min(1e-30)
     gum = -torch.log(-torch.log(u))
     temp = np.array([0.0] + [0.7 + 0.2 * (b % 4) for b in range(1, B)],
@@ -1063,17 +1147,17 @@ def k6_inputs(torch, B, V, gen):
     return lg, gum, temp, seed, step
 
 
-def k6_check(torch, ops, ref):
-    """K6 against its plain version at the decode batch (4 x 49152) and
-    the verify's (16 x 49152), greedy, noise-in (the TPU kernel's
-    function, noise fed in) and seeded (noise drawn in the kernel): tokens
-    equal; the seeded noise_out equal to ``ref.gumbel_noise`` on the card
-    and within ``K6_NOISE_ATOL`` of it on the CPU."""
+def k6_check(torch, ops, ref, shapes=((4, 49152), (16, 49152))):
+    """K6 against its plain version at each ``(B, V)`` (by default the
+    decode batch, 4 x 49152, and the verify's, 16 x 49152), greedy,
+    noise-in (the TPU kernel's function, noise fed in) and seeded (noise
+    drawn in the kernel): tokens equal; the seeded noise_out equal to
+    ``ref.gumbel_noise`` on the card and within ``K6_NOISE_ATOL`` of it
+    on the CPU."""
     import numpy as np
     gen = torch.Generator(device="cuda").manual_seed(6)
     rows = []
-    for B in (4, 16):
-        V = 49152
+    for B, V in shapes:
         lg, gum, temp, seed, step = k6_inputs(torch, B, V, gen)
         # the plain versions take device rows (graph capture copies no
         # host memory)
@@ -1480,8 +1564,10 @@ def serve(torch, argv, ops, warm=True):
     """One full-width serving run through the CLI's own engine; returns
     (aggregate metrics, engine, launch counts of exactly this run).
     ``warm`` runs the trace once before the measured run (cuBLAS handles,
-    the allocator); without it the measured run also builds the engine's
-    draft views, whose K7 launches it then counts."""
+    the allocator), ``"short"`` only its first request for 2 tokens (the
+    prefill bucket and the decode step's shapes); without it the measured
+    run also builds the engine's draft views, whose K7 launches it then
+    counts."""
     from repro_torch.launch.serve import build_engine, parser
     from repro_torch.serving import synthetic_trace
 
@@ -1490,7 +1576,12 @@ def serve(torch, argv, ops, warm=True):
     trace = lambda: synthetic_trace(engine.cfg, requests=args.requests,
                                     prompt_len=args.prompt_len,
                                     gen_len=args.gen_len, seed=args.seed)
-    if warm:
+    if warm == "short":
+        first = trace()[0]
+        first.max_new_tokens = 2
+        engine.run([first])
+        engine.reset()
+    elif warm:
         engine.run(trace())
         engine.reset()
     torch.cuda.synchronize()
@@ -1523,21 +1614,24 @@ def k5_query_rows(ops):
         ops.paged_attend = launch
 
 
-def spec_serve(torch, ops, base):
-    """Phase 11: the paged trace with speculation (and the ondemand
-    runs) at full width, each held to phase 4's streams ``base``. The
-    non-speculating reserve engine runs first and last, unwarmed like
-    the rest, and tok/s ratios are taken to the mean of those two runs:
+def spec_serve(torch, ops):
+    """Phase 11: ``SPEC_SERVE`` (4 requests of 32 + 16 tokens, paged)
+    with speculation (and the ondemand runs) at full width,
+    each held to the streams of the first run, the non-speculating
+    reserve engine. That engine runs first and last, unwarmed like the
+    rest, and tok/s ratios are taken to the mean of those two runs:
     host-bound times drift within one call."""
-    base_streams = base["streams"]
     runs, engines = {}, {}
+    n_req = int(SPEC_SERVE[SPEC_SERVE.index("--requests") + 1])
+    base_streams = None
     for name, extra in SPEC_RUNS:
         with k5_query_rows(ops) as seen:
-            agg, eng, counts = serve(torch, SERVE_PAGED + extra, ops,
+            agg, eng, counts = serve(torch, SPEC_SERVE + extra, ops,
                                      warm=False)
         got = streams(eng)
-        check(agg["completed"] == 8, f"{name}: completed "
-              f"{int(agg['completed'])}/8 requests")
+        base_streams = base_streams or got
+        check(agg["completed"] == n_req, f"{name}: completed "
+              f"{int(agg['completed'])}/{n_req} requests")
         same = [rid for rid in base_streams if got[rid] == base_streams[rid]]
         first = [next((i for i, (a, b) in enumerate(zip(got[rid],
                                                          base_streams[rid]))
@@ -1573,25 +1667,26 @@ def spec_serve(torch, ops, base):
             prefills=eng.prefills, preemptions=eng.preemptions,
             decode_page_allocs=eng.decode_page_allocs,
             draft_views_built=views,
-            same_as_phase4=len(same) / len(base_streams),
+            same_as_baseline=len(same) / len(base_streams),
             first_divergence=min(first) if first else None)
         runs[name] = r
         sp = r["spec"] or {}
-        print(f"{name}: completed 8/8, {agg['tokens_per_s']:.2f} tok/s, "
+        print(f"{name}: completed {n_req}/{n_req}, "
+              f"{agg['tokens_per_s']:.2f} tok/s, "
               f"tpot p50 {agg['tpot_p50_s'] * 1e3:.1f} "
               f"ms, ttft mean {agg['ttft_mean_s'] * 1e3:.1f} ms; accept "
               f"rate {sp.get('spec_accept_rate')}, cycles "
               f"{sp.get('spec_cycles')}, fallbacks "
               f"{sp.get('spec_fallbacks')}, decode steps "
-              f"{eng.decode_steps}; streams equal to phase 4 for "
-              f"{len(same)}/8 (first divergence at token "
+              f"{eng.decode_steps}; streams equal to the baseline's for "
+              f"{len(same)}/{n_req} (first divergence at token "
               f"{r['first_divergence']}); K7 {counts['requant_pack']}, "
               f"K5 by S {dict(seen)}, preemptions {eng.preemptions}")
         engines[name] = eng
-    for name in ("baseline", "ondemand", "spec_k1_b6", "baseline_end"):
-        check(runs[name]["same_as_phase4"] == 1.0,
-              f"{name}: streams differ from phase 4's (first divergence at "
-              f"token {runs[name]['first_divergence']})")
+    for name in ("ondemand", "spec_k1_b6", "baseline_end"):
+        check(runs[name]["same_as_baseline"] == 1.0,
+              f"{name}: streams differ from the baseline's (first "
+              f"divergence at token {runs[name]['first_divergence']})")
     base_tps = (runs["baseline"]["agg"]["tokens_per_s"]
                 + runs["baseline_end"]["agg"]["tokens_per_s"]) / 2
     for name, r in runs.items():
@@ -1602,8 +1697,9 @@ def spec_serve(torch, ops, base):
               for name, r in runs.items()))
     print("random weights: the 30-layer 8-bit model is chaotic, and the "
           "per-tensor activation scales of a B*k verify batch differ from "
-          "a decode step's B rows, so a k=4 stream may leave phase 4's "
-          "at a near-tie; k=1 and the ondemand baseline may not")
+          "a decode step's B rows, so a k=4 stream may leave the baseline's "
+          "at a near-tie; k=1, the ondemand engine and a second baseline "
+          "engine may not")
     return runs, engines["spec_b6"]
 
 
@@ -1625,7 +1721,7 @@ def k1_scales(ops):
         ops.encode_pack = launch
 
 
-def verify_coupling(torch, ops, cycles=8):
+def verify_coupling(torch, ops, cycles=4):
     """Phase 14 (measured, not limited): from the states of the paged
     trace's baseline engine, k greedy S=1 steps against one S=k verify
     over the same tokens (the identity draft). Counts the positions whose
@@ -4142,22 +4238,26 @@ def gemms_per_forward(cfg):
     return cfg.num_layers * (6 + cfg.mlp_gated) + (not cfg.tie_embeddings)
 
 
-def variant_serve(torch, ops, arch, argv, tag):
+def variant_serve(torch, ops, arch, argv, tag, phase="21"):
     """One full-width serve of ``arch`` through the serve CLI's engine
     (a warm run, then the counted one); returns the summary row and the
     engine. Every request completes, and every forward launches K2 on
     every projection (the head included when untied), K5 once a
     full-context layer (none on ring layers), and K6 once a sampled
-    token."""
+    token (all of a step's rows, every codebook's, in one launch).
+    ``phase`` labels the lines (21, 22). The warm-up is the trace's first
+    request for 2 tokens (``serve``'s ``"short"``)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    agg, engine, counts = serve(torch, ["--arch", arch] + argv, ops)
+    agg, engine, counts = serve(torch, ["--arch", arch] + argv, ops,
+                                warm="short")
     secs = time.monotonic() - t0
     cfg = engine.cfg
     n_req = int(argv[argv.index("--requests") + 1])
     check(agg["completed"] == n_req,
-          f"21 {tag}: {int(agg['completed'])}/{n_req} requests completed")
+          f"{phase} {tag}: {int(agg['completed'])}/{n_req} requests "
+          f"completed")
     fwd = engine.decode_steps + engine.prefills
     prefix, n_periods, period = cfg.layer_pattern()
     full_ctx = sum(k != "local" for k in prefix) \
@@ -4167,10 +4267,11 @@ def variant_serve(torch, ops, arch, argv, tag):
             "paged_attend": full_ctx * fwd if paged else 0,
             "fused_sample": fwd}
     for k, n in want.items():
-        check(counts[k] == n, f"21 {tag}: {k} launched {counts[k]} times, "
+        check(counts[k] == n, f"{phase} {tag}: {k} launched {counts[k]} "
+              f"times, "
               f"expected {n} ({fwd} forwards)")
     check(counts["encode_pack"] == counts["qmatmul"],
-          f"21 {tag}: K1 launched {counts['encode_pack']} times for "
+          f"{phase} {tag}: K1 launched {counts['encode_pack']} times for "
           f"{counts['qmatmul']} K2 GEMMs")
     peak = torch.cuda.max_memory_allocated()
     size = packed_bytes(engine.params)
@@ -4183,7 +4284,7 @@ def variant_serve(torch, ops, arch, argv, tag):
            "launches": counts, "k5_layers_a_forward": full_ctx if paged
            else 0, "weights_gb": size / 1e9, "peak_gb": peak / 1e9,
            "seconds": secs}
-    print(f"21 {tag}: {arch} {row['layout']} {row['completed']}/{n_req} "
+    print(f"{phase} {tag}: {arch} {row['layout']} {row['completed']}/{n_req} "
           f"requests, {agg['tokens_per_s']:.1f} tok/s, tpot p50 "
           f"{row['tpot_p50_ms']:.2f} ms, {fwd} forwards, launches {counts}; "
           f"weights {size / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} GB "
@@ -4489,13 +4590,14 @@ def gemma3_draft_view(torch, ops, ref, engine):
             "bound_by": by}
 
 
-def k3_large_leaf(torch, ops, ref, R, C):
-    """K3 at the largest leaf of 21e's train step (gemma3-12b's embedding
-    and head, 1.0e9 16-bit words in int32, bf16 gradients) against its
-    plain version, computed a block of rows at a time: v' bit-equal,
-    words equal away from the near-ties (``k34_check``'s rule). Timed
-    with CUDA events around single launches: 8 GB of outputs a call is
-    too much for a graph of repeats."""
+def k3_large_leaf(torch, ops, ref, R, C, what="21e's largest leaf"):
+    """K3 at the largest leaf of a train step (21e: gemma3-12b's embedding
+    and head, 1.0e9 16-bit words in int32; 22c: phi-3-vision's stacked
+    up/gate, 16 x 3072 x 8192), bf16 gradients, against its plain
+    version, computed a block of rows at a time: v' bit-equal, words
+    equal away from the near-ties (``k34_check``'s rule). Timed with CUDA
+    events around single launches: gigabytes of outputs a call are too
+    much for a graph of repeats."""
     from repro_torch.core.lns import LNSFormat
     fmt, bits = LNSFormat(16, 2048), 16
     gen = torch.Generator(device="cuda").manual_seed(9)
@@ -4542,7 +4644,7 @@ def k3_large_leaf(torch, ops, ref, R, C):
     n = R * C
     b, by = bound_ms(n * (2 * 4 + 2 + 2 * 4), 15 * n, F32_FLOPS)
     ms = min(times)
-    print(f"K3 madam_step {R}x{C} B=16 g bf16 (21e's largest leaf): v' "
+    print(f"K3 madam_step {R}x{C} B=16 g bf16 ({what}): v' "
           f"equal, words differing at ties {ties} (near-tie {near_n}), "
           f"kernel {ms:.3f} ms (one launch, CUDA events), plain "
           f"{plain_ms:.3f} ms (in blocks of {rows} rows), bound {b:.3f} ms "
@@ -4645,6 +4747,276 @@ def dense_variants(torch, ops, ref, fmt, card):
     return out
 
 
+@contextlib.contextmanager
+def k6_rows_seen(ops):
+    """Record every K6 launch's rows (greedy and seeded), and the inputs
+    and tokens of its seeded launches (the wrappers still count every
+    launch themselves)."""
+    seen = {"rows": collections.Counter(), "seeded": []}
+    greedy, seeded = ops.fused_sample, ops.fused_sample_seeded
+
+    def record(lg, *args, **kw):
+        seen["rows"][lg.shape[0]] += 1
+        return greedy(lg, *args, **kw)
+
+    def record_seeded(lg, temp, seed, step, **kw):
+        seen["rows"][lg.shape[0]] += 1
+        out = seeded(lg, temp, seed, step, **kw)
+        toks = out[0] if isinstance(out, tuple) else out
+        seen["seeded"].append((lg.clone(), temp.copy(), seed.copy(),
+                               step.copy(), toks.clone()))
+        return out
+
+    ops.fused_sample, ops.fused_sample_seeded = record, record_seeded
+    try:
+        yield seen
+    finally:
+        ops.fused_sample, ops.fused_sample_seeded = greedy, seeded
+
+
+def patch_logits_check(torch, engine):
+    """22b: one phi-3-vision forward at full width, ``PHI3V_LOGIT_LAYERS``
+    deep (random packed 8-bit weights from seed 0, as the serve CLI draws
+    them), over ``num_patches`` stub patches and ``PHI3V_TEXT`` text
+    tokens (batch 1, 640 positions: K2 on its wgmma path), through the
+    kernels, the plain versions, and the plain versions with an
+    f64-accumulating GEMM (the noise floor): at every position the logits
+    within ``LOGIT_RTOL`` of the plain version's max |logit|, and the
+    greedy token equal where the plain version's top-2 margin exceeds
+    that (phase 5's rule)."""
+    import dataclasses
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.models.stubs import vision_patches_stub
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    cfg = dataclasses.replace(engine.cfg, num_layers=PHI3V_LOGIT_LAYERS)
+    qcfg = engine.qcfg
+    params = init_params(cfg, seed=0, device="cuda", leaf_fn=lns_leaf_encoder(
+        MadamConfig(update_format=LNSFormat(8, 8))))
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    patches = vision_patches_stub(gen, 1, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, PHI3V_TEXT), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    n_pos = cfg.num_patches + PHI3V_TEXT
+
+    def run():
+        with torch.no_grad():
+            lg = forward(params, tokens, cfg, qcfg,
+                         patches=patches)[0].float()
+        check(lg.shape == (n_pos, cfg.vocab_size)
+              and bool(torch.isfinite(lg).all()),
+              f"22b: logits {tuple(lg.shape)} not finite or misshaped")
+        return lg
+
+    with plain_versions(dispatch, ref):
+        plain = run()
+        dispatch.qmatmul = qmatmul_f64
+        floor_run = run()
+    kern = run()
+    top = float(plain.abs().max())
+    tol = LOGIT_RTOL * top
+    err = float((plain - kern).abs().max())
+    floor = float((plain - floor_run).abs().max())
+    check(err <= tol, f"22b: patch-prefix logits err {err} > {tol}")
+    top2 = torch.topk(plain, 2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol
+    same = plain.argmax(-1) == kern.argmax(-1)
+    check(bool(same[clear].all()), f"22b: greedy tokens differ at "
+          f"{int((~same & clear).sum())} positions beyond the margin")
+    text_err = float((plain[cfg.num_patches:] - kern[cfg.num_patches:])
+                     .abs().max())
+    print(f"22b: phi-3-vision {cfg.num_layers} of "
+          f"{engine.cfg.num_layers} layers, "
+          f"{cfg.num_patches} stub patches + {PHI3V_TEXT} text tokens: "
+          f"kernels vs plain max err {err / top:.4f} of max |logit| (text "
+          f"positions {text_err / top:.4f}; limit {LOGIT_RTOL}); floor "
+          f"(plain, f64 GEMM accumulation) {floor / top:.4f}; greedy tokens "
+          f"checked at {int(clear.sum())} of {n_pos} positions")
+    return {"positions": n_pos, "layers": cfg.num_layers,
+            "max_rel_err": err / top, "text_max_rel_err": text_err / top,
+            "floor_rel_err": floor / top, "margin_positions": int(clear.sum())}
+
+
+def modality_train(torch, ops, arch, layers, batch, seq, tag):
+    """22c/22e: one train step of ``arch`` at full width, ``layers`` deep,
+    ``batch`` x ``seq`` text positions (phi-3-vision adds its 576 stub
+    patches in front; musicgen's tokens are (B, S, 4)), remat on: a
+    finite loss over the text positions, K1 and K2 launched and K3 once a
+    packed leaf; the peak allocated memory printed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import is_lns_weight
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import (batch_to_device, build_train_step,
+                                            init_train_state)
+    from repro_torch.tree import leaves
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    mcfg = MadamConfig()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch_np = SyntheticLM(cfg, batch=batch, seq=seq).batch_at(0)
+    data = batch_to_device(batch_np, "cuda")
+    state = init_train_state(cfg, mcfg, seed=0, device="cuda")
+    n_leaves = sum(is_lns_weight(x) and x.ndim >= 2
+                   for _, x in leaves(state.params))
+    n_params = cfg.params_count()
+    step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg, remat=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    state, met = step(state, data)
+    loss = float(met["loss"])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(math.isfinite(loss), f"{tag}: loss {loss}")
+    check(counts["encode_pack"] > 0 and counts["qmatmul"] > 0,
+          f"{tag}: K1/K2 not launched: {counts}")
+    check(counts["madam_step"] == n_leaves,
+          f"{tag}: K3 launched {counts['madam_step']} times for "
+          f"{n_leaves} packed leaves")
+    shapes = {k: list(v.shape) for k, v in batch_np.items()}
+    where = " over the text positions" if "patches" in batch_np else ""
+    print(f"{tag}: {arch} {layers} layers, batch {shapes}, remat on: loss "
+          f"{loss:.4f}{where}, step {secs:.2f}s (first call), "
+          f"{n_params / 1e9:.3f}e9 parameters, peak allocated "
+          f"{peak / 1e9:.2f} GB ({peak / n_params:.1f} B a parameter), "
+          f"launches {counts}")
+    del state, met, data
+    return {"layers": layers, "batch": shapes, "loss": loss, "step_s": secs,
+            "params": n_params, "peak_gb": peak / 1e9,
+            "bytes_per_param": peak / n_params, "launches": counts,
+            "packed_leaves": n_leaves}
+
+
+def musicgen_seeded(torch, ops, ref, engine, k6_seen):
+    """22d, seeded: one musicgen request at temperature 0.8 (seed 11)
+    served alone twice replays token for token; in its K6 launches the
+    four codebook rows of its slot carry pairwise different seeds
+    (``codebook_seed``) and, rerun with ``noise_out``, draw pairwise
+    different noise, equal to ``ref.gumbel_noise`` on the card, and the
+    tokens the engine got."""
+    import numpy as np
+    from repro_torch.server.sampling import SamplingParams, codebook_seed
+    from repro_torch.serving import Request, synthetic_trace
+    K = engine.cfg.num_codebooks
+    prompt = synthetic_trace(engine.cfg, requests=1, prompt_len=32,
+                             gen_len=32, seed=5)[0].prompt
+    sp = SamplingParams(temperature=0.8, seed=11)
+    got = []
+    for _ in range(2):
+        engine.reset()
+        k6_seen["seeded"].clear()
+        engine.run([Request(rid=0, prompt=prompt, max_new_tokens=32,
+                            sampling=sp)])
+        got.append(engine.finished[0].generated)
+    check(got[0] == got[1] and len(got[0]) == 32,
+          f"22d seeded: the replay differs ({len(got[0])} tokens)")
+    # the reruns below are recorded too: walk the engine's launches only
+    launches = list(k6_seen["seeded"])
+    check(launches, "22d seeded: no seeded K6 launch")
+    distinct = 0
+    for lg, temp, seed, step, toks in launches:
+        rows = np.flatnonzero(temp > 0)
+        check(len(rows) == K and len(set(seed[rows].tolist())) == K,
+              f"22d seeded: the sampled slot's rows {rows} carry seeds "
+              f"{seed[rows].tolist()}")
+        check(np.array_equal(seed[rows], codebook_seed(
+            np.full(K, sp.seed), np.arange(K))),
+              "22d seeded: the seeds are not codebook_seed's")
+        again, noise = ops.fused_sample_seeded(lg, temp, seed, step,
+                                               noise_out=True)
+        check(torch.equal(again, toks), "22d seeded: a rerun with noise_out "
+              "gives other tokens")
+        check(torch.equal(noise, ref.gumbel_noise(seed, step, lg.shape[1],
+                                                  "cuda")),
+              "22d seeded: noise_out differs from ref.gumbel_noise")
+        for a in range(K):
+            for b in range(a + 1, K):
+                check(not torch.equal(noise[rows[a]], noise[rows[b]]),
+                      f"22d seeded: codebooks {a} and {b} drew the same "
+                      f"noise")
+        distinct += 1
+    print(f"22d seeded: musicgen-medium, one request at temperature 0.8 "
+          f"served twice alone: 32/32 sample events replayed token for "
+          f"token; in {distinct} seeded K6 launches its {K} codebooks drew "
+          f"pairwise different noise (seeds {seed[rows].tolist()})")
+    return {"replayed_tokens": len(got[0]), "seeded_launches": distinct}
+
+
+def modality(torch, ops, ref, fmt, card):
+    """Phase 22: the modality stubs at full width on the card. Every K1
+    and K2 call of 22a-22e is recorded, and after them each shape is held
+    against the plain version; K2 at both models' decode GEMMs and K6 at
+    their decode batches are timed beside torch, and K3 runs at
+    phi-3-vision's largest leaf."""
+    t0 = time.monotonic()
+    marks = [("start", t0)]
+    mark = lambda name: marks.append((name, time.monotonic()))
+    print(f"phase 22 (modality stubs) on {card}")
+    out = {}
+    with k1_shapes_seen(torch, ops) as k1_seen, \
+            k2_shapes_seen(torch, ops) as k2_seen, \
+            k6_rows_seen(ops) as k6_seen:
+        row, engine = variant_serve(torch, ops, "phi-3-vision-4.2b",
+                                    SERVE_PAGED, "22a paged", phase="22")
+        out["phi3v_paged"] = row
+        mark("22a")
+        out["phi3v_patch_logits"] = patch_logits_check(torch, engine)
+        del engine
+        mark("22b")
+        out["phi3v_train"] = modality_train(
+            torch, ops, "phi-3-vision-4.2b", PHI3V_TRAIN_LAYERS, 2,
+            PHI3V_TRAIN_SEQ, "22c")
+        mark("22c")
+        k6_seen["rows"].clear()
+        row, engine = variant_serve(torch, ops, "musicgen-medium",
+                                    SERVE_PAGED, "22d paged", phase="22")
+        K = engine.cfg.num_codebooks
+        # one K6 launch a forward (variant_serve): a decode step's takes
+        # 4 slots x K codebooks rows, a prefill's its one slot's K
+        rows = k6_seen["rows"]
+        check(set(rows) == {K, 4 * K},
+              f"22d: K6 launches by rows {dict(rows)}, not {K} (prefill) "
+              f"and {4 * K} (decode)")
+        gen = [len(t) for rs in engine.finished for t in rs.generated]
+        check(set(gen) == {K}, f"22d: generated tokens of widths {set(gen)}")
+        row["k6_rows"] = dict(k6_seen["rows"])
+        out["musicgen_paged"] = row
+        out["musicgen_seeded"] = musicgen_seeded(torch, ops, ref, engine,
+                                                 k6_seen)
+        del engine
+        mark("22d")
+        out["musicgen_train"] = modality_train(
+            torch, ops, "musicgen-medium", 48, 4, MUSICGEN_TRAIN_SEQ, "22e")
+        mark("22e")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k1_driven"] = k1_driven_check(torch, ops, ref, fmt, k1_seen)
+    out["k2_driven"] = k2_driven_check(torch, ops, ref, fmt, k2_seen)
+    out["decode_k1"] = k1_check(torch, ops, ref, fmt, [
+        (4, 3072), (4, 8192), (4, 1536), (4, 6144)])
+    out["decode_k2"] = k2_check(torch, ops, ref, fmt, PHI3V_DECODE_GEMMS
+                                + MUSICGEN_DECODE_GEMMS)
+    out["decode_k6"] = k6_check(torch, ops, ref, [(16, 2048), (4, 32064)])
+    torch.cuda.empty_cache()
+    out["phi3v_k3"] = k3_large_leaf(torch, ops, ref, PHI3V_TRAIN_LAYERS * 3072,
+                                    8192, "22c's largest leaf, up/gate")
+    torch.cuda.empty_cache()
+    mark("22 kernels")
+    secs = time.monotonic() - t0
+    parts = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    print(f"phase 22 took {secs:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
+    out.update(seconds=secs, seconds_by_part=parts)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4658,12 +5030,16 @@ def main() -> int:
                   "paged_attend_hd256": k5_check(torch, ops, ref, fmt,
                                                  K5_HD256_CASES),
                   **dense_variants(torch, ops, ref, fmt,
-                                   card.stdout.strip())}}
+                                   card.stdout.strip())},
+              "--modality": lambda torch, ops, ref, fmt: {
+                  "paged_attend_hd96": k5_check(torch, ops, ref, fmt,
+                                                K5_HD96_CASES),
+                  **modality(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
               f"--k6-sweep | --k8-sweep | --serving | --obs | "
-              f"--dense-variants]",
+              f"--dense-variants | --modality]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -4761,7 +5137,7 @@ def main() -> int:
         # two stages a warp exceed 227 KB here: one stage a warp
         ("decode f32 pool page 32 hd 128", 2, 1, [100, 160], False,
          (8, 2, 128), {"PAGE": 32, "pool": torch.float32})]
-        + K5_HD256_CASES)
+        + K5_HD256_CASES + K5_HD96_CASES)
     k6 = k6_check(torch, ops, ref)
     sampler = sampler_check(torch, ops, ref)
     k7 = k7_check(torch, ops, ref)
@@ -4813,15 +5189,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mark("7-10")
-    spec_runs, spec_engine = spec_serve(torch, ops, paged)
+    spec_runs, spec_engine = spec_serve(torch, ops)
+    mark("11")
     smoke = smoke_spec(torch)
+    mark("12")
     spec_prof = profile_spec(torch, spec_engine,
                              prof["wall_ms_per_step"])
     del spec_engine
+    mark("13")
     coupling = verify_coupling(torch, ops)
     k2_seen_ctx.__exit__(None, None, None)
     torch.cuda.empty_cache()
-    mark("11-14")
+    mark("14")
     k2_driven = k2_driven_check(torch, ops, ref, fmt, k2_seen)
 
     mark("K2 driven")
@@ -4851,6 +5230,9 @@ def main() -> int:
     mark("20")
     variants = dense_variants(torch, ops, ref, fmt, card.stdout.strip())
     mark("21")
+    torch.cuda.empty_cache()
+    modal = modality(torch, ops, ref, fmt, card.stdout.strip())
+    mark("22")
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -4913,7 +5295,7 @@ def main() -> int:
             "table10": table10, "k8_rate_inputs": k8_rate_inputs,
             "approx_train": approx, "baselines": paper,
             "online_serving": online, "observability": observed,
-            "dense_variants": variants,
+            "dense_variants": variants, "modality": modal,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense decoders."""
+"""Architecture registry of the port: the dense decoders and the
+modality stubs (phi-3-vision, musicgen)."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,8 @@ ARCHS: Dict[str, str] = {
     "qwen2.5-32b": "qwen2_5_32b",
     "granite-8b": "granite_8b",
     "smollm-135m": "smollm_135m",
+    "phi-3-vision-4.2b": "phi3_vision_4_2b",
+    "musicgen-medium": "musicgen_medium",
 }
 
 

@@ -40,9 +40,13 @@
 //   Packed words decode through a 2^(B-1)-entry exp2f table in
 //   shared memory (bit-equal to exp2f per element) times the row's scale,
 //   in the plain version's order.
-// Instantiated at head_dim 16, 32, 64, 128 and 256 (gemma3's global
-// layers: a lane holds 8 dims of each of the 4 rows' accumulators, and a
-// bf16 K row is 32 16-byte pieces).
+// Instantiated at head_dim 16, 32, 64, 96, 128 and 256. 96 is
+// phi-3-vision's: 3 x 32, so every lane holds 3 dims of each row in P.V
+// (the `HD % 32 == 0` guards hold), and a row is 6 (u8), 12 (bf16) or 24
+// (f32) 16-byte pieces, which the SUB = 32 / P lanes of a position cover
+// as pieces sh, sh + SUB, ... (at page 16, SUB = 2: 3, 6 or 12 each).
+// 256 is gemma3's global layers: a lane holds 8 dims of each of the 4
+// rows' accumulators, and a bf16 K row is 32 16-byte pieces.
 // Splitting one row's KV over several blocks (flash-decoding) is not done:
 // at the trace's lengths (<= 96 positions, <= 6 pages) one block per group
 // holds enough pages for its four warps. Masked positions are skipped,
@@ -430,6 +434,7 @@ REPRO_EXPORT int repro_paged_attend(
     case 16: BY_KIND(16); break;
     case 32: BY_KIND(32); break;
     case 64: BY_KIND(64); break;
+    case 96: BY_KIND(96); break;
     case 128: BY_KIND(128); break;
     case 256: BY_KIND(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -22,6 +22,11 @@ Online (``--http HOST:PORT``): serves the asyncio gateway
       '{"prompt": [1,2,3], "max_tokens": 8, "stream": true}'
 
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
+``--arch`` takes every ported config: musicgen-medium's trace has
+``(len, 4)`` prompts and its tokens are one id a codebook (it refuses
+``--speculate-k``); phi-3-vision-4.2b serves its text trunk.
+
+  python -m repro_torch.launch.serve --arch musicgen-medium --page-size 16
 
 Observability: ``--trace-dir DIR`` attaches an ``EngineObserver`` (request
 spans and the step timeline), prints the run's time breakdown and exports
@@ -42,7 +47,7 @@ import contextlib
 
 import torch
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.lns import LNSFormat
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.kernels import ops
@@ -105,7 +110,8 @@ def serve_http(engine: Engine, http: str, model: str,
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="one of " + ", ".join(sorted(ARCHS)))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,

@@ -12,7 +12,10 @@ prints the parameter count, then throughput and the loss trajectory.
 the LNS store that Madam steps) or ``fp32``. ``--device cpu`` runs the
 plain PyTorch versions of the kernels (use it with ``--smoke``). Without
 ``--ckpt-dir`` the checkpoints go to a temporary directory that is
-removed at the end.
+removed at the end. ``--arch phi-3-vision-4.2b`` trains on
+``SyntheticLM``'s 576 patches a row in front of ``--seq`` text tokens
+(the loss covers the text), ``--arch musicgen-medium`` on (B, S, 4)
+codebook tokens.
 
 Observability: ``--trace-dir``, ``--numerics-log`` or ``--quiet=false``
 attach a ``NumericsObserver`` and build the step with ``numerics=True``
@@ -35,7 +38,7 @@ import contextlib
 import tempfile
 import time
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.checkpoint import CheckpointManager
@@ -49,7 +52,8 @@ from repro_torch.tree import leaves
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="one of " + ", ".join(sorted(ARCHS)))
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU scale)")
     ap.add_argument("--steps", type=int, default=50)

@@ -69,12 +69,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal online-softmax attention over KV blocks of ``block_k``,
     each query seeing the last ``window`` positions when one is given.
     q, k, v: (B, S, H, D) with the KV heads already repeated. f32 inside,
-    ``q.dtype`` out."""
+    ``q.dtype`` out. A KV length that ``block_k`` does not divide ends in
+    a shorter block (the JAX package asserts that it divides: phi-3-vision's
+    576 patches plus 64 or 256 text positions do not tile by 512, ROADMAP
+    H15); where it divides, the blocks are the JAX package's."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     block_k = min(block_k, Skv)
-    if Skv % block_k:
-        raise ValueError(f"KV length {Skv} must tile by {block_k}")
     qf = q.to(torch.float32) * (1.0 / math.sqrt(D))
     q_pos = torch.arange(Sq, device=q.device)
     m = torch.full((B, H, Sq), -1e30, dtype=torch.float32, device=q.device)
@@ -85,7 +86,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for start in range(0, Skv, block_k):
         k_blk = k[:, start:start + block_k].to(torch.float32)
         v_blk = v[:, start:start + block_k].to(torch.float32)
-        k_pos = start + torch.arange(block_k, device=q.device)
+        k_pos = start + torch.arange(k_blk.shape[1], device=q.device)
         logits = _softcap(torch.einsum("bqhd,bkhd->bhqk", qf, k_blk), softcap)
         mask = _mask(q_pos, k_pos, window)                        # (Sq, blk)
         logits = torch.where(mask[None, None], logits, neg)

@@ -1,4 +1,5 @@
-"""The architecture config of the port (the dense decoder family)."""
+"""The architecture config of the port: the dense decoder family and the
+two modality stubs whose trunks are dense (``vlm``, ``audio``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,6 +9,10 @@ import torch
 
 __all__ = ["ArchConfig"]
 
+# families whose trunk is the dense decoder (JAX's ``layer_pattern`` gives
+# them all ``dense`` layers, or gemma3's local/global pattern)
+_FAMILIES = ("dense", "vlm", "audio")
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
@@ -16,7 +21,12 @@ class ArchConfig:
     dense family, a gated or ungated MLP (``mlp_gated``, ``act_fn``),
     tied or untied embeddings, QKV bias, qk-norm, a local:global layer
     pattern with sliding-window local layers and a second rope theta on
-    the global ones, the embedding scale and a final logit softcap."""
+    the global ones, the embedding scale and a final logit softcap; and
+    the modality stubs: ``vlm`` (phi-3-vision: ``num_patches``
+    precomputed patch embeddings in front of the text) and ``audio``
+    (musicgen: ``num_codebooks`` token streams, one embedding and head
+    block of ``vocab_size`` rows each). Both lay their trunks out as
+    ``dense``."""
 
     name: str
     family: str
@@ -42,6 +52,9 @@ class ArchConfig:
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
     embed_scale: bool = False         # gemma: scale embeddings by sqrt(d)
+    # --- modality stubs ---
+    num_patches: int = 0              # phi-3-vision prefix
+    num_codebooks: int = 0            # musicgen
     # store the KV cache as packed LNS words (+ a per-position, per-head
     # scale) at this many bits; None keeps it in the compute dtype
     kv_cache_bits: Optional[int] = None
@@ -49,9 +62,10 @@ class ArchConfig:
     dtype: str = "bfloat16"
 
     def __post_init__(self):
-        if self.family != "dense":
+        if self.family not in _FAMILIES:
             raise NotImplementedError(
-                f"family {self.family!r}: only the dense decoder is ported")
+                f"family {self.family!r}: the port has the "
+                f"{', '.join(_FAMILIES)} families")
 
     @property
     def compute_dtype(self) -> torch.dtype:
@@ -84,5 +98,6 @@ class ArchConfig:
         if self.qk_norm:
             attn += 2 * hd
         block = attn + d * self.d_ff * (3 if self.mlp_gated else 2) + 2 * d
-        head = 0 if self.tie_embeddings else d * self.vocab_size
-        return self.vocab_size * d + head + d + self.num_layers * block
+        rows = self.vocab_size * (self.num_codebooks or 1)
+        head = 0 if self.tie_embeddings else d * rows
+        return rows * d + head + d + self.num_layers * block

@@ -94,7 +94,32 @@ def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     rows: decoding is elementwise, so this equals gathering from the
     decoded table (``delta`` included). The scale is rounded to the
     compute dtype before the product, as the JAX package's weakly typed
-    constant is."""
+    constant is.
+
+    With ``cfg.num_codebooks`` = K, ``tokens`` is ``(B, S, K)`` and the
+    table holds K blocks of ``vocab_size`` rows: codebook k's row sits at
+    ``k * vocab_size + token``, and the K rows of a position are summed
+    in f32, codebook 0 first, then rounded once to the compute dtype, as
+    the JAX package's ``jnp.sum`` of the gathered rows is on the CPU."""
+    if cfg.num_codebooks:
+        offsets = torch.arange(cfg.num_codebooks, device=tokens.device) \
+            * cfg.vocab_size
+        rows = _gather(table, tokens + offsets, cfg).to(torch.float32)
+        x = rows[..., 0, :]
+        for k in range(1, cfg.num_codebooks):
+            x = x + rows[..., k, :]
+    else:
+        x = _gather(table, tokens, cfg)
+    x = x.to(cfg.compute_dtype)
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _gather(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """``table[tokens]`` in the compute dtype, decoding a packed table's
+    gathered rows only."""
     if is_lns_weight(table):
         rows = lns_decode_packed(table.packed[tokens], table.fmt,
                                  torch.float32)
@@ -103,8 +128,4 @@ def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
             x = x + table.delta[tokens].to(cfg.compute_dtype)
     else:
         x = table[tokens]
-    x = x.to(cfg.compute_dtype)
-    if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
-    return x
+    return x.to(cfg.compute_dtype)

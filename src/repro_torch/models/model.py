@@ -11,8 +11,11 @@ the 2-D slices of a stacked packed leaf route through the kernels.
 
 Layer kinds: ``dense`` (full-context attention), and gemma3's ``local``
 (sliding window, ring cache) and ``global`` (full context, its own rope
-theta). ``forward(remat=True)`` recomputes each layer in the backward
-pass (``torch.utils.checkpoint``) instead of keeping its activations.
+theta). The modality stubs' trunks are the dense one: phi-3-vision's
+patch prefix and musicgen's codebooks change only the embedding, the
+head and the loss. ``forward(remat=True)`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``) instead of keeping its
+activations.
 """
 from __future__ import annotations
 
@@ -64,10 +67,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
                 leaf_fn: Optional[Callable] = None) -> Dict[str, Any]:
     """Random dense parameters from a ``torch.Generator`` seeded with
     ``seed``: truncated normals (std 1/sqrt(fan_in), embeddings and an
-    untied head ``embed.head (d, V)`` 0.02), zero norm gains and biases,
-    as the JAX package draws them; no ``gate`` when the MLP is ungated.
-    The draw order: every layer stack's MLP, the embedding, every
-    stack's attention, the head. The two frameworks' streams differ;
+    untied head ``embed.head (d, V)`` 0.02; with K codebooks the table
+    has ``K * V`` rows and the head ``K * V`` columns), zero norm gains
+    and biases, as the JAX package draws them; no ``gate`` when the MLP
+    is ungated. The draw order: every layer stack's MLP, the embedding,
+    every stack's attention, the head. The two frameworks' streams differ;
     carry JAX parameters across with ``repro_torch.convert`` where the
     same weights are needed.
 
@@ -101,8 +105,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
             mlp["gate"] = dense(path + ("mlp", "gate"), n, d, f)
         mlp["down"] = dense(path + ("mlp", "down"), n, f, d)
         mlps[path] = mlp
+    rows = cfg.vocab_size * (cfg.num_codebooks or 1)   # K blocks of V rows
     embed = {"tok": fn(("embed", "tok"), _trunc_normal(
-        (cfg.vocab_size, d), 0.02, dt, gen, dev))}
+        (rows, d), 0.02, dt, gen, dev))}
     params: Dict[str, Any] = {"embed": embed,
                               "final_norm": zeros(("final_norm",), d)}
     blocks = {}
@@ -119,7 +124,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
                         "mlp": mlps[path]}
     if not cfg.tie_embeddings:     # drawn last: tied configs keep their draws
         embed["head"] = fn(("embed", "head"), _trunc_normal(
-            (d, cfg.vocab_size), 0.02, dt, gen, dev))
+            (d, rows), 0.02, dt, gen, dev))
     if prefix:
         params["prefix"] = [blocks[("prefix", i)] for i in range(len(prefix))]
     if n_periods:
@@ -185,18 +190,25 @@ def lm_head(params, cfg: ArchConfig):
 
 def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             qcfg: Optional[QuantConfig] = None, *,
+            patches: Optional[torch.Tensor] = None,
             caches: Optional[Dict[str, Any]] = None,
             pos_offset=0, block_tables: Optional[torch.Tensor] = None,
             head: Optional[torch.Tensor] = None,
             remat: bool = False) -> torch.Tensor:
-    """Run the decoder over ``tokens (B, S)``. Without ``caches``
-    (training) the sequence attends causally to itself; with them (append
-    mode) the new positions are written into ``caches`` in place.
+    """Run the decoder over ``tokens (B, S)``, or ``(B, S, K)`` with K
+    codebooks. ``patches (B, P, d_model)`` (phi-3-vision's precomputed
+    patch embeddings) go in front of the token embeddings, cast to the
+    compute dtype and not scaled, and the positions run over both.
+    Without ``caches`` (training) the sequence attends causally to
+    itself; with them (append mode) the new positions are written into
+    ``caches`` in place.
     ``pos_offset`` is a scalar or a (B,) tensor of per-row offsets.
     ``remat`` (training only) recomputes each layer in the backward pass.
-    Returns logits ``(B, S, V)``, softcapped by
-    ``cfg.final_logit_softcap``."""
+    Returns logits ``(B, P + S, V)`` (``K * V`` with codebooks),
+    softcapped by ``cfg.final_logit_softcap``."""
     x = embed_lookup(params["embed"]["tok"], tokens, cfg)
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
     S = x.shape[1]
     off = torch.as_tensor(pos_offset, device=x.device)
     positions = (off[..., None] + torch.arange(S, device=x.device)).to(
@@ -235,9 +247,21 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             qcfg: Optional[QuantConfig] = None, *,
             remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (the dense family has no auxiliary loss)."""
-    logits = forward(params, batch["tokens"], cfg, qcfg, remat=remat)
-    return _xent(logits, batch["labels"])
+    ``batch["labels"]`` (the dense trunk has no auxiliary loss). With
+    ``batch["patches"]`` the patch positions are run and then dropped:
+    the loss covers the text positions only. With K codebooks the
+    logits ``(B, S, K * V)`` are read as ``(B, S, K, V)`` against labels
+    ``(B, S, K)``, every codebook's every position weighted alike."""
+    patches = batch.get("patches")
+    logits = forward(params, batch["tokens"], cfg, qcfg, patches=patches,
+                     remat=remat)
+    if patches is not None:
+        logits = logits[:, patches.shape[1]:]
+    labels = batch["labels"]
+    if cfg.num_codebooks:
+        B, S, K = labels.shape
+        logits = logits.reshape(B, S, K, cfg.vocab_size)
+    return _xent(logits, labels)
 
 
 def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,

@@ -19,6 +19,13 @@ token within the port, whichever rows share its batch, and the CPU and
 the card draw the same noise up to the last bit of ``log``. It is not the
 JAX package's ``jax.random`` stream: the two frameworks draw different
 numbers.
+
+Codebook stacks (``num_codebooks`` = K, musicgen): the ``(B, K * V)``
+logits are sampled as ``B * K`` rows of width V in one call (row
+``b * K + k`` is codebook k of slot b), each with its slot's parameters
+and step; a seeded row's codebook k draws with the seed
+:func:`codebook_seed` folds in, so the K codebooks of one sample event
+draw different noise and still replay. Tokens come back ``(B, K)``.
 """
 from __future__ import annotations
 
@@ -31,7 +38,10 @@ import torch
 from repro_torch.kernels import dispatch, ops
 
 __all__ = ["SamplingParams", "GREEDY", "sampling_rows", "set_row",
-           "sample_logits"]
+           "sample_logits", "codebook_seed"]
+
+# the golden-ratio constant codebook k's seed is xor-ed with k times
+_CODEBOOK_MIX = 0x9E3779B9
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,14 +117,41 @@ def _cat(ts):
     return ts[0] if len(ts) == 1 else torch.cat(ts)
 
 
+def codebook_seed(seed, k):
+    """The seed codebook ``k`` of a seeded row draws with:
+    ``seed ^ (k * 0x9E3779B9 mod 2**32)``, as uint32. Codebook 0 keeps the
+    row's seed; distinct codebooks of one seed get distinct seeds, so
+    their noise differs (K6's noise is a hash of (seed, step, token id),
+    and ``mix32`` of the seed is a bijection)."""
+    mix = (np.asarray(k, np.uint64) * _CODEBOOK_MIX) & 0xFFFFFFFF
+    return np.asarray(seed, np.uint32) ^ mix.astype(np.uint32)
+
+
 def sample_logits(logits: torch.Tensor, rows: Dict[str, np.ndarray], *,
+                  num_codebooks: int = 0, vocab_size: Optional[int] = None,
                   step_offset=None) -> torch.Tensor:
-    """``logits (B, V)`` + per-slot rows -> token ids ``(B,)`` int32.
+    """``logits (B, V)`` + per-slot rows -> token ids ``(B,)`` int32; with
+    ``num_codebooks`` = K, ``logits (B, K * vocab_size)`` -> ``(B, K)``
+    (module docstring).
 
     ``step_offset`` (an int or a ``(B,)`` array) shifts each row's sample
     counter without mutating ``rows``: the speculative verify samples its
     position ``j`` with ``step + j``, the noise the baseline engine draws
     for that token."""
+    if num_codebooks:
+        B, K = logits.shape[0], num_codebooks
+        flat = {n: np.repeat(v, K) for n, v in rows.items()}
+        flat["seed"] = codebook_seed(flat["seed"], np.tile(np.arange(K), B))
+        if step_offset is not None:
+            step_offset = np.repeat(np.broadcast_to(step_offset, (B,)), K)
+        return _sample(logits.reshape(B * K, vocab_size), flat,
+                       step_offset).reshape(B, K)
+    return _sample(logits, rows, step_offset)
+
+
+def _sample(logits: torch.Tensor, rows: Dict[str, np.ndarray],
+            step_offset) -> torch.Tensor:
+    """:func:`sample_logits` over flat rows ``(N, V)``."""
     lg = logits.to(torch.float32).contiguous()
     temp = rows["temp"]
     if not np.any(temp > 0.0):

@@ -44,6 +44,12 @@ scheduling, so the same trace gives the same token streams:
   larger verify batch). A slot that cannot host k positions sends the
   whole batch down the one-token step for that step.
 
+Codebook models (musicgen, ``cfg.num_codebooks`` = K): a prompt is
+``(len, K)`` id rows, every prefill and decode carries a row of K ids a
+position, the sampler reads the ``(B, K * V)`` logits as ``B * K`` rows,
+and a generated token is a list of K ids; the prefix cache hashes the
+rows as the JAX engine does; speculation is refused (``spec_supported``).
+
 Weights stay packed 8-bit LNS words: every projection runs K1 and K2
 (an untied LM head too; a tied head is decoded once), paged attention K5,
 every sampled token K6 and every draft view K7 (on CUDA tensors). Cache
@@ -189,6 +195,8 @@ class Engine:
                 if self.spec.autotune else self.spec.k
         self.device = resolve_device(device)
         self.cfg, self.qcfg = cfg, qcfg
+        # a token is one id, or one id a codebook
+        self._tok_width = (cfg.num_codebooks,) if cfg.num_codebooks else ()
         self.params = to_device(params, self.device)
         # tied: the decoded embedding, once; untied: the packed embed.head,
         # which qeinsum routes through K1 and K2 every step
@@ -239,7 +247,8 @@ class Engine:
         self.scheduler = Scheduler(self.num_slots, allocator=allocator)
         self.queue = RequestQueue()
         self._slot_len = np.zeros((self.num_slots,), np.int64)
-        self._last_tok = np.zeros((self.num_slots,), np.int32)
+        self._last_tok = np.zeros((self.num_slots,) + self._tok_width,
+                                  np.int32)
         self._samp = sampling_rows(self.num_slots)
         self.completed: List[RequestMetrics] = []
         self.finished: List[RequestState] = []
@@ -384,7 +393,13 @@ class Engine:
         if arr.size and not np.issubdtype(arr.dtype, np.integer):
             raise ValueError(f"prompt must hold integer token ids, got "
                              f"dtype {arr.dtype}")
-        if arr.ndim != 1:
+        k = self.cfg.num_codebooks
+        if k:
+            if arr.ndim != 2 or arr.shape[1] != k:
+                raise ValueError(f"model expects prompt shape (len, {k}) — "
+                                 f"one id row per codebook — got "
+                                 f"{arr.shape}")
+        elif arr.ndim != 1:
             raise ValueError(f"model expects a flat list of token ids, got "
                              f"shape {arr.shape}")
         if arr.shape[0] < 1:
@@ -426,6 +441,20 @@ class Engine:
 
     def _tensor(self, x, dtype=torch.int32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+
+    def _sample(self, logits: torch.Tensor, rows) -> torch.Tensor:
+        """Token ids of ``logits``: ``(B,)``, or ``(B, K)`` with K
+        codebooks (``sample_logits`` reads the ``(B, K * V)`` logits as
+        ``B * K`` rows)."""
+        return sample_logits(logits, rows,
+                             num_codebooks=self.cfg.num_codebooks,
+                             vocab_size=self.cfg.vocab_size)
+
+    @staticmethod
+    def _token(t: np.ndarray):
+        """A sampled token as a request stores it: an int, or a list of
+        one id a codebook."""
+        return t.tolist() if t.ndim else int(t)
 
     def _prefill_dense(self, tokens: np.ndarray, n: int, slot: int):
         """Batch-1 prefill over a fresh zero cache, copied into the slot's
@@ -498,7 +527,8 @@ class Engine:
             # seeds decoding and, like a fresh prefill's token, is never
             # cached)
             prompt = np.concatenate(
-                [prompt, np.asarray(rs.generated[:-1], np.int32)])
+                [prompt, np.asarray(rs.generated[:-1], np.int32).reshape(
+                    (-1,) + self._tok_width)])
         plen = len(prompt)
         if self.page_size:
             n_cached, n_full = resv["n_cached"], resv["n_full"]
@@ -512,7 +542,7 @@ class Engine:
                 cow_src = cow_dst = self._null_page
             n_new = plen - n_cached
             bucket = self._bucket(n_new)
-            tokens = np.zeros((1, bucket), np.int32)
+            tokens = np.zeros((1, bucket) + self._tok_width, np.int32)
             tokens[0, :n_new] = prompt[n_cached:]
             logits = self._prefill_paged(tokens, n_new, n_cached, plen,
                                          rs.slot, bt, cow_src, cow_dst)
@@ -531,7 +561,7 @@ class Engine:
                 self.prefix_reused_tokens += n_cached
         else:
             bucket = self._bucket(plen)
-            tokens = np.zeros((1, bucket), np.int32)
+            tokens = np.zeros((1, bucket) + self._tok_width, np.int32)
             tokens[0, :plen] = prompt
             logits = self._prefill_dense(tokens, plen, rs.slot)
         set_row(self._samp, rs.slot, req.sampling)  # sample event 0
@@ -542,7 +572,7 @@ class Engine:
             self._samp["step"][rs.slot] = g
         else:
             row = {k: v[rs.slot:rs.slot + 1] for k, v in self._samp.items()}
-            tok = int(sample_logits(logits, row).cpu()[0])
+            tok = self._token(self._sample(logits, row).cpu().numpy()[0])
             self._samp["step"][rs.slot] = 1
         self.prefills += 1
         self.prefill_tokens += bucket
@@ -993,7 +1023,7 @@ class Engine:
                          self.cfg, self.qcfg, caches=self.caches,
                          pos_offset=self._tensor(self._slot_len),
                          block_tables=block_tables, head=self._head)[:, -1]
-        toks = sample_logits(logits, self._samp).cpu().numpy()
+        toks = self._sample(logits, self._samp).cpu().numpy()
         # a decode step that ran proves the engine healthy: keep
         # isolating whatever admissions fail
         self._admit_fail_streak = 0
@@ -1003,7 +1033,7 @@ class Engine:
         self._last_tok = toks.astype(np.int32)
         live = list(self.scheduler.running.items())
         for slot, rs in live:
-            rs.generated.append(int(toks[slot]))
+            rs.generated.append(self._token(toks[slot]))
             if self.token_sink is not None:
                 self.token_sink(rs.request.rid, rs.generated[-1])
             self._maybe_finish(rs, clock)

@@ -1,5 +1,6 @@
 """Synthetic request traces (a copy of ``repro.serving.trace``: the same
-seed gives the same trace in both packages).
+seed gives the same trace in both packages). A codebook model's prompts
+are ``(p, num_codebooks)`` id rows.
 
 One generator, three length distributions:
 
@@ -43,7 +44,8 @@ def synthetic_trace(cfg, *, requests: int, prompt_len: int, gen_len: int,
             raise ValueError(f"unknown length distribution {lengths!r}")
         if rate > 0:
             t += rng.exponential(1.0 / rate)
-        prompt = rng.integers(0, cfg.vocab_size, (p,), dtype=np.int32)
+        shape = (p, cfg.num_codebooks) if cfg.num_codebooks else (p,)
+        prompt = rng.integers(0, cfg.vocab_size, shape, dtype=np.int32)
         out.append(Request(rid=i, prompt=prompt, max_new_tokens=g, arrival=t))
     return out
 

@@ -2,7 +2,8 @@
 
 Batches are a pure function of (seed, cursor), drawn with numpy exactly
 as the JAX package draws them, so the two frameworks see byte-equal
-batches. The dense decoder family has no codebooks and no patches.
+batches: codebook tokens ``(B, S, K)`` and phi-3-vision's f32 patches
+``(B, num_patches, d_model)`` included.
 """
 from __future__ import annotations
 
@@ -30,11 +31,17 @@ class SyntheticLM:
     def batch_at(self, cursor: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng((self.seed << 32) ^ cursor)
         V = self.cfg.vocab_size
-        start = rng.integers(0, V, (self.batch,))
-        steps = rng.integers(0, self.noise, (self.batch, self.seq))
+        books = (self.cfg.num_codebooks,) if self.cfg.num_codebooks else ()
+        start = rng.integers(0, V, (self.batch,) + books)
+        steps = rng.integers(0, self.noise, (self.batch, self.seq) + books)
         seqs = (start[:, None] * 1 + np.cumsum(steps, axis=1) * 7) % V
         seqs = np.concatenate([start[:, None], seqs], axis=1).astype(np.int32)
-        return {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+        out = {"tokens": seqs[:, :-1], "labels": seqs[:, 1:]}
+        if self.cfg.num_patches:
+            out["patches"] = rng.standard_normal(
+                (self.batch, self.cfg.num_patches, self.cfg.d_model)
+            ).astype(np.float32)
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         while True:

@@ -15,7 +15,9 @@ it, so the two cannot drift apart):
 * K5's four warps take pages w, w+4, ... and keep their own online-softmax
   state over chunks of positions; the states merge by the log-sum-exp rule
   in warp order. That equals ``ref.paged_attend`` within ``K5_ATOL``,
-  also where a warp sees no position at all.
+  also where a warp sees no position at all; and at head_dim 96 with the
+  logits summed in the kernel's order of 16-byte pieces (6, 12 or 24 a
+  row for u8, bf16 and f32 pools).
 * K2's host-side plan: the path, the grid and the split for every
   main-path shape.
 * K2's decode pass (the wgmma path's first kernel): the padded K-major
@@ -228,10 +230,46 @@ def _chunk(page):
     return page if page < 32 and 32 % page == 0 else 32
 
 
-def _k5_warp_split(q, kp, vp, ks, vs, bt, ln, *, fmt, softcap, sm_scale):
+def _k5_piece_dots(qg, kf, page, elem):
+    """The logits ``qg (R, hd) . kf (n, hd)^T`` in K5's order: the SUB =
+    32 / P lanes of a position take the 16-byte pieces of its K row (E =
+    16 / elem values each) as sh, sh + SUB, sh + 2 SUB, ..., alternating
+    between two fused multiply-add chains (pieces c and c + SUB of each
+    2 SUB stride), add the two, then combine the SUB lanes by xor
+    shuffles (all lanes end equal). Each fma is emulated in f64, rounded
+    to f32."""
+    hd = qg.shape[1]
+    P = _chunk(page)
+    SUB = 32 // P
+    E = 16 // elem
+    n_pc = hd * elem // 16
+    q64, k64 = qg.double()[:, None, :], kf.double()[None, :, :]
+    lanes = []
+    for sh in range(SUB):
+        part = [torch.zeros(qg.shape[0], kf.shape[0]) for _ in range(2)]
+        for c in range(sh, n_pc, 2 * SUB):
+            for u in range(2):
+                cc = c + u * SUB
+                if cc >= n_pc:
+                    break
+                for d in range(cc * E, cc * E + E):
+                    part[u] = (q64[..., d] * k64[..., d]
+                               + part[u].double()).float()
+        lanes.append(part[0] + part[1])
+    o = 1
+    while o < SUB:
+        lanes = [lanes[i] + lanes[i ^ o] for i in range(SUB)]
+        o <<= 1
+    return lanes[0]
+
+
+def _k5_warp_split(q, kp, vp, ks, vs, bt, ln, *, fmt, softcap, sm_scale,
+                   pieces=False):
     """K5 as the kernel partitions it, in plain torch: warp w walks pages
     w, w+4, ... in chunks of positions with its own (m, l, acc) for every
-    query row; the four states merge in warp order."""
+    query row; the four states merge in warp order. ``pieces`` takes the
+    logits in the kernel's 16-byte piece order (``_k5_piece_dots``)."""
+    elem = kp.element_size()
     B, S, H, hd = q.shape
     page, KV = kp.shape[1], kp.shape[2]
     rep = H // KV
@@ -261,7 +299,9 @@ def _k5_warp_split(q, kp, vp, ks, vs, bt, ln, *, fmt, softcap, sm_scale):
                     for p0 in range(0, page, ch):
                         pos = pi * page + p0 + torch.arange(
                             min(ch, page - p0))
-                        sc = qg @ kf[p0:p0 + ch].T * sm_scale
+                        sc = (_k5_piece_dots(qg, kf[p0:p0 + ch], page,
+                                             elem) if pieces
+                              else qg @ kf[p0:p0 + ch].T) * sm_scale
                         if softcap is not None:
                             sc = softcap * torch.tanh(sc / softcap)
                         vis = pos[None, :] <= qpos[:, None]
@@ -288,7 +328,8 @@ def _k5_warp_split(q, kp, vp, ks, vs, bt, ln, *, fmt, softcap, sm_scale):
     return out
 
 
-def _k5_inputs(B, S, lengths, packed, page, seed, heads=(6, 2, 32), mp=5):
+def _k5_inputs(B, S, lengths, packed, page, seed, heads=(6, 2, 32), mp=5,
+               pool=torch.bfloat16):
     H, KV, hd = heads
     rng = np.random.default_rng(seed)
     P = B * mp + 1
@@ -307,7 +348,7 @@ def _k5_inputs(B, S, lengths, packed, page, seed, heads=(6, 2, 32), mp=5):
             for _ in range(2))
     else:
         kp, vp = (torch.from_numpy(rng.standard_normal(
-            (P, page, KV, hd)).astype(np.float32)).to(torch.bfloat16)
+            (P, page, KV, hd)).astype(np.float32)).to(pool)
             for _ in range(2))
         ks = vs = None
     return q, kp, vp, ks, vs, bt, ln
@@ -336,6 +377,36 @@ def test_k5_warp_split_matches_plain(case, packed, softcap):
               sm_scale=1 / np.sqrt(32))
     want = ref.paged_attend(*args, **kw)
     got = _k5_warp_split(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= K5_ATOL
+
+
+# phi-3-vision's head_dim 96: a row is 6 (u8), 12 (bf16) or 24 (f32)
+# 16-byte pieces; at page 16 the two lanes of a position take 3, 6 or 12
+# each, at page 4 (SUB = 8) some lanes take one piece or none
+K5_HD96_CASES = {
+    "decode": (2, 1, [33, 61], 16),
+    "verify": (2, 4, [36, 52], 16),
+    "empty_warps": (2, 1, [9, 1], 16),
+    "decode_page4": (2, 1, [9, 14], 4),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_HD96_CASES))
+@pytest.mark.parametrize("pool", ["bf16", "packed", "f32"])
+def test_k5_head_dim_96_piece_order_matches_plain(case, pool):
+    """K5's logits in the kernel's piece order and its warp split at
+    head_dim 96 (2 query heads a KV head) equal ``ref.paged_attend``
+    within ``K5_ATOL``."""
+    B, S, lengths, page = K5_HD96_CASES[case]
+    args = _k5_inputs(B, S, lengths, pool == "packed", page, seed=len(case),
+                      heads=(4, 2, 96), mp=5,
+                      pool=torch.float32 if pool == "f32" else torch.bfloat16)
+    assert args[1].element_size() == {"bf16": 2, "packed": 1, "f32": 4}[pool]
+    kw = dict(fmt=FMT if pool == "packed" else None, softcap=None,
+              sm_scale=1 / np.sqrt(96))
+    want = ref.paged_attend(*args, **kw)
+    got = _k5_warp_split(*args, **kw, pieces=True)
     assert torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= K5_ATOL
 
