@@ -10,6 +10,7 @@
     python3 chip_smoke.py --obs        # phases 1, 2 and 20 only
     python3 chip_smoke.py --dense-variants  # 1, 2, K5 at hd 256, and 21
     python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
+    python3 chip_smoke.py --recurrent  # 1, 2, K5 at hd 112, and 23
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -40,10 +41,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    an f32 pool whose pages take one stage a warp, and gemma3-12b's
    global layers at head_dim 256 (``K5_HD256_CASES``: decode over a bf16
    and a packed pool, the verify's S=4, warps that see no position, an
-   f32 pool at page 16, one stage a warp), and phi-3-vision's at
+   f32 pool at page 16, one stage a warp), phi-3-vision's at
    head_dim 96 (``K5_HD96_CASES``: bf16 and packed decode and verify
-   S=4, warps that see no position, an f32 pool), each timed beside SDPA
-   over gathered pages. TF32 must be off.
+   S=4, warps that see no position, an f32 pool) and zamba2's shared
+   attention at head_dim 112 (``K5_HD112_CASES``: bf16 and packed
+   decode, the exact-length prefill 1 x 32 over 32 positions, warps that
+   see no position, an f32 pool), each timed beside SDPA over gathered
+   pages. TF32 must be off.
    ``sample_logits`` on a 4-row temperature batch and its 16-row verify
    batch must launch K6 once a call (its count) and run no torch kernel,
    no copy (torch.profiler) and no ``torch.Generator``; its wall time and device work are printed
@@ -95,7 +99,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. At the smoke config on the card: a mixed greedy/seeded trace gives
     the speculating engine's streams equal to the baseline's, dense and
     ondemand.
-13. Profile 2 speculative cycles as phase 6 profiles decode steps.
+13. Profile 1 speculative cycle as phase 6 profiles decode steps.
 14. Measure why k>1 streams leave phase 4's: from 4 states of the paged
     trace, 4 greedy one-token steps against one S=4 verify over the same
     tokens, counting differing tokens and differing per-tensor
@@ -179,20 +183,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
     baseline's streams.
 20. Observability at full width (``repro_torch.obs``). (a) Phase 4's
     paged trace through the serve CLI's engine with an ``EngineObserver``
-    attached and ``kernel_stats`` on, then the same trace at k=4, 6 bits,
-    from cold: every request completes, the trace validates (spec spans
-    required on the spec run), the timeline's prefill/decode/spec rows
-    equal the engine's admissions, decode steps and spec cycles, its
-    emitted tokens total 8 x 32, each op's ``kernel_stats`` calls equal
+    attached and ``kernel_stats`` on, then phase 11's trace (4 requests
+    of 32 + 16) at k=4, 6 bits, from cold: every request completes, the
+    trace validates (spec spans required on the spec run), the
+    timeline's prefill/decode/spec rows equal the engine's admissions,
+    decode steps and spec cycles, its emitted tokens total requests x
+    new tokens, each op's ``kernel_stats`` calls equal
     its kernel's launch count over the same run; the time breakdown
     (host share included) printed. (b) On that engine, 4 requests
-    decoding: windows of 3 decode steps under torch.profiler with the
-    observer and ``kernel_stats`` (``block_every=0``) off, on, off, on
+    decoding: windows of 2 decode steps under torch.profiler with the
+    observer and ``kernel_stats`` (``block_every=0``) off, then on,
     after a warm window: every window issues the same kernel launches
     and copies (the CUDA runtime calls that put work on the card, by
     name; the profiler's device records, which lose a few a window, are
     printed beside them); the walls printed side by side, not limited.
-    (c) 3 decode
+    (c) 2 decode
     steps at ``block_every=1``: K1's, K2's, K5's and K6's mean blocked time
     a call beside the profiler's device time a launch, the blocked time
     at least ``OBS_BLOCKED_MIN`` of it. (d) ``launch.train`` for 2 steps of
@@ -215,8 +220,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     launches K2 (and K1) once a projection, the head included, K5 once a
     global layer (8; none on the 40 ring layers) and K6 once; the weights'
     packed size and the peak allocated memory printed. (b) Its logits
-    through the kernels against the plain versions, as phase 5. (f) 3
-    decode steps profiled as phase 6, and the device time a step of the
+    through the kernels against the plain versions, as phase 5. (f) 1
+    decode step profiled as phase 6, and the device time a step of the
     local layers' plain ring attention beside the global layers' K5.
     (c) gemma3's smoke config (window 8, f32) with the JAX package's
     sliding-window spec test setup (4 mixed requests, 2 slots, max_len
@@ -255,6 +260,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     GEMMs beside ``torch.matmul`` bf16; K6 greedy, noise-in and seeded at
     16 x 2048 and 4 x 32,064 beside ``torch.argmax``; K3 at 22c's largest
     leaf (up/gate, 49,152 x 8192).
+23. The recurrent families at full width, random packed 8-bit LNS
+    weights from seed 0, each serve warmed by its first request for 2
+    tokens, then counted as 21a counts. (a) rwkv6-1.6b (24 RWKV6 layers,
+    d 2048, vocab 65,536, untied), 8 x (32 + 32), 4 slots, with
+    ``--page-size 16``: the engine keeps the dense layout and builds no
+    allocator (no layer kind pages, as in the JAX engine); every request
+    completes; K1 = K2 = 193 (8 a layer and the head), K5 0 and K6 1
+    launches a forward; every prefill at the exact prompt length; the
+    words' and the state's size, peak memory, TPOT p50 and tok/s
+    printed. (b) zamba2-7b (81 layers: 3 Mamba2 layers, then 13 periods
+    of 5 Mamba2 layers and the shared attention block with its
+    per-occurrence LoRA; head_dim 112, vocab 32,000) paged, page 16, the
+    same trace: K2 461 (6 a Mamba2 layer, 4 a shared occurrence, the
+    head), K5 13 at head_dim 112, K6 1 a forward, with (a)'s other
+    checks. (c) Each model cut to ``RECURRENT_LOGIT_LAYERS`` (rwkv6 4,
+    zamba2 7: one shared occurrence): phase 5's kernels-vs-plain logits
+    beside the f64 floor, then the training forward's chunked scans
+    against a cached prefill's sequential steps over 64 tokens (last
+    position, phase 5's rule). (d) One rwkv6 train step at full depth,
+    4 x 256, remat on; (e) one zamba2 train step 33 layers deep (3 prefix
+    layers, 5 periods), 2 x 256: finite losses, K3 15 and 83 times (one
+    a packed leaf), peaks printed. Then every K1 and K2 shape 23a-23e ran
+    is held to the plain versions (K2 at N = 64 and 112 among them), K2
+    at both models' decode GEMMs beside ``torch.matmul`` bf16, K6 at
+    4 x 65,536 and 4 x 32,000 beside ``torch.argmax``, K3 at each train
+    step's largest leaf.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -330,6 +361,8 @@ SERVE_DENSE = ["--requests", "4", "--slots", "4", "--prompt-len", "32",
 SPEC_SERVE = ["--requests", "4", "--slots", "4", "--prompt-len", "32",
               "--gen-len", "16", "--page-size", "16"]
 SPEC_K = 4
+# phase 13 profiles this many spec cycles (2 before the recurrent slice)
+SPEC_PROFILE_CYCLES = 1
 SPEC_RUNS = [
     ("baseline", []),
     ("spec_b6", ["--speculate-k", str(SPEC_K), "--draft-bitwidth", "6"]),
@@ -403,9 +436,13 @@ FIG4_D, FIG4_ETA, FIG4_GAMMA = 1 << 20, 2.0 ** -6, 2.0 ** 10
 FIG4_RTOL = 2e-3
 # phase 20: observability. 20b/20c take windows of OBS_DECODE_STEPS decode
 # steps over 4 requests of 32 + OBS_GEN tokens (room for the admission
-# step and six windows); 20d trains OBS_TRAIN_STEPS steps of 8 x 256
-OBS_DECODE_STEPS = 3
+# step and the windows: a warm one, OBS_WINDOWS observer off and on, the
+# blocked one); 20d trains OBS_TRAIN_STEPS steps of 8 x 256. Since the
+# recurrent slice 2 steps a window and one off/on pair (3 steps and two
+# pairs before), to make room for phase 23
+OBS_DECODE_STEPS = 2
 OBS_GEN = 28
+OBS_WINDOWS = (False, True)
 OBS_TRAIN_STEPS = 2
 OBS_TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", str(OBS_TRAIN_STEPS),
                   "--batch", "8", "--seq", "256"]
@@ -437,6 +474,9 @@ OBS_FRACTIONS = ("sat_lo", "sat_hi", "dead_frac", "requant_sat_hi")
 # phase 21: granite-8b's and qwen2.5-32b's paged trace (4 slots, page 16)
 VARIANT_SERVE = ["--requests", "4", "--slots", "4", "--prompt-len", "16",
                  "--gen-len", "16", "--page-size", "16"]
+# 21f profiles this many gemma3-12b decode steps (3 before the recurrent
+# slice)
+VARIANT_PROFILE_STEPS = 1
 # gemma3-12b's decode GEMMs (M = 4 slots): wq, wk/wv, wo, up/gate, down,
 # the untied head
 GEMMA3_DECODE_GEMMS = [(4, 3840, 4096), (4, 3840, 2048), (4, 4096, 3840),
@@ -472,6 +512,37 @@ K5_HD96_CASES = [
      K5_HD96),
     ("phi-3-vision decode f32 pool hd 96", 2, 1, [60, 70], False, K5_HD96,
      {"pool": "float32"})]
+# K5 at zamba2-7b's shared attention (32 heads over 32 KV heads, head_dim
+# 112), phase 3 and --recurrent (zamba2 cannot speculate: no verify case)
+K5_HD112 = (32, 32, 112)
+K5_HD112_CASES = [
+    ("zamba2 decode bf16 pool hd 112", 4, 1, [33, 48, 61, 66], False,
+     K5_HD112),
+    ("zamba2 decode packed pool hd 112", 4, 1, [33, 48, 61, 66], True,
+     K5_HD112),
+    ("zamba2 prefill bf16 pool hd 112", 1, 32, [32], False, K5_HD112),
+    ("zamba2 decode empty warps hd 112", 4, 1, [9, 1, 16, 5], True,
+     K5_HD112),
+    ("zamba2 decode f32 pool hd 112", 2, 1, [60, 70], False, K5_HD112,
+     {"pool": "float32"})]
+# phase 23: the decode GEMMs (M = 4 slots) of rwkv6-1.6b (wr/wk/wv/wg/wo
+# and cr, ck, cv, the head) and zamba2-7b (z/x_proj, b/c_proj, dt_proj,
+# out_proj, the shared block's wo, up/gate and down, the head)
+RWKV_DECODE_GEMMS = [(4, 2048, 2048), (4, 2048, 7168), (4, 7168, 2048),
+                     (4, 2048, 65536)]
+ZAMBA2_DECODE_GEMMS = [(4, 3584, 7168), (4, 3584, 64), (4, 3584, 112),
+                       (4, 7168, 3584), (4, 3584, 3584), (4, 3584, 14336),
+                       (4, 14336, 3584), (4, 3584, 32000)]
+# 23c: the kernel-vs-plain logits and the chunked-vs-sequential check at
+# a cut depth (zamba2 keeps its first prefix layer and one period, so one
+# shared-block occurrence); 23e: zamba2 trains 33 of 81 layers (3 prefix
+# mamba layers and 5 periods: at ~19 B a parameter 81 layers pass 80 GB,
+# ROADMAP 6.7)
+RECURRENT_LOGIT_LAYERS = {"rwkv6-1.6b": 4, "zamba2-7b": 7}
+RECURRENT_SEQ_TOKENS = 64
+ZAMBA2_TRAIN_LAYERS = 33
+RECURRENT_TRAIN = {"rwkv6-1.6b": (24, 4, 256),
+                   "zamba2-7b": (ZAMBA2_TRAIN_LAYERS, 2, 256)}
 # phase 22: the decode GEMMs (M = 4 slots) of phi-3-vision (wq/wk/wv/wo,
 # up/gate, down, the untied head) and musicgen-medium (the same, ungated)
 PHI3V_DECODE_GEMMS = [(4, 3072, 3072), (4, 3072, 8192), (4, 8192, 3072),
@@ -1840,11 +1911,13 @@ def smoke_spec(torch):
 
 
 def profile_spec(torch, engine, decode_ms):
-    """Phase 13: wall and device time of 2 speculative cycles of the
-    B=6 engine (its draft view already built)."""
+    """Phase 13: wall and device time of ``SPEC_PROFILE_CYCLES``
+    speculative cycles of the B=6 engine (its draft view already
+    built)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving import synthetic_trace
 
+    n = SPEC_PROFILE_CYCLES
     engine.reset()
     for r in synthetic_trace(engine.cfg, requests=4, prompt_len=32,
                              gen_len=16, seed=1):
@@ -1855,28 +1928,28 @@ def profile_spec(torch, engine, decode_ms):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(2):
+        for _ in range(n):
             engine.step()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    check(engine.spec_cycles - c0 == 2 and engine.decode_steps == d0,
-          "profile: the 2 steps were not 2 speculative cycles")
+    check(engine.spec_cycles - c0 == n and engine.decode_steps == d0,
+          f"profile: the {n} steps were not {n} speculative cycles")
     busy_us, top = device_time(torch, prof, 8)
     share = busy_us / 1e6 / wall if busy_us else None
-    print(f"profile, 2 spec cycles (k={SPEC_K}, B=6): wall "
-          f"{wall * 1e3 / 2:.1f} ms/cycle = "
-          f"{wall * 1e3 / 2 / decode_ms:.2f} decode steps, device busy "
-          + (f"{busy_us / 2e3:.2f} ms/cycle ({share:.1%})" if busy_us
+    print(f"profile, {n} spec cycles (k={SPEC_K}, B=6): wall "
+          f"{wall * 1e3 / n:.1f} ms/cycle = "
+          f"{wall * 1e3 / n / decode_ms:.2f} decode steps, device busy "
+          + (f"{busy_us / n / 1e3:.2f} ms/cycle ({share:.1%})" if busy_us
              else "not measured (no device time in the trace)"))
     for e in top:
-        print(f"  {e.key[:60]}: {e.self_device_time_total / 2e3:.3f} "
-              f"ms/cycle, {e.count // 2} calls/cycle")
-    shares = kernel_shares(torch, prof, busy_us, 2, "cycle")
-    return {"wall_ms_per_cycle": wall * 1e3 / 2, "k2_k5": shares,
-            "cycle_over_decode_step": wall * 1e3 / 2 / decode_ms,
-            "device_busy_ms_per_cycle": busy_us / 2e3 if busy_us else None,
+        print(f"  {e.key[:60]}: {e.self_device_time_total / n / 1e3:.3f} "
+              f"ms/cycle, {e.count // n} calls/cycle")
+    shares = kernel_shares(torch, prof, busy_us, n, "cycle")
+    return {"wall_ms_per_cycle": wall * 1e3 / n, "k2_k5": shares,
+            "cycle_over_decode_step": wall * 1e3 / n / decode_ms,
+            "device_busy_ms_per_cycle": busy_us / n / 1e3 if busy_us else None,
             "device_busy_share": share,
-            "top": [[e.key, e.self_device_time_total / 2e3, e.count // 2]
+            "top": [[e.key, e.self_device_time_total / n / 1e3, e.count // n]
                     for e in top]}
 
 
@@ -1908,10 +1981,11 @@ def qmatmul_f64(pa, pb, fmt, scale_a=None, scale_b=None, *,
     return ((a @ b).float() * scale_a * scale_b).to(out_dtype or torch.float32)
 
 
-def logits_check(torch, engine):
-    """Phase 5: batch-1 prefill + 4 greedy decode steps at full width,
-    through the kernels, through the plain versions, and through the
-    plain versions with an f64-accumulating GEMM (the noise floor)."""
+def logits_check(torch, engine, steps=4):
+    """Phase 5: batch-1 prefill + ``steps`` greedy decode steps at full
+    width, through the kernels, through the plain versions, and through
+    the plain versions with an f64-accumulating GEMM (the noise
+    floor)."""
     from repro_torch.kernels import dispatch, ref
     from repro_torch.models.model import forward, init_caches
 
@@ -1937,7 +2011,7 @@ def logits_check(torch, engine):
 
     seq = [prompt]     # both runs follow the plain run's greedy tokens
     with plain_versions(dispatch, ref):
-        for _ in range(4):
+        for _ in range(steps):
             lg = run(seq)[-1]
             seq.append(lg.argmax(-1, keepdim=True).to(torch.int32))
         plain = run(seq)
@@ -1958,12 +2032,23 @@ def logits_check(torch, engine):
             clear += 1
             check(int(p.argmax()) == int(k.argmax()),
                   "full-width greedy token differs beyond the margin")
-    print(f"full-width logits over 5 steps: kernels vs plain max err "
+    print(f"full-width logits over {steps + 1} steps: kernels vs plain "
+          f"max err "
           f"{worst:.4f} of max |logit| (limit {LOGIT_RTOL}); floor (plain, "
           f"f64 GEMM accumulation) {floor:.4f}; greedy tokens checked on "
           f"{clear} steps whose margin exceeds the limit")
     return {"max_rel_err": worst, "floor_rel_err": floor,
             "margin_steps": clear}
+
+
+def averages(prof):
+    """``prof.key_averages()``, aggregated once a profile: each call
+    walks every event of the trace again, and the helpers below read the
+    same trace up to five times."""
+    avg = getattr(prof, "_averages", None)
+    if avg is None:
+        avg = prof._averages = prof.key_averages()
+    return avg
 
 
 def device_time(torch, prof, n_top, exclude=()):
@@ -1973,7 +2058,7 @@ def device_time(torch, prof, n_top, exclude=()):
     ``exclude``: names of profiler ranges, whose device-side annotations
     span the kernels inside them."""
     cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.key_averages()
+    kernels = [e for e in averages(prof)
                if e.device_type == cuda and e.key not in exclude]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
@@ -1989,7 +2074,7 @@ def kernel_shares(torch, prof, busy_us, per, unit):
     cuda = torch.autograd.DeviceType.CUDA
     res = {}
     for name in ("qmatmul", "qmatmul_decode", "paged_attend"):
-        evs = [e for e in prof.key_averages()
+        evs = [e for e in averages(prof)
                if e.device_type == cuda and name in e.key
                and (name != "qmatmul" or "qmatmul_decode" not in e.key)]
         us = sum(e.self_device_time_total for e in evs)
@@ -2017,7 +2102,7 @@ def launch_split(torch, prof, per, n_top=8, exclude=()):
     cuda = torch.autograd.DeviceType.CUDA
     n = {"port": 0, "torch": 0, "copies": 0}
     torch_k = []
-    for e in prof.key_averages():
+    for e in averages(prof):
         if e.device_type != cuda or e.key in exclude:
             continue
         kind = ("port" if any(k in e.key for k in PORT_KERNELS) else
@@ -3867,7 +3952,7 @@ def obs_groups(stats, launches):
 
 
 def obs_serve(torch, ops, argv, spec, tmp):
-    """20a: the serve CLI's engine over phase 4's paged trace with an
+    """20a: the serve CLI's engine over ``argv``'s paged trace with an
     observer attached and kernel_stats on, from cold (a speculating
     engine builds its draft view, one K7 launch, inside the run)."""
     from repro_torch.launch.serve import build_engine, parser
@@ -3935,7 +4020,7 @@ def obs_serve(torch, ops, argv, spec, tmp):
 def obs_windows(torch, engine, ops):
     """20b and 20c on the baseline engine: 4 requests decoding, then
     windows of ``OBS_DECODE_STEPS`` decode steps under torch.profiler:
-    a warm window, then observer and kernel_stats off, on, off, on (the
+    a warm window, then observer and kernel_stats off and on (the
     same kernel launches and copies issued, counted at the CUDA runtime
     calls; walls printed side by side), then one window at ``block_every=1`` (each call's blocked
     time beside the profiler's device time a launch)."""
@@ -3978,13 +4063,13 @@ def obs_windows(torch, engine, ops):
     def issued(prof):
         """The runtime calls that put work on the card, by name."""
         return collections.Counter({e.key: e.count
-                                    for e in prof.key_averages()
+                                    for e in averages(prof)
                                     if e.device_type != cuda
                                     and e.key in OBS_WORK_CALLS})
 
     window(False)              # warm: the profiler's first window
     walls, work, calls = {"off": [], "on": []}, [], []
-    for on in (False, True, False, True):
+    for on in OBS_WINDOWS:
         prof, wall, _ = window(on)
         walls["on" if on else "off"].append(wall)
         w = launch_split(torch, prof, OBS_DECODE_STEPS)
@@ -4012,7 +4097,7 @@ def obs_windows(torch, engine, ops):
                 if r["op"] == op)
         b_s = sum(r.get("blocked_s", 0.0) for r in rows.values()
                   if r["op"] == op)
-        evs = [e for e in prof.key_averages() if e.device_type == cuda
+        evs = [e for e in averages(prof) if e.device_type == cuda
                and any(k in e.key for k in names)]
         cnt = sum(e.count for e in evs)
         dev_us = sum(e.self_device_time_total for e in evs)
@@ -4192,9 +4277,11 @@ def observability(torch, ops, card):
         mark("20b+c")
         del engine
         torch.cuda.empty_cache()
+        # phase 11's trace (phase 4's, 8 x (32 + 32), before the recurrent
+        # slice)
         spec_engine, spec = obs_serve(
-            torch, ops, SERVE_PAGED + ["--speculate-k", str(SPEC_K),
-                                       "--draft-bitwidth", "6"], True, tmp)
+            torch, ops, SPEC_SERVE + ["--speculate-k", str(SPEC_K),
+                                      "--draft-bitwidth", "6"], True, tmp)
         mark("20a spec")
         del spec_engine
         torch.cuda.empty_cache()
@@ -4232,10 +4319,32 @@ def packed_bytes(params):
     return n
 
 
+# K2 launches of one layer of each kind: attention's four projections
+# and the MLP's two or three; rwkv's eight (r, k, v, g, o; ck, cv, cr);
+# mamba's six (z, x, B, C, dt, out); the shared block's wo and MLP (its
+# QKV is decoded plus the occurrence's LoRA delta: the fake-quant leg)
+def _kind_gemms(cfg, kind):
+    mlp = 2 + cfg.mlp_gated
+    return {"rwkv": 8, "mamba": 6, "shared_attn": 1 + mlp}.get(kind, 4 + mlp)
+
+
+def _kinds(cfg):
+    prefix, n_periods, period = cfg.layer_pattern()
+    return list(prefix) + list(period) * n_periods
+
+
 def gemms_per_forward(cfg):
-    """K2 launches of one forward: every projection of every layer, and
-    an untied head (a tied head is a decoded matrix, not packed)."""
-    return cfg.num_layers * (6 + cfg.mlp_gated) + (not cfg.tie_embeddings)
+    """K2 launches of one forward: every packed projection of every
+    layer, and an untied head (a tied head is a decoded matrix, not
+    packed)."""
+    return (sum(_kind_gemms(cfg, k) for k in _kinds(cfg))
+            + (not cfg.tie_embeddings))
+
+
+def k5_layers(cfg):
+    """Layers whose attention pages through K5: the full-context kinds
+    (not gemma3's ring layers, not the recurrent ones)."""
+    return sum(k in ("dense", "global", "shared_attn") for k in _kinds(cfg))
 
 
 def variant_serve(torch, ops, arch, argv, tag, phase="21"):
@@ -4245,7 +4354,7 @@ def variant_serve(torch, ops, arch, argv, tag, phase="21"):
     every projection (the head included when untied), K5 once a
     full-context layer (none on ring layers), and K6 once a sampled
     token (all of a step's rows, every codebook's, in one launch).
-    ``phase`` labels the lines (21, 22). The warm-up is the trace's first
+    ``phase`` labels the lines (21, 22, 23). The warm-up is the trace's first
     request for 2 tokens (``serve``'s ``"short"``)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4259,9 +4368,7 @@ def variant_serve(torch, ops, arch, argv, tag, phase="21"):
           f"{phase} {tag}: {int(agg['completed'])}/{n_req} requests "
           f"completed")
     fwd = engine.decode_steps + engine.prefills
-    prefix, n_periods, period = cfg.layer_pattern()
-    full_ctx = sum(k != "local" for k in prefix) \
-        + n_periods * sum(k != "local" for k in period)
+    full_ctx = k5_layers(cfg)
     paged = engine.page_size is not None
     want = {"qmatmul": gemms_per_forward(cfg) * fwd,
             "paged_attend": full_ctx * fwd if paged else 0,
@@ -4293,15 +4400,17 @@ def variant_serve(torch, ops, arch, argv, tag, phase="21"):
 
 
 def profile_variant(torch, engine):
-    """21f: 3 decode steps of a full engine under torch.profiler, as phase
-    6 profiles smollm's (wall, device busy share, top kernels, K2's and
-    K5's shares), with each layer's attention call in a profiler range:
+    """21f: ``VARIANT_PROFILE_STEPS`` decode steps of a full engine under
+    torch.profiler, as phase 6 profiles smollm's (wall, device busy
+    share, top kernels, K2's and K5's shares), with each layer's
+    attention call in a profiler range:
     the device time a step of the local layers' plain ring attention and
     of the global layers' KV scatter and K5 (a host-side range's device
     time sums the kernels launched inside it)."""
     from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models import attention as attn_mod
     from repro_torch.serving import synthetic_trace
+    n = VARIANT_PROFILE_STEPS
     names = {"_ring_attend": "ring_attend", "_paged_attend": "paged_layer"}
     saved = {f: getattr(attn_mod, f) for f in names}
 
@@ -4323,7 +4432,7 @@ def profile_variant(torch, engine):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            for _ in range(3):
+            for _ in range(n):
                 engine.step()
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
@@ -4333,26 +4442,26 @@ def profile_variant(torch, engine):
     ranged_names = tuple(names.values())
     busy_us, top = device_time(torch, prof, 6, exclude=ranged_names)
     share = busy_us / 1e6 / wall if busy_us else None
-    launches = launch_split(torch, prof, 3, exclude=ranged_names)
-    print(f"21f: {engine.cfg.name}, 3 decode steps: wall "
-          f"{wall * 1e3 / 3:.1f} ms/step, device busy "
-          + (f"{busy_us / 3e3:.2f} ms/step ({share:.1%})" if busy_us
+    launches = launch_split(torch, prof, n, exclude=ranged_names)
+    print(f"21f: {engine.cfg.name}, {n} decode steps: wall "
+          f"{wall * 1e3 / n:.1f} ms/step, device busy "
+          + (f"{busy_us / n / 1e3:.2f} ms/step ({share:.1%})" if busy_us
              else "not measured (no device time in the trace)")
           + f"; {launches['port']:.0f} port kernels, "
           f"{launches['torch']:.0f} torch kernels, {launches['copies']:.0f} "
           f"copies a step")
     for e in top:
-        print(f"  {e.key[:60]}: {e.self_device_time_total / 3e3:.3f} "
-              f"ms/step, {e.count // 3} calls/step")
-    shares = kernel_shares(torch, prof, busy_us, 3, "step")
+        print(f"  {e.key[:60]}: {e.self_device_time_total / n / 1e3:.3f} "
+              f"ms/step, {e.count // n} calls/step")
+    shares = kernel_shares(torch, prof, busy_us, n, "step")
     cpu = torch.autograd.DeviceType.CPU
     ranges = {}
     for name in ranged_names:
-        evs = [e for e in prof.key_averages()
+        evs = [e for e in averages(prof)
                if e.key == name and e.device_type == cpu]
         us = sum(e.device_time_total for e in evs)
-        ranges[name] = {"ms_per_step": us / 3e3 if us else None,
-                        "calls_per_step": sum(e.count for e in evs) // 3}
+        ranges[name] = {"ms_per_step": us / n / 1e3 if us else None,
+                        "calls_per_step": sum(e.count for e in evs) // n}
     fmt_ms = lambda r: (f"{r['ms_per_step']:.3f} ms" if r["ms_per_step"]
                         else "not measured")
     print(f"  attention a step: local ring (plain torch) "
@@ -4360,11 +4469,11 @@ def profile_variant(torch, engine):
           f"{ranges['ring_attend']['calls_per_step']} layers; global "
           f"(KV scatter + K5) {fmt_ms(ranges['paged_layer'])} over "
           f"{ranges['paged_layer']['calls_per_step']} layers")
-    return {"wall_ms_per_step": wall * 1e3 / 3, "k2_k5": shares,
-            "device_busy_ms_per_step": busy_us / 3e3 if busy_us else None,
+    return {"wall_ms_per_step": wall * 1e3 / n, "k2_k5": shares,
+            "device_busy_ms_per_step": busy_us / n / 1e3 if busy_us else None,
             "device_busy_share": share, "launches_per_step": launches,
             "attention_ranges": ranges,
-            "top": [[e.key, e.self_device_time_total / 3e3, e.count // 3]
+            "top": [[e.key, e.self_device_time_total / n / 1e3, e.count // n]
                     for e in top]}
 
 
@@ -4695,7 +4804,8 @@ def dense_variants(torch, ops, ref, fmt, card):
         out["gemma3_draft_view"] = gemma3_draft_view(torch, ops, ref,
                                                      engine)
         mark("21a paged")
-        out["gemma3_logits"] = logits_check(torch, engine)
+        # 2 decode steps (4 before the recurrent slice)
+        out["gemma3_logits"] = logits_check(torch, engine, steps=2)
         mark("21b")
         out["gemma3_profile"] = profile_variant(torch, engine)
         mark("21f")
@@ -4839,7 +4949,8 @@ def patch_logits_check(torch, engine):
 
 
 def modality_train(torch, ops, arch, layers, batch, seq, tag):
-    """22c/22e: one train step of ``arch`` at full width, ``layers`` deep,
+    """22c/22e/23d/23e: one train step of ``arch`` at full width,
+    ``layers`` deep,
     ``batch`` x ``seq`` text positions (phi-3-vision adds its 576 stub
     patches in front; musicgen's tokens are (B, S, 4)), remat on: a
     finite loss over the text positions, K1 and K2 launched and K3 once a
@@ -5017,6 +5128,187 @@ def modality(torch, ops, ref, fmt, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the recurrent families (rwkv6-1.6b, zamba2-7b)
+
+
+def state_bytes(engine):
+    """Bytes of an engine's recurrent state: every layer cache without a
+    cursor (rwkv's shifts and WKV state, mamba's conv tails and SSM
+    state), all slots."""
+    caches = engine.caches
+    groups = list(caches.get("prefix", [])) \
+        + list(caches.get("period", {}).values())
+    return sum(v.nbytes for c in groups if "idx" not in c
+               for v in c.values())
+
+
+def recurrent_serve(torch, ops, arch, tag):
+    """23a/23b: ``variant_serve``'s run and gates (K1 = K2 at every packed
+    projection and the head, K5 once a shared-attention layer, K6 once a
+    forward), and every prefill at the exact prompt length (no bucket:
+    pads would enter the state); a model with no pageable layer (rwkv6)
+    must keep the dense layout under ``--page-size``, with no allocator,
+    as the JAX engine does. Prints the state's bytes beside the words'."""
+    row, engine = variant_serve(torch, ops, arch, SERVE_PAGED, tag,
+                                phase="23")
+    argv = dict(zip(SERVE_PAGED[::2], SERVE_PAGED[1::2]))
+    n_req, plen = int(argv["--requests"]), int(argv["--prompt-len"])
+    check(engine.prefill_tokens == n_req * plen,
+          f"{tag}: {engine.prefill_tokens} tokens prefilled for {n_req} "
+          f"prompts of {plen}")
+    if not k5_layers(engine.cfg):
+        check(engine.page_size is None and engine.allocator is None,
+              f"{tag}: --page-size built an allocator for a model with no "
+              f"pageable layer")
+    st = state_bytes(engine)
+    row.update(state_bytes=st, state_mb_per_slot=st / engine.num_slots / 1e6,
+               prefill_tokens=engine.prefill_tokens)
+    print(f"{tag}: {arch} recurrent state {st / 1e6:.1f} MB "
+          f"({st / engine.num_slots / 1e6:.2f} MB a slot, f32), "
+          f"{engine.prefill_tokens} tokens prefilled at the exact prompt "
+          f"lengths, layout {row['layout']}, allocator "
+          f"{'none' if engine.allocator is None else 'built'}")
+    return row, engine
+
+
+def recurrent_logits(torch, arch):
+    """23c: ``arch`` at full width, ``RECURRENT_LOGIT_LAYERS`` deep
+    (random packed 8-bit weights from seed 0): phase 5's check (a 32-token
+    prefill and 4 decode steps through the kernels against the plain
+    versions, beside the f64-GEMM floor); then the training forward's
+    chunked scans against a cached prefill's sequential steps over the
+    same ``RECURRENT_SEQ_TOKENS`` tokens, both through the kernels: the
+    last position's logits within ``LOGIT_RTOL`` of max |logit|, the
+    greedy token equal where the top-2 margin exceeds that, printed
+    beside the floor of a pure accumulation-order change (the cached
+    prefill, plain versions against the f64 GEMM)."""
+    import dataclasses
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.models.model import forward, init_caches, init_params
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=RECURRENT_LOGIT_LAYERS[arch])
+    qcfg = QuantConfig.lns_madam()
+    params = init_params(cfg, seed=0, device="cuda", leaf_fn=lns_leaf_encoder(
+        MadamConfig(update_format=LNSFormat(8, 8))))
+    print(f"23c: {arch} {cfg.num_layers} of {get_config(arch).num_layers} "
+          f"layers, layer pattern {cfg.layer_pattern()}")
+    out = {"layers": cfg.num_layers,
+           "decode": logits_check(torch, types.SimpleNamespace(
+               cfg=cfg, qcfg=qcfg, params=params))}
+    n = RECURRENT_SEQ_TOKENS
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    bt = torch.arange(n // 16, dtype=torch.int32, device="cuda")[None]
+
+    def chunked():
+        with torch.no_grad():
+            return forward(params, tokens, cfg, qcfg)[0, -1].float()
+
+    def sequential():
+        caches = init_caches(1, n, cfg, page_size=16, num_pages=n // 16,
+                             device="cuda")
+        with torch.no_grad():
+            return forward(params, tokens, cfg, qcfg, caches=caches,
+                           pos_offset=0, block_tables=bt)[0, -1].float()
+
+    seq = sequential()
+    train = chunked()
+    with plain_versions(dispatch, ref):
+        plain = sequential()
+        dispatch.qmatmul = qmatmul_f64
+        floor_run = sequential()
+    for x in (seq, train):
+        check(x.shape == (cfg.vocab_size,) and bool(torch.isfinite(x).all()),
+              f"23c {arch}: logits {tuple(x.shape)} not finite or misshaped")
+    top = float(seq.abs().max())
+    tol = LOGIT_RTOL * top
+    err = float((train - seq).abs().max())
+    floor = float((plain - floor_run).abs().max())
+    check(err <= tol, f"23c {arch}: chunked vs sequential err {err} > {tol}")
+    top2 = torch.topk(seq, 2).values
+    clear = float(top2[0] - top2[1]) > tol
+    if clear:
+        check(int(seq.argmax()) == int(train.argmax()),
+              f"23c {arch}: chunked and sequential greedy tokens differ "
+              f"beyond the margin")
+    print(f"23c {arch}: chunked training forward vs cached sequential "
+          f"prefill over {n} tokens, last position: max err "
+          f"{err / top:.4f} of max |logit| (limit {LOGIT_RTOL}); floor "
+          f"(plain, f64 GEMM accumulation) {floor / top:.4f}; greedy token "
+          f"{'checked' if clear else 'not checked (margin under the limit)'}")
+    out.update(chunked_vs_sequential_rel_err=err / top,
+               floor_rel_err=floor / top, margin_checked=clear)
+    del params
+    return out
+
+
+def recurrent(torch, ops, ref, fmt, card):
+    """Phase 23: the recurrent families at full width on the card. Every
+    K1 and K2 call of 23a-23e is recorded, and after them each shape is
+    held against the plain version; K2 at both models' decode GEMMs and K6
+    at their decode batches are timed beside torch, and K3 runs at each
+    model's largest leaf."""
+    t0 = time.monotonic()
+    marks = [("start", t0)]
+    mark = lambda name: marks.append((name, time.monotonic()))
+    print(f"phase 23 (recurrent families) on {card}")
+    out = {}
+    with k1_shapes_seen(torch, ops) as k1_seen, \
+            k2_shapes_seen(torch, ops) as k2_seen:
+        out["rwkv6_serve"], engine = recurrent_serve(torch, ops,
+                                                     "rwkv6-1.6b", "23a")
+        del engine
+        mark("23a")
+        out["zamba2_serve"], engine = recurrent_serve(torch, ops,
+                                                      "zamba2-7b", "23b")
+        del engine
+        mark("23b")
+        gc.collect()
+        torch.cuda.empty_cache()
+        for arch in ("rwkv6-1.6b", "zamba2-7b"):
+            out[f"{arch}_logits"] = recurrent_logits(torch, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        mark("23c")
+        for arch, tag in (("rwkv6-1.6b", "23d"), ("zamba2-7b", "23e")):
+            layers, batch, seq = RECURRENT_TRAIN[arch]
+            out[f"{arch}_train"] = modality_train(torch, ops, arch, layers,
+                                                  batch, seq, tag)
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark(tag)
+    out["k1_driven"] = k1_driven_check(torch, ops, ref, fmt, k1_seen)
+    out["k2_driven"] = k2_driven_check(torch, ops, ref, fmt, k2_seen)
+    n64 = {N for _, _, N, _, _ in k2_seen}
+    check({64, 112} <= n64, f"23: K2 never ran at N = 64 or 112: {n64}")
+    out["decode_k2"] = k2_check(torch, ops, ref, fmt, RWKV_DECODE_GEMMS
+                                + ZAMBA2_DECODE_GEMMS)
+    out["decode_k6"] = k6_check(torch, ops, ref, [(4, 65536), (4, 32000)])
+    torch.cuda.empty_cache()
+    # the largest leaves: rwkv6's stacked ck (24 x 2048 x 7168), zamba2's
+    # stacked z/x_proj at 33 layers (5 x 3584 x 7168)
+    out["rwkv6_k3"] = k3_large_leaf(torch, ops, ref, 24 * 2048, 7168,
+                                    "23d's largest leaf, ck")
+    torch.cuda.empty_cache()
+    out["zamba2_k3"] = k3_large_leaf(torch, ops, ref, 5 * 3584, 7168,
+                                     "23e's largest leaf, z/x_proj")
+    torch.cuda.empty_cache()
+    mark("23 kernels")
+    secs = time.monotonic() - t0
+    parts = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    print(f"phase 23 took {secs:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
+    out.update(seconds=secs, seconds_by_part=parts)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5034,12 +5326,16 @@ def main() -> int:
               "--modality": lambda torch, ops, ref, fmt: {
                   "paged_attend_hd96": k5_check(torch, ops, ref, fmt,
                                                 K5_HD96_CASES),
-                  **modality(torch, ops, ref, fmt, card.stdout.strip())}}
+                  **modality(torch, ops, ref, fmt, card.stdout.strip())},
+              "--recurrent": lambda torch, ops, ref, fmt: {
+                  "paged_attend_hd112": k5_check(torch, ops, ref, fmt,
+                                                 K5_HD112_CASES),
+                  **recurrent(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
               f"--k6-sweep | --k8-sweep | --serving | --obs | "
-              f"--dense-variants | --modality]",
+              f"--dense-variants | --modality | --recurrent]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5137,7 +5433,7 @@ def main() -> int:
         # two stages a warp exceed 227 KB here: one stage a warp
         ("decode f32 pool page 32 hd 128", 2, 1, [100, 160], False,
          (8, 2, 128), {"PAGE": 32, "pool": torch.float32})]
-        + K5_HD256_CASES + K5_HD96_CASES)
+        + K5_HD256_CASES + K5_HD96_CASES + K5_HD112_CASES)
     k6 = k6_check(torch, ops, ref)
     sampler = sampler_check(torch, ops, ref)
     k7 = k7_check(torch, ops, ref)
@@ -5233,6 +5529,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     modal = modality(torch, ops, ref, fmt, card.stdout.strip())
     mark("22")
+    torch.cuda.empty_cache()
+    recur = recurrent(torch, ops, ref, fmt, card.stdout.strip())
+    mark("23")
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -5296,6 +5595,7 @@ def main() -> int:
             "approx_train": approx, "baselines": paper,
             "online_serving": online, "observability": observed,
             "dense_variants": variants, "modality": modal,
+            "recurrent": recur,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

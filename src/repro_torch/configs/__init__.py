@@ -1,5 +1,6 @@
-"""Architecture registry of the port: the dense decoders and the
-modality stubs (phi-3-vision, musicgen)."""
+"""Architecture registry of the port: the dense decoders, the modality
+stubs (phi-3-vision, musicgen) and the recurrent families (rwkv6,
+zamba2)."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +17,8 @@ ARCHS: Dict[str, str] = {
     "smollm-135m": "smollm_135m",
     "phi-3-vision-4.2b": "phi3_vision_4_2b",
     "musicgen-medium": "musicgen_medium",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "zamba2-7b": "zamba2_7b",
 }
 
 

@@ -11,7 +11,8 @@ whole train state (``params::…``, ``opt::g2::…``, ``opt::count``,
 ``step``) into a :class:`~repro_torch.training.steps.TrainState`.
 
 Packed words wider than 8 bits arrive as ``uint16``/``uint32`` and are
-kept in ``int32`` (torch has no shifts on wide unsigned types on the CPU).
+kept in ``int32`` (torch has no shifts on wide unsigned types on the CPU);
+dense ``bfloat16`` leaves (numpy's ``ml_dtypes`` type) keep their bits.
 This module reads numpy only; it never imports JAX.
 """
 from __future__ import annotations
@@ -33,6 +34,9 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype in (np.uint16, np.uint32):
         a = a.astype(np.int32)
+    if a.dtype.name == "bfloat16":     # ml_dtypes' bfloat16: its bits
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 

@@ -258,6 +258,16 @@ class _RoutedMatmul(torch.autograd.Function):
         return None, dx, ddelta, None, None
 
 
+def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with ``jnp.einsum``'s promotion: operands of two
+    float dtypes meet in the wider one (RWKV's f32 token-shift mixes meet
+    bf16 weights when the mixes are not packed)."""
+    if x.dtype != w.dtype:
+        t = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(t), w.to(t)
+    return torch.einsum(eq, x, w)
+
+
 def qeinsum(eq: str, x: torch.Tensor, w,
             cfg: Optional[QuantConfig]) -> torch.Tensor:
     """``einsum(eq, Q_A(x), Q_W(w))`` with Q_E on the output's gradient;
@@ -274,12 +284,12 @@ def qeinsum(eq: str, x: torch.Tensor, w,
             return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)
         w = w.decode(x.dtype)      # per-leaf fallback; delta carries grads
     if cfg is None or not cfg.is_quantized:
-        return backward_quantize(torch.einsum(eq, x, w), None, None, x.dtype)
+        return backward_quantize(_einsum(eq, x, w), None, None, x.dtype)
     if cfg.approx_lut is not None and cfg.weight is not None:
         from repro_torch.core.quant_training import approx_qeinsum
         y = approx_qeinsum(eq, x, w, cfg)
     else:
         xq = ste_quantize(x, cfg.act, cfg.act_scale_axis)
         wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
-        y = torch.einsum(eq, xq, wq)
+        y = _einsum(eq, xq, wq)
     return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)

@@ -40,11 +40,16 @@
 //   Packed words decode through a 2^(B-1)-entry exp2f table in
 //   shared memory (bit-equal to exp2f per element) times the row's scale,
 //   in the plain version's order.
-// Instantiated at head_dim 16, 32, 64, 96, 128 and 256. 96 is
-// phi-3-vision's: 3 x 32, so every lane holds 3 dims of each row in P.V
-// (the `HD % 32 == 0` guards hold), and a row is 6 (u8), 12 (bf16) or 24
-// (f32) 16-byte pieces, which the SUB = 32 / P lanes of a position cover
-// as pieces sh, sh + SUB, ... (at page 16, SUB = 2: 3, 6 or 12 each).
+// Instantiated at head_dim 16, 32, 64, 96, 112, 128 and 256. In P.V lane
+// l holds dims d * 32 + l (d < DPL = ceil(HD / 32)) of each row, guarded
+// by `d * 32 + l < HD` (folded away where 32 divides HD): at 16 and 112
+// the last group is partial. 96 is
+// phi-3-vision's: 3 x 32, so every lane holds 3 dims of each row, and a
+// row is 6 (u8), 12 (bf16) or 24 (f32) 16-byte pieces, which the SUB =
+// 32 / P lanes of a position cover as pieces sh, sh + SUB, ... (at page
+// 16, SUB = 2: 3, 6 or 12 each). 112 is zamba2's shared attention: DPL =
+// 4 with lanes 16-31 of the fourth group idle, a row 7 (u8), 14 (bf16)
+// or 28 (f32) pieces, and padded row strides of 128, 240 and 464 bytes.
 // 256 is gemma3's global layers: a lane holds 8 dims of each of the 4
 // rows' accumulators, and a bf16 K row is 32 16-byte pieces.
 // Splitting one row's KV over several blocks (flash-decoding) is not done:
@@ -330,7 +335,7 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
           float v[DPL];
 #pragma unroll
           for (int d = 0; d < DPL; ++d)
-            v[d] = (HD % 32 == 0 || lane < HD)
+            v[d] = (HD % 32 == 0 || d * 32 + lane < HD)
                        ? kv_value<KIND>(vrow, d * 32 + lane, tab, max_code, sshift, vsc)
                        : 0.f;
 #pragma unroll
@@ -363,7 +368,7 @@ paged_attend_kernel(const void* __restrict__ q, int q_dt,
     }
 #pragma unroll
     for (int d = 0; d < DPL; ++d)
-      if (HD % 32 == 0 || lane < HD)
+      if (HD % 32 == 0 || d * 32 + lane < HD)
         aa[(warp * ROWS + j) * HD + d * 32 + lane] = acc[j][d];
   }
   __syncthreads();
@@ -435,6 +440,7 @@ REPRO_EXPORT int repro_paged_attend(
     case 32: BY_KIND(32); break;
     case 64: BY_KIND(64); break;
     case 96: BY_KIND(96); break;
+    case 112: BY_KIND(112); break;
     case 128: BY_KIND(128); break;
     case 256: BY_KIND(256); break;
     default: return static_cast<int>(cudaErrorInvalidValue);

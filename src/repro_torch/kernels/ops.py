@@ -285,7 +285,7 @@ def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
 # an H100 block's 227 KB, else one (the kernel reports the bytes)
 _SMEM_MAX = 232448
 # the head_dims K5 is instantiated for (paged_attend.cu's switch)
-PAGED_ATTEND_HEAD_DIMS = (16, 32, 64, 96, 128, 256)
+PAGED_ATTEND_HEAD_DIMS = (16, 32, 64, 96, 112, 128, 256)
 
 
 def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,

@@ -24,9 +24,13 @@ Online (``--http HOST:PORT``): serves the asyncio gateway
 ``--device cpu`` runs the plain PyTorch versions of the kernels instead.
 ``--arch`` takes every ported config: musicgen-medium's trace has
 ``(len, 4)`` prompts and its tokens are one id a codebook (it refuses
-``--speculate-k``); phi-3-vision-4.2b serves its text trunk.
+``--speculate-k``); phi-3-vision-4.2b serves its text trunk;
+rwkv6-1.6b and zamba2-7b keep a recurrent state a slot, prefill at the
+exact prompt length and refuse ``--speculate-k`` (rwkv6 has no pageable
+layer: ``--page-size`` leaves it dense).
 
   python -m repro_torch.launch.serve --arch musicgen-medium --page-size 16
+  python -m repro_torch.launch.serve --arch zamba2-7b --page-size 16
 
 Observability: ``--trace-dir DIR`` attaches an ``EngineObserver`` (request
 spans and the step timeline), prints the run's time breakdown and exports

@@ -15,7 +15,8 @@ plain PyTorch versions of the kernels (use it with ``--smoke``). Without
 removed at the end. ``--arch phi-3-vision-4.2b`` trains on
 ``SyntheticLM``'s 576 patches a row in front of ``--seq`` text tokens
 (the loss covers the text), ``--arch musicgen-medium`` on (B, S, 4)
-codebook tokens.
+codebook tokens; ``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` run their
+recurrences chunk-parallel.
 
 Observability: ``--trace-dir``, ``--numerics-log`` or ``--quiet=false``
 attach a ``NumericsObserver`` and build the step with ``numerics=True``

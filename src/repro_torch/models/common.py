@@ -1,5 +1,7 @@
-"""The architecture config of the port: the dense decoder family and the
-two modality stubs whose trunks are dense (``vlm``, ``audio``)."""
+"""The architecture config of the port: the dense decoder family, the
+two modality stubs whose trunks are dense (``vlm``, ``audio``), and the
+recurrent families (``ssm``: RWKV6; ``hybrid``: zamba2's Mamba2 trunk
+with a shared attention block)."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,9 +11,11 @@ import torch
 
 __all__ = ["ArchConfig"]
 
-# families whose trunk is the dense decoder (JAX's ``layer_pattern`` gives
-# them all ``dense`` layers, or gemma3's local/global pattern)
-_FAMILIES = ("dense", "vlm", "audio")
+# the ported families: the dense decoder's (JAX's ``layer_pattern`` gives
+# them all ``dense`` layers, or gemma3's local/global pattern) and the
+# recurrent ones (``rwkv`` layers; ``mamba`` periods with ``shared_attn``)
+_FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
+_DECAY_LORA = 64        # RWKV6's decay LoRA rank (``models.rwkv``)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +30,11 @@ class ArchConfig:
     precomputed patch embeddings in front of the text) and ``audio``
     (musicgen: ``num_codebooks`` token streams, one embedding and head
     block of ``vocab_size`` rows each). Both lay their trunks out as
-    ``dense``."""
+    ``dense``. The recurrent families: ``ssm`` (rwkv6: ``rwkv`` layers of
+    ``ssm_head_dim``-wide WKV heads) and ``hybrid`` (zamba2: Mamba2 layers
+    with one attention block shared by every ``shared_attn_every``-th
+    layer, each occurrence with its own norms and a rank
+    ``shared_block_lora_rank`` LoRA on the fused QKV)."""
 
     name: str
     family: str
@@ -44,6 +52,15 @@ class ArchConfig:
     rope_theta_global: Optional[float] = None  # gemma3 global layers
     sliding_window: Optional[int] = None
     local_global_ratio: int = 0       # gemma3: N local layers per global
+    # --- SSM / RWKV ---
+    ssm_state_dim: int = 0
+    ssm_conv_width: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64            # mamba2 / rwkv6 head width
+    shared_attn_every: int = 0        # zamba2: shared block period
+    shared_block_lora_rank: int = 0   # zamba2 per-occurrence LoRA
+    rwkv_chunk: int = 16
+    ssm_chunk: int = 64
     # --- misc ---
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
@@ -80,7 +97,16 @@ class ArchConfig:
         unrolled layers, then ``n_periods`` repetitions of the period.
         gemma3's period is ``local_global_ratio`` local layers and one
         global one; the layers that do not fill a period are local and
-        come first."""
+        come first. rwkv6 is ``rwkv`` layers; zamba2's period is
+        ``shared_attn_every - 1`` mamba layers and the shared block, the
+        layers that do not fill a period mamba ones in front."""
+        if self.family == "ssm":
+            return (), self.num_layers, ("rwkv",)
+        if self.family == "hybrid":
+            k = self.shared_attn_every
+            n_periods = self.num_layers // k
+            prefix = ("mamba",) * (self.num_layers - n_periods * k)
+            return prefix, n_periods, ("mamba",) * (k - 1) + ("shared_attn",)
         if self.local_global_ratio > 0:
             period = ("local",) * self.local_global_ratio + ("global",)
             n_periods = self.num_layers // len(period)
@@ -89,15 +115,49 @@ class ArchConfig:
         return (), self.num_layers, ("dense",)
 
     def params_count(self) -> int:
-        """Trainable parameters, counted as the JAX package counts them."""
-        d, hd = self.d_model, self.head_dim
-        attn = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
-                + self.num_heads * hd * d)
-        if self.qkv_bias:
-            attn += (self.num_heads + 2 * self.num_kv_heads) * hd
-        if self.qk_norm:
-            attn += 2 * hd
-        block = attn + d * self.d_ff * (3 if self.mlp_gated else 2) + 2 * d
+        """Trainable parameters, counted as the JAX package counts them:
+        the shared block once, its norms and LoRA once an occurrence."""
+        d = self.d_model
         rows = self.vocab_size * (self.num_codebooks or 1)
         head = 0 if self.tie_embeddings else d * rows
-        return rows * d + head + d + self.num_layers * block
+        prefix, n_periods, period = self.layer_pattern()
+        total = rows * d + head + d
+        for kind in set(prefix) | set(period):
+            n = prefix.count(kind) + n_periods * period.count(kind)
+            total += n * self._layer_params(kind)
+        if "shared_attn" in period or "shared_attn" in prefix:
+            total += self._attn_params() + self._mlp_params()
+        return total
+
+    def _attn_params(self) -> int:
+        d, hd = self.d_model, self.head_dim
+        n = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
+             + self.num_heads * hd * d)
+        if self.qkv_bias:
+            n += (self.num_heads + 2 * self.num_kv_heads) * hd
+        if self.qk_norm:
+            n += 2 * hd
+        return n
+
+    def _mlp_params(self) -> int:
+        return self.d_model * self.d_ff * (3 if self.mlp_gated else 2)
+
+    def _layer_params(self, kind: str) -> int:
+        """One layer of ``kind`` (a shared block's occurrence: its norms
+        and LoRA only)."""
+        d = self.d_model
+        if kind == "rwkv":       # rwkv_init's leaves, two norms
+            return (6 * d + 2 * d * _DECAY_LORA + d + 5 * d * d + d + 2 * d
+                    + 2 * d * self.d_ff + d * d + 2 * d)
+        if kind == "mamba":      # mamba_init's leaves, one norm
+            d_in = self.ssm_expand * d
+            h = d_in // self.ssm_head_dim
+            conv = d_in + 2 * self.ssm_state_dim
+            return (d * (2 * d_in + 2 * self.ssm_state_dim + h)
+                    + self.ssm_conv_width * conv + conv + 3 * h + d_in
+                    + d_in * d + d)
+        if kind == "shared_attn":
+            r = self.shared_block_lora_rank
+            qkv = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
+            return 2 * d + (d * r + r * qkv if r else 0)
+        return self._attn_params() + self._mlp_params() + 2 * d

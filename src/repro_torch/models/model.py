@@ -13,9 +13,13 @@ Layer kinds: ``dense`` (full-context attention), and gemma3's ``local``
 (sliding window, ring cache) and ``global`` (full context, its own rope
 theta). The modality stubs' trunks are the dense one: phi-3-vision's
 patch prefix and musicgen's codebooks change only the embedding, the
-head and the loss. ``forward(remat=True)`` recomputes each layer in the
-backward pass (``torch.utils.checkpoint``) instead of keeping its
-activations.
+head and the loss. The recurrent kinds: ``rwkv`` (RWKV6 time-mix and
+channel-mix, both reading the block's input: JAX's parallel-block
+residual), ``mamba`` (Mamba2 SSD) and ``shared_attn`` (zamba2's one
+attention block and MLP at ``params["shared"]``, re-applied with each
+occurrence's own norms and a LoRA delta on the fused QKV weights).
+``forward(remat=True)`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``) instead of keeping its activations.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (decoded_of, dense_of, embed_lookup,
                                        mlp_apply, rms_norm)
@@ -77,7 +83,14 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
 
     ``leaf_fn(path, tensor)``, when given, replaces each leaf as soon as
     it is made (``optim.madam.lns_leaf_encoder`` encodes it), so at most
-    one dense leaf exists at a time."""
+    one dense leaf exists at a time.
+
+    The recurrent kinds draw after every attention stack: each ``rwkv`` or
+    ``mamba`` stack's leaves in ``rwkv_leaves``/``mamba_leaves`` order
+    (their conv weights normals), each ``shared_attn`` occurrence's
+    ``lora_a`` (``lora_b`` starts at zero), then the shared block's
+    attention and MLP. A dense config draws none of these, so its draws
+    are unchanged."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.compute_dtype
@@ -85,10 +98,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     fn = leaf_fn or (lambda path, w: w)
     prefix, n_periods, period = cfg.layer_pattern()
-    # (path, stack size or None): the period positions, then the prefix
-    stacks = [(("period", f"pos{j}"), n_periods)
-              for j in range(len(period)) if n_periods]
-    stacks += [(("prefix", i), None) for i in range(len(prefix))]
+    # (path, stack size or None, kind): the period positions, then the
+    # prefix; the attention stacks hold the dense kinds
+    every = [(("period", f"pos{j}"), n_periods, kind)
+             for j, kind in enumerate(period) if n_periods]
+    every += [(("prefix", i), None, kind) for i, kind in enumerate(prefix)]
+    stacks = [(path, n) for path, n, kind in every
+              if kind in ("dense", "local", "global")]
 
     def dense(path, n, d_in, d_out):
         lead = (n,) if n else ()
@@ -98,13 +114,39 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     def zeros(path, *shape, dtype=torch.float32):
         return fn(path, torch.zeros(shape, dtype=dtype, device=dev))
 
-    mlps = {}
-    for path, n in stacks:
+    def leaf(path, n, spec):
+        """One leaf of ``rwkv_leaves``/``mamba_leaves``' specs."""
+        lead = (n,) if n else ()
+        if spec[0] == "dense":
+            _, d_in, d_out, dtype = spec
+            return fn(path, _trunc_normal(lead + (d_in, d_out),
+                                          1.0 / math.sqrt(d_in), dtype, gen,
+                                          dev))
+        if spec[0] == "normal":
+            t = torch.randn(lead + spec[1], generator=gen, device=dev,
+                            dtype=torch.float32)
+            return fn(path, t * spec[2])
+        return fn(path, torch.full(lead + spec[1], spec[2],
+                                   dtype=torch.float32, device=dev))
+
+    def mlp_leaves(path, n):
         mlp = {"up": dense(path + ("mlp", "up"), n, d, f)}
         if cfg.mlp_gated:
             mlp["gate"] = dense(path + ("mlp", "gate"), n, d, f)
         mlp["down"] = dense(path + ("mlp", "down"), n, f, d)
-        mlps[path] = mlp
+        return mlp
+
+    def attn_leaves(path, n):
+        lead = (n,) if n else ()
+        a = {"wq": dense(path + ("attn", "wq"), n, d, h * hd),
+             "wk": dense(path + ("attn", "wk"), n, d, kv * hd),
+             "wv": dense(path + ("attn", "wv"), n, d, kv * hd),
+             "wo": dense(path + ("attn", "wo"), n, h * hd, d)}
+        for k, (shape, dtype) in attn_mod.attn_zero_leaves(cfg).items():
+            a[k] = zeros(path + ("attn", k), *lead, *shape, dtype=dtype)
+        return a
+
+    mlps = {path: mlp_leaves(path, n) for path, n in stacks}
     rows = cfg.vocab_size * (cfg.num_codebooks or 1)   # K blocks of V rows
     embed = {"tok": fn(("embed", "tok"), _trunc_normal(
         (rows, d), 0.02, dt, gen, dev))}
@@ -113,15 +155,32 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     blocks = {}
     for path, n in stacks:
         lead = (n,) if n else ()
-        a = {"wq": dense(path + ("attn", "wq"), n, d, h * hd),
-             "wk": dense(path + ("attn", "wk"), n, d, kv * hd),
-             "wv": dense(path + ("attn", "wv"), n, d, kv * hd),
-             "wo": dense(path + ("attn", "wo"), n, h * hd, d)}
-        for k, (shape, dtype) in attn_mod.attn_zero_leaves(cfg).items():
-            a[k] = zeros(path + ("attn", k), *lead, *shape, dtype=dtype)
+        a = attn_leaves(path, n)
         blocks[path] = {"ln1": zeros(path + ("ln1",), *lead, d), "attn": a,
                         "ln2": zeros(path + ("ln2",), *lead, d),
                         "mlp": mlps[path]}
+    specs = {"rwkv": rwkv_mod.rwkv_leaves, "mamba": ssm_mod.mamba_leaves}
+    for path, n, kind in every:
+        lead = (n,) if n else ()
+        if kind in specs:
+            inner = "rwkv" if kind == "rwkv" else "mamba"
+            lns = ("ln1", "ln2") if kind == "rwkv" else ("ln",)
+            blocks[path] = {ln: zeros(path + (ln,), *lead, d) for ln in lns}
+            blocks[path][inner] = {
+                name: leaf(path + (inner, name), n, spec)
+                for name, spec in specs[kind](cfg)}
+        elif kind == "shared_attn":
+            blocks[path] = {"ln1": zeros(path + ("ln1",), *lead, d),
+                            "ln2": zeros(path + ("ln2",), *lead, d)}
+            r = cfg.shared_block_lora_rank
+            if r:
+                blocks[path]["lora_a"] = dense(path + ("lora_a",), n, d, r)
+                blocks[path]["lora_b"] = zeros(
+                    path + ("lora_b",), *lead, r, (h + 2 * kv) * hd,
+                    dtype=dt)
+    if "shared_attn" in period or "shared_attn" in prefix:
+        params["shared"] = {"attn": attn_leaves(("shared",), None),
+                            "mlp": mlp_leaves(("shared",), None)}
     if not cfg.tie_embeddings:     # drawn last: tied configs keep their draws
         embed["head"] = fn(("embed", "head"), _trunc_normal(
             (d, rows), 0.02, dt, gen, dev))
@@ -164,7 +223,27 @@ def _attn_kind_args(cfg: ArchConfig, kind: str):
 
 
 def _block(kind: str, bp, x: torch.Tensor, cfg: ArchConfig, qcfg,
-           positions, cache, block_tables) -> torch.Tensor:
+           positions, cache, block_tables, shared=None) -> torch.Tensor:
+    if kind == "mamba":
+        hdn = rms_norm(x, bp["ln"], cfg.norm_eps)
+        return x + ssm_mod.mamba_apply(bp["mamba"], hdn, cfg, qcfg,
+                                       state=cache)
+    if kind == "rwkv":
+        # the parallel-block residual: both halves read the block's input
+        tm, cm = rwkv_mod.rwkv_apply(
+            bp["rwkv"], rms_norm(x, bp["ln1"], cfg.norm_eps),
+            rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, qcfg, state=cache)
+        return x + tm + cm
+    if kind == "shared_attn":
+        hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
+        attn_p = shared["attn"]
+        if "lora_a" in bp:
+            attn_p = _lora_qkv(attn_p, bp, cfg)
+        x = x + attn_mod.attn_apply(attn_p, hdn, cfg, qcfg,
+                                    positions=positions, cache=cache,
+                                    block_table=block_tables)
+        hdn = rms_norm(x, bp["ln2"], cfg.norm_eps)
+        return x + mlp_apply(shared["mlp"], hdn, cfg, qcfg)
     window, theta = _attn_kind_args(cfg, kind)
     hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
     x = x + attn_mod.attn_apply(bp["attn"], hdn, cfg, qcfg,
@@ -173,6 +252,21 @@ def _block(kind: str, bp, x: torch.Tensor, cfg: ArchConfig, qcfg,
                                 block_table=block_tables)
     hdn = rms_norm(x, bp["ln2"], cfg.norm_eps)
     return x + mlp_apply(bp["mlp"], hdn, cfg, qcfg)
+
+
+def _lora_qkv(attn_p, bp, cfg: ArchConfig):
+    """zamba2: the shared QKV weights decoded plus this occurrence's LoRA
+    delta ``lora_a @ lora_b`` (compute dtype). Dense weights take
+    ``qeinsum``'s fake-quant leg, not K2, as in the JAX package; ``wo``
+    stays packed."""
+    delta = decoded_of(bp["lora_a"], cfg) @ decoded_of(bp["lora_b"], cfg)
+    q_dim = cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    out = dict(attn_p)
+    out["wq"] = decoded_of(attn_p["wq"], cfg) + delta[:, :q_dim]
+    out["wk"] = decoded_of(attn_p["wk"], cfg) + delta[:, q_dim:q_dim + kv_dim]
+    out["wv"] = decoded_of(attn_p["wv"], cfg) + delta[:, q_dim + kv_dim:]
+    return out
 
 
 def lm_head(params, cfg: ArchConfig):
@@ -216,14 +310,16 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     if positions.dim() > 1 and positions.shape[0] == 1:
         positions = positions[0]
     remat = remat and caches is None and torch.is_grad_enabled()
+    shared = params.get("shared")
     for kind, bp, c in layers(cfg, params, caches):
         if remat:
             # nothing in a block draws random numbers (its rounding is
             # deterministic), so the recompute gives the forward's values
             x = checkpoint(_block, kind, bp, x, cfg, qcfg, positions, None,
-                           None, use_reentrant=False)
+                           None, shared, use_reentrant=False)
         else:
-            x = _block(kind, bp, x, cfg, qcfg, positions, c, block_tables)
+            x = _block(kind, bp, x, cfg, qcfg, positions, c, block_tables,
+                       shared)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if head is None:
         head = lm_head(params, cfg)
@@ -271,8 +367,10 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
     """Decode caches shaped like the trunk (``prefix`` list, ``period``
     stacks): a ``local`` layer gets a ring of ``sliding_window +
     window_slack`` positions (at most ``max_len``); a full-context layer
-    a dense ``(batch, max_len)`` buffer, or with ``page_size`` a paged
-    pool (default ``batch * ceil(max_len / page_size)`` pages).
+    (``shared_attn`` too) a dense ``(batch, max_len)`` buffer, or with
+    ``page_size`` a paged pool (default ``batch * ceil(max_len /
+    page_size)`` pages); a ``mamba`` or ``rwkv`` layer its f32 state
+    dict, which has no cursor ``idx``.
     Speculative decoding passes its k as ``window_slack``: draft writes
     past a rewound cursor then land only on ring slots no query can see
     any more."""
@@ -282,6 +380,10 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
         num_pages = batch * (-(-max_len // page_size))
 
     def one(kind):
+        if kind == "mamba":
+            return ssm_mod.init_mamba_state(batch, cfg, dev)
+        if kind == "rwkv":
+            return rwkv_mod.init_rwkv_state(batch, cfg, dev)
         if kind == "local":
             return attn_mod.init_kv_cache(
                 batch, max_len, cfg, dev,

@@ -44,6 +44,14 @@ scheduling, so the same trace gives the same token streams:
   larger verify batch). A slot that cannot host k positions sends the
   whole batch down the one-token step for that step.
 
+Recurrent models (rwkv6's ``rwkv`` layers, zamba2's ``mamba`` layers):
+each slot keeps an f32 state row a layer in place of KV, prefilled at the
+exact prompt length from a zero state (a preempted request re-prefills
+from zero); zamba2's shared attention layers page as usual, rwkv6 has no
+pageable layer and stays dense whatever ``page_size`` says, as in the
+JAX engine. Neither reuses prefixes, and speculation is refused
+(``spec_supported``).
+
 Codebook models (musicgen, ``cfg.num_codebooks`` = K): a prompt is
 ``(len, K)`` id rows, every prefill and decode carries a row of K ids a
 position, the sampler reads the ``(B, K * V)`` logits as ``B * K`` rows,
@@ -135,15 +143,17 @@ def _map_layers(caches, fn):
 def _set_cursors(caches, n) -> None:
     """Set every layer's cursor to ``n`` (a number or a ``(B,)`` row
     vector): ring layers and pools alike, so a speculative rewind moves
-    them together."""
+    them together. Recurrent state has no cursor."""
     for c, _ in _layer_caches(caches):
-        c["idx"][...] = n
+        if "idx" in c:
+            c["idx"][...] = n
 
 
 def _set_cursor_row(caches, slot: int, n: int) -> None:
-    """Set row ``slot``'s cursor of every layer to ``n``."""
+    """Set row ``slot``'s cursor of every layer (that has one) to ``n``."""
     for c, _ in _layer_caches(caches):
-        c["idx"][..., slot] = n
+        if "idx" in c:
+            c["idx"][..., slot] = n
 
 
 def _scatter_row(big, small, slot: int, stacked: bool) -> None:
@@ -185,6 +195,9 @@ class Engine:
                                    autotune=bool(spec_autotune))
         prefix, _, period = cfg.layer_pattern()
         kinds = set(prefix) | set(period)
+        # recurrent state folds every position in: prefills run at the
+        # exact prompt length (pads would enter the state)
+        self._recurrent = bool(kinds & {"mamba", "rwkv"})
         self._window = cfg.sliding_window if "local" in kinds else None
         # ring layers over-allocate by the largest k a cycle drafts, so a
         # rewind never lets the write head lap a position still in the
@@ -203,7 +216,10 @@ class Engine:
         self._head = lm_head(self.params, cfg)
         self.num_slots, self.max_len = num_slots, max_len
         self.buckets = tuple(sorted(b for b in buckets if b <= max_len))
-        self.page_size = page_size or None
+        # pages only where some layer kind can be paged (rwkv6 has none:
+        # its engine keeps the dense layout, with no allocator)
+        self.page_size = (page_size if page_size and kinds & _PAGED_KINDS
+                          else None)
         if self.page_size:
             self._max_pages = -(-max_len // page_size)
             self.num_pages = num_pages or num_slots * self._max_pages
@@ -316,7 +332,10 @@ class Engine:
     def _bucket(self, plen: int) -> int:
         """The prefill's padded length: the smallest bucket that holds the
         prompt and, with ring layers, no more than the window (pads past
-        it would wrap onto live keys); else the exact length."""
+        it would wrap onto live keys); else, and always with recurrent
+        layers, the exact length."""
+        if self._recurrent:
+            return plen
         for b in self.buckets:
             if b >= plen and (self._window is None or b <= self._window):
                 return b
@@ -482,12 +501,12 @@ class Engine:
         page that already holds the shared tokens; without one both name
         the null page (a self-copy, skipped). The suffix runs at
         ``pos_offset = n_cached``; bucket padding past the table's span
-        drops. A ring layer prefills over a zero batch-1 ring that is then
+        drops. A ring or a recurrent layer prefills over a zero batch-1
+        ring or state that is then
         copied into the slot's row. Every cursor ends at ``n_total``."""
 
         def mini_layer(c, stacked):
-            lead = (c["idx"].shape[0], 1) if stacked else (1,)
-            if "kp" not in c:     # a ring: a zero batch-1 row
+            if "kp" not in c:     # a ring or a state: a zero batch-1 row
                 ax = 1 if stacked else 0
                 return {k: torch.zeros(v.shape[:ax] + (1,) + v.shape[ax + 1:],
                                        dtype=v.dtype, device=v.device)
@@ -500,6 +519,7 @@ class Engine:
                         else:
                             c[key][cow_dst] = c[key][cow_src]
             m = {k: v for k, v in c.items() if k != "idx"}
+            lead = (c["idx"].shape[0], 1) if stacked else (1,)
             m["idx"] = torch.full(lead, n_cached, dtype=torch.int32,
                                   device=self.device)
             return m

@@ -431,20 +431,20 @@ def test_k5_plain_head_dim_256_matches_jax(packed, S):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("hd", [96, 112])
+@pytest.mark.parametrize("hd", [96, 112, 80])
 def test_k5_kernel_refuses_unbuilt_head_dims(hd):
-    """112 (zamba2) is not instantiated: the wrapper names the supported
-    head_dims before it looks at the device. 96 (phi-3-vision, since the
-    modality slice) and 256 pass that guard (and then need a CUDA
-    tensor)."""
+    """80 is not instantiated: the wrapper names the supported head_dims
+    before it looks at the device. 96 (phi-3-vision, since the modality
+    slice), 112 (zamba2's shared attention, since the recurrent slice)
+    and 256 pass that guard (and then need a CUDA tensor)."""
     q = torch.zeros((1, 1, 2, hd))
     pool = torch.zeros((3, 4, 1, hd), dtype=torch.bfloat16)
     bt, ln = torch.zeros((1, 1), dtype=torch.int32), torch.ones(
         (1,), dtype=torch.int32)
-    built = {96: True, 112: False}[hd]
+    built = {96: True, 112: True, 80: False}[hd]
     assert (hd in ops.PAGED_ATTEND_HEAD_DIMS) == built
     match = ("CUDA tensor" if built else
-             r"head_dim .*\(16, 32, 64, 96, 128, 256\)")
+             r"head_dim .*\(16, 32, 64, 96, 112, 128, 256\)")
     with pytest.raises(ValueError, match=match):
         ops.paged_attend(q, pool, pool, None, None, bt, ln, sm_scale=1.0)
     q256 = torch.zeros((1, 1, 2, 256))

@@ -411,6 +411,59 @@ def test_k5_head_dim_96_piece_order_matches_plain(case, pool):
     assert float((got - want).abs().max()) <= K5_ATOL
 
 
+# zamba2's head_dim 112: a row is 7 (u8), 14 (bf16) or 28 (f32) 16-byte
+# pieces, odd for u8, so at page 16 one lane of a position takes a piece
+# more than the other
+K5_HD112_CASES = {
+    "decode": (2, 1, [33, 61], 16),
+    "prefill": (1, 8, [8], 16),
+    "empty_warps": (2, 1, [9, 1], 16),
+    "decode_page4": (2, 1, [9, 14], 4),
+}
+
+
+@pytest.mark.parametrize("case", list(K5_HD112_CASES))
+@pytest.mark.parametrize("pool", ["bf16", "packed", "f32"])
+def test_k5_head_dim_112_piece_order_matches_plain(case, pool):
+    """K5's logits in the kernel's piece order and its warp split at
+    head_dim 112 (one query head a KV head, as zamba2's 32 / 32) equal
+    ``ref.paged_attend`` within ``K5_ATOL``."""
+    B, S, lengths, page = K5_HD112_CASES[case]
+    args = _k5_inputs(B, S, lengths, pool == "packed", page, seed=len(case),
+                      heads=(2, 2, 112), mp=5,
+                      pool=torch.float32 if pool == "f32" else torch.bfloat16)
+    kw = dict(fmt=FMT if pool == "packed" else None, softcap=None,
+              sm_scale=1 / np.sqrt(112))
+    want = ref.paged_attend(*args, **kw)
+    got = _k5_warp_split(*args, **kw, pieces=True)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= K5_ATOL
+
+
+def _k5_pv_dims(hd, guard):
+    """The dims each (lane, group d) of K5's P.V reads and writes, by
+    ``guard(d, lane, hd)``: DPL = ceil(hd / 32) groups of 32 lanes."""
+    dpl = -(-hd // 32)
+    return [d * 32 + lane for d in range(dpl) for lane in range(32)
+            if guard(d, lane, hd)]
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64, 96, 112, 128, 256])
+def test_k5_pv_lane_map_covers_each_dim_once(hd):
+    """P.V's lane-to-dim map (``paged_attend.cu``: lane l of group d holds
+    dim d * 32 + l where ``HD % 32 == 0 || d * 32 + l < HD``) covers dims
+    0..hd-1 exactly once at every built head_dim. The guard it replaced
+    (``HD % 32 == 0 || lane < HD``) did so only below 32: at 112 its
+    fourth group reached dims 112-127, past the row (the K read went into
+    the row's pad and the next row, the merge wrote past ``aa``'s row)."""
+    fixed = _k5_pv_dims(hd, lambda d, l, h: h % 32 == 0 or d * 32 + l < h)
+    assert sorted(fixed) == list(range(hd))
+    old = _k5_pv_dims(hd, lambda d, l, h: h % 32 == 0 or l < h)
+    assert (sorted(old) == list(range(hd))) == (hd % 32 == 0 or hd < 32)
+    if hd == 112:
+        assert max(old) == 127 and len(old) == 128
+
+
 # ---------------------------------------------------------------- K1
 
 K1_SMS = 132
