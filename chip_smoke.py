@@ -11,6 +11,7 @@
     python3 chip_smoke.py --dense-variants  # 1, 2, K5 at hd 256, and 21
     python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
     python3 chip_smoke.py --recurrent  # 1, 2, K5 at hd 112, and 23
+    python3 chip_smoke.py --moe        # 1, 2, K5 at rep 8, and 24
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -46,8 +47,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    S=4, warps that see no position, an f32 pool) and zamba2's shared
    attention at head_dim 112 (``K5_HD112_CASES``: bf16 and packed
    decode, the exact-length prefill 1 x 32 over 32 positions, warps that
-   see no position, an f32 pool), each timed beside SDPA over gathered
-   pages. TF32 must be off.
+   see no position, an f32 pool) and kimi-k2's 8 query heads a KV head
+   (``K5_KIMI_CASES``: bf16 and packed decode), each timed beside SDPA
+   over gathered pages. TF32 must be off.
    ``sample_logits`` on a 4-row temperature batch and its 16-row verify
    batch must launch K6 once a call (its count) and run no torch kernel,
    no copy (torch.profiler) and no ``torch.Generator``; its wall time and device work are printed
@@ -122,7 +124,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``dispatch.madam_step_unpacked`` it launches once per call.
 17. Approximation-aware training of smollm-135m at full width, from phase
     9's state and batch: one step each under ``QuantConfig.lns_madam()``
-    and ``approx_lut`` 8 and 1, then 1 more step at LUT 1, with TF32 off.
+    and ``approx_lut`` 8 and 1 (``APPROX_EXTRA_STEPS`` more at LUT 1: 0),
+    with TF32 off.
     Losses finite; K3 launches 8 times a step, K1 and K2 none under the
     approximation; the LUT-8 loss equals the exact fake-quant forward's
     within ``APPROX_LOSS_RTOL``, printed beside an f64-accumulation floor,
@@ -134,7 +137,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     row, bf16 and f32, 2048x1536: two calls bit-identical, the normalized
     values equal to the ``float8_e4m3fn``/``float16`` round trip bit for
     bit, differences from the same call on the CPU printed, ms and device
-    kernels a call; (b) ``launch.train --format fp8`` (smollm-135m, 4
+    kernels a call; (b) ``launch.train --format fp8`` (smollm-135m, 2
     steps of 8 x 256): K3 8 times a step, K1 and K2 never, no retry,
     finite losses, and one fp8 step profiled beside phase 10's lns8 step;
     (c) BERT-base at full width (12 layers, d 768, untied head, ungated
@@ -143,7 +146,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ran held against the plain version (as phase 14) and timed beside
     ``torch.matmul`` bf16, one step of each profiled; (d) Fig. 7 on
     smollm-135m with dense f32 weights: sgd_q and adamw_q at Q_U 16 and
-    10 bits, and ``madam_fp``, 3 steps each: finite losses, no kernel
+    10 bits, and ``madam_fp``, 2 steps each: finite losses, no kernel
     launched, every >=2-D leaf a fixed point of Q_log at Q_U; (e) Fig. 4
     at d = 2^20 on the card and the CPU from the same uniforms: r_t within
     ``FIG4_RTOL``, MUL and signMUL below GD, Madam printed beside GD.
@@ -286,6 +289,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     at both models' decode GEMMs beside ``torch.matmul`` bf16, K6 at
     4 x 65,536 and 4 x 32,000 beside ``torch.argmax``, K3 at each train
     step's largest leaf.
+24. The mixtures of experts at full width, random packed 8-bit LNS
+    weights from seed 0, each serve warmed by its first request for 2
+    tokens, then counted as 21a counts; every router call recorded. (a)
+    deepseek-v3-671b (MLA: q rank 1536, kv rank 512, nope 128 + rope 64,
+    v 128; 256 routed experts top 8 and a shared one; vocab 129,280) cut
+    to its 3 dense layers and 2 of its 58 MoE layers (``MOE_SERVE_CUT``:
+    at 8 bits a word 671.7e9 parameters do not fit one card), 8 x (32 +
+    32), 4 slots, with ``--page-size 16``: the engine keeps the dense
+    latent cache and builds no allocator (MLA is never paged, as in the
+    JAX engine); every request completes; K1 = K2 = 36 (7 a layer, the
+    head), K5 0 and K6 1 launches a forward; the words' size, peak
+    memory, TTFT, TPOT p50 and the share of (token, k) assignments
+    capacity dropped at prefill and at decode printed. (b) kimi-k2-1t-a32b
+    (64 heads over 8 KV heads at head_dim 128, 384 experts, vocab
+    163,840) cut to its dense layer and 2 MoE layers, paged, page 16, the
+    prefix cache on, the same trace: K1 = K2 = 22, K5 3, K6 1 a forward,
+    with (a)'s other checks. (c) Each model at one dense and one MoE
+    layer: phase 5's kernels-vs-plain logits beside the f64 floor with
+    the count of (token, k) routes on which the paths part by step, each
+    step whose routes agree held to ``LOGIT_RTOL``; then a cached prefill
+    of 63 tokens and one decode step against the training forward over
+    64 (deepseek: MLA's absorbed form from the latent cache against the
+    expanded one; Q_A off the attention operands, a capacity that drops
+    nothing), the dense layer alone and both layers, the last position
+    held where its routes agree. (d) One deepseek train step,
+    one MoE layer of 16 experts (top 8 and the shared one kept), MTP on,
+    2 x 128, remat on: a finite loss, K3 once a packed leaf (the 4-D
+    expert stacks included), the peak and bytes a parameter printed.
+    Then every K1 and K2 shape 24a-24d ran is held to the plain versions,
+    K2 at both models' decode GEMMs beside ``torch.matmul`` bf16, K6 at
+    4 x 129,280 and 4 x 163,840 beside ``torch.argmax``, K3 at 24d's 4-D
+    expert leaf (16 x 7168 x 2048).
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -398,7 +433,7 @@ SMEM_LOADS_PER_SM = 32
 # the same check as controls that must fail it, so LUT-4 factors in place
 # of LUT-8 ones would not pass
 APPROX_LOSS_RTOL = 1.1e-4
-APPROX_EXTRA_STEPS = 1
+APPROX_EXTRA_STEPS = 0
 # K6's operations an element, for its bound: greedy a compare; noise-in a
 # divide, an add and a compare; seeded also the noise (two mix32 rounds of
 # 8 integer ops, 4 more to key, shift and convert, 2 to scale, two logs
@@ -417,11 +452,11 @@ K6_NOISE_ATOL = 2.0 ** -21
 PREFIX_LEN, PREFIX_REQS, PREFIX_GEN, COW_GEN = 64, 8, 32, 8
 # phase 18: the paper's baselines at full width
 FP_SHAPE = (2048, 1536)
-FP8_STEPS = 4
+FP8_STEPS = 2
 FP8_TRAIN_ARGV = ["--arch", "smollm-135m", "--format", "fp8", "--steps",
                   str(FP8_STEPS), "--batch", "8", "--seq", "256"]
 BERT_BATCH, BERT_SEQ = 8, 384
-FIG7_STEPS = 3
+FIG7_STEPS = 2
 FIG4_D, FIG4_ETA, FIG4_GAMMA = 1 << 20, 2.0 ** -6, 2.0 ** 10
 # Fig. 4 on the card against the CPU from the same uniforms: CUDA's and
 # the CPU's log2/exp2 round an ulp or two apart (as across frameworks,
@@ -556,6 +591,38 @@ MUSICGEN_DECODE_GEMMS = [(4, 1536, 1536), (4, 1536, 6144), (4, 6144, 1536),
 # error could show there (PERF.md, phase 22);
 # 22c: its train step, cut to half depth (the store, its moments and the
 # update's new copies of 32 layers would pass 80 GB: ROADMAP 6.7)
+# phase 24: the mixtures of experts at full width. At 8 bits a word the
+# full depths (671.7e9 and 1027.9e9 parameters) do not fit one card:
+# deepseek-v3 serves its 3 dense layers and 2 of its 58 MoE layers
+# (27.3e9 parameters with the MTP module the tree carries), kimi-k2 its
+# dense layer and 2 of its 60 MoE layers (36.7e9)
+MOE_SERVE_CUT = {"deepseek-v3-671b": dict(num_layers=5),
+                 "kimi-k2-1t-a32b": dict(num_layers=3)}
+# 24c: kernels vs plain at one dense and one MoE layer each
+MOE_LOGIT_CUT = dict(num_layers=2, num_dense_layers=1)
+MOE_SEQ_TOKENS = 64
+# 24d: one deepseek MoE layer (no dense layer) with 16 of its 256
+# experts (top-8 and the shared expert kept), MTP on, 2 x 128 tokens:
+# 3.48e9 parameters, at ~18-19 B a parameter (ROADMAP 6.7) ~65 GB
+MOE_TRAIN = ("deepseek-v3-671b", 1, 2, 128,
+             dict(num_dense_layers=0, num_experts=16))
+# K5 at kimi-k2's GQA: 64 query heads over 8 KV heads (8 a KV head, two
+# 4-row tiles a group), head_dim 128
+K5_KIMI = (64, 8, 128)
+K5_KIMI_CASES = [
+    ("kimi-k2 decode bf16 pool rep 8", 4, 1, [33, 48, 61, 66], False,
+     K5_KIMI),
+    ("kimi-k2 decode packed pool rep 8", 4, 1, [33, 48, 61, 66], True,
+     K5_KIMI)]
+# the decode GEMMs (M = 4 slots): deepseek's MLA (q_down, q_up, kv_down,
+# wo), dense MLP (up/gate, down), shared expert (up/gate, down), head;
+# kimi's attention (wq, wk/wv, wo), dense MLP = shared expert, head
+DEEPSEEK_DECODE_GEMMS = [(4, 7168, 1536), (4, 1536, 24576), (4, 7168, 576),
+                         (4, 16384, 7168), (4, 7168, 18432),
+                         (4, 18432, 7168), (4, 7168, 2048), (4, 2048, 7168),
+                         (4, 7168, 129280)]
+KIMI_DECODE_GEMMS = [(4, 7168, 8192), (4, 7168, 1024), (4, 8192, 7168),
+                     (4, 7168, 2048), (4, 2048, 7168), (4, 7168, 163840)]
 PHI3V_TEXT = 64
 PHI3V_LOGIT_LAYERS = 2
 PHI3V_TRAIN_LAYERS = 16
@@ -2831,6 +2898,7 @@ def approx_train(torch, ops, setup):
           "TF32 is on: the approximate GEMMs must run in full f32")
     cfg, _, mcfg, state, batch = setup
     runs = {}
+    marks = [("start", time.monotonic())]
 
     def one_step(name, qcfg, st):
         step = build_train_step(cfg, qcfg, mcfg)
@@ -2870,6 +2938,7 @@ def approx_train(torch, ops, setup):
             approx_lut=1), st)
         extra.append(r)
     runs["lut1_more"] = extra
+    marks.append(("steps", time.monotonic()))
 
     # where a LUT-1 step's time goes (as phase 10 profiles the K-path step)
     from torch.profiler import ProfilerActivity, profile
@@ -2888,6 +2957,7 @@ def approx_train(torch, ops, setup):
     for e in top:
         print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms, "
               f"{e.count} calls")
+    marks.append(("profile", time.monotonic()))
     runs["lut1_profile"] = {
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy_us / 1e3 if busy_us else None,
@@ -2914,8 +2984,8 @@ def approx_train(torch, ops, setup):
           f"4/2/1 outside); floor, f64 accumulation, {rel_floor:.2e}; LUT-1 "
           "losses " + " ".join(f"{r['loss']:.4f}"
                                for r in [runs["lut1"]] + extra)
-          + f"; LUT-1 step {sum(r['step_s'] for r in extra) / len(extra):.3f}"
-          f" s over the last {len(extra)}")
+          + (f"; LUT-1 step {sum(r['step_s'] for r in extra) / len(extra):.3f}"
+             f" s over the last {len(extra)}" if extra else ""))
     check(rel <= APPROX_LOSS_RTOL,
           f"LUT-8 loss differs from the exact fake-quant loss by {rel}")
     for lut in (4, 2, 1):
@@ -2923,10 +2993,14 @@ def approx_train(torch, ops, setup):
               f"control: the LUT-{lut} loss is within {APPROX_LOSS_RTOL} of "
               f"the exact fake-quant loss ({rels[lut]}), so the check cannot "
               f"tell LUT {lut} from the exact conversion")
+    marks.append(("forward losses", time.monotonic()))
+    parts = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    print("phase 17 took " + ", ".join(f"{k} {v:.1f}s"
+                                       for k, v in parts.items()))
     return dict(runs=runs, forward_loss={str(k): v for k, v in fwd.items()},
                 forward_rel={str(k): v for k, v in rels.items()},
                 exact_fq_loss=exact, floor_loss=floor, lut8_rel=rel,
-                floor_rel=rel_floor)
+                floor_rel=rel_floor, seconds_by_part=parts)
 
 
 def profile_line(tag, p):
@@ -3116,7 +3190,7 @@ def fig7(torch, ops):
     """Phase 18d: Fig. 7's optimizers on smollm-135m at full width with
     dense f32 weights (``init_params``) on the fake-quant leg under
     ``QuantConfig.lns_madam()``: sgd_q and adamw_q at Q_U 16 and 10 bits,
-    and ``madam_fp``, 3 steps each. Finite losses, no kernel launched,
+    and ``madam_fp``, 2 steps each. Finite losses, no kernel launched,
     every updated leaf of rank >= 2 a fixed point of Q_log at Q_U."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -3226,10 +3300,13 @@ def baselines(torch, ops, ref, fmt, lns8_profile):
     """Phase 18: the paper's baselines at full width. Each step prints one
     JSON line of its main numbers and its seconds (the full results go to
     the JSON file)."""
+    parts = {}
+
     def run(step, fn, summary):
         t = time.monotonic()
         res = fn()
-        print(json.dumps({"phase18": step, "s": time.monotonic() - t,
+        parts[step] = time.monotonic() - t
+        print(json.dumps({"phase18": step, "s": parts[step],
                           "result": summary(res)}))
         return res
 
@@ -3254,7 +3331,9 @@ def baselines(torch, ops, ref, fmt, lns8_profile):
         "fig4": run("fig4", lambda: fig4(torch), lambda r: r),
     }
     out["seconds"] = time.monotonic() - t0
-    print(f"phase 18 took {out['seconds']:.1f}s")
+    out["seconds_by_part"] = parts
+    print(f"phase 18 took {out['seconds']:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
     return out
 
 
@@ -4325,6 +4404,10 @@ def packed_bytes(params):
 # QKV is decoded plus the occurrence's LoRA delta: the fake-quant leg)
 def _kind_gemms(cfg, kind):
     mlp = 2 + cfg.mlp_gated
+    if kind == "moe":    # attention's four (MLA's cached form: q_down,
+        # q_up, kv_down, wo) and the shared expert's three; the routed
+        # experts' stacks are decoded, not packed GEMMs
+        return 4 + (3 if cfg.num_shared_experts else 0)
     return {"rwkv": 8, "mamba": 6, "shared_attn": 1 + mlp}.get(kind, 4 + mlp)
 
 
@@ -4343,8 +4426,12 @@ def gemms_per_forward(cfg):
 
 def k5_layers(cfg):
     """Layers whose attention pages through K5: the full-context kinds
-    (not gemma3's ring layers, not the recurrent ones)."""
-    return sum(k in ("dense", "global", "shared_attn") for k in _kinds(cfg))
+    (not gemma3's ring layers, not the recurrent ones; none under MLA,
+    whose latent cache is never paged)."""
+    if cfg.use_mla:
+        return 0
+    return sum(k in ("dense", "global", "shared_attn", "moe")
+               for k in _kinds(cfg))
 
 
 def variant_serve(torch, ops, arch, argv, tag, phase="21"):
@@ -4948,9 +5035,10 @@ def patch_logits_check(torch, engine):
             "floor_rel_err": floor / top, "margin_positions": int(clear.sum())}
 
 
-def modality_train(torch, ops, arch, layers, batch, seq, tag):
-    """22c/22e/23d/23e: one train step of ``arch`` at full width,
-    ``layers`` deep,
+def modality_train(torch, ops, arch, layers, batch, seq, tag, **cut):
+    """22c/22e/23d/23e/24d: one train step of ``arch`` at full width,
+    ``layers`` deep (``cut``: more config fields replaced, 24d's expert
+    count),
     ``batch`` x ``seq`` text positions (phi-3-vision adds its 576 stub
     patches in front; musicgen's tokens are (B, S, 4)), remat on: a
     finite loss over the text positions, K1 and K2 launched and K3 once a
@@ -4964,7 +5052,7 @@ def modality_train(torch, ops, arch, layers, batch, seq, tag):
     from repro_torch.training.steps import (batch_to_device, build_train_step,
                                             init_train_state)
     from repro_torch.tree import leaves
-    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, **cut)
     mcfg = MadamConfig()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4999,8 +5087,8 @@ def modality_train(torch, ops, arch, layers, batch, seq, tag):
           f"{peak / 1e9:.2f} GB ({peak / n_params:.1f} B a parameter), "
           f"launches {counts}")
     del state, met, data
-    return {"layers": layers, "batch": shapes, "loss": loss, "step_s": secs,
-            "params": n_params, "peak_gb": peak / 1e9,
+    return {"layers": layers, "cut": cut, "batch": shapes, "loss": loss,
+            "step_s": secs, "params": n_params, "peak_gb": peak / 1e9,
             "bytes_per_param": peak / n_params, "launches": counts,
             "packed_leaves": n_leaves}
 
@@ -5309,6 +5397,339 @@ def recurrent(torch, ops, ref, fmt, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the mixtures of experts (deepseek-v3-671b, kimi-k2-1t-a32b)
+
+
+@contextlib.contextmanager
+def cut_config(arch, **cut):
+    """While open, the serve CLI builds ``arch`` with ``cut``'s fields
+    replaced (its module's ``get_config`` answers the cut config);
+    yields that config."""
+    import dataclasses
+    from repro_torch.launch import serve as serve_mod
+    real = serve_mod.get_config
+    serve_mod.get_config = lambda a: (dataclasses.replace(real(a), **cut)
+                                      if a == arch else real(a))
+    try:
+        yield dataclasses.replace(real(arch), **cut)
+    finally:
+        serve_mod.get_config = real
+
+
+@contextlib.contextmanager
+def routes_seen(ops=None):
+    """Record every ``moe._router`` call's expert ids ``(T, K)`` (device
+    tensors: no sync). With ``ops`` the list empties whenever the launch
+    counts are reset, so after ``serve`` it holds the counted run's
+    calls only."""
+    from repro_torch.models import moe
+    seen = []
+    router = moe._router
+
+    def spy(*a):
+        out = router(*a)
+        seen.append(out[1])
+        return out
+
+    moe._router = spy
+    reset = ops.reset_launch_counts if ops is not None else None
+    if ops is not None:
+        def reset_too():
+            seen.clear()
+            reset()
+        ops.reset_launch_counts = reset_too
+    try:
+        yield seen
+    finally:
+        moe._router = router
+        if ops is not None:
+            ops.reset_launch_counts = reset
+
+
+def drop_shares(seen, cfg, slots):
+    """The share of (token, k) assignments that capacity dropped, over the
+    router calls of prefills (more than ``slots`` tokens) and of decode
+    steps, with each call's capacity C."""
+    from repro_torch.models.moe import _capacity, dropped
+    tot = {"prefill": [0, 0, set()], "decode": [0, 0, set()]}
+    for top_i in seen:
+        kind = "decode" if top_i.shape[0] <= slots else "prefill"
+        tot[kind][0] += dropped(top_i, cfg)
+        tot[kind][1] += top_i.numel()
+        tot[kind][2].add(_capacity(cfg, top_i.shape[0]))
+    return {k: {"dropped": d, "assignments": n,
+                "share": d / n if n else None, "capacity": sorted(c)}
+            for k, (d, n, c) in tot.items()}
+
+
+def moe_serve(torch, ops, arch, tag):
+    """24a/24b: ``arch`` at full width, cut to ``MOE_SERVE_CUT``'s depth,
+    through the serve CLI's engine with ``variant_serve``'s trace, warm-up
+    and gates (every request completes; K1 = K2 once a packed projection
+    a forward, the head included; K5 once an attention layer where the
+    engine pages, 0 under MLA; K6 once a forward). deepseek's MLA must
+    keep the dense latent cache under ``--page-size`` with no allocator.
+    Prints the launches a forward and the share of (token, k)
+    assignments capacity dropped at prefill and at decode."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    with cut_config(arch, **MOE_SERVE_CUT[arch]) as cfg, \
+            routes_seen(ops) as seen:
+        print(f"{tag}: {arch} at full width, cut to {cfg.num_layers} of "
+              f"{full.num_layers} layers (layer pattern "
+              f"{cfg.layer_pattern()}), {cfg.params_count() / 1e9:.2f}e9 "
+              f"of {full.params_count() / 1e9:.1f}e9 parameters")
+        row, engine = variant_serve(torch, ops, arch, SERVE_PAGED, tag,
+                                    phase="24")
+        drops = drop_shares(seen, engine.cfg, engine.num_slots)
+    fwd = engine.decode_steps + engine.prefills
+    if cfg.use_mla:
+        check(engine.page_size is None and engine.allocator is None,
+              f"{tag}: --page-size paged an MLA model")
+        groups = list(engine.caches.get("prefix", [])) \
+            + list(engine.caches.get("period", {}).values())
+        check(all("c_kv" in c and "kp" not in c for c in groups),
+              f"{tag}: a layer cache is not the MLA latent cache")
+    else:
+        check(engine.page_size == 16 and engine.allocator is not None,
+              f"{tag}: the engine did not page")
+    per = {k: row["launches"][k] / fwd for k in ("encode_pack", "qmatmul",
+                                                  "paged_attend",
+                                                  "fused_sample")}
+    row.update(cut=MOE_SERVE_CUT[arch], params=cfg.params_count(),
+               launches_a_forward=per, dropped=drops)
+    print(f"{tag}: {arch} launches a forward K1 {per['encode_pack']:.0f}, "
+          f"K2 {per['qmatmul']:.0f}, K5 {per['paged_attend']:.0f}, K6 "
+          f"{per['fused_sample']:.0f}; TTFT mean {row['ttft_mean_ms']:.1f} "
+          f"ms, TPOT p50 {row['tpot_p50_ms']:.1f} ms; capacity dropped "
+          + ", ".join(f"{k} {v['dropped']}/{v['assignments']} "
+                      f"({v['share']:.1%}, C={v['capacity']})"
+                      for k, v in drops.items() if v["assignments"])
+          + f"; cache {'MLA latent, dense' if cfg.use_mla else 'paged'}")
+    return row, engine
+
+
+def route_apart(a, b):
+    """(token, k) assignments of one router call whose expert the other
+    call's token does not take."""
+    K = a.shape[1]
+    same = (a[:, :, None] == b[:, None, :]).any(-1).sum()
+    return int(a.shape[0] * K - same)
+
+
+def moe_logits(torch, arch):
+    """24c: ``arch`` at full width, one dense and one MoE layer (random
+    packed 8-bit weights from seed 0). Phase 5's run (a 32-token prefill
+    and 4 greedy decode steps, kernels against plain versions and the
+    f64-GEMM floor) with every router call recorded: the count of (token,
+    k) routes on which the two paths part is printed by step, and every
+    step whose routes agree is held to ``LOGIT_RTOL`` of max |logit|
+    (a prefill's flipped route moves its token's rows; capacity couples
+    the others). Then the cached form continues the training forward: a
+    cached prefill of ``MOE_SEQ_TOKENS`` - 1 tokens and one decode step
+    (deepseek: MLA's absorbed form from the latent cache; kimi: K5 over
+    pages) against the training forward over all of them (MLA expanded,
+    flash attention), with Q_A off the attention operands (the expanded
+    form quantizes q, k and v, the absorbed form none) and a capacity
+    that drops nothing: the dense layer alone (no route to part: the
+    attention forms only) and both layers, the last position held to the
+    same limit where its routes agree, beside the floor."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.kernels import dispatch, ref
+    from repro_torch.models.model import forward, init_caches, init_params
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    cfg = dataclasses.replace(get_config(arch), **MOE_LOGIT_CUT)
+    qcfg = QuantConfig.lns_madam()
+    params = init_params(cfg, seed=0, device="cuda", leaf_fn=lns_leaf_encoder(
+        MadamConfig(update_format=LNSFormat(8, 8))))
+    print(f"24c: {arch} {cfg.num_layers} layers, layer pattern "
+          f"{cfg.layer_pattern()}")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    bt = torch.arange(5, dtype=torch.int32, device="cuda")[None]
+
+    def run(seq):
+        caches = init_caches(1, 80, cfg, page_size=16, num_pages=5,
+                             device="cuda")
+        out, pos = [], 0
+        with torch.no_grad():
+            for toks in seq:
+                lg = forward(params, toks, cfg, qcfg, caches=caches,
+                             pos_offset=torch.tensor([pos], device="cuda"),
+                             block_tables=bt)[:, -1].float()
+                check(lg.shape == (1, cfg.vocab_size) and
+                      bool(torch.isfinite(lg).all()),
+                      f"24c {arch}: non-finite logits")
+                out.append(lg)
+                pos += toks.shape[1]
+        return out
+
+    seq = [prompt]
+    with plain_versions(dispatch, ref):
+        for _ in range(4):
+            seq.append(run(seq)[-1].argmax(-1, keepdim=True).to(torch.int32))
+        with routes_seen() as p_routes:
+            plain = run(seq)
+        dispatch.qmatmul = qmatmul_f64
+        floor_run = run(seq)
+    with routes_seen() as k_routes:
+        kern = run(seq)
+    apart = [route_apart(a, b) for a, b in zip(p_routes, k_routes)]
+    per_step = len(apart) // len(seq)
+    steps_apart = [sum(apart[j * per_step:(j + 1) * per_step])
+                   for j in range(len(seq))]
+    worst = floor = 0.0
+    errs, held = [], 0
+    for j, (p, k, f) in enumerate(zip(plain, kern, floor_run)):
+        top = float(p.abs().max())
+        err = float((p - k).abs().max()) / top
+        errs.append(err)
+        floor = max(floor, float((p - f).abs().max()) / top)
+        if not steps_apart[j]:
+            held += 1
+            worst = max(worst, err)
+            check(err <= LOGIT_RTOL, f"24c {arch}: step {j} logits err "
+                  f"{err} of max |logit| > {LOGIT_RTOL} where the routes "
+                  f"agree")
+    print(f"24c {arch}: kernels vs plain over {len(seq)} steps: routes "
+          f"apart {sum(apart)} of {sum(a.numel() for a in p_routes)} "
+          f"(token, k) assignments (by step {steps_apart}); max err "
+          f"{worst:.4f} of max |logit| over the {held} steps whose routes "
+          f"agree (limit {LOGIT_RTOL}; by step "
+          + ", ".join(f"{e:.4f}" for e in errs)
+          + f"); floor (plain, f64 GEMM accumulation) {floor:.4f}")
+    out = {"layers": cfg.num_layers, "routes_apart": apart,
+           "routes": sum(a.numel() for a in p_routes),
+           "routes_apart_by_step": steps_apart, "step_rel_err": errs,
+           "steps_held": held, "max_rel_err_agreeing": worst,
+           "floor_rel_err": floor}
+
+    # the cached form continues the training forward: the same function
+    # where Q_A leaves the attention operands alone (the expanded MLA form
+    # quantizes q, k and v; the absorbed form none) and no route drops
+    # (capacity E / K: a one-token decode step and a 64-token forward then
+    # route a token alike)
+    n = MOE_SEQ_TOKENS
+    cont = dataclasses.replace(
+        cfg, quantize_attention=False,
+        capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    bt_n = torch.arange(n // 16, dtype=torch.int32, device="cuda")[None]
+
+    def continued(c):
+        caches = init_caches(1, n, c, page_size=16, num_pages=n // 16,
+                             device="cuda")
+        with torch.no_grad():
+            forward(params, tokens[:, :-1], c, qcfg, caches=caches,
+                    pos_offset=0, block_tables=bt_n)
+            return forward(params, tokens[:, -1:], c, qcfg, caches=caches,
+                           pos_offset=n - 1,
+                           block_tables=bt_n)[0, -1].float()
+
+    def training(c):
+        with torch.no_grad():
+            return forward(params, tokens, c, qcfg)[0, -1].float()
+
+    form = ("MLA expanded (flash attention) vs absorbed (latent cache)"
+            if cfg.use_mla else "flash attention vs K5 over pages")
+    # the dense layer alone (no route to part), then both layers
+    for tag, c in (("dense layer", dataclasses.replace(cont, num_layers=1)),
+                   ("both layers", cont)):
+        with routes_seen() as c_routes:
+            dec = continued(c)
+        with routes_seen() as t_routes:
+            train_lg = training(c)
+        with plain_versions(dispatch, ref):
+            plain_c = continued(c)
+            dispatch.qmatmul = qmatmul_f64
+            floor_c = continued(c)
+        for x in (dec, train_lg):
+            check(x.shape == (cfg.vocab_size,)
+                  and bool(torch.isfinite(x).all()),
+                  f"24c {arch}: logits {tuple(x.shape)} not finite or "
+                  f"misshaped")
+        # the last token's routes: the decode step's calls against the
+        # last row of the training forward's, layer by layer
+        last = [(a, b[-1:]) for a, b in zip(c_routes[len(t_routes):],
+                                            t_routes)]
+        gap = sum(route_apart(a, b) for a, b in last)
+        top = float(dec.abs().max())
+        err = float((train_lg - dec).abs().max()) / top
+        floor = float((plain_c - floor_c).abs().max()) / top
+        if gap == 0:
+            check(err <= LOGIT_RTOL, f"24c {arch} {tag}: training forward "
+                  f"vs cached decode err {err} > {LOGIT_RTOL}")
+        print(f"24c {arch} {tag}: a cached prefill of {n - 1} tokens and "
+              f"one decode step vs the training forward over {n} ({form}; "
+              f"Q_A off the attention operands, capacity E/K), last "
+              f"position: its routes apart {gap}; max err {err:.4f} of max "
+              f"|logit| (limit {LOGIT_RTOL}"
+              f"{'' if gap == 0 else ', not held: routes apart'}); floor "
+              f"(plain, f64 GEMM accumulation) {floor:.4f}")
+        key = "continued" if c is cont else "continued_dense"
+        out.update({f"{key}_rel_err": err, f"{key}_routes_apart": gap,
+                    f"{key}_floor": floor})
+    del params
+    return out
+
+
+def mixtures(torch, ops, ref, fmt, card):
+    """Phase 24: the mixtures of experts at full width on the card. Every
+    K1 and K2 call of 24a-24d is recorded, and after them each shape is
+    held against the plain version; K2 at both models' decode GEMMs and K6
+    at both vocabularies are timed beside torch, and K3 runs at 24d's
+    4-D expert leaf."""
+    t0 = time.monotonic()
+    marks = [("start", t0)]
+    mark = lambda name: marks.append((name, time.monotonic()))
+    print(f"phase 24 (mixtures of experts) on {card}")
+    out = {}
+    with k1_shapes_seen(torch, ops) as k1_seen, \
+            k2_shapes_seen(torch, ops) as k2_seen:
+        for arch, tag in (("deepseek-v3-671b", "24a"),
+                          ("kimi-k2-1t-a32b", "24b")):
+            out[f"{arch}_serve"], engine = moe_serve(torch, ops, arch, tag)
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            mark(tag)
+        for arch in ("deepseek-v3-671b", "kimi-k2-1t-a32b"):
+            out[f"{arch}_logits"] = moe_logits(torch, arch)
+            gc.collect()
+            torch.cuda.empty_cache()
+        mark("24c")
+        arch, layers, batch, seq, cut = MOE_TRAIN
+        out["deepseek_train"] = modality_train(torch, ops, arch, layers,
+                                               batch, seq, "24d", **cut)
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("24d")
+    out["k1_driven"] = k1_driven_check(torch, ops, ref, fmt, k1_seen)
+    out["k2_driven"] = k2_driven_check(torch, ops, ref, fmt, k2_seen)
+    out["decode_k2"] = k2_check(torch, ops, ref, fmt, DEEPSEEK_DECODE_GEMMS
+                                + KIMI_DECODE_GEMMS)
+    out["decode_k6"] = k6_check(torch, ops, ref, [(4, 129280), (4, 163840)])
+    torch.cuda.empty_cache()
+    E = MOE_TRAIN[4]["num_experts"]
+    out["expert_k3"] = k3_large_leaf(torch, ops, ref, E * 7168, 2048,
+                                     f"24d's 4-D expert leaf w_up, 1 x {E} "
+                                     f"x 7168 x 2048")
+    torch.cuda.empty_cache()
+    mark("24 kernels")
+    secs = time.monotonic() - t0
+    parts = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
+    print(f"phase 24 took {secs:.1f}s ("
+          + ", ".join(f"{k} {v:.1f}s" for k, v in parts.items()) + ")")
+    out.update(seconds=secs, seconds_by_part=parts)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5330,12 +5751,16 @@ def main() -> int:
               "--recurrent": lambda torch, ops, ref, fmt: {
                   "paged_attend_hd112": k5_check(torch, ops, ref, fmt,
                                                  K5_HD112_CASES),
-                  **recurrent(torch, ops, ref, fmt, card.stdout.strip())}}
+                  **recurrent(torch, ops, ref, fmt, card.stdout.strip())},
+              "--moe": lambda torch, ops, ref, fmt: {
+                  "paged_attend_kimi": k5_check(torch, ops, ref, fmt,
+                                                K5_KIMI_CASES),
+                  **mixtures(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     if sys.argv[1:] and not sweep:
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
               f"--k6-sweep | --k8-sweep | --serving | --obs | "
-              f"--dense-variants | --modality | --recurrent]",
+              f"--dense-variants | --modality | --recurrent | --moe]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5433,7 +5858,7 @@ def main() -> int:
         # two stages a warp exceed 227 KB here: one stage a warp
         ("decode f32 pool page 32 hd 128", 2, 1, [100, 160], False,
          (8, 2, 128), {"PAGE": 32, "pool": torch.float32})]
-        + K5_HD256_CASES + K5_HD96_CASES + K5_HD112_CASES)
+        + K5_HD256_CASES + K5_HD96_CASES + K5_HD112_CASES + K5_KIMI_CASES)
     k6 = k6_check(torch, ops, ref)
     sampler = sampler_check(torch, ops, ref)
     k7 = k7_check(torch, ops, ref)
@@ -5532,6 +5957,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     recur = recurrent(torch, ops, ref, fmt, card.stdout.strip())
     mark("23")
+    torch.cuda.empty_cache()
+    mixture = mixtures(torch, ops, ref, fmt, card.stdout.strip())
+    mark("24")
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -5595,7 +6023,7 @@ def main() -> int:
             "approx_train": approx, "baselines": paper,
             "online_serving": online, "observability": observed,
             "dense_variants": variants, "modality": modal,
-            "recurrent": recur,
+            "recurrent": recur, "moe": mixture,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

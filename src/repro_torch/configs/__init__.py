@@ -1,6 +1,6 @@
 """Architecture registry of the port: the dense decoders, the modality
-stubs (phi-3-vision, musicgen) and the recurrent families (rwkv6,
-zamba2)."""
+stubs (phi-3-vision, musicgen), the recurrent families (rwkv6, zamba2)
+and the mixtures of experts (deepseek-v3, kimi-k2)."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +19,8 @@ ARCHS: Dict[str, str] = {
     "musicgen-medium": "musicgen_medium",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "zamba2-7b": "zamba2_7b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t",
 }
 
 

@@ -27,7 +27,10 @@ Online (``--http HOST:PORT``): serves the asyncio gateway
 ``--speculate-k``); phi-3-vision-4.2b serves its text trunk;
 rwkv6-1.6b and zamba2-7b keep a recurrent state a slot, prefill at the
 exact prompt length and refuse ``--speculate-k`` (rwkv6 has no pageable
-layer: ``--page-size`` leaves it dense).
+layer: ``--page-size`` leaves it dense); deepseek-v3-671b keeps MLA's
+latent cache dense whatever ``--page-size`` says, kimi-k2-1t-a32b pages;
+at full depth neither fits one card (``chip_smoke.py`` phase 24 serves
+them at full width and a cut depth), ``--smoke`` runs anywhere.
 
   python -m repro_torch.launch.serve --arch musicgen-medium --page-size 16
   python -m repro_torch.launch.serve --arch zamba2-7b --page-size 16

@@ -16,7 +16,9 @@ removed at the end. ``--arch phi-3-vision-4.2b`` trains on
 ``SyntheticLM``'s 576 patches a row in front of ``--seq`` text tokens
 (the loss covers the text), ``--arch musicgen-medium`` on (B, S, 4)
 codebook tokens; ``--arch rwkv6-1.6b`` and ``--arch zamba2-7b`` run their
-recurrences chunk-parallel.
+recurrences chunk-parallel; ``--arch deepseek-v3-671b`` and ``--arch
+kimi-k2-1t-a32b`` add the MoE balance loss (and deepseek's MTP loss) and
+fit one card only with ``--smoke`` (6.7e11 and 1.03e12 parameters).
 
 Observability: ``--trace-dir``, ``--numerics-log`` or ``--quiet=false``
 attach a ``NumericsObserver`` and build the step with ``numerics=True``

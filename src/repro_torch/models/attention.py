@@ -1,5 +1,6 @@
-"""GQA attention (± QKV bias / qk-norm / sliding window / softcap): the
-training path without a cache, and the serving cache layouts.
+"""GQA attention (± QKV bias / qk-norm / sliding window / softcap) and
+MLA (deepseek-v3's multi-head latent attention): the training path
+without a cache, and the serving cache layouts.
 
 Without a cache (training) the KV heads are repeated to the query heads
 and attended by :func:`flash_attention`, an online softmax over KV blocks
@@ -18,6 +19,11 @@ Two KV layouts, as in ``repro.models.attention``:
   (``dispatch.paged_attend``, K5). Paged pools serve full-context layers
   only: a window layer keeps its ring.
 
+MLA is never paged: its cache holds the KV latent ``c_kv`` and the rope
+key of every position, ``(batch, max_len)`` a layer, and every cached
+call (prefill and decode) attends in the absorbed form, in f32, with
+``kv_up`` folded into the query and the context (:func:`_mla_decode`).
+
 Unlike the JAX package, cache tensors are updated **in place**: the
 engine owns them and nothing else holds a reference, so the functional
 copy would only cost memory. With ``cfg.kv_cache_bits`` the caches hold
@@ -35,10 +41,12 @@ from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode,
 from repro_torch.core.quantizer import QuantConfig, qeinsum, ste_quantize
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.layers import apply_rope, dense_of, rms_norm, rope
+from repro_torch.models.layers import (apply_rope, decoded_of, dense_of,
+                                       rms_norm, rope)
 
 __all__ = ["attn_apply", "attn_zero_leaves", "flash_attention",
-           "init_kv_cache", "init_paged_kv_cache", "is_paged_cache"]
+           "init_kv_cache", "init_paged_kv_cache", "is_paged_cache",
+           "mla_leaves", "mla_apply", "init_mla_cache"]
 
 
 def _qa(x: torch.Tensor, cfg: ArchConfig, qcfg: Optional[QuantConfig]):
@@ -68,11 +76,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     block_k: int = 512) -> torch.Tensor:
     """Causal online-softmax attention over KV blocks of ``block_k``,
     each query seeing the last ``window`` positions when one is given.
-    q, k, v: (B, S, H, D) with the KV heads already repeated. f32 inside,
-    ``q.dtype`` out. A KV length that ``block_k`` does not divide ends in
-    a shorter block (the JAX package asserts that it divides: phi-3-vision's
-    576 patches plus 64 or 256 text positions do not tile by 512, ROADMAP
-    H15); where it divides, the blocks are the JAX package's."""
+    q, k: (B, S, H, D) with the KV heads already repeated; v (B, S, H,
+    Dv) may be narrower than q and k (MLA's v_head_dim), and the scale is
+    1/sqrt(D) of q's width. f32 inside, ``q.dtype`` out. A KV length that
+    ``block_k`` does not divide ends in a shorter block (the JAX package
+    asserts that it divides: phi-3-vision's 576 patches plus 64 or 256
+    text positions do not tile by 512, ROADMAP H15); where it divides,
+    the blocks are the JAX package's."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     block_k = min(block_k, Skv)
@@ -362,3 +372,117 @@ def _paged_attend(q, k_new, v_new, cache, cfg: ArchConfig,
         fmt=_kv_fmt(cfg) if quant else None,
         softcap=cfg.attn_logit_softcap, sm_scale=1.0 / math.sqrt(hd))
     return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v3)
+
+
+def mla_leaves(cfg: ArchConfig):
+    """``(name, spec)`` of ``mla_init``'s leaves in the JAX package's
+    order: ``("dense", d_in, d_out)`` weights in the compute dtype and
+    ``("zeros", n)`` f32 norm gains."""
+    d, h = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    nope, rpe, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return [("q_down", ("dense", d, qr)), ("q_norm", ("zeros", qr)),
+            ("q_up", ("dense", qr, h * (nope + rpe))),
+            ("kv_down", ("dense", d, kvr + rpe)), ("kv_norm", ("zeros", kvr)),
+            ("kv_up", ("dense", kvr, h * (nope + vd))),
+            ("wo", ("dense", h * vd, d))]
+
+
+def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
+              qcfg: Optional[QuantConfig], *, positions: torch.Tensor,
+              cache: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """Multi-head latent attention over ``x`` (B, S, D). The query goes
+    through the rank ``q_lora_rank`` bottleneck (``q_down``, RMSNorm,
+    ``q_up``), the keys and values through the latent ``c_kv`` (width
+    ``kv_lora_rank``, RMSNorm) beside one rope key shared by the heads.
+    Without ``cache`` (training) the latent is expanded by ``kv_up`` and
+    the heads attend by :func:`flash_attention` (qk width nope + rope, v
+    width ``v_head_dim``); with one the new latents and rope keys are
+    written at each row's cursor and attended in the absorbed form. Every
+    2-D projection goes through ``qeinsum``; ``kv_up`` is decoded in the
+    absorbed form, as in the JAX package."""
+    B, S, _ = x.shape
+    h = cfg.num_heads
+    nope, rpe, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    ql = qeinsum("bsd,dr->bsr", x, dense_of(p["q_down"], cfg), qcfg)
+    ql = rms_norm(ql, p["q_norm"], cfg.norm_eps)
+    q = qeinsum("bsr,re->bse", ql, dense_of(p["q_up"], cfg), qcfg)
+    q = q.reshape(B, S, h, nope + rpe)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kvd = qeinsum("bsd,dr->bsr", x, dense_of(p["kv_down"], cfg), qcfg)
+    c_kv = rms_norm(kvd[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = kvd[..., kvr:]
+    rot = rope(positions, rpe, cfg.rope_theta)
+    if rot.dim() == 3:
+        rot = rot[None]
+    q_rope = apply_rope(q_rope, rot)
+    k_rope = apply_rope(k_rope[:, :, None, :], rot)[:, :, 0, :]
+    if cache is None:
+        kv = qeinsum("bsr,re->bse", c_kv, dense_of(p["kv_up"], cfg), qcfg)
+        kv = kv.reshape(B, S, h, nope + vd)
+        k_nope, v = kv[..., :nope], kv[..., nope:]
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, rpe)],
+                      dim=-1)
+        qq = torch.cat([q_nope, q_rope], dim=-1)
+        qq, k, v = _qa(qq, cfg, qcfg), _qa(k, cfg, qcfg), _qa(v, cfg, qcfg)
+        out = flash_attention(qq, k, v)
+    else:
+        out = _mla_decode(q_nope, q_rope, c_kv, k_rope,
+                          decoded_of(p["kv_up"], cfg), cache, cfg)
+    out = out.reshape(B, S, h * vd)
+    return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
+
+
+def init_mla_cache(batch: int, max_len: int, cfg: ArchConfig,
+                   device) -> Dict[str, torch.Tensor]:
+    """The latent cache of one MLA layer: ``c_kv (batch, max_len,
+    kv_lora_rank)`` and ``k_rope (batch, max_len, qk_rope_dim)`` in the
+    compute dtype, and a per-row cursor ``idx``."""
+    dt = cfg.compute_dtype
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dt,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dt, device=device),
+            "idx": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def _mla_decode(q_nope, q_rope, c_kv_new, k_rope_new, kv_up, cache,
+                cfg: ArchConfig):
+    """The absorbed form: write the S new latents and rope keys at each
+    row's cursor (clamped to the buffer, as a dynamic slice update
+    clamps), fold ``kv_up``'s key half into the query and its value half
+    into the context, all in f32; position ``p`` of a row is seen by its
+    queries at ``idx + s >= p``, as in the JAX package."""
+    B, S, h, nope = q_nope.shape
+    kvr, vd = cfg.kv_lora_rank, cfg.v_head_dim
+    idx = cache["idx"].long()
+    cap = cache["c_kv"].shape[1]
+    ar = torch.arange(S, device=q_nope.device)
+    rows = torch.arange(B, device=q_nope.device)[:, None]
+    cols = torch.clamp(idx, max=cap - S)[:, None] + ar
+    cache["c_kv"][rows, cols] = c_kv_new.to(cache["c_kv"].dtype)
+    cache["k_rope"][rows, cols] = k_rope_new.to(cache["k_rope"].dtype)
+    ck = cache["c_kv"].to(torch.float32)
+    kr = cache["k_rope"].to(torch.float32)
+    w = kv_up.reshape(kvr, h, nope + vd).to(torch.float32)
+    w_k, w_v = w[..., :nope], w[..., nope:]
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(torch.float32), w_k)
+    logits = (torch.einsum("bshr,bkr->bhsk", q_abs, ck)
+              + torch.einsum("bshr,bkr->bhsk", q_rope.to(torch.float32), kr))
+    logits = logits / math.sqrt(nope + cfg.qk_rope_dim)
+    slot = torch.arange(cap, device=q_nope.device)
+    q_pos = idx[:, None] + ar                                   # (B, S)
+    mask = slot[None, None, :] <= q_pos[:, :, None]             # (B, S, cap)
+    logits = torch.where(mask[:, None], logits,
+                         torch.full((), -1e30, device=q_nope.device))
+    p_attn = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhsk,bkr->bshr", p_attn, ck)
+    out = torch.einsum("bshr,rhv->bshv", ctx, w_v)
+    cache["idx"] += S
+    return out.to(q_nope.dtype)

@@ -1,7 +1,9 @@
 """The architecture config of the port: the dense decoder family, the
-two modality stubs whose trunks are dense (``vlm``, ``audio``), and the
+two modality stubs whose trunks are dense (``vlm``, ``audio``), the
 recurrent families (``ssm``: RWKV6; ``hybrid``: zamba2's Mamba2 trunk
-with a shared attention block)."""
+with a shared attention block) and the mixture of experts (``moe``:
+deepseek-v3's MLA, routed and shared experts and MTP; kimi-k2's GQA
+experts)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,9 +14,10 @@ import torch
 __all__ = ["ArchConfig"]
 
 # the ported families: the dense decoder's (JAX's ``layer_pattern`` gives
-# them all ``dense`` layers, or gemma3's local/global pattern) and the
+# them all ``dense`` layers, or gemma3's local/global pattern), the
 # recurrent ones (``rwkv`` layers; ``mamba`` periods with ``shared_attn``)
-_FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid")
+# and the mixture of experts (``dense`` layers, then ``moe`` ones)
+_FAMILIES = ("dense", "vlm", "audio", "ssm", "hybrid", "moe")
 _DECAY_LORA = 64        # RWKV6's decay LoRA rank (``models.rwkv``)
 
 
@@ -34,7 +37,13 @@ class ArchConfig:
     ``ssm_head_dim``-wide WKV heads) and ``hybrid`` (zamba2: Mamba2 layers
     with one attention block shared by every ``shared_attn_every``-th
     layer, each occurrence with its own norms and a rank
-    ``shared_block_lora_rank`` LoRA on the fused QKV)."""
+    ``shared_block_lora_rank`` LoRA on the fused QKV). The mixture of
+    experts: ``moe`` (``num_dense_layers`` dense layers, then layers whose
+    MLP is ``num_experts`` routed experts of width ``moe_d_ff``, top
+    ``experts_per_token`` a token, beside ``num_shared_experts`` shared
+    ones), with multi-head latent attention (``use_mla``: low-rank query
+    and KV projections, a cache of the KV latent and the rope key) and a
+    depth-``mtp_depth`` multi-token-prediction loss."""
 
     name: str
     family: str
@@ -52,6 +61,22 @@ class ArchConfig:
     rope_theta_global: Optional[float] = None  # gemma3 global layers
     sliding_window: Optional[int] = None
     local_global_ratio: int = 0       # gemma3: N local layers per global
+    # --- MLA (deepseek-v3) ---
+    use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0
+    num_dense_layers: int = 0
+    moe_dispatch: str = "dense_ref"   # dense_ref | sort (a2a: a mesh)
+    capacity_factor: float = 1.25
+    mtp_depth: int = 0                # deepseek multi-token prediction
     # --- SSM / RWKV ---
     ssm_state_dim: int = 0
     ssm_conv_width: int = 4
@@ -99,7 +124,9 @@ class ArchConfig:
         global one; the layers that do not fill a period are local and
         come first. rwkv6 is ``rwkv`` layers; zamba2's period is
         ``shared_attn_every - 1`` mamba layers and the shared block, the
-        layers that do not fill a period mamba ones in front."""
+        layers that do not fill a period mamba ones in front. The mixture
+        of experts: ``num_dense_layers`` dense layers, then ``moe``
+        ones."""
         if self.family == "ssm":
             return (), self.num_layers, ("rwkv",)
         if self.family == "hybrid":
@@ -107,6 +134,9 @@ class ArchConfig:
             n_periods = self.num_layers // k
             prefix = ("mamba",) * (self.num_layers - n_periods * k)
             return prefix, n_periods, ("mamba",) * (k - 1) + ("shared_attn",)
+        if self.family == "moe":
+            prefix = ("dense",) * self.num_dense_layers
+            return prefix, self.num_layers - self.num_dense_layers, ("moe",)
         if self.local_global_ratio > 0:
             period = ("local",) * self.local_global_ratio + ("global",)
             n_periods = self.num_layers // len(period)
@@ -116,7 +146,8 @@ class ArchConfig:
 
     def params_count(self) -> int:
         """Trainable parameters, counted as the JAX package counts them:
-        the shared block once, its norms and LoRA once an occurrence."""
+        the shared block once, its norms and LoRA once an occurrence; the
+        MTP module (a dense block, a norm and the 2d -> d projection)."""
         d = self.d_model
         rows = self.vocab_size * (self.num_codebooks or 1)
         head = 0 if self.tie_embeddings else d * rows
@@ -127,10 +158,19 @@ class ArchConfig:
             total += n * self._layer_params(kind)
         if "shared_attn" in period or "shared_attn" in prefix:
             total += self._attn_params() + self._mlp_params()
+        if self.mtp_depth:
+            total += (self._attn_params() + self._mlp_params() + 3 * d
+                      + 2 * d * d)
         return total
 
     def _attn_params(self) -> int:
         d, hd = self.d_model, self.head_dim
+        if self.use_mla:
+            h, nope, rpe = self.num_heads, self.qk_nope_dim, self.qk_rope_dim
+            qr, kvr = self.q_lora_rank, self.kv_lora_rank
+            return (d * qr + qr * h * (nope + rpe) + d * (kvr + rpe)
+                    + kvr * h * (nope + self.v_head_dim)
+                    + h * self.v_head_dim * d + qr + kvr)
         n = (d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
              + self.num_heads * hd * d)
         if self.qkv_bias:
@@ -160,4 +200,9 @@ class ArchConfig:
             r = self.shared_block_lora_rank
             qkv = (self.num_heads + 2 * self.num_kv_heads) * self.head_dim
             return 2 * d + (d * r + r * qkv if r else 0)
+        if kind == "moe":        # attention, norms, experts, router
+            expert = d * self.moe_d_ff * (3 if self.mlp_gated else 2)
+            return (self._attn_params() + 2 * d
+                    + (self.num_experts + self.num_shared_experts) * expert
+                    + d * self.num_experts)
         return self._attn_params() + self._mlp_params() + 2 * d

@@ -18,28 +18,45 @@ channel-mix, both reading the block's input: JAX's parallel-block
 residual), ``mamba`` (Mamba2 SSD) and ``shared_attn`` (zamba2's one
 attention block and MLP at ``params["shared"]``, re-applied with each
 occurrence's own norms and a LoRA delta on the fused QKV weights).
+The mixture of experts: ``moe`` (attention, then routed and shared
+experts, ``models.moe``; each such layer adds its balance loss to the
+forward's ``aux``), with MLA (``models.attention.mla_apply``) in every
+attention layer when ``cfg.use_mla`` is set, and deepseek-v3's
+multi-token-prediction module at ``params["mtp"]`` in the loss.
 ``forward(remat=True)`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``) instead of keeping its activations.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.lns import LNSWeight, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (decoded_of, dense_of, embed_lookup,
                                        mlp_apply, rms_norm)
 
-__all__ = ["init_params", "forward", "lm_loss", "lm_head", "init_caches",
-           "decode_step", "layer", "layers", "to_device"]
+__all__ = ["ForwardOut", "init_params", "forward", "lm_loss", "lm_head",
+           "init_caches", "decode_step", "layer", "layers", "to_device"]
+
+
+class ForwardOut(NamedTuple):
+    """``forward(full=True)``: the logits, the summed MoE balance loss
+    (0 without ``moe`` layers) and the final hidden state (after the
+    final norm), as the JAX package's ``ForwardOut`` without the caches,
+    which the port updates in place."""
+    logits: torch.Tensor
+    aux: torch.Tensor
+    hidden: torch.Tensor
 
 # a draw whose f32 temporary would pass this many bytes is made in slices
 # of its leading axis (whole layers of a stack, rows of a table), one
@@ -69,6 +86,43 @@ def _trunc_normal(shape, std, dtype, gen: torch.Generator, device):
     return out
 
 
+def _expert_stack(path, n, E: int, d_in: int, d_out: int, std: float,
+                  dtype, gen: torch.Generator, device, fn):
+    """An expert stack ``(n, E, d_in, d_out)`` (``(E, d_in, d_out)`` with
+    ``n`` None) of normals times ``std``, drawn a layer and a chunk of
+    experts at a time (each chunk's f32 draw at most
+    ``_DRAW_SLICE_BYTES``) and passed to ``fn`` chunk by chunk. ``fn``'s
+    packed chunks (per-expert, per-output-channel scales: the chunks do
+    not share one) are written into one packed leaf."""
+    per = max(1, _DRAW_SLICE_BYTES // (4 * d_in * d_out))
+    lead = (n,) if n else ()
+    out = None
+    for li in range(n or 1):
+        for e0 in range(0, E, per):
+            e1 = min(E, e0 + per)
+            t = torch.randn((e1 - e0, d_in, d_out), generator=gen,
+                            dtype=torch.float32, device=device)
+            w = fn(path, (t * std).to(dtype))
+            at = ((li,) if n else ()) + (slice(e0, e1),)
+            if out is None:
+                if is_lns_weight(w):
+                    out = LNSWeight(
+                        torch.empty(lead + (E, d_in, d_out),
+                                    dtype=w.packed.dtype, device=device),
+                        torch.empty(lead + (E,) + tuple(w.scale.shape[1:]),
+                                    dtype=w.scale.dtype, device=device),
+                        w.fmt)
+                else:
+                    out = torch.empty(lead + (E, d_in, d_out),
+                                      dtype=w.dtype, device=device)
+            if is_lns_weight(out):
+                out.packed[at] = w.packed
+                out.scale[at] = w.scale
+            else:
+                out[at] = w
+    return out
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
                 leaf_fn: Optional[Callable] = None) -> Dict[str, Any]:
     """Random dense parameters from a ``torch.Generator`` seeded with
@@ -90,7 +144,15 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     (their conv weights normals), each ``shared_attn`` occurrence's
     ``lora_a`` (``lora_b`` starts at zero), then the shared block's
     attention and MLP. A dense config draws none of these, so its draws
-    are unchanged."""
+    are unchanged.
+
+    With ``cfg.use_mla`` every attention leaf set is MLA's
+    (``attention.mla_leaves``) in the attention stacks' place. The ``moe``
+    stacks draw after the recurrent ones: each stack's attention, then
+    its ``moe_leaves`` (the expert stacks normals, drawn and passed to
+    ``leaf_fn`` a layer and a chunk of experts at a time, so no whole
+    dense stack exists), then the MTP module (a ``dense`` block, its
+    norm, the ``2d -> d`` projection), then the head."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.compute_dtype
@@ -138,6 +200,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
 
     def attn_leaves(path, n):
         lead = (n,) if n else ()
+        if cfg.use_mla:
+            return {name: (dense(path + ("attn", name), n, spec[1], spec[2])
+                           if spec[0] == "dense" else
+                           zeros(path + ("attn", name), *lead, spec[1]))
+                    for name, spec in attn_mod.mla_leaves(cfg)}
         a = {"wq": dense(path + ("attn", "wq"), n, d, h * hd),
              "wk": dense(path + ("attn", "wk"), n, d, kv * hd),
              "wv": dense(path + ("attn", "wv"), n, d, kv * hd),
@@ -145,6 +212,25 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         for k, (shape, dtype) in attn_mod.attn_zero_leaves(cfg).items():
             a[k] = zeros(path + ("attn", k), *lead, *shape, dtype=dtype)
         return a
+
+    def moe_leaves(path, n):
+        out: Dict[str, Any] = {}
+        for name, spec in moe_mod.moe_leaves(cfg):
+            lp = path + ("moe",) + tuple(name.split("/"))
+            if spec[0] == "experts":
+                w = _expert_stack(lp, n, cfg.num_experts, *spec[1:], dt,
+                                  gen, dev, fn)
+            else:
+                _, d_in, d_out, dtype = spec
+                lead = (n,) if n else ()
+                w = fn(lp, _trunc_normal(lead + (d_in, d_out),
+                                         1.0 / math.sqrt(d_in), dtype, gen,
+                                         dev))
+            node = out
+            for part in name.split("/")[:-1]:
+                node = node.setdefault(part, {})
+            node[name.split("/")[-1]] = w
+        return out
 
     mlps = {path: mlp_leaves(path, n) for path, n in stacks}
     rows = cfg.vocab_size * (cfg.num_codebooks or 1)   # K blocks of V rows
@@ -181,6 +267,21 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     if "shared_attn" in period or "shared_attn" in prefix:
         params["shared"] = {"attn": attn_leaves(("shared",), None),
                             "mlp": mlp_leaves(("shared",), None)}
+    for path, n, kind in every:
+        if kind == "moe":
+            lead = (n,) if n else ()
+            blocks[path] = {"ln1": zeros(path + ("ln1",), *lead, d),
+                            "attn": attn_leaves(path, n),
+                            "ln2": zeros(path + ("ln2",), *lead, d),
+                            "moe": moe_leaves(path, n)}
+    if cfg.mtp_depth:
+        mtp = ("mtp",)
+        block = {"ln1": zeros(mtp + ("block", "ln1"), d),
+                 "attn": attn_leaves(mtp + ("block",), None),
+                 "ln2": zeros(mtp + ("block", "ln2"), d),
+                 "mlp": mlp_leaves(mtp + ("block",), None)}
+        params["mtp"] = {"block": block, "norm": zeros(mtp + ("norm",), d),
+                         "proj": dense(mtp + ("proj",), None, 2 * d, d)}
     if not cfg.tie_embeddings:     # drawn last: tied configs keep their draws
         embed["head"] = fn(("embed", "head"), _trunc_normal(
             (d, rows), 0.02, dt, gen, dev))
@@ -223,17 +324,19 @@ def _attn_kind_args(cfg: ArchConfig, kind: str):
 
 
 def _block(kind: str, bp, x: torch.Tensor, cfg: ArchConfig, qcfg,
-           positions, cache, block_tables, shared=None) -> torch.Tensor:
+           positions, cache, block_tables, shared=None):
+    """One layer: ``(x, aux)``, ``aux`` the balance loss of a ``moe``
+    layer and None for every other kind."""
     if kind == "mamba":
         hdn = rms_norm(x, bp["ln"], cfg.norm_eps)
         return x + ssm_mod.mamba_apply(bp["mamba"], hdn, cfg, qcfg,
-                                       state=cache)
+                                       state=cache), None
     if kind == "rwkv":
         # the parallel-block residual: both halves read the block's input
         tm, cm = rwkv_mod.rwkv_apply(
             bp["rwkv"], rms_norm(x, bp["ln1"], cfg.norm_eps),
             rms_norm(x, bp["ln2"], cfg.norm_eps), cfg, qcfg, state=cache)
-        return x + tm + cm
+        return x + tm + cm, None
     if kind == "shared_attn":
         hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
         attn_p = shared["attn"]
@@ -243,15 +346,22 @@ def _block(kind: str, bp, x: torch.Tensor, cfg: ArchConfig, qcfg,
                                     positions=positions, cache=cache,
                                     block_table=block_tables)
         hdn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-        return x + mlp_apply(shared["mlp"], hdn, cfg, qcfg)
+        return x + mlp_apply(shared["mlp"], hdn, cfg, qcfg), None
     window, theta = _attn_kind_args(cfg, kind)
     hdn = rms_norm(x, bp["ln1"], cfg.norm_eps)
-    x = x + attn_mod.attn_apply(bp["attn"], hdn, cfg, qcfg,
-                                positions=positions, window=window,
-                                theta=theta, cache=cache,
-                                block_table=block_tables)
+    if cfg.use_mla:
+        x = x + attn_mod.mla_apply(bp["attn"], hdn, cfg, qcfg,
+                                   positions=positions, cache=cache)
+    else:
+        x = x + attn_mod.attn_apply(bp["attn"], hdn, cfg, qcfg,
+                                    positions=positions, window=window,
+                                    theta=theta, cache=cache,
+                                    block_table=block_tables)
     hdn = rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + mlp_apply(bp["mlp"], hdn, cfg, qcfg)
+    if kind == "moe":
+        m, aux = moe_mod.moe_apply(bp["moe"], hdn, cfg, qcfg)
+        return x + m, aux
+    return x + mlp_apply(bp["mlp"], hdn, cfg, qcfg), None
 
 
 def _lora_qkv(attn_p, bp, cfg: ArchConfig):
@@ -288,7 +398,7 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
             caches: Optional[Dict[str, Any]] = None,
             pos_offset=0, block_tables: Optional[torch.Tensor] = None,
             head: Optional[torch.Tensor] = None,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False, full: bool = False):
     """Run the decoder over ``tokens (B, S)``, or ``(B, S, K)`` with K
     codebooks. ``patches (B, P, d_model)`` (phi-3-vision's precomputed
     patch embeddings) go in front of the token embeddings, cast to the
@@ -299,7 +409,9 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     ``pos_offset`` is a scalar or a (B,) tensor of per-row offsets.
     ``remat`` (training only) recomputes each layer in the backward pass.
     Returns logits ``(B, P + S, V)`` (``K * V`` with codebooks),
-    softcapped by ``cfg.final_logit_softcap``."""
+    softcapped by ``cfg.final_logit_softcap``; with ``full`` a
+    :class:`ForwardOut` (the logits, the ``moe`` layers' summed balance
+    loss, the final hidden state)."""
     x = embed_lookup(params["embed"]["tok"], tokens, cfg)
     if patches is not None:
         x = torch.cat([patches.to(x.dtype), x], dim=1)
@@ -311,16 +423,26 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
         positions = positions[0]
     remat = remat and caches is None and torch.is_grad_enabled()
     shared = params.get("shared")
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, bp, c in layers(cfg, params, caches):
         if remat:
             # nothing in a block draws random numbers (its rounding is
             # deterministic), so the recompute gives the forward's values
-            x = checkpoint(_block, kind, bp, x, cfg, qcfg, positions, None,
-                           None, shared, use_reentrant=False)
+            x, aux = checkpoint(_block, kind, bp, x, cfg, qcfg, positions,
+                                None, None, shared, use_reentrant=False)
         else:
-            x = _block(kind, bp, x, cfg, qcfg, positions, c, block_tables,
-                       shared)
+            x, aux = _block(kind, bp, x, cfg, qcfg, positions, c,
+                            block_tables, shared)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = _logits(params, x, cfg, qcfg, head)
+    return ForwardOut(logits, aux_total, x) if full else logits
+
+
+def _logits(params, x: torch.Tensor, cfg: ArchConfig, qcfg,
+            head: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The head over ``x``, softcapped by ``cfg.final_logit_softcap``."""
     if head is None:
         head = lm_head(params, cfg)
     logits = qeinsum("bsd,dv->bsv", x, head, qcfg)
@@ -343,21 +465,49 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
             qcfg: Optional[QuantConfig] = None, *,
             remat: bool = False) -> torch.Tensor:
     """Next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (the dense trunk has no auxiliary loss). With
+    ``batch["labels"]``, plus 0.01 times the ``moe`` layers' balance loss
+    and, with ``cfg.mtp_depth`` and ``params["mtp"]``, 0.3 times the MTP
+    loss (:func:`_mtp_loss`), as the JAX package sums them. With
     ``batch["patches"]`` the patch positions are run and then dropped:
     the loss covers the text positions only. With K codebooks the
     logits ``(B, S, K * V)`` are read as ``(B, S, K, V)`` against labels
     ``(B, S, K)``, every codebook's every position weighted alike."""
     patches = batch.get("patches")
-    logits = forward(params, batch["tokens"], cfg, qcfg, patches=patches,
-                     remat=remat)
+    tokens, labels = batch["tokens"], batch["labels"]
+    out = forward(params, tokens, cfg, qcfg, patches=patches, remat=remat,
+                  full=True)
+    logits, hidden = out.logits, out.hidden
     if patches is not None:
         logits = logits[:, patches.shape[1]:]
-    labels = batch["labels"]
+        hidden = hidden[:, patches.shape[1]:]
     if cfg.num_codebooks:
         B, S, K = labels.shape
         logits = logits.reshape(B, S, K, cfg.vocab_size)
-    return _xent(logits, labels)
+    loss = _xent(logits, labels) + 0.01 * out.aux
+    if cfg.mtp_depth and "mtp" in params:
+        loss = loss + 0.3 * _mtp_loss(params, hidden, tokens, labels, cfg,
+                                      qcfg)
+    return loss
+
+
+def _mtp_loss(params, hidden: torch.Tensor, tokens: torch.Tensor,
+              labels: torch.Tensor, cfg: ArchConfig, qcfg) -> torch.Tensor:
+    """Depth-1 multi-token prediction (deepseek-v3), sharing the head:
+    the trunk's final hidden state at t, normed, beside the embedding of
+    token t + 1 (the last position's own), projected ``2d -> d`` and run
+    through one ``dense`` block; the head's logits predict the labels
+    shifted by one more position (the last one -1, no target)."""
+    mtp = params["mtp"]
+    emb = embed_lookup(params["embed"]["tok"], tokens, cfg)
+    emb_next = torch.cat([emb[:, 1:], emb[:, -1:]], dim=1)
+    h = rms_norm(hidden, mtp["norm"], cfg.norm_eps)
+    x = qeinsum("bsd,dc->bsc", torch.cat([h, emb_next], dim=-1),
+                dense_of(mtp["proj"], cfg), qcfg)
+    positions = torch.arange(x.shape[1], device=x.device, dtype=torch.int32)
+    x, _ = _block("dense", mtp["block"], x, cfg, qcfg, positions, None, None)
+    shifted = torch.cat([labels[:, 1:], -torch.ones_like(labels[:, :1])],
+                        dim=1)
+    return _xent(_logits(params, x, cfg, qcfg), shifted)
 
 
 def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
@@ -369,8 +519,9 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
     window_slack`` positions (at most ``max_len``); a full-context layer
     (``shared_attn`` too) a dense ``(batch, max_len)`` buffer, or with
     ``page_size`` a paged pool (default ``batch * ceil(max_len /
-    page_size)`` pages); a ``mamba`` or ``rwkv`` layer its f32 state
-    dict, which has no cursor ``idx``.
+    page_size)`` pages); an MLA layer (any attention kind under
+    ``cfg.use_mla``) its latent cache, never paged; a ``mamba`` or
+    ``rwkv`` layer its f32 state dict, which has no cursor ``idx``.
     Speculative decoding passes its k as ``window_slack``: draft writes
     past a rewound cursor then land only on ring slots no query can see
     any more."""
@@ -384,6 +535,8 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
             return ssm_mod.init_mamba_state(batch, cfg, dev)
         if kind == "rwkv":
             return rwkv_mod.init_rwkv_state(batch, cfg, dev)
+        if cfg.use_mla and kind in ("dense", "global", "moe"):
+            return attn_mod.init_mla_cache(batch, max_len, cfg, dev)
         if kind == "local":
             return attn_mod.init_kv_cache(
                 batch, max_len, cfg, dev,

@@ -217,9 +217,10 @@ class Engine:
         self.num_slots, self.max_len = num_slots, max_len
         self.buckets = tuple(sorted(b for b in buckets if b <= max_len))
         # pages only where some layer kind can be paged (rwkv6 has none:
-        # its engine keeps the dense layout, with no allocator)
-        self.page_size = (page_size if page_size and kinds & _PAGED_KINDS
-                          else None)
+        # its engine keeps the dense layout, with no allocator) and the
+        # attention is not MLA (its latent cache stays dense)
+        self.page_size = (page_size if page_size and not cfg.use_mla
+                          and kinds & _PAGED_KINDS else None)
         if self.page_size:
             self._max_pages = -(-max_len // page_size)
             self.num_pages = num_pages or num_slots * self._max_pages
