@@ -12,6 +12,7 @@
     python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
     python3 chip_smoke.py --recurrent  # 1, 2, K5 at hd 112, and 23
     python3 chip_smoke.py --moe        # 1, 2, K5 at rep 8, and 24
+    python3 chip_smoke.py --mesh       # 1, 2 and 25c-e on four cards
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -130,7 +131,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     approximation; the LUT-8 loss equals the exact fake-quant forward's
     within ``APPROX_LOSS_RTOL``, printed beside an f64-accumulation floor,
     and the LUT-4/2/1 losses (the controls) must lie outside it;
-    step wall time and peak memory printed, and one LUT-1 step profiled.
+    step wall time and peak memory printed.
 
 18. The paper's baselines at full width (each step prints one JSON
     line): (a) ``fp_quantize`` at e4m3 and e5m10, per tensor and per
@@ -321,6 +322,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
     K2 at both models' decode GEMMs beside ``torch.matmul`` bf16, K6 at
     4 x 129,280 and 4 x 163,840 beside ``torch.argmax``, K3 at 24d's 4-D
     expert leaf (16 x 7168 x 2048).
+25. Mesh serving (``repro_torch.distributed``). (a) Shard invariance:
+    K2 on each contiguous column block (m = 2 and 4) of qwen2.5-32b's and
+    kimi-k2's column-parallel decode GEMMs (``MESH_K2_GEMMS``, skinny and
+    one wgmma case), f32 and bf16 out, equals those columns of the whole
+    call bit for bit; K5 on each head group (m = 2 and 4) of qwen2.5-32b's
+    40 / 8 heads at 128 and gemma3's 16 / 8 at 256, bf16 and packed
+    pools, equals those heads of the whole call bit for bit; then the
+    shard shapes timed as phase 3 times K2 and K5 (the JSON's
+    ``qmatmul_colshard`` and ``paged_attend_headgroup``). (b) An NCCL
+    world of one: ``Engine(mesh=)`` on a (1, 1) mesh serves phase 4's
+    trace through the serve CLI's engine (``--mesh 1,1``), 8/8, streams
+    equal to phase 4's, every kernel of the path launched.
+    ``--mesh`` (four cards; fewer fails): the one-card runs first, on
+    card 0 in this process, then one NCCL rank a card (spawned, torchrun's
+    environment, one intra-op thread a rank, a 300 s collective timeout)
+    runs each through the serve CLI's engine with ``--mesh``, rank 0
+    taking the trace. (c) smollm-135m at full width on (2, 2), phase 11's
+    trace on demand at k = 4: streams equal one card's. (d) qwen2.5-32b
+    at full width and depth on (1, 4), phase 4's trace: streams equal one
+    card's; words and peak a rank, TPOT beside one card's, K2/K5
+    launches and collectives a forward on each rank, one decode step
+    profiled (NCCL's device time, the collective calls' host time, rank
+    0's trace to ``chiprun_out/``). (e) kimi-k2 at its dense layer and 8
+    MoE layers on (1, 4) (more words than one card holds): 8/8, drops
+    at prefill and decode, TPOT, the peak a rank; then phase 24b's cut
+    (1 + 2) on (1, 4) beside its one-card run: the streams equal, or the
+    first sampled batch where the logits part and its gap are printed.
+    Every rank's streams equal rank 0's. Results in
+    ``chiprun_out/chip_smoke_mesh.json``.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -2939,31 +2969,6 @@ def approx_train(torch, ops, setup):
         extra.append(r)
     runs["lut1_more"] = extra
     marks.append(("steps", time.monotonic()))
-
-    # where a LUT-1 step's time goes (as phase 10 profiles the K-path step)
-    from torch.profiler import ProfilerActivity, profile
-    step = build_train_step(cfg, QuantConfig.lns_madam(approx_lut=1), mcfg)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        float(step(st, batch)[1]["loss"])
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    busy_us, top = device_time(torch, prof, 6)
-    share = busy_us / 1e6 / wall if busy_us else None
-    print(f"profile, 1 LUT-1 step: wall {wall * 1e3:.1f} ms, device busy "
-          + (f"{busy_us / 1e3:.1f} ms ({share:.1%})" if busy_us
-             else "not measured (no device time in the trace)"))
-    for e in top:
-        print(f"  {e.key[:60]}: {e.self_device_time_total / 1e3:.3f} ms, "
-              f"{e.count} calls")
-    marks.append(("profile", time.monotonic()))
-    runs["lut1_profile"] = {
-        "wall_ms": wall * 1e3,
-        "device_busy_ms": busy_us / 1e3 if busy_us else None,
-        "device_busy_share": share,
-        "top": [[e.key, e.self_device_time_total / 1e3, e.count]
-                for e in top]}
 
     q8 = QuantConfig.lns_madam(approx_lut=8)
     with torch.no_grad():
@@ -5730,6 +5735,467 @@ def mixtures(torch, ops, ref, fmt, card):
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 25: mesh serving (``repro_torch.distributed``)
+
+# 25a: the decode GEMMs the serving rules shard by columns (qwen2.5-32b's
+# wq, wk/wv and up/gate; kimi-k2's wq, wk/wv and the dense layer's and
+# shared expert's up/gate), each column block of m = 2 and 4 held to the
+# matching columns of the whole call; the last row is a wgmma case
+MESH_K2_GEMMS = [(4, 5120, 5120), (4, 5120, 1024), (4, 5120, 27648),
+                 (4, 7168, 8192), (4, 7168, 1024), (4, 7168, 2048),
+                 (256, 5120, 5120)]
+# K5 by head group: qwen2.5-32b's decode (40 query heads over 8 KV heads,
+# head_dim 128) and gemma3-12b's global layers (16 over 8 at 256)
+MESH_K5_HEADS = [("qwen2.5-32b", (40, 8, 128)), ("gemma3-12b", K5_HD256)]
+MESH_SPLITS = (2, 4)
+# the shard shapes timed for the kernel table: qwen2.5-32b's up/gate
+# column block and its decode head group at model = 4
+MESH_K2_TIMED = [(4, 5120, 27648 // 4)]
+MESH_K5_TIMED = [("qwen2.5-32b head group of 4: decode bf16 pool", 4, 1,
+                  [33, 48, 61, 66], False, (10, 2, 128)),
+                 ("qwen2.5-32b head group of 4: decode packed pool", 4, 1,
+                  [33, 48, 61, 66], True, (10, 2, 128))]
+# --mesh: the runs (arch, serve argv, mesh) on four cards
+MESH_WORLD = 4
+MESH_SMOLLM = SPEC_SERVE + ["--alloc-policy", "ondemand", "--speculate-k",
+                            str(SPEC_K), "--draft-bitwidth", "6"]
+MESH_RUNS = [
+    ("25c", "smollm-135m", MESH_SMOLLM, "2,2", None),
+    ("25d", "qwen2.5-32b", SERVE_PAGED, "1,4", None),
+    # kimi-k2's dense layer and 8 of its 60 MoE layers: ~139e9 words,
+    # more than one card holds
+    ("25e", "kimi-k2-1t-a32b", SERVE_PAGED, "1,4", dict(num_layers=9)),
+    # phase 24b's cut, beside its one-card streams
+    ("25e2", "kimi-k2-1t-a32b", SERVE_PAGED, "1,4", dict(num_layers=3)),
+]
+# the runs whose one-card streams the parent computes first
+MESH_ONE_CARD = ("25c", "25d", "25e2")
+MESH_TIMEOUT_S = 300
+
+
+def shard_invariance(torch, ops, ref, fmt):
+    """25a: K2 on each contiguous column block (m = 2, 4) of every
+    ``MESH_K2_GEMMS`` shape, f32 and bf16 out, must equal those columns
+    of the whole call bit for bit; K5 on each head group of
+    ``MESH_K5_HEADS`` (bf16 and packed pools) must equal those heads of
+    the whole call. Then the shard shapes the mesh runs are timed as
+    phase 3 times K2 and K5 (the kernel table's shard rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    rows = []
+    for M, K, N in MESH_K2_GEMMS:
+        x = torch.randn((M, K), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        pa, sa = ops.encode_pack(x, fmt)
+        pb = torch.randint(0, 256, (K, N), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+        sb = torch.exp2(torch.randint(-6, -2, (1, N), generator=gen,
+                                      device="cuda").float())
+        path = ops.qmatmul_plan(M, N, K)["path"]
+        for odt in (torch.float32, torch.bfloat16):
+            whole = ops.qmatmul(pa, pb, fmt, sa, sb, out_dtype=odt)
+            for m in MESH_SPLITS:
+                w = N // m
+                for r in range(m):
+                    cols = slice(r * w, (r + 1) * w)
+                    part = ops.qmatmul(pa, pb[:, cols].contiguous(), fmt, sa,
+                                       sb[:, cols].contiguous(),
+                                       out_dtype=odt)
+                    check(torch.equal(part, whole[:, cols]),
+                          f"25a K2 {M}x{K}x{N} ({path}) column block {r} of "
+                          f"{m} ({odt}) differs from the whole call's")
+        rows.append({"kernel": "qmatmul", "shape": [M, K, N], "path": path,
+                     "splits": list(MESH_SPLITS), "bitwise": True})
+        print(f"25a K2 {M}x{K}x{N} ({path}): every column block of "
+              f"m = 2, 4 equals the whole call's columns bit for bit (f32 "
+              f"and bf16 out)")
+    for arch, heads in MESH_K5_HEADS:
+        H, KV, HD = heads
+        for packed in (False, True):
+            q, kp, vp, ks, vs, bt, ln = k5_inputs(
+                torch, 4, 1, [33, 48, 61, 66], packed, fmt, gen, heads)
+            kw = dict(fmt=fmt if packed else None, softcap=None,
+                      sm_scale=1 / math.sqrt(HD))
+            whole = ops.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
+            for m in MESH_SPLITS:
+                for r in range(m):
+                    hs = slice(r * H // m, (r + 1) * H // m)
+                    gs = slice(r * KV // m, (r + 1) * KV // m)
+                    part = lambda t: (None if t is None
+                                      else t[:, :, gs].contiguous())
+                    got = ops.paged_attend(q[:, :, hs].contiguous(),
+                                           part(kp), part(vp), part(ks),
+                                           part(vs), bt, ln, **kw)
+                    check(torch.equal(got, whole[:, :, hs]),
+                          f"25a K5 {arch} head group {r} of {m} "
+                          f"({'packed' if packed else 'bf16'} pool) differs "
+                          f"from the whole call's heads")
+            rows.append({"kernel": "paged_attend", "arch": arch,
+                         "heads": list(heads), "packed": packed,
+                         "splits": list(MESH_SPLITS), "bitwise": True})
+            print(f"25a K5 {arch} {H}/{KV} heads at head_dim {HD} "
+                  f"({'packed' if packed else 'bf16'} pool): every head "
+                  f"group of m = 2, 4 equals the whole call's heads bit for "
+                  f"bit")
+    k2 = k2_check(torch, ops, ref, fmt, MESH_K2_TIMED)
+    k5 = k5_check(torch, ops, ref, fmt, MESH_K5_TIMED)
+    return {"invariance": rows, "qmatmul": k2, "paged_attend": k5}
+
+
+def mesh_of_one(torch, ops, phase4_streams):
+    """25b: ``Engine(mesh=)`` on a (1, 1) mesh (an NCCL world of one)
+    serves phase 4's paged trace at smollm-135m's full width through the
+    serve CLI's engine: every request completes and the streams equal
+    phase 4's."""
+    import torch.distributed as dist
+    agg, engine, counts = serve(torch, SERVE_PAGED + ["--mesh", "1,1"], ops,
+                                warm="short")
+    try:
+        check(engine._mesh is not None and dist.get_backend() == "nccl",
+              f"25b: the engine runs no NCCL mesh ({dist.get_backend()})")
+        got = streams(engine)
+        check(agg["completed"] == 8 and got == phase4_streams,
+              "25b: the (1, 1) mesh's streams differ from phase 4's")
+        check(all(counts[k] > 0 for k in ("encode_pack", "qmatmul",
+                                          "paged_attend", "fused_sample")),
+              f"25b: a kernel was not launched on the mesh path: {counts}")
+        row = {"completed": int(agg["completed"]), "launches": counts,
+               "tpot_p50_ms": agg["tpot_p50_s"] * 1e3,
+               "tokens_per_s": agg["tokens_per_s"],
+               "decode_steps": engine.decode_steps, "streams_equal": True}
+        print(f"25b: (1, 1) NCCL mesh served 8/8, streams equal phase 4's, "
+              f"tpot p50 {row['tpot_p50_ms']:.2f} ms, launches {counts}")
+    finally:
+        del engine
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def logits_recorded(ops, path):
+    """While open, every logits batch the engine samples (prefills and
+    decode steps) is kept on the host, emptied at each launch-count reset
+    (so after ``serve`` it holds the counted run's), and saved to
+    ``path`` when the block ends."""
+    from repro_torch.serving import engine as engine_mod
+    import torch
+    seen = []
+    real = engine_mod.sample_logits
+
+    def spy(logits, *a, **kw):
+        seen.append(logits.detach().to(torch.float32).cpu())
+        return real(logits, *a, **kw)
+
+    engine_mod.sample_logits = spy
+    reset = ops.reset_launch_counts
+
+    def reset_too():
+        seen.clear()
+        reset()
+    ops.reset_launch_counts = reset_too
+    try:
+        yield seen
+    finally:
+        engine_mod.sample_logits = real
+        ops.reset_launch_counts = reset
+        torch.save(list(seen), path)
+
+
+def where_parted(torch, a_path, b_path):
+    """The first sampled batch at which two runs' logits differ, and the
+    first at which a row's argmax differs, with the max |gap| there."""
+    a, b = torch.load(a_path), torch.load(b_path)
+    out = {"batches": [len(a), len(b)], "first_differ": None,
+           "first_argmax": None}
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.shape != y.shape:
+            out["shape_apart"] = i
+            break
+        if out["first_differ"] is None and not torch.equal(x, y):
+            out["first_differ"] = {"batch": i, "max_abs_gap": float(
+                (x - y).abs().max()), "max_abs": float(x.abs().max())}
+        if not torch.equal(x.argmax(-1), y.argmax(-1)):
+            out["first_argmax"] = {"batch": i, "max_abs_gap": float(
+                (x - y).abs().max())}
+            break
+    return out
+
+
+def one_card(torch, ops, tag, arch, argv, cut, scratch):
+    """A one-card run (card 0) of a mesh run's trace, for its streams,
+    TPOT and memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ctx = cut_config(arch, **cut) if cut else contextlib.nullcontext()
+    rec = (logits_recorded(ops, scratch / f"{tag}_one_card.pt")
+           if tag == "25e2" else contextlib.nullcontext())
+    with ctx, rec:
+        agg, engine, counts = serve(torch, ["--arch", arch] + argv, ops,
+                                    warm="short")
+    row = {"streams": streams(engine), "completed": int(agg["completed"]),
+           "tpot_p50_ms": agg["tpot_p50_s"] * 1e3,
+           "tokens_per_s": agg["tokens_per_s"],
+           "weights_gb": packed_bytes(engine.params) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"{tag} one card: {arch} {row['completed']} requests, tpot p50 "
+          f"{row['tpot_p50_ms']:.2f} ms, weights {row['weights_gb']:.2f} GB,"
+          f" peak {row['peak_gb']:.2f} GB")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def profile_mesh_step(torch, engine, trace, ops, out_dir):
+    """One decode step of a mesh engine with its 4 slots busy, under
+    torch.profiler on every rank: the collectives it issues, the device
+    time of NCCL's kernels (the time they wait for the other ranks
+    included) and of every kernel, the host time of the collective calls,
+    K2's and K5's launches; then 3 steps unprofiled for the wall time a
+    step. Rank 0's trace goes to ``out_dir`` (gzipped Chrome JSON)."""
+    from repro_torch.distributed import collectives
+    engine.reset()
+    reqs = trace()[:engine.num_slots]
+    for r in reqs:
+        r.max_new_tokens = 8
+    if engine._root:
+        for r in reqs:
+            engine.submit(r)
+    engine.step()            # admissions and the first decode
+    engine.step()
+    torch.cuda.synchronize()
+    collectives.reset_counts()
+    ops.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in averages(prof) if e.device_type == cuda]
+    # NCCL's kernels only (its "nccl:*" ranges repeat their time)
+    nccl = [e for e in kernels if e.key.startswith("ncclDevKernel")]
+    host = [e for e in averages(prof) if e.device_type != cuda
+            and e.key.startswith("c10d::")]
+    row = {"collectives": collectives.counts(),
+           "launches": ops.launch_counts(),
+           "busy_ms": sum(e.self_device_time_total for e in kernels
+                          if not e.key.startswith("nccl:")) / 1e3,
+           "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+           "nccl_kernels": sum(e.count for e in nccl),
+           "nccl_by_name": {e.key[:60]: e.self_device_time_total / 1e3
+                            for e in nccl},
+           "host_collective_ms": sum(e.cpu_time_total for e in host) / 1e3,
+           "host_collective_calls": {e.key: e.count for e in host}}
+    if engine._root:
+        import gzip
+        raw = Path(out_dir) / "mesh_step_rank0.json"
+        prof.export_chrome_trace(str(raw))
+        dest = ROOT / "chiprun_out" / "mesh_step_rank0.trace.json.gz"
+        dest.parent.mkdir(exist_ok=True)
+        dest.write_bytes(gzip.compress(raw.read_bytes()))
+        raw.unlink()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    row["step_wall_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    engine.run(())
+    return row
+
+
+def mesh_serve(torch, ops, tag, arch, argv, mesh, cut, scratch):
+    """One mesh run on this rank through the serve CLI's engine: rank 0
+    takes the trace (warmed by its first request for 2 tokens), every rank
+    steps in lockstep. Returns this rank's streams, the TPOT, the words'
+    GB and the peak, the launches and collectives a forward."""
+    from repro_torch.distributed import collectives
+    from repro_torch.launch.serve import build_engine, parser
+    from repro_torch.serving import synthetic_trace
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ctx = cut_config(arch, **cut) if cut else contextlib.nullcontext()
+    with ctx as cfg, routes_seen(ops) as seen:
+        args = parser().parse_args(["--arch", arch] + argv + ["--mesh",
+                                                                mesh])
+        engine = build_engine(args)
+        root = engine._root
+        rec = (logits_recorded(ops, scratch / f"{tag}_mesh.pt")
+               if tag == "25e2" and root else contextlib.nullcontext())
+        trace = lambda: synthetic_trace(engine.cfg, requests=args.requests,
+                                        prompt_len=args.prompt_len,
+                                        gen_len=args.gen_len, seed=args.seed)
+        first = trace()[0]
+        first.max_new_tokens = 2
+        engine.run([first] if root else ())
+        engine.reset()
+        torch.cuda.synchronize()
+        with rec:
+            ops.reset_launch_counts()
+            collectives.reset_counts()
+            agg = engine.run(trace() if root else ())
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        coll = collectives.counts()
+        drops = (drop_shares(seen, engine.cfg, engine.num_slots)
+                 if engine.cfg.num_experts else None)
+    fwd = engine.decode_steps + engine.prefills
+    row = {"arch": arch, "mesh": mesh, "rank": engine._mesh.rank,
+           "completed": int(agg["completed"]), "streams": streams(engine),
+           "tpot_p50_ms": agg["tpot_p50_s"] * 1e3,
+           "ttft_mean_ms": agg["ttft_mean_s"] * 1e3,
+           "tokens_per_s": agg["tokens_per_s"],
+           "decode_steps": engine.decode_steps, "prefills": engine.prefills,
+           "launches": counts, "collectives": coll,
+           "launches_a_forward": {k: counts[k] / fwd for k in
+                                  ("encode_pack", "qmatmul", "paged_attend",
+                                   "fused_sample")},
+           "collectives_a_forward": {k: v / fwd for k, v in coll.items()},
+           "weights_gb": packed_bytes(engine.params) / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "dropped": drops, "cut": cut}
+    if tag == "25d":
+        row["profile"] = profile_mesh_step(torch, engine, trace, ops,
+                                           scratch)
+    row["seconds"] = time.monotonic() - t0
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_rank(rank, world, port, out_dir, runs):
+    """One rank of ``--mesh``: torchrun's environment for this card, then
+    every ``runs`` entry through :func:`mesh_serve`; this rank's results
+    go to ``out_dir/rank<r>.json``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build, ops
+    torch.set_num_threads(1)      # one rank a card shares the host's cores
+    _build.library()
+    # a collective that never completes ends this rank (and the spawn
+    # ends the others) after MESH_TIMEOUT_S, well inside the call's limit
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="env://",
+                            timeout=datetime.timedelta(
+                                seconds=MESH_TIMEOUT_S))
+    out = {}
+    for tag, arch, argv, mesh, cut in runs:
+        out[tag] = mesh_serve(torch, ops, tag, arch, argv, mesh, cut,
+                              Path(out_dir))
+        if rank == 0:
+            r = out[tag]
+            print(f"{tag} rank 0: {arch} mesh {mesh}: {r['completed']} "
+                  f"requests, tpot p50 {r['tpot_p50_ms']:.2f} ms, weights "
+                  f"{r['weights_gb']:.2f} GB, peak {r['peak_gb']:.2f} GB, "
+                  f"launches a forward {r['launches_a_forward']}, "
+                  f"collectives a forward {r['collectives_a_forward']} "
+                  f"({r['seconds']:.1f}s)", flush=True)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_main(torch, card):
+    """``--mesh``: phase 25c-e on four cards of one host."""
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    check(n >= MESH_WORLD, f"--mesh needs {MESH_WORLD} cards, "
+          f"{n} are visible")
+    from repro_torch.kernels import _build, ops
+    t_start = time.monotonic()
+    _build.build()
+    _build.library()
+    scratch = ROOT / "build" / "mesh"
+    scratch.mkdir(parents=True, exist_ok=True)
+    marks = [("build", time.monotonic())]
+    one = {}
+    for tag, arch, argv, mesh, cut in MESH_RUNS:
+        if tag in MESH_ONE_CARD:
+            one[tag] = one_card(torch, ops, tag, arch, argv, cut, scratch)
+    marks.append(("one card", time.monotonic()))
+    # as torchrun does: one intra-op thread a rank (the ranks share the
+    # host's cores; read when each rank imports torch)
+    os.environ["OMP_NUM_THREADS"] = "1"
+    mp.start_processes(mesh_rank, args=(MESH_WORLD, free_port(),
+                                        str(scratch), MESH_RUNS),
+                       nprocs=MESH_WORLD, join=True, start_method="spawn")
+    marks.append(("ranks", time.monotonic()))
+    ranks = [json.loads((scratch / f"rank{r}.json").read_text())
+             for r in range(MESH_WORLD)]
+    res = {"card": card, "one_card": one, "ranks": ranks}
+    for tag, arch, argv, mesh, cut in MESH_RUNS:
+        rows = [rk[tag] for rk in ranks]
+        n_req = int(argv[argv.index("--requests") + 1])
+        for r in rows:
+            check(r["completed"] == n_req, f"{tag} rank {r['rank']}: "
+                  f"{r['completed']}/{n_req} requests completed")
+            check(r["streams"] == rows[0]["streams"],
+                  f"{tag}: rank {r['rank']}'s streams differ from rank 0's")
+        line = {"tag": tag, "arch": arch, "mesh": mesh, "cut": cut,
+                "completed": rows[0]["completed"],
+                "tpot_p50_ms": rows[0]["tpot_p50_ms"],
+                "tokens_per_s": rows[0]["tokens_per_s"],
+                "weights_gb": [r["weights_gb"] for r in rows],
+                "peak_gb": [r["peak_gb"] for r in rows],
+                "launches_a_forward": [r["launches_a_forward"]
+                                       for r in rows],
+                "collectives_a_forward": rows[0]["collectives_a_forward"],
+                "dropped": rows[0]["dropped"]}
+        if tag in one:
+            line["one_card"] = {k: one[tag][k] for k in (
+                "tpot_p50_ms", "tokens_per_s", "weights_gb", "peak_gb")}
+            line["streams_equal"] = rows[0]["streams"] == {
+                str(k): v for k, v in one[tag]["streams"].items()}
+            if tag == "25e2":
+                if line["streams_equal"]:
+                    print(f"{tag}: the (1, 4) mesh's streams equal one "
+                          f"card's (phase 24b's run)")
+                else:
+                    line["parted"] = where_parted(
+                        torch, scratch / f"{tag}_one_card.pt",
+                        scratch / f"{tag}_mesh.pt")
+                    print(f"{tag}: the streams part from one card's (not "
+                          f"claimed equal): {line['parted']}")
+            else:
+                check(line["streams_equal"], f"{tag}: the mesh's streams "
+                      f"differ from one card's")
+        if tag == "25d":
+            line["profile"] = [r["profile"] for r in rows]
+        res[tag] = line
+        print(json.dumps(line))
+    marks.append(("checks", time.monotonic()))
+    res["seconds_by_phase"] = {b[0]: b[1] - a[1]
+                               for a, b in zip(marks, marks[1:])}
+    res["seconds"] = time.monotonic() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_mesh.json").write_text(json.dumps(res, indent=1))
+    print(f"chip_smoke --mesh took {res['seconds']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s"
+                      for k, v in res["seconds_by_phase"].items()))
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5757,11 +6223,12 @@ def main() -> int:
                                                 K5_KIMI_CASES),
                   **mixtures(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
-    if sys.argv[1:] and not sweep:
+    meshed = sys.argv[1:] == ["--mesh"]
+    if sys.argv[1:] and not (sweep or meshed):
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
               f"--k6-sweep | --k8-sweep | --serving | --obs | "
-              f"--dense-variants | --modality | --recurrent | --moe]",
-              file=sys.stderr)
+              f"--dense-variants | --modality | --recurrent | --moe | "
+              f"--mesh]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -5778,6 +6245,10 @@ def main() -> int:
     print(card.stdout.strip().splitlines()[0])
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    if meshed:
+        for line in card.stdout.strip().splitlines()[1:]:
+            print(line)
+        return mesh_main(torch, card.stdout.strip())
 
     from repro_torch.core.lns import LNSFormat
     from repro_torch.kernels import _build, ops, ref
@@ -5960,6 +6431,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mixture = mixtures(torch, ops, ref, fmt, card.stdout.strip())
     mark("24")
+    torch.cuda.empty_cache()
+    shards = shard_invariance(torch, ops, ref, fmt)
+    mark("25a")
+    one_mesh = mesh_of_one(torch, ops, paged["streams"])
+    mark("25b")
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -6004,6 +6480,24 @@ def main() -> int:
                 {k: x[k] for k in ("case", "shape", "ms", "plain_ms",
                                    "bound_ms", "library_ms")}
                 for x in rows if "ms" in x]
+    # the shard shapes a (data, model) mesh runs (25a's timed rows); their
+    # launches are the (1, 1) mesh run's (25b), where a shard is the whole
+    for name, base, src, tpu, rows in (
+            ("qmatmul_colshard", "qmatmul", "lns_qmatmul.cu",
+             "lns_qmatmul.py:48", shards["qmatmul"]),
+            ("paged_attend_headgroup", "paged_attend", "paged_attend.cu",
+             "paged_attend.py:172", shards["paged_attend"])):
+        r = rows[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": one_mesh["launches"][base],
+            "max_abs_err": max(x["max_abs_err"] for x in rows),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "bound_share": r["bound_ms"] / r["ms"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
     phases = {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
@@ -6024,6 +6518,7 @@ def main() -> int:
             "online_serving": online, "observability": observed,
             "dense_variants": variants, "modality": modal,
             "recurrent": recur, "moe": mixture,
+            "mesh": {"shards": shards, "mesh_of_one": one_mesh},
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

@@ -8,7 +8,7 @@ from typing import Dict
 
 from repro_torch.models.common import ArchConfig
 
-__all__ = ["ARCHS", "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "get_config", "get_smoke_config", "get_rules"]
 
 ARCHS: Dict[str, str] = {
     "gemma3-12b": "gemma3_12b",
@@ -36,3 +36,10 @@ def get_config(arch: str) -> ArchConfig:
 
 def get_smoke_config(arch: str) -> ArchConfig:
     return _module(arch).SMOKE
+
+
+def get_rules(arch: str) -> Dict:
+    """The config's logical-rule overrides (``distributed.sharding``), the
+    JAX package's ``get_rules``; the serving engine applies
+    ``serving_rules`` on top of the defaults instead."""
+    return dict(getattr(_module(arch), "RULES", {}))

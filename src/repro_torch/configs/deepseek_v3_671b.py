@@ -42,3 +42,5 @@ SMOKE = ArchConfig(
     num_shared_experts=1, moe_d_ff=96, num_dense_layers=1, mtp_depth=1,
     moe_dispatch="sort", dtype="float32",
 )
+
+RULES = {"moe_ff": "data"}   # FSDP the expert d_ff axis

@@ -32,3 +32,5 @@ SMOKE = ArchConfig(
     num_experts=8, experts_per_token=2, num_shared_experts=1, moe_d_ff=96,
     num_dense_layers=1, moe_dispatch="sort", dtype="float32",
 )
+
+RULES = {"moe_ff": "data"}   # FSDP the expert d_ff axis

@@ -25,3 +25,12 @@ SMOKE = ArchConfig(
     num_heads=3, num_kv_heads=1, head_dim=16, d_ff=128, vocab_size=512,
     tie_embeddings=True, dtype="float32",
 )
+
+# a 135M model gains nothing from tensor parallelism: the JAX package's
+# rules put the batch on the whole mesh and replicate every weight
+RULES = {
+    "batch": ("pod", "data", "model"),
+    "mlp": None, "heads": None, "qkv_out": None, "vocab": None,
+    "act_ff": None, "act_heads": None, "seq_shard": None,
+    "kv_seq": None,
+}

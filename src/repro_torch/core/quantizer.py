@@ -30,14 +30,16 @@ from typing import Optional, Union
 
 import torch
 
-from repro_torch.core.lns import (LNSFormat, LNSWeight, is_lns_weight,
-                                  lns_decode_packed, lns_quantize,
-                                  lns_requant_packed)
+from repro_torch.core.lns import (LNSFormat, LNSWeight, compute_scale,
+                                  is_lns_weight, lns_decode_packed,
+                                  lns_quantize, lns_requant_packed)
+from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch
 from repro_torch.numerics.fp import FPFormat, fp_quantize
 
 __all__ = ["Format", "QuantConfig", "qeinsum", "quantize", "ste_quantize",
-           "backward_quantize", "cot_boundary", "quantize_grads"]
+           "ste_quantize_sharded", "backward_quantize", "cot_boundary",
+           "quantize_grads"]
 
 Format = Union[LNSFormat, FPFormat]
 
@@ -126,6 +128,22 @@ def ste_quantize(x: torch.Tensor, fmt: Optional[Format],
     if fmt is None:
         return x
     return ste(x, quantize(x, fmt, scale_axis))
+
+
+def ste_quantize_sharded(xs, fmt: LNSFormat, group) -> list:
+    """Per-tensor Q_log of each of ``xs`` (straight through), where each
+    is this rank's shard of a tensor split over ``group``'s ranks: a
+    tensor's scale is the whole tensor's, every rank's scales
+    max-reduced in one collective (``pow2_scale`` is monotone, so the
+    max of the ranks' scales is the scale of the global absmax,
+    exactly)."""
+    if not isinstance(fmt, LNSFormat):
+        raise NotImplementedError(
+            "a per-tensor miniature-float scale over a sharded tensor")
+    scales = collectives.max_reduce(
+        torch.stack([compute_scale(x) for x in xs]), group)
+    return [ste(x, lns_quantize(x, fmt, scale=s))
+            for x, s in zip(xs, scales)]
 
 
 class _BackwardQuantize(torch.autograd.Function):

@@ -1,0 +1,198 @@
+"""Logical-axis sharding rules (``repro.distributed.sharding``'s tables).
+
+Model code names the axes of a tensor with *logical* names (``"embed"``,
+``"qkv_out"``, ``"experts"``...); a rules table maps each logical name to
+mesh axes. The tables, the first-wins resolution and the serving overrides
+are the JAX package's, so a placement here is the one JAX's
+``spec_for`` gives for the same names, rules and mesh.
+
+The JAX package is one controller over many devices and GSPMD inserts the
+collectives its constraints imply. The port runs one process per card:
+each rank holds its own shard of a leaf as a plain tensor, and the model
+code issues the collectives itself, at the points the serving rules
+allow (``repro_torch.distributed.collectives``). So a placement here is
+data, a tuple of mesh-axis entries per tensor dim, used to slice a full
+leaf into a rank's local one (``params_sharding.shard_tree``) and to ask
+which process group a logical axis spans (:func:`axis_group`). Nothing
+redistributes a tensor in the forward.
+
+A mesh is any object with ``axis_names`` (a tuple of str) and ``shape``
+(a dict name -> size); ``repro_torch.launch.mesh.Mesh`` adds the rank's
+coordinates and the process group of each axis.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+__all__ = ["LOGICAL_RULES", "shard_ctx", "current_mesh", "current_rules",
+           "spec_for", "serving_rules", "model_axis_size", "axis_group",
+           "axis_shards"]
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+
+# Default logical -> mesh rules, the JAX package's. Tuples shard over
+# those axes jointly; axes missing from the active mesh are dropped at
+# resolve time, so one table serves (data, model) and (pod, data, model).
+LOGICAL_RULES: Dict[str, AxisVal] = {
+    # activations
+    "batch": ("pod", "data"),
+    "batch_full": ("pod", "data", "model"),
+    "seq": None,
+    "seq_shard": "model",
+    "kv_seq": "model",
+    "attn_out": "model",
+    "embed": None,
+    "act_ff": "model",
+    "act_heads": "model",
+    # weights
+    "vocab": "model",
+    "mlp": "model",
+    "heads": "model",
+    "kv_heads": "model",
+    "qkv_out": "model",
+    "ff_fsdp": "data",
+    "experts": "model",
+    "moe_ff": None,
+    "lora": None,
+    "ssm_inner": "model",
+    "stack": None,
+    "replicated": None,
+}
+
+_ctx = threading.local()
+
+
+def current_mesh():
+    return getattr(_ctx, "mesh", None)
+
+
+def current_rules() -> Dict[str, AxisVal]:
+    return getattr(_ctx, "rules", LOGICAL_RULES)
+
+
+@contextlib.contextmanager
+def shard_ctx(mesh, overrides: Optional[Dict[str, AxisVal]] = None):
+    """Activate a mesh and rule overrides for the model code in scope
+    (a thread-local, as in the JAX package: the gateway's driver steps
+    the engine on its own thread, so the engine enters it per call)."""
+    prev_mesh = getattr(_ctx, "mesh", None)
+    prev_rules = getattr(_ctx, "rules", LOGICAL_RULES)
+    _ctx.mesh = mesh
+    rules = dict(LOGICAL_RULES)
+    if overrides:
+        rules.update(overrides)
+    _ctx.rules = rules
+    try:
+        yield
+    finally:
+        _ctx.mesh = prev_mesh
+        _ctx.rules = prev_rules
+
+
+def _resolve(name: Optional[str], mesh, rules: Dict[str, AxisVal]):
+    if name is None:
+        return None
+    if name not in rules:
+        raise KeyError(f"unknown logical axis {name!r}")
+    val = rules[name]
+    if val is None:
+        return None
+    axes = (val,) if isinstance(val, str) else tuple(val)
+    axes = tuple(a for a in axes if a in mesh.axis_names)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def model_axis_size(mesh=None) -> int:
+    """Size of the ``model`` mesh axis (1 without a mesh or the axis)."""
+    mesh = mesh or current_mesh()
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def serving_rules(cfg, mesh=None) -> Dict[str, AxisVal]:
+    """The JAX package's overrides for the mesh serving forward, which must
+    give the single device's tokens: activations, embedding and head
+    replicated; a column-parallel weight sharded over ``model`` only where
+    its dimension divides the axis (heads where both head counts divide,
+    the MLP where ``d_ff`` does, experts where their count does); the
+    second GEMM of each pair contracts over a replicated dim, so no sum
+    is ever split across ranks. ``cfg`` is duck-typed."""
+    m = model_axis_size(mesh)
+    heads_ok = m > 1 and getattr(cfg, "num_heads", 0) % m == 0
+    kv_ok = heads_ok and getattr(cfg, "num_kv_heads", 0) % m == 0
+    mlp_ok = m > 1 and getattr(cfg, "d_ff", 0) % m == 0
+    moe_ok = m > 1 and getattr(cfg, "num_experts", 0) % m == 0
+    on = lambda ok: "model" if ok else None
+    return {
+        "batch": None, "batch_full": None, "seq": None, "seq_shard": None,
+        "kv_seq": None, "act_ff": None, "attn_out": None, "vocab": None,
+        "ff_fsdp": None, "ssm_inner": None, "moe_ff": None,
+        "heads": on(heads_ok),
+        "act_heads": on(kv_ok),
+        "kv_heads": on(kv_ok),
+        "qkv_out": on(kv_ok),
+        "mlp": on(mlp_ok),
+        "experts": on(moe_ok),
+    }
+
+
+def spec_for(names: Sequence[Optional[str]], mesh=None,
+             rules: Optional[Dict[str, AxisVal]] = None) -> tuple:
+    """The placement of a tensor whose dims carry the logical ``names``:
+    a tuple with one entry a dim, ``None``, a mesh-axis name or a tuple of
+    them (JAX's ``PartitionSpec`` entries; ``()`` without a mesh).
+    ``rules`` are overrides over the defaults and the context. A mesh axis
+    shards at most one dim: the earlier dim wins and the later drops it."""
+    mesh = mesh or current_mesh()
+    rules = ({**current_rules(), **rules} if rules is not None
+             else current_rules())
+    if mesh is None:
+        return ()
+    used: set = set()
+    entries = []
+    for n in names:
+        axes = _resolve(n, mesh, rules)
+        if axes is None:
+            entries.append(None)
+            continue
+        if isinstance(axes, str):
+            axes = (axes,)
+        axes = tuple(a for a in axes if a not in used)
+        used.update(axes)
+        if not axes:
+            entries.append(None)
+        else:
+            entries.append(axes if len(axes) > 1 else axes[0])
+    return tuple(entries)
+
+
+def axis_shards(name: str) -> int:
+    """Into how many shards the active mesh and rules split a dim named
+    ``name`` (1 without a mesh)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    axes = _resolve(name, mesh, current_rules())
+    if axes is None:
+        return 1
+    n = 1
+    for a in ((axes,) if isinstance(axes, str) else axes):
+        n *= mesh.shape[a]
+    return n
+
+
+def axis_group(name: str):
+    """The process group a dim named ``name`` is sharded over under the
+    active mesh and rules, or None where it is not split (no mesh, a
+    replicated rule, an axis of size 1). The model code gathers or
+    reduces over this group exactly where the serving rules put a
+    collective."""
+    if axis_shards(name) == 1:
+        return None
+    axes = _resolve(name, current_mesh(), current_rules())
+    return current_mesh().group(axes)

@@ -35,6 +35,19 @@ them at full width and a cut depth), ``--smoke`` runs anywhere.
   python -m repro_torch.launch.serve --arch musicgen-medium --page-size 16
   python -m repro_torch.launch.serve --arch zamba2-7b --page-size 16
 
+Mesh serving (``--mesh DATA,MODEL``): one process a card under torchrun,
+each drawing the same seeded weights and keeping its shard
+(``repro_torch.serving.engine``'s mesh section); rank 0 prints. On the
+CPU, gloo ranks stand in for the cards:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke \
+      --device cpu --mesh 2,2 --page-size 4
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch qwen2.5-32b --mesh 1,4 --page-size 16
+
+``--mesh`` with more than one rank and no torchrun environment raises;
+``--mesh 1,1`` runs a world of one without torchrun.
+
 Observability: ``--trace-dir DIR`` attaches an ``EngineObserver`` (request
 spans and the step timeline), prints the run's time breakdown and exports
 a Chrome trace into DIR at the end (online: at shutdown);
@@ -50,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import builtins
 import contextlib
 
 import torch
@@ -57,7 +71,10 @@ import torch
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.lns import LNSFormat
 from repro_torch.core.quantizer import QuantConfig
+from repro_torch.distributed.params_sharding import LocalShard
+from repro_torch.distributed.sharding import serving_rules
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.model import init_params
 from repro_torch.obs import EngineObserver, kernel_stats
 from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
@@ -69,8 +86,18 @@ def build_engine(args) -> Engine:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     qcfg = QuantConfig.lns_madam()
     mcfg = MadamConfig(update_format=LNSFormat(bits=args.serve_bits, gamma=8))
-    params = init_params(cfg, seed=args.seed, device=args.device,
-                         leaf_fn=lns_leaf_encoder(mcfg))
+    mesh = shard = None
+    if args.mesh:
+        try:
+            data, model = (int(v) for v in args.mesh.split(","))
+        except ValueError:
+            raise SystemExit(f"--mesh expects 'DATA,MODEL', got "
+                             f"{args.mesh!r}") from None
+        mesh = make_host_mesh(data, model, device=args.device)
+        shard = LocalShard(mesh, serving_rules(cfg, mesh))
+    params = init_params(cfg, seed=args.seed,
+                         device=mesh.device if mesh else args.device,
+                         leaf_fn=lns_leaf_encoder(mcfg), shard=shard)
     lengths = args.lengths or ("uniform" if args.mixed else "fixed")
     max_len = args.max_len or max_trace_len(args.prompt_len, args.gen_len,
                                             lengths)
@@ -82,7 +109,8 @@ def build_engine(args) -> Engine:
                   draft_bitwidth=args.draft_bitwidth,
                   spec_autotune=args.spec_autotune,
                   checkpoint_id=f"{cfg.name}-seed{args.seed}-init",
-                  device=args.device)
+                  device=None if mesh else args.device, mesh=mesh,
+                  sharded_params=mesh is not None)
 
 
 def serve_http(engine: Engine, http: str, model: str,
@@ -173,6 +201,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--kernel-stats", action="store_true",
                     help="per-(op, backend, bits) kernel-time "
                          "attribution, printed after an offline run")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="serve on a (data, model) mesh of ranks started "
+                         "by torchrun (one a card); e.g. '1,4'")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
@@ -181,8 +212,22 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
+    if args.mesh and args.http:
+        raise SystemExit("--http is not served on a mesh yet")
     engine = build_engine(args)
+    try:
+        return _main(args, engine)
+    finally:
+        if engine._mesh is not None:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, engine) -> dict:
     cfg = engine.cfg
+    root = engine._root
+    # under a mesh rank 0 prints, the other ranks stay quiet
+    print = builtins.print if root else (lambda *a, **k: None)
     observer = EngineObserver() if args.trace_dir else None
     engine.attach_observer(observer)
     nbytes = 0
@@ -199,7 +244,8 @@ def main(argv=None) -> dict:
             nbytes += node.nbytes
     print(f"arch={cfg.name} device={engine.device} serve weights "
           f"{nbytes / 2**20:.1f} MiB (packed {args.serve_bits}-bit LNS "
-          f"codes + scales)")
+          f"codes + scales)"
+          + (f" a rank, mesh {args.mesh}" if args.mesh else ""))
     if engine.device.type == "cuda":
         # the draw and the layer-chunked encode's peak, and the caches
         print(f"peak allocated after the engine is built: "
@@ -226,7 +272,7 @@ def main(argv=None) -> dict:
         if args.torch_profile:
             stack.enter_context(
                 kernel_stats.profiler_trace(args.torch_profile))
-        agg = engine.run(trace)
+        agg = engine.run(trace if root else ())
     print(f"slots={args.slots} requests={args.requests} "
           f"decode_steps={engine.decode_steps} prefills={engine.prefills}")
     if engine.page_size:

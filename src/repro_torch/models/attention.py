@@ -38,7 +38,10 @@ import torch
 
 from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode,
                                   lns_encode, lns_pack, lns_unpack)
-from repro_torch.core.quantizer import QuantConfig, qeinsum, ste_quantize
+from repro_torch.core.quantizer import (QuantConfig, qeinsum, ste_quantize,
+                                        ste_quantize_sharded)
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import axis_group
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_rope, decoded_of, dense_of,
@@ -49,12 +52,16 @@ __all__ = ["attn_apply", "attn_zero_leaves", "flash_attention",
            "mla_leaves", "mla_apply", "init_mla_cache"]
 
 
-def _qa(x: torch.Tensor, cfg: ArchConfig, qcfg: Optional[QuantConfig]):
-    """Q_A on the attention operands (per tensor, straight through),
-    unless ``cfg.quantize_attention`` is off."""
-    if qcfg is not None and cfg.quantize_attention and qcfg.act is not None:
-        return ste_quantize(x, qcfg.act, None)
-    return x
+def _qa(xs, cfg: ArchConfig, qcfg: Optional[QuantConfig], group=None):
+    """Q_A on each attention operand of ``xs`` (per tensor, straight
+    through), unless ``cfg.quantize_attention`` is off. Under head
+    sharding (``group``) each scale is the whole tensor's, all of them
+    max-reduced over the ranks' head groups in one collective."""
+    if qcfg is None or not cfg.quantize_attention or qcfg.act is None:
+        return list(xs)
+    if group is not None:
+        return ste_quantize_sharded(xs, qcfg.act, group)
+    return [ste_quantize(x, qcfg.act, None) for x in xs]
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -139,13 +146,23 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     holds. ``window`` limits what a query sees to the last ``window``
     positions; ``theta`` is the rope base (default ``cfg.rope_theta``).
     The order is the JAX package's: projections, bias, qk-norm, rope,
-    Q_A."""
+    Q_A.
+
+    Under a mesh whose serving rules shard ``qkv_out`` (both head counts
+    divide the ``model`` axis), ``wq/wk/wv`` and the biases are this
+    rank's contiguous column blocks, so the rank computes its own query
+    heads and their KV heads (GQA groups are contiguous), keeps only those
+    in its caches and pools, and all-gathers the heads before the
+    replicated ``wo``; Q_A's per-tensor scales are max-reduced over the
+    ranks first."""
     B, S, _ = x.shape
-    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    grp = axis_group("qkv_out")
     theta = theta if theta is not None else cfg.rope_theta
     q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg)
     k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg)
     v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg)
+    h, kv = q.shape[-1] // hd, k.shape[-1] // hd     # this rank's heads
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -159,9 +176,8 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     rot = rope(positions, hd, theta)
     if rot.dim() == 3:
         rot = rot[None]
-    q = _qa(apply_rope(q, rot), cfg, qcfg)
-    k = _qa(apply_rope(k, rot), cfg, qcfg)
-    v = _qa(v, cfg, qcfg)
+    q, k, v = _qa((apply_rope(q, rot), apply_rope(k, rot), v), cfg, qcfg,
+                  grp)
     if cache is None:
         rep = h // kv
         out = flash_attention(q, k.repeat_interleave(rep, dim=2),
@@ -177,16 +193,19 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
         out = _ring_attend(q, k, v, cache, cfg, window)
     else:
         out = _decode_attend(q, k, v, cache, cfg)
-    out = out.reshape(B, S, h * hd)
+    out = collectives.gather(out, grp, dim=2)
+    out = out.reshape(B, S, out.shape[2] * hd)
     return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
 
 
 def init_kv_cache(batch: int, max_len: int, cfg: ArchConfig, device,
-                  window: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                  window: Optional[int] = None,
+                  kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """A ``(batch, max_len)`` buffer per layer, or with ``window`` a ring
-    of ``min(window, max_len)`` positions."""
+    of ``min(window, max_len)`` positions; ``kv_heads`` (default the
+    config's) is a rank's head group under a mesh."""
     cap = min(window, max_len) if window else max_len
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    kv, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     shape = (batch, cap, kv, hd)
     idx = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.kv_cache_bits:
@@ -204,10 +223,13 @@ def init_kv_cache(batch: int, max_len: int, cfg: ArchConfig, device,
 
 
 def init_paged_kv_cache(batch: int, num_pages: int, page_size: int,
-                        cfg: ArchConfig, device) -> Dict[str, torch.Tensor]:
+                        cfg: ArchConfig, device,
+                        kv_heads: Optional[int] = None
+                        ) -> Dict[str, torch.Tensor]:
     """``num_pages + 1`` pages: the last is the null page that unused
-    block-table entries point at."""
-    kv, hd = cfg.num_kv_heads, cfg.head_dim
+    block-table entries point at; ``kv_heads`` as in
+    :func:`init_kv_cache`."""
+    kv, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     shape = (num_pages + 1, page_size, kv, hd)
     idx = torch.zeros((batch,), dtype=torch.int32, device=device)
     if cfg.kv_cache_bits:
@@ -284,7 +306,7 @@ def _attend_plain(q, k_att, v_att, q_abs, abs_pos, valid, cfg: ArchConfig,
     ``k_att/v_att (B,K,kv,hd)`` at absolute positions ``abs_pos (B,K)``;
     ``valid (B,K)`` marks keys that hold a position."""
     B, S, h, hd = q.shape
-    rep = h // cfg.num_kv_heads
+    rep = h // k_att.shape[2]
     kf = k_att.repeat_interleave(rep, dim=2).to(torch.float32)
     vf = v_att.repeat_interleave(rep, dim=2).to(torch.float32)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
@@ -344,7 +366,11 @@ def _ring_attend(q, k_new, v_new, cache, cfg: ArchConfig, window: int):
 def _paged_attend(q, k_new, v_new, cache, cfg: ArchConfig,
                   block_table: torch.Tensor):
     """Scatter the S new positions into the row's pages (positions past
-    the table's span are dropped), then attend through K5."""
+    the table's span are dropped), then attend through K5. Under a mesh
+    ``q`` and the pools hold this rank's head group and the one block
+    table is replicated: K5 attends the group's heads as one device
+    would (the JAX package's ``_paged_attend_sharded``), and the caller
+    gathers the heads."""
     B, S, h, hd = q.shape
     pool_k = cache["kp"]
     page = pool_k.shape[1]
@@ -405,14 +431,20 @@ def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     width ``v_head_dim``); with one the new latents and rope keys are
     written at each row's cursor and attended in the absorbed form. Every
     2-D projection goes through ``qeinsum``; ``kv_up`` is decoded in the
-    absorbed form, as in the JAX package."""
+    absorbed form, as in the JAX package.
+
+    Under a mesh that shards ``qkv_out``, ``q_up`` and ``kv_up`` are this
+    rank's head blocks: the rank attends its own heads against the
+    replicated latent cache (every head reads the one latent) and the
+    heads are all-gathered before the replicated ``wo``."""
     B, S, _ = x.shape
-    h = cfg.num_heads
     nope, rpe, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
+    grp = axis_group("qkv_out")
     ql = qeinsum("bsd,dr->bsr", x, dense_of(p["q_down"], cfg), qcfg)
     ql = rms_norm(ql, p["q_norm"], cfg.norm_eps)
     q = qeinsum("bsr,re->bse", ql, dense_of(p["q_up"], cfg), qcfg)
+    h = q.shape[-1] // (nope + rpe)                  # this rank's heads
     q = q.reshape(B, S, h, nope + rpe)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     kvd = qeinsum("bsd,dr->bsr", x, dense_of(p["kv_down"], cfg), qcfg)
@@ -430,12 +462,13 @@ def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, rpe)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        qq, k, v = _qa(qq, cfg, qcfg), _qa(k, cfg, qcfg), _qa(v, cfg, qcfg)
+        qq, k, v = _qa((qq, k, v), cfg, qcfg, grp)
         out = flash_attention(qq, k, v)
     else:
         out = _mla_decode(q_nope, q_rope, c_kv, k_rope,
                           decoded_of(p["kv_up"], cfg), cache, cfg)
-    out = out.reshape(B, S, h * vd)
+    out = collectives.gather(out, grp, dim=2)
+    out = out.reshape(B, S, out.shape[2] * vd)
     return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
 
 

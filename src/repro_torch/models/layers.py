@@ -16,6 +16,8 @@ import torch.nn.functional as F
 
 from repro_torch.core.lns import is_lns_weight, lns_decode_packed
 from repro_torch.core.quantizer import QuantConfig, qeinsum
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import axis_group
 from repro_torch.models.common import ArchConfig
 
 __all__ = ["dense_of", "decoded_of", "rms_norm", "rope", "apply_rope",
@@ -77,7 +79,11 @@ def apply_rope(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
 def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
               qcfg: Optional[QuantConfig]) -> torch.Tensor:
     """down(act(gate(x)) * up(x)), or down(act(up(x))) when
-    ``cfg.mlp_gated`` is off; ``act`` is ``ACT_FNS[cfg.act_fn]``."""
+    ``cfg.mlp_gated`` is off; ``act`` is ``ACT_FNS[cfg.act_fn]``. Under a
+    mesh whose serving rules shard ``mlp``, ``up``/``gate`` are this
+    rank's column blocks (K2 on the rank's columns of the replicated,
+    K1-encoded activation) and the hidden state is all-gathered before
+    the replicated ``down``, whose Q_A then sees the whole tensor."""
     act = ACT_FNS[cfg.act_fn]
     up = qeinsum("bsd,df->bsf", x, dense_of(p["up"], cfg), qcfg)
     if cfg.mlp_gated:
@@ -85,6 +91,7 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
         up = act(gate) * up
     else:
         up = act(up)
+    up = collectives.gather(up, axis_group("mlp"))
     return qeinsum("bsf,fd->bsd", up, dense_of(p["down"], cfg), qcfg)
 
 

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.lns import LNSWeight, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import axis_shards
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -87,13 +88,17 @@ def _trunc_normal(shape, std, dtype, gen: torch.Generator, device):
 
 
 def _expert_stack(path, n, E: int, d_in: int, d_out: int, std: float,
-                  dtype, gen: torch.Generator, device, fn):
+                  dtype, gen: torch.Generator, device, fn, keep=None):
     """An expert stack ``(n, E, d_in, d_out)`` (``(E, d_in, d_out)`` with
     ``n`` None) of normals times ``std``, drawn a layer and a chunk of
     experts at a time (each chunk's f32 draw at most
     ``_DRAW_SLICE_BYTES``) and passed to ``fn`` chunk by chunk. ``fn``'s
     packed chunks (per-expert, per-output-channel scales: the chunks do
-    not share one) are written into one packed leaf."""
+    not share one) are written into one packed leaf. ``keep = (lo, hi)``
+    keeps experts ``[lo, hi)`` only (a rank's share under expert
+    parallelism): every chunk is still drawn, so the kept experts are the
+    whole draw's, but only theirs reach ``fn``."""
+    lo, hi = keep or (0, E)
     per = max(1, _DRAW_SLICE_BYTES // (4 * d_in * d_out))
     lead = (n,) if n else ()
     out = None
@@ -102,18 +107,22 @@ def _expert_stack(path, n, E: int, d_in: int, d_out: int, std: float,
             e1 = min(E, e0 + per)
             t = torch.randn((e1 - e0, d_in, d_out), generator=gen,
                             dtype=torch.float32, device=device)
-            w = fn(path, (t * std).to(dtype))
-            at = ((li,) if n else ()) + (slice(e0, e1),)
+            a, b = max(e0, lo), min(e1, hi)
+            if a >= b:
+                continue
+            w = fn(path, (t[a - e0:b - e0] * std).to(dtype))
+            at = ((li,) if n else ()) + (slice(a - lo, b - lo),)
             if out is None:
                 if is_lns_weight(w):
                     out = LNSWeight(
-                        torch.empty(lead + (E, d_in, d_out),
+                        torch.empty(lead + (hi - lo, d_in, d_out),
                                     dtype=w.packed.dtype, device=device),
-                        torch.empty(lead + (E,) + tuple(w.scale.shape[1:]),
+                        torch.empty(lead + (hi - lo,)
+                                    + tuple(w.scale.shape[1:]),
                                     dtype=w.scale.dtype, device=device),
                         w.fmt)
                 else:
-                    out = torch.empty(lead + (E, d_in, d_out),
+                    out = torch.empty(lead + (hi - lo, d_in, d_out),
                                       dtype=w.dtype, device=device)
             if is_lns_weight(out):
                 out.packed[at] = w.packed
@@ -124,7 +133,8 @@ def _expert_stack(path, n, E: int, d_in: int, d_out: int, std: float,
 
 
 def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
-                leaf_fn: Optional[Callable] = None) -> Dict[str, Any]:
+                leaf_fn: Optional[Callable] = None,
+                shard=None) -> Dict[str, Any]:
     """Random dense parameters from a ``torch.Generator`` seeded with
     ``seed``: truncated normals (std 1/sqrt(fan_in), embeddings and an
     untied head ``embed.head (d, V)`` 0.02; with K codebooks the table
@@ -152,13 +162,20 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     its ``moe_leaves`` (the expert stacks normals, drawn and passed to
     ``leaf_fn`` a layer and a chunk of experts at a time, so no whole
     dense stack exists), then the MTP module (a ``dense`` block, its
-    norm, the ``2d -> d`` projection), then the head."""
+    norm, the ``2d -> d`` projection), then the head.
+
+    ``shard`` (a ``distributed.params_sharding.LocalShard``) keeps this
+    rank's shard of every leaf as soon as ``leaf_fn`` has made it, and
+    only the rank's experts of an expert stack: the draws are the whole
+    tree's, so each rank holds its slice of the same weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dt = cfg.compute_dtype
     d, f = cfg.d_model, cfg.d_ff
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    fn = leaf_fn or (lambda path, w: w)
+    enc = leaf_fn or (lambda path, w: w)
+    fn = enc if shard is None else (lambda path, w: shard(path,
+                                                          enc(path, w)))
     prefix, n_periods, period = cfg.layer_pattern()
     # (path, stack size or None, kind): the period positions, then the
     # prefix; the attention stacks hold the dense kinds
@@ -218,8 +235,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
         for name, spec in moe_mod.moe_leaves(cfg):
             lp = path + ("moe",) + tuple(name.split("/"))
             if spec[0] == "experts":
+                keep = (None if shard is None else shard.experts(
+                    lp, 4 if n else 3, cfg.num_experts))
                 w = _expert_stack(lp, n, cfg.num_experts, *spec[1:], dt,
-                                  gen, dev, fn)
+                                  gen, dev, enc, keep)
             else:
                 _, d_in, d_out, dtype = spec
                 lead = (n,) if n else ()
@@ -524,11 +543,15 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
     ``rwkv`` layer its f32 state dict, which has no cursor ``idx``.
     Speculative decoding passes its k as ``window_slack``: draft writes
     past a rewound cursor then land only on ring slots no query can see
-    any more."""
+    any more. Under a mesh whose serving rules shard ``kv_heads`` the
+    KV caches and pools hold this rank's head group; MLA's latent cache
+    is replicated."""
     dev = resolve_device(device)
     prefix, n_periods, period = cfg.layer_pattern()
     if page_size is not None and num_pages is None:
         num_pages = batch * (-(-max_len // page_size))
+    # under a mesh that shards the KV heads, this rank's head group
+    kv = cfg.num_kv_heads // axis_shards("kv_heads")
 
     def one(kind):
         if kind == "mamba":
@@ -540,11 +563,11 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
         if kind == "local":
             return attn_mod.init_kv_cache(
                 batch, max_len, cfg, dev,
-                window=cfg.sliding_window + window_slack)
+                window=cfg.sliding_window + window_slack, kv_heads=kv)
         if page_size is not None:
             return attn_mod.init_paged_kv_cache(batch, num_pages, page_size,
-                                                cfg, dev)
-        return attn_mod.init_kv_cache(batch, max_len, cfg, dev)
+                                                cfg, dev, kv_heads=kv)
+        return attn_mod.init_kv_cache(batch, max_len, cfg, dev, kv_heads=kv)
 
     caches: Dict[str, Any] = {}
     if prefix:

@@ -11,8 +11,8 @@ Two dispatch paths, as in the JAX package:
   are gathered back, weighted by their gates. The gathers' gradients are
   gathers through the dual map (:class:`_DispatchGather`,
   :class:`_CombineGather`), summed over k in order, as JAX's custom VJPs
-  are. ``G`` is 1: the groups are the data-parallel shards of a mesh,
-  and the all-to-all dispatch comes with the distributed slice.
+  are. ``G`` is the size of the active mesh's data axes (1 without a
+  mesh), as JAX's ``_dp_groups``, with the capacity taken per group.
 * ``dense_ref``: every token through every expert, a masked combine;
   the oracle of the sort path at small sizes.
 
@@ -27,6 +27,18 @@ both packages). Where no autograd graph is recorded (serving), the
 expert stacks are decoded and multiplied a chunk of experts at a time,
 with Q_A and Q_W's scales taken over the whole buffer and stack, so the
 result is the whole stack's and only one chunk's dense copy is alive.
+
+Expert parallelism (a mesh whose serving rules shard ``experts``): the
+router runs replicated in f32 and every rank builds the same ``(G, E, C,
+D)`` buffer; each rank runs its own contiguous block of experts through
+the chunked path, with Q_A's scale of the buffer taken over the whole
+buffer, Q_W's stack scales and the hidden Q_A scale max-reduced over the
+ranks, and the skipped-expert test decided on the global maximum; the
+expert outputs are all-gathered and combined in the single device's
+order. Only maxima and concatenations cross ranks (where JAX's GSPMD
+may sum the experts' outputs), so the result is one device's bit for
+bit; each expert's einsum takes a fixed batch of experts
+(:func:`_experts_einsum`), so a rank's product is one card's.
 """
 from __future__ import annotations
 
@@ -38,6 +50,8 @@ from repro_torch.core.lns import (LNSFormat, compute_scale, is_lns_weight,
                                   lns_decode_packed, lns_quantize,
                                   pow2_scale)
 from repro_torch.core.quantizer import QuantConfig, qeinsum, quantize
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import axis_group, current_mesh
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import ACT_FNS, decoded_of, dense_of
 
@@ -110,9 +124,39 @@ def _expert_ffn(p, xe: torch.Tensor, cfg: ArchConfig,
     ``_dense_ref``. Without a graph to record, a chunk of experts at a
     time (:func:`_expert_ffn_chunked`)."""
     ws = (p["w_up"], p["w_gate"], p["w_down"])
+    grp = axis_group("experts")
+    if grp is not None:
+        if _records_grad(xe, ws) or not _chunkable(qcfg):
+            raise NotImplementedError(
+                "expert parallelism serves only (no graph to record, an "
+                "LNS or no Q_W)")
+        return _expert_ffn_parallel(p, xe, cfg, qcfg, grp)
     if not _records_grad(xe, ws) and _chunkable(qcfg):
         return _expert_ffn_chunked(p, xe, cfg, qcfg)
     return _expert_ffn_whole(p, xe, cfg, qcfg)
+
+
+def _expert_ffn_parallel(p, xe, cfg: ArchConfig, qcfg, group):
+    """:func:`_expert_ffn_chunked` over this rank's contiguous block of
+    experts (its shard of the stacks), then the ranks' outputs gathered
+    along the expert axis. Q_A's scale of the buffer is the whole
+    buffer's (every rank holds all of it); the scales that only the
+    whole stack or every expert's rows fix are max-reduced in the chunked
+    path over ``group``."""
+    import torch.distributed as dist
+    quant = qcfg is not None and qcfg.is_quantized
+    a_fmt = qcfg.act if quant else None
+    if a_fmt is not None and not (isinstance(a_fmt, LNSFormat)
+                                  and qcfg.act_scale_axis is None):
+        raise NotImplementedError("expert parallelism needs an LNS Q_A "
+                                  "per tensor (or none)")
+    e_ax = xe.dim() - 3
+    n = p["w_up"].shape[0]
+    r = dist.get_rank(group)
+    x_scale = compute_scale(xe) if a_fmt is not None else None
+    y = _expert_ffn_chunked(p, xe.narrow(e_ax, r * n, n), cfg, qcfg,
+                            group=group, x_scale=x_scale)
+    return collectives.gather(y, group, dim=e_ax)
 
 
 def _expert_ffn_whole(p, xe: torch.Tensor, cfg: ArchConfig, qcfg):
@@ -141,7 +185,8 @@ def _chunkable(qcfg: Optional[QuantConfig]) -> bool:
         and qcfg.weight_scale_axis in (None, -1, 2))
 
 
-def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg):
+def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
+                        x_scale=None):
     """:func:`_expert_ffn` with no graph: Q_A over the whole buffer (as
     ``qeinsum`` takes it), then each expert stack decoded and multiplied
     a chunk of experts at a time under Q_W's scale over the whole stack;
@@ -157,7 +202,14 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg):
     the computed rows' wherever their largest magnitude passes a bound on
     the skipped rows' (:func:`_skipped_bound`), and every expert is
     computed where it does not: the rows the combine reads are the whole
-    stack's, bit for bit."""
+    stack's, bit for bit.
+
+    Under expert parallelism ``xe`` holds this rank's experts, ``x_scale``
+    is the whole buffer's Q_A scale, and ``group`` max-reduces Q_W's stack
+    scales, the computed rows' maximum that the skip test reads (a rank
+    that computed every expert of its own contributes rows the bound
+    covers, so the test decides as one device does) and the hidden Q_A
+    scale."""
     act = ACT_FNS[cfg.act_fn]
     quant = qcfg is not None and qcfg.is_quantized
     a_fmt = qcfg.act if quant else None
@@ -167,7 +219,8 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg):
     e_ax = xe.dim() - 3
     E = xe.shape[e_ax]
     lns_a = isinstance(a_fmt, LNSFormat) and a_ax is None
-    x_scale = compute_scale(xe) if lns_a else None
+    if lns_a and x_scale is None:
+        x_scale = compute_scale(xe)
     xq = (lns_quantize(xe, a_fmt, scale=x_scale) if lns_a
           else quantize(xe, a_fmt, a_ax))
     sel = None
@@ -179,22 +232,29 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg):
         if len(sel) in (0, E):
             sel = None
     up, s_up = _experts_einsum(f"{g}ecd,edf->{g}ecf", xq, p["w_up"], cfg,
-                               qcfg, w_fmt, sel)
+                               qcfg, w_fmt, sel, group=group)
     gate, s_gate = _experts_einsum(f"{g}ecd,edf->{g}ecf", xq, p["w_gate"],
-                                   cfg, qcfg, w_fmt, sel)
+                                   cfg, qcfg, w_fmt, sel, group=group)
     h = act(gate) * up
-    if sel is not None and lns_a:
+    if lns_a and (sel is not None or group is not None):
+        hmax = h.abs().amax() if h.numel() else h.new_zeros(())
+        hmax = collectives.max_reduce(hmax.to(torch.float32), group)
         bound = _skipped_bound(a_fmt, x_scale, xe.shape[-1], s_up, s_gate)
-        if not float(h.abs().amax()) > bound:
+        if sel is not None and not float(hmax) > bound:
             sel = None
             up, _ = _experts_einsum(f"{g}ecd,edf->{g}ecf", xq, p["w_up"],
-                                    cfg, qcfg, w_fmt, None)
+                                    cfg, qcfg, w_fmt, None, group=group)
             gate, _ = _experts_einsum(f"{g}ecd,edf->{g}ecf", xq,
-                                      p["w_gate"], cfg, qcfg, w_fmt, None)
+                                      p["w_gate"], cfg, qcfg, w_fmt, None,
+                                      group=group)
             h = act(gate) * up
-    hq = quantize(h, a_fmt, a_ax)
+    if group is not None and lns_a:
+        hq = lns_quantize(h, a_fmt, scale=collectives.max_reduce(
+            compute_scale(h), group))
+    else:
+        hq = quantize(h, a_fmt, a_ax)
     y, _ = _experts_einsum(f"{g}ecf,efd->{g}ecd", hq, p["w_down"], cfg, qcfg,
-                           w_fmt, sel, x_sel=True)
+                           w_fmt, sel, x_sel=True, group=group)
     if sel is None:
         return y
     out = torch.zeros(xe.shape, dtype=y.dtype, device=y.device)
@@ -285,20 +345,29 @@ def _regrid_chunk(w, ids, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _experts_einsum(eq: str, xq: torch.Tensor, w, cfg: ArchConfig, qcfg,
-                    w_fmt, sel=None, x_sel: bool = False):
+                    w_fmt, sel=None, x_sel: bool = False, group=None):
     """``(einsum(eq, xq, Q_W(w)), Q_W's scale)`` over the expert axis a
     chunk at a time (``xq`` already on Q_A's grid), for the experts
     ``sel`` (a list: the result holds theirs, in order) or all; with
     ``x_sel`` ``xq`` holds the selected experts' rows only. Q_W's scale
-    is the whole stack's."""
+    is the whole stack's (with ``group``, max-reduced over the ranks'
+    shards of it).
+
+    Every einsum takes ``min(n, cfg.num_experts)`` experts, a short
+    chunk padded with zero experts: cuBLAS picks its batched kernel (and
+    so its summation order) by the batch count, so an expert's product is
+    then the same whichever experts share its chunk, one card's
+    selection or a rank's under expert parallelism."""
     E, d_in, d_out = w.shape
     e_ax = eq.index("e")
     n = max(1, _EXPERT_CHUNK_ELEMS // (d_in * d_out))
+    batch = min(n, cfg.num_experts)
     dt = cfg.compute_dtype
     scale = None
     if w_fmt is not None:
         scale = _stack_scale(w, [slice(e0, e0 + n) for e0 in range(0, E, n)],
                              qcfg.weight_scale_axis, dt)
+        scale = collectives.max_reduce(scale, group)
     fast = scale is not None and _regrid_exact(w, w_fmt, dt)
     if sel is None:
         chunks = [slice(e0, min(e0 + n, E)) for e0 in range(0, E, n)]
@@ -319,9 +388,22 @@ def _experts_einsum(eq: str, xq: torch.Tensor, w, cfg: ArchConfig, qcfg,
             at += len(ids)
         else:
             xc = xq.index_select(e_ax, torch.tensor(ids, device=xq.device))
-        outs.append(torch.einsum(eq, xc, wc.to(xq.dtype)))
+        k = wc.shape[0]
+        wc = _pad_experts(wc.to(xq.dtype), 0, batch)
+        outs.append(torch.einsum(eq, _pad_experts(xc, e_ax, batch), wc)
+                    .narrow(e_ax, 0, k))
     y = outs[0] if len(outs) == 1 else torch.cat(outs, dim=e_ax)
     return y, scale
+
+
+def _pad_experts(t: torch.Tensor, ax: int, n: int) -> torch.Tensor:
+    """``t`` with zero experts appended along ``ax`` up to ``n``."""
+    k = t.shape[ax]
+    if k >= n:
+        return t
+    shape = list(t.shape)
+    shape[ax] = n - k
+    return torch.cat([t, t.new_zeros(shape)], dim=ax)
 
 
 def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
@@ -340,8 +422,9 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
         act = ACT_FNS[cfg.act_fn]
         up = qeinsum("bsd,df->bsf", x, dense_of(sp["up"], cfg), qcfg)
         gate = qeinsum("bsd,df->bsf", x, dense_of(sp["gate"], cfg), qcfg)
-        out = out + qeinsum("bsf,fd->bsd", act(gate) * up,
-                            dense_of(sp["down"], cfg), qcfg)
+        hid = collectives.gather(act(gate) * up, axis_group("mlp"))
+        out = out + qeinsum("bsf,fd->bsd", hid, dense_of(sp["down"], cfg),
+                            qcfg)
     return out, aux
 
 
@@ -479,18 +562,37 @@ def routing(top_i: torch.Tensor, top_p: torch.Tensor, cfg: ArchConfig,
     return (C,) + maps
 
 
+def _dp_groups() -> int:
+    """The dispatch groups: the size of the active mesh's data axes
+    (``pod`` and ``data``), 1 without a mesh."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    n = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            n *= mesh.shape[a]
+    return n
+
+
 def _sorted_dispatch(p, x, top_p, top_i, cfg: ArchConfig, qcfg):
-    """The grouped sort dispatch with one group (no mesh): capacity
-    ``C`` an expert, the buffer ``(1, E, C, D)`` through the experts,
-    gathered back."""
+    """The grouped sort dispatch: the T tokens split into ``G`` groups of
+    ``Tg`` (:func:`_dp_groups`, or 1 where G does not divide T), capacity
+    ``C = max(int(capacity_factor · Tg · K / E), 1)`` an expert in each
+    group, the buffer ``(G, E, C, D)`` through the experts, gathered
+    back."""
     B, S, D = x.shape
     T, E, K = B * S, cfg.num_experts, cfg.experts_per_token
-    G, Tg = 1, T
-    C, slot_src, slot_fill, inv, gate_inv, slot_gate = routing(
-        top_i, top_p, cfg, x.dtype)
-    slot_src, slot_fill, slot_gate = (t[None] for t in (slot_src, slot_fill,
-                                                         slot_gate))
-    inv, gate_inv = inv.reshape(G, Tg, K), gate_inv.reshape(G, Tg, K)
+    G = _dp_groups()
+    if T % G:
+        G = 1
+    Tg = T // G
+    C = _capacity(cfg, Tg)
+    eg = top_i.reshape(G, Tg * K)
+    gg = top_p.reshape(G, Tg * K).to(x.dtype)
+    maps = [_group_routing_maps(eg[i], gg[i], E, C, K) for i in range(G)]
+    slot_src, slot_fill, inv, gate_inv, slot_gate = (
+        torch.stack(t) for t in zip(*maps))
     keep = gate_inv.detach() != 0
     xe = _DispatchGather.apply(x.reshape(G, Tg, D), slot_src, slot_fill, inv,
                                keep)

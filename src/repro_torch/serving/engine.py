@@ -78,11 +78,28 @@ cycle, at the JAX engine's hook sites, stamped with ``now()``. Each site
 is one ``if obs is not None``: without an observer no clock is read and
 nothing is allocated.
 
-Not in this slice, and raising ``NotImplementedError``: serving across a
-device mesh.
+Mesh serving (``mesh=``, a ``repro_torch.launch.mesh.Mesh``): one
+engine a rank, one rank a card, every rank running the same host
+scheduler, allocator and prefix registry over one logical block table.
+The weights and KV are this rank's shard under ``serving_rules``
+(``distributed.params_sharding``): query and KV heads split over the
+``model`` axis where both head counts divide it (pools and rings hold
+``KV/m`` heads a rank), the MLP's ``up``/``gate`` where ``d_ff`` does,
+experts where their count does; embedding, head, ``wo`` and ``down``
+stay replicated, so the logits and every K6 draw are the same on every
+rank. The forward gathers activations before each replicated GEMM and
+max-reduces each per-tensor scale of a sharded tensor; no sum crosses
+ranks, so the streams are one device's. The ranks step in lockstep:
+rank 0 alone takes ``submit`` and ``abort`` and its clock alone gates
+arrivals; at the top of every step it broadcasts its clock, the
+submissions and aborts since the last step, the speculation arm and
+whether ``run`` is done. Victims and growth order by admission order.
+The recurrent families (their state and LoRA leaves) and the gateway
+are not served on a mesh yet.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
@@ -91,7 +108,11 @@ import torch
 
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import broadcast_object
+from repro_torch.distributed.params_sharding import shard_tree
+from repro_torch.distributed.sharding import serving_rules, shard_ctx
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import forward, init_caches, lm_head, to_device
 from repro_torch.obs.numerics import tree_code_stats
@@ -176,14 +197,28 @@ class Engine:
                  prefix_cache: bool = True, alloc_policy: str = "reserve",
                  speculate_k: int = 0, draft_bitwidth: int = 6,
                  spec_autotune: bool = False, mesh=None, observer=None,
-                 checkpoint_id: Optional[str] = None, device=None):
+                 checkpoint_id: Optional[str] = None, device=None,
+                 sharded_params: bool = False):
         if alloc_policy not in ("reserve", "ondemand"):
             raise ValueError(f"alloc_policy must be 'reserve' or "
                              f"'ondemand', got {alloc_policy!r}")
+        self._mesh = mesh
+        self._mesh_rules = None
         if mesh is not None:
-            raise NotImplementedError(
-                "serving across a device mesh comes with the distributed "
-                "slice")
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a repro_torch.launch.mesh."
+                                f"Mesh (make_host_mesh), got {type(mesh)}")
+            kinds = set(cfg.layer_pattern()[0]) | set(cfg.layer_pattern()[2])
+            if kinds & {"mamba", "rwkv", "shared_attn"}:
+                raise NotImplementedError(
+                    f"{cfg.name}: the recurrent families are not served on "
+                    f"a mesh yet")
+            if device is not None and torch.device(device).type != \
+                    mesh.device.type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+            self._mesh_rules = serving_rules(cfg, mesh)
         self.spec: Optional[SpecConfig] = None
         if speculate_k:
             reason = spec_supported(cfg)
@@ -210,7 +245,7 @@ class Engine:
         self.cfg, self.qcfg = cfg, qcfg
         # a token is one id, or one id a codebook
         self._tok_width = (cfg.num_codebooks,) if cfg.num_codebooks else ()
-        self.params = to_device(params, self.device)
+        self.params = self._place_params(params, sharded_params)
         # tied: the decoded embedding, once; untied: the packed embed.head,
         # which qeinsum routes through K1 and K2 every step
         self._head = lm_head(self.params, cfg)
@@ -248,12 +283,59 @@ class Engine:
         self.observer = observer
         self._reset_state()
 
+    # ------------------------------------------------------------------
+    # mesh plumbing
+
+    def _ctx(self):
+        """The serving mesh and rules for the model code in scope (a
+        thread-local: every call site that runs the model enters it)."""
+        if self._mesh is None:
+            return contextlib.nullcontext()
+        return shard_ctx(self._mesh, self._mesh_rules)
+
+    @property
+    def _root(self) -> bool:
+        return self._mesh is None or self._mesh.rank == 0
+
+    def _place_params(self, params, sharded: bool):
+        """The rank's shard of a full tree (``sharded_params`` says the
+        tree is the rank's already, as ``init_params(shard=)`` draws it),
+        on the engine's device."""
+        if self._mesh is not None and not sharded:
+            with self._ctx():
+                params = shard_tree(params, self._mesh, self._mesh_rules)
+        return to_device(params, self.device)
+
+    def _mesh_sync(self, stop: bool = False,
+                   now: Optional[float] = None) -> Dict[str, Any]:
+        """Rank 0 broadcasts its clock (or ``now``), the submissions and
+        aborts it took since the last call, its speculation arm and
+        ``stop``; the other ranks apply the ops in rank 0's order and take
+        the arm."""
+        msg = None
+        if self._root:
+            msg = {"now": self._now() if now is None else now,
+                   "ops": self._mesh_ops, "stop": stop,
+                   "arm": self._spec_arm if self.spec is not None else None}
+            self._mesh_ops = []
+        msg = broadcast_object(msg, src=0)
+        if not self._root:
+            for op, arg in msg["ops"]:
+                if op == "submit":
+                    self.queue.push(arg)
+                else:
+                    self._abort(arg, msg["now"])
+            if msg["arm"] is not None:
+                self._spec_arm = tuple(msg["arm"])
+        return msg
+
     def _reset_state(self) -> None:
-        self.caches = init_caches(self.num_slots, self.max_len, self.cfg,
-                                  page_size=self.page_size,
-                                  num_pages=self.num_pages or None,
-                                  window_slack=self._spec_slack,
-                                  device=self.device)
+        with self._ctx():
+            self.caches = init_caches(self.num_slots, self.max_len, self.cfg,
+                                      page_size=self.page_size,
+                                      num_pages=self.num_pages or None,
+                                      window_slack=self._spec_slack,
+                                      device=self.device)
         allocator = None
         if self.page_size:
             allocator = BlockAllocator(self.num_pages, self.page_size)
@@ -263,6 +345,10 @@ class Engine:
                 [None] * self.num_slots
         self.scheduler = Scheduler(self.num_slots, allocator=allocator)
         self.queue = RequestQueue()
+        # rank 0's submissions and aborts since the last step, mirrored to
+        # the other ranks at the top of the next one
+        self._mesh_ops: List[tuple] = []
+        self._admit_seq = 0
         self._slot_len = np.zeros((self.num_slots,), np.int64)
         self._last_tok = np.zeros((self.num_slots,) + self._tok_width,
                                   np.int32)
@@ -437,7 +523,13 @@ class Engine:
                 raise ValueError(f"needs {need} KV pages, pool holds "
                                  f"{self.num_pages}")
 
+    def _rank0_only(self, what: str) -> None:
+        if not self._root:
+            raise RuntimeError(f"{what} on rank {self._mesh.rank}: under a "
+                               f"mesh rank 0 takes them and mirrors them")
+
     def submit(self, req: Request) -> None:
+        self._rank0_only("submit")
         # the online driver validates at its pre-flight and marks the
         # request, so the scan is not paid twice
         if not getattr(req, "_prevalidated", False):
@@ -446,6 +538,8 @@ class Engine:
             except ValueError as e:
                 raise ValueError(f"request {req.rid}: {e}") from None
         self.queue.push(req)
+        if self._mesh is not None:
+            self._mesh_ops.append(("submit", req))
 
     def _now(self) -> float:
         return time.monotonic() - self._t0
@@ -679,7 +773,16 @@ class Engine:
     def abort(self, rid: int, now: Optional[float] = None) -> bool:
         """Cancel a queued or running request. A running one releases its
         slot and pages at once; the co-batched rows keep their cache rows,
-        cursors and sampling chains. False if ``rid`` is not live here."""
+        cursors and sampling chains. False if ``rid`` is not live here.
+        Under a mesh, rank 0's abort reaches the other ranks at the top
+        of the next step."""
+        self._rank0_only("abort")
+        done = self._abort(rid, now)
+        if done and self._mesh is not None:
+            self._mesh_ops.append(("abort", rid))
+        return done
+
+    def _abort(self, rid: int, now: Optional[float] = None) -> bool:
         clock = self._now if now is None else (lambda: now)
         if self.queue.remove(rid) is not None:
             # a preempted request waits in the queue with its state
@@ -703,10 +806,13 @@ class Engine:
     # ------------------------------------------------------------------
     # on-demand paging: decode-time growth and preemption by recompute
 
-    @staticmethod
-    def _age(rs: RequestState):
+    def _age(self, rs: RequestState):
         """Total order on running requests, oldest first (victim choice
-        and growth priority must agree, or progress is not guaranteed)."""
+        and growth priority must agree, or progress is not guaranteed).
+        Under a mesh the admission order stands in for the admission
+        time, which each rank stamps on its own clock."""
+        if self._mesh is not None:
+            return (rs.admit_seq, rs.request.arrival, rs.request.rid)
         return (rs.t_admit, rs.request.arrival, rs.request.rid)
 
     def _preempt(self, rs: RequestState) -> None:
@@ -965,11 +1071,20 @@ class Engine:
     def step(self, now: Optional[float] = None) -> bool:
         """Admit ready requests, map on-demand pages, then advance every
         slot one token, or one speculative cycle (1..k tokens). Returns
-        False when nothing ran."""
+        False when nothing ran. Under a mesh every rank calls it in
+        lockstep: rank 0's clock (or its ``now``) gates the arrivals."""
+        ready = now
+        if self._mesh is not None:
+            ready = self._mesh_sync(now=now)["now"]
+        with self._ctx():
+            return self._step(now, ready)
+
+    def _step(self, now: Optional[float], ready: Optional[float]) -> bool:
         clock = self._now if now is None else (lambda: now)
+        gate = clock if ready is None else (lambda: ready)
         obs = self.observer
         while self.scheduler.has_free():
-            req = self.queue.pop_ready(clock())
+            req = self.queue.pop_ready(gate())
             if req is None:
                 break
             resv = None
@@ -993,13 +1108,15 @@ class Engine:
                     self.queue.requeue(req)
                     break
             rs = self.scheduler.admit(req, clock())
+            rs.admit_seq = self._admit_seq
+            self._admit_seq += 1
             if resume is not None:
                 # continuity across preemption: the same token list (the
                 # resume prefill keys off it), timestamps and counters
                 del self._preempted[req.rid]
                 for f in ("generated", "t_admit", "t_first_token",
                           "spec_cycles", "spec_drafted", "spec_accepted",
-                          "preemptions"):
+                          "preemptions", "admit_seq"):
                     setattr(rs, f, getattr(resume, f))
             t_p0 = self._now() if obs is not None else 0.0
             try:
@@ -1076,14 +1193,27 @@ class Engine:
 
     def run(self, requests: Sequence[Request] = ()) -> Dict[str, float]:
         """Drive the requests to completion; aggregate metrics of the
-        requests this call completed."""
+        requests this call completed. Under a mesh every rank calls it,
+        rank 0 with the requests and the others with none: rank 0 decides
+        each step whether the run is done and tells the others."""
         for r in requests:
             self.submit(r)
         self._run_sink = sink = []
         self._t0 = time.monotonic()
         try:
-            while self.queue or self.scheduler.running:
-                if not self.step():
+            while True:
+                live = bool(self.queue or self.scheduler.running)
+                if self._mesh is None:
+                    if not live:
+                        break
+                    ran = self.step()
+                else:
+                    msg = self._mesh_sync(stop=not live)
+                    if msg["stop"]:
+                        break
+                    with self._ctx():
+                        ran = self._step(None, msg["now"])
+                if not ran and self._root:
                     nxt = self.queue.next_arrival()
                     if nxt is not None:
                         time.sleep(min(max(nxt - self._now(), 0.0), 0.05))

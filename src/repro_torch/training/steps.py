@@ -28,7 +28,8 @@ from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, quantize_grads
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ArchConfig
-from repro_torch.models.model import init_params, lm_loss
+from repro_torch.models.model import (decode_step, forward, init_params,
+                                     lm_loss)
 from repro_torch.obs.numerics import grad_encode_stats
 from repro_torch.optim.madam import (MadamConfig, MadamState, attach_proxies,
                                      grad_proxies, lns_leaf_encoder,
@@ -36,7 +37,7 @@ from repro_torch.optim.madam import (MadamConfig, MadamState, attach_proxies,
 from repro_torch.tree import leaves, tree_map
 
 __all__ = ["TrainState", "init_train_state", "build_train_step",
-           "batch_to_device"]
+           "build_prefill_step", "build_decode_step", "batch_to_device"]
 
 
 class TrainState(NamedTuple):
@@ -150,3 +151,42 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
 
     return train_step
 
+
+
+def build_prefill_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
+                       mcfg: Optional[MadamConfig] = None) -> Callable:
+    """``prefill(params, batch) -> last-position logits``: the packed
+    leaves as they are (routed GEMMs through the kernels, a per-leaf
+    decode elsewhere), the training attention over the whole prompt, no
+    cache written, no graph recorded. ``mcfg`` is taken for the JAX
+    signature's sake."""
+    del mcfg
+
+    def prefill_step(params, batch):
+        batch = batch_to_device(batch, _device_of(params))
+        with torch.no_grad():
+            logits = forward(params, batch["tokens"], cfg, qcfg,
+                             patches=batch.get("patches"))
+        return logits[:, -1]
+
+    return prefill_step
+
+
+def build_decode_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
+                      mcfg: Optional[MadamConfig] = None) -> Callable:
+    """``decode(params, caches, batch, pos) -> (logits, caches)``: the
+    tokens of ``batch["tokens"]`` appended at ``pos`` (a scalar or a
+    ``(B,)`` row of offsets) through ``batch.get("block_tables")``; the
+    caches are updated in place and returned, as the JAX step returns its
+    new ones."""
+    del mcfg
+
+    def serve_step(params, caches, batch, pos):
+        batch = batch_to_device(batch, _device_of(params))
+        with torch.no_grad():
+            logits = decode_step(params, caches, batch["tokens"], cfg, qcfg,
+                                 pos_offset=pos,
+                                 block_tables=batch.get("block_tables"))
+        return logits, caches
+
+    return serve_step
