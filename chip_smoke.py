@@ -12,7 +12,9 @@
     python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
     python3 chip_smoke.py --recurrent  # 1, 2, K5 at hd 112, and 23
     python3 chip_smoke.py --moe        # 1, 2, K5 at rep 8, and 24
-    python3 chip_smoke.py --mesh       # 1, 2 and 25c-e on four cards
+    python3 chip_smoke.py --mesh       # 1, 2, 25c-e and 26 on four cards
+    python3 chip_smoke.py --mesh-train # 1, 2 and 26 on four cards
+    python3 chip_smoke.py --k1-given   # K1 with a given scale only
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -351,6 +353,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     first sampled batch where the logits part and its gap are printed.
     Every rank's streams equal rank 0's. Results in
     ``chiprun_out/chip_smoke_mesh.json``.
+26. Data-parallel training on four cards (``--mesh``; ``--mesh-train``
+    runs this phase alone): each part first takes one card's steps on the
+    global batches in this process (card 0), then one NCCL rank a card
+    takes the same steps on a (4, 1) mesh (``build_train_step`` under
+    ``shard_ctx``, every rank drawing the state from seed 0). (a)
+    smollm-135m at full width and depth, lns8, 32 x 256 a step (8 x 256
+    a rank), 3 steps, first through ``launch.train --mesh 4,1`` (the
+    main path: K1 with a given scale, K2, K3 8 times a step, no retry)
+    and then step by step; (b) gemma3-12b at full width, 6 layers deep
+    (21e's cut), 4 x 256 (1 x 256 a rank), 2 steps; (c) deepseek-v3 at
+    its smoke config (MLA, MoE, MTP, the balance loss), 8 x 64, 3 steps,
+    one card's dispatch groups set to 4. Checked every step: every
+    rank's checksum of its words and second moments is rank 0's; step
+    0's loss within ``DP_STEP0_RTOL`` of one card's, later losses within
+    ``TRAIN_LOSS_RTOL`` and grad norms within ``DP_GNORM_RTOL``; (a) and
+    (c) words after step 1 apart from one card's on at most
+    ``TRAIN_WORD_SHARE``, the differences' sizes printed. Printed: the
+    step time (every rank starts a step at a barrier), collectives a step
+    by kind, and from one more, profiled step NCCL's device time, the
+    c10d calls' host time and count; from one more step (and one more on
+    one card), cut into stages at synchronized boundaries, the forward,
+    backward, SUM reduce, Q_G and update times and the MAX reduces' host
+    time; the peak a rank.
+
+Phase 21d serves qwen2.5-32b at the depth ``SERVE_DEPTH_CUT`` gives (32
+of its 64 layers), at full width, to keep the run inside its time limit.
 
 The next-to-last line is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}``. Full results also go to
@@ -410,6 +438,8 @@ MADAM_QERR_RTOL = 1e-4
 # 5e-4 of the loss (10x the floor; a uniform output is 0.8% from this
 # loss, so a much looser limit would pass a broken forward), 10% of the
 # words; this run's floor is printed beside them.
+# K1 with a given scale (phase 3): smollm's and gemma3's training rows
+K1_GIVEN_SHAPES = [(2048, 576), (1024, 3840)]
 TRAIN_LOSS_RTOL = 5e-4
 TRAIN_WORD_SHARE = 0.10
 TRAIN_STEPS = 6
@@ -537,6 +567,9 @@ OBS_OP_KERNEL = {"fused_sample_seeded": "fused_sample",
 # the numerics stats that are shares of a leaf's elements
 OBS_FRACTIONS = ("sat_lo", "sat_hi", "dead_frac", "requant_sat_hi")
 # phase 21: granite-8b's and qwen2.5-32b's paged trace (4 slots, page 16)
+# serve runs cut in depth (at full width) to keep the default run inside
+# its time limit: the layers each runs (qwen2.5-32b's full depth is 64)
+SERVE_DEPTH_CUT = {"qwen2.5-32b": 32}
 VARIANT_SERVE = ["--requests", "4", "--slots", "4", "--prompt-len", "16",
                  "--gen-len", "16", "--page-size", "16"]
 # 21f profiles this many gemma3-12b decode steps (3 before the recurrent
@@ -795,13 +828,16 @@ def k1_edges(torch, ops, ref, fmt):
     return cases
 
 
-def device_kernels(torch, fn, tries=3):
+def device_kernels(torch, fn, tries=6):
     """Names of the device kernels one call of ``fn`` runs, from
     torch.profiler's device events. A capture holding no device event at
-    all (CUPTI recorded nothing, as a run's first capture on one H100
-    machine did) is taken again, up to ``tries`` captures in all."""
+    all (CUPTI recorded nothing, as a run's first captures on one H100
+    machine did, three in a row once) is taken again a second later, up
+    to ``tries`` captures in all."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
+    for i in range(tries):
+        if i:
+            time.sleep(1.0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             fn()
@@ -829,6 +865,54 @@ def k1_one_launch(torch, ops, fmt):
         res[f"{R}x{C}/{axis}"] = names
     print(f"K1 one launch a call: {res}")
     return res
+
+
+def k1_given_check(torch, ops, ref, fmt, shapes=K1_GIVEN_SHAPES):
+    """K1 with a given scale (``encode_pack(scale=)``, a data-parallel
+    rank's global scale): per tensor and per row, at the scale equal to
+    the tensor's own absmax scale and at 2^4 above it, words and scale
+    rows equal to the plain version's bit for bit; one device kernel a
+    call (its own); timed beside the self-scaled launch."""
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    rows = []
+    for R, C in shapes:
+        x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0
+             ).to(torch.bfloat16)
+        for axis in (None, 0):
+            own = ref.row_scale(x, axis)
+            own = own[:1] if axis is None else own
+            for mult in (1.0, 16.0):
+                s = (own * mult).contiguous()
+                kw, ks = ops.encode_pack(x, fmt, axis, scale=s)
+                pw, ps = ref.encode_pack(x, fmt, axis, scale=s)
+                check(torch.equal(kw, pw) and torch.equal(ks, ps),
+                      f"K1 given scale {R}x{C} (scale_axis={axis}, x{mult:g})"
+                      f": {int((kw != pw).sum())} words differ from the "
+                      f"plain version")
+            torch.cuda.synchronize()
+            names = device_kernels(
+                torch, lambda: ops.encode_pack(x, fmt, axis, scale=s))
+            check(len(names) == 1 and names[0].startswith("void k1_"),
+                  f"K1 given scale {R}x{C} (scale_axis={axis}): one call "
+                  f"ran {names}")
+            nbytes = R * C * 2 + R * C + R * 4 + s.numel() * 4
+            b, by = bound_ms(nbytes, 8 * R * C, F32_FLOPS)
+            rows.append(dict(
+                shape=[R, C], scale_axis=axis, kernels=names,
+                ms=cuda_ms(torch, lambda: ops.encode_pack(x, fmt, axis,
+                                                          scale=s)),
+                self_ms=cuda_ms(torch, lambda: ops.encode_pack(x, fmt, axis)),
+                plain_ms=cuda_ms(torch, lambda: ref.encode_pack(
+                    x, fmt, axis, scale=s)),
+                bound_ms=b, bound_by=by, library_ms=None, max_abs_err=0))
+            r = rows[-1]
+            print(f"K1 given scale {R}x{C} (scale_axis={axis}): words and "
+                  f"scales equal the plain version's at 1x and 16x the own "
+                  f"scale, one kernel a call ({names[0][:40]}), "
+                  f"{r['ms']:.4f} ms beside the self-scaled {r['self_ms']:.4f}"
+                  f" ms, plain {r['plain_ms']:.4f} ms, bound {b:.5f} ms ({by};"
+                  f" {b / r['ms']:.1%})")
+    return rows
 
 
 def k1_check(torch, ops, ref, fmt, shapes):
@@ -885,9 +969,9 @@ def k1_shapes_seen(torch, ops):
     seen = collections.Counter()
     launch = ops.encode_pack
 
-    def record(x, fmt, scale_axis=None):
+    def record(x, fmt, scale_axis=None, scale=None):
         seen[(x.shape[0], x.shape[1], x.dtype, scale_axis)] += 1
-        return launch(x, fmt, scale_axis)
+        return launch(x, fmt, scale_axis, scale)
 
     ops.encode_pack = record
     try:
@@ -1877,8 +1961,8 @@ def k1_scales(ops):
     seen = []
     launch = ops.encode_pack
 
-    def record(x, fmt, scale_axis=None):
-        packed, scale = launch(x, fmt, scale_axis)
+    def record(x, fmt, scale_axis=None, given=None):
+        packed, scale = launch(x, fmt, scale_axis, given)
         seen.append(float(scale[0, 0]))
         return packed, scale
 
@@ -2220,9 +2304,9 @@ def k1_scale_in_torch(ops, ref):
     a torch reduction, to profile that launch pattern beside K1's own."""
     launch = ops.encode_pack
 
-    def scale_first(x, fmt, scale_axis=None):
+    def scale_first(x, fmt, scale_axis=None, scale=None):
         ref.row_scale(x, scale_axis)
-        return launch(x, fmt, scale_axis)
+        return launch(x, fmt, scale_axis, scale)
 
     ops.encode_pack = scale_first
     try:
@@ -2906,9 +2990,9 @@ def exact_fake_quant(quant_training, acc):
     floor), for phase 17's comparison only."""
     saved = quant_training.approx_qeinsum
 
-    def fn(eq, x, w, cfg):
+    def fn(eq, x, w, cfg, x_scale=None):
         import torch
-        _, xq, wq = quant_training.approx_value(eq, x, w, cfg)
+        _, xq, wq = quant_training.approx_value(eq, x, w, cfg, x_scale)
         return torch.einsum(eq, xq.to(acc), wq.to(acc)).to(x.dtype)
 
     quant_training.approx_qeinsum = fn
@@ -4447,12 +4531,16 @@ def variant_serve(torch, ops, arch, argv, tag, phase="21"):
     full-context layer (none on ring layers), and K6 once a sampled
     token (all of a step's rows, every codebook's, in one launch).
     ``phase`` labels the lines (21, 22, 23). The warm-up is the trace's first
-    request for 2 tokens (``serve``'s ``"short"``)."""
+    request for 2 tokens (``serve``'s ``"short"``). An arch in
+    ``SERVE_DEPTH_CUT`` serves at that depth."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    agg, engine, counts = serve(torch, ["--arch", arch] + argv, ops,
-                                warm="short")
+    depth = SERVE_DEPTH_CUT.get(arch)
+    with (cut_config(arch, num_layers=depth) if depth
+          else contextlib.nullcontext()):
+        agg, engine, counts = serve(torch, ["--arch", arch] + argv, ops,
+                                    warm="short")
     secs = time.monotonic() - t0
     cfg = engine.cfg
     n_req = int(argv[argv.index("--requests") + 1])
@@ -4483,7 +4571,9 @@ def variant_serve(torch, ops, arch, argv, tag, phase="21"):
            "launches": counts, "k5_layers_a_forward": full_ctx if paged
            else 0, "weights_gb": size / 1e9, "peak_gb": peak / 1e9,
            "seconds": secs}
-    print(f"{phase} {tag}: {arch} {row['layout']} {row['completed']}/{n_req} "
+    row["num_layers"] = cfg.num_layers
+    print(f"{phase} {tag}: {arch} ({cfg.num_layers} layers) {row['layout']} "
+          f"{row['completed']}/{n_req} "
           f"requests, {agg['tokens_per_s']:.1f} tok/s, tpot p50 "
           f"{row['tpot_p50_ms']:.2f} ms, {fwd} forwards, launches {counts}; "
           f"weights {size / 1e9:.2f} GB, peak allocated {peak / 1e9:.2f} GB "
@@ -5773,6 +5863,391 @@ MESH_RUNS = [
 # the runs whose one-card streams the parent computes first
 MESH_ONE_CARD = ("25c", "25d", "25e2")
 MESH_TIMEOUT_S = 300
+# phase 26: data-parallel training on (4, 1), each part beside one card's
+# steps on the same global batches (batch is the global batch)
+DP_RUNS = [
+    ("26a", dict(arch="smollm-135m", batch=32, seq=256, steps=3, cli=True,
+                 words=True)),
+    ("26b", dict(arch="gemma3-12b", cut=dict(num_layers=6), batch=4,
+                 seq=256, steps=2)),
+    ("26c", dict(arch="deepseek-v3-671b", smoke=True, batch=8, seq=64,
+                 steps=3, groups=4, words=True)),
+]
+# step 0: the forward's scales are global and K2's rows do not depend on
+# M's split, so only the loss shares' sum and torch's batched attention
+# GEMMs at another batch count reorder; later steps and grad norms as H11
+DP_STEP0_RTOL = 1e-4
+DP_GNORM_RTOL = 0.1
+
+
+def dp_config(spec):
+    """A phase-26 part's model config."""
+    import dataclasses
+    from repro_torch.configs import get_config, get_smoke_config
+    cfg = (get_smoke_config(spec["arch"]) if spec.get("smoke")
+           else get_config(spec["arch"]))
+    return dataclasses.replace(cfg, **spec.get("cut", {}))
+
+
+@contextlib.contextmanager
+def dp_groups(n):
+    """One card's MoE dispatch groups set to ``n`` (the reference of an
+    (n, 1) data-parallel mesh, where each data shard is one group)."""
+    from repro_torch.models import moe as moe_mod
+    real = moe_mod._dp_groups
+    if n:
+        moe_mod._dp_groups = lambda: n
+    try:
+        yield
+    finally:
+        moe_mod._dp_groups = real
+
+
+def dp_words(state):
+    """The packed words of a train state, on the host, by leaf path."""
+    from repro_torch.tree import leaves
+    return {"/".join(map(str, p)): x.packed.cpu() for p, x in
+            leaves(state.params) if hasattr(x, "packed")}
+
+
+def dp_checksum(torch, state):
+    """Position-weighted int64 sums of every packed word and of every
+    second moment's bits (a chunk at a time; wrapping is fine): equal on
+    two ranks whose states are equal."""
+    from repro_torch.tree import leaves
+    words = [x.packed for _, x in leaves(state.params) if hasattr(x, "packed")]
+    moments = [v.to(torch.float32).contiguous().view(torch.int32)
+               for _, v in leaves(state.opt.g2)]
+    out = torch.zeros(2, dtype=torch.int64, device=words[0].device)
+    for slot, parts in ((0, words), (1, moments)):
+        for i, t in enumerate(parts):
+            flat = t.reshape(-1)
+            for lo in range(0, flat.numel(), 1 << 26):
+                c = flat[lo:lo + (1 << 26)].long()
+                w = (torch.arange(lo, lo + c.numel(), device=c.device)
+                     % 65521 + 1 + i)
+                out[slot] += (c * w).sum()
+    return out
+
+
+def dp_one_card(torch, ops, tag, spec, scratch):
+    """Phase 26 on one card (card 0): the part's steps on the global
+    batches; losses, grad norms, step times, peak; the words after the
+    first step saved for the ranks to compare; one more step cut into
+    stages (``dp_stages``)."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import build_train_step, init_train_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, mcfg = dp_config(spec), MadamConfig()
+    data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"])
+    rows = []
+    with dp_groups(spec.get("groups")):
+        state = init_train_state(cfg, mcfg, seed=0, device="cuda")
+        step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg)
+        for i in range(spec["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, data.batch_at(i))
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                         "step_ms": (time.perf_counter() - t0) * 1e3})
+            if i == 0 and spec.get("words"):
+                torch.save(dp_words(state), scratch / f"{tag}_one_card.pt")
+        stages = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dp_stages(torch, stages):
+            state, m = step(state, data.batch_at(spec["steps"]))
+            float(m["loss"])
+        torch.cuda.synchronize()
+        stages["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out = {"steps": rows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stages": stages}
+    print(f"{tag} one card: {spec['arch']} {spec['batch']} x {spec['seq']}: "
+          "losses " + " ".join(f"{r['loss']:.5f}" for r in rows)
+          + ", grad norms " + " ".join(f"{r['grad_norm']:.4f}" for r in rows)
+          + f", peak {out['peak_gb']:.2f} GB", flush=True)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_given_spy():
+    """Count the K1 calls that take a given scale (``encode_pack(scale=)``,
+    the data-parallel rank's global scale) while open."""
+    from repro_torch.kernels import dispatch
+    real = dispatch.encode_pack
+    seen = [0]
+
+    def spy(x, fmt, scale_axis=None, scale=None):
+        if scale is not None:
+            seen[0] += 1
+        return real(x, fmt, scale_axis, scale)
+
+    @contextlib.contextmanager
+    def ctx():
+        dispatch.encode_pack = spy
+        try:
+            yield seen
+        finally:
+            dispatch.encode_pack = real
+    return ctx()
+
+
+def dp_cli(torch, ops, tag, spec, scratch):
+    """26a's main path: ``launch.train --mesh 4,1`` on this rank, the
+    launch counts zeroed just before and read just after."""
+    from repro_torch.launch.train import main as train_main
+    argv = ["--arch", spec["arch"], "--mesh", f"{MESH_WORLD},1", "--steps",
+            str(spec["steps"]), "--batch", str(spec["batch"]), "--seq",
+            str(spec["seq"]), "--ckpt-dir", str(scratch / f"{tag}_ckpt")]
+    with dp_given_spy() as given:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = train_main(argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+    return {"losses": out["losses"], "wall_s": out["wall_s"],
+            "tokens_per_s": out["tokens_per_s"],
+            "failures_recovered": out["failures_recovered"],
+            "launches": counts, "k1_given_scale_calls": given[0]}
+
+
+@contextlib.contextmanager
+def dp_profiled(torch, out):
+    """A step under torch.profiler: NCCL's device time (the wait for the
+    other ranks included), the other kernels' device time, the c10d
+    calls' host time and count, into ``out``."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        yield
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = averages(prof)
+    kernels = [e for e in ev if e.device_type == cuda]
+    nccl = [e for e in kernels if e.key.startswith("ncclDevKernel")]
+    host = [e for e in ev if e.device_type != cuda
+            and e.key.startswith("c10d::")]
+    out.update({
+        "busy_ms": sum(e.self_device_time_total for e in kernels
+                       if not e.key.startswith("nccl")) / 1e3,
+        "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3,
+        "nccl_kernels": sum(e.count for e in nccl),
+        "host_collective_ms": sum(e.cpu_time_total for e in host) / 1e3,
+        "host_collective_calls": {e.key: e.count for e in host}})
+
+
+@contextlib.contextmanager
+def dp_stages(torch, out):
+    """One step cut into stages at synchronized boundaries, with no
+    profiler: the forward (``lm_loss``), the backward (up to the
+    gradients' SUM reduce, or up to Q_G on one card), the SUM reduce, Q_G,
+    and the rest (grad norm, K3, the loss read back), into ``out`` with
+    the MAX reduce calls' host time and count. The stages add up to the
+    step; the syncs cost a few device round trips."""
+    from repro_torch.distributed import collectives
+    from repro_torch.training import steps as steps_mod
+    saved = (steps_mod.lm_loss, collectives.sum_tensors,
+             steps_mod.quantize_grads, collectives.max_reduce)
+    marks, host = [], [0.0, 0]
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    def lm_loss(*a, **k):
+        y = saved[0](*a, **k)
+        mark("forward")
+        return y
+
+    def sum_tensors(*a, **k):
+        mark("backward")
+        y = saved[1](*a, **k)
+        mark("sum_reduce")
+        return y
+
+    def quantize_grads(*a, **k):
+        if marks[-1][0] == "forward":
+            mark("backward")
+        y = saved[2](*a, **k)
+        mark("q_g")
+        return y
+
+    def max_reduce(*a, **k):
+        t = time.perf_counter()
+        y = saved[3](*a, **k)
+        host[0] += time.perf_counter() - t
+        host[1] += 1
+        return y
+
+    (steps_mod.lm_loss, collectives.sum_tensors, steps_mod.quantize_grads,
+     collectives.max_reduce) = (lm_loss, sum_tensors, quantize_grads,
+                                max_reduce)
+    mark("start")
+    try:
+        yield
+        mark("update")
+    finally:
+        (steps_mod.lm_loss, collectives.sum_tensors,
+         steps_mod.quantize_grads, collectives.max_reduce) = saved
+    ms = collections.defaultdict(float)
+    for (_, t0), (name, t1) in zip(marks, marks[1:]):
+        ms[name] += (t1 - t0) * 1e3
+    out.update(stages_ms=dict(ms), max_reduce_host_ms=host[0] * 1e3,
+               max_reduce_calls=host[1])
+
+
+def dp_part(torch, ops, tag, spec, scratch):
+    """Phase 26 on this rank: (26a) the CLI run, then the part's steps on
+    a (4, 1) mesh: per step the loss, grad norm, step time, collectives
+    by kind, launches, the given-scale K1 calls and every rank's
+    checksum (each step begun at a barrier); the words after step 1
+    against one card's (rank 0, after the steps); one more step profiled
+    (its time includes the profiler's) and one cut into stages
+    (``dp_stages``); the peak."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_rules
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import shard_ctx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import build_train_step, init_train_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_part = time.monotonic()
+    out = {"arch": spec["arch"], "rank": dist.get_rank()}
+    if spec.get("cli"):
+        out["cli"] = dp_cli(torch, ops, tag, spec, scratch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    mesh = make_host_mesh(MESH_WORLD, 1)
+    cfg, mcfg = dp_config(spec), MadamConfig()
+    data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"])
+    rows, step1 = [], None
+    with shard_ctx(mesh, get_rules(spec["arch"])), dp_given_spy() as given:
+        state = init_train_state(cfg, mcfg, seed=0, device=mesh.device)
+        step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg)
+        for i in range(spec["steps"] + 2):
+            batch = data.batch_at(i)
+            # every rank starts the step together, so its time holds no
+            # other rank's work between steps
+            dist.barrier()
+            torch.cuda.synchronize()
+            collectives.reset_counts()
+            ops.reset_launch_counts()
+            given[0] = 0
+            prof = {}
+            # two more steps: one profiled, one cut into stages
+            extra = i == spec["steps"]
+            staged = i == spec["steps"] + 1
+            t0 = time.perf_counter()
+            with (dp_profiled(torch, prof) if extra else
+                  dp_stages(torch, prof) if staged
+                  else contextlib.nullcontext()):
+                state, m = step(state, batch)
+                loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if extra:
+                out["profile"] = dict(prof, step_ms=ms)
+                continue
+            if staged:
+                out["stages"] = dict(prof, step_ms=ms)
+                break
+            row = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                   "step_ms": ms, "collectives": collectives.counts(),
+                   "launches": ops.launch_counts(),
+                   "k1_given_scale_calls": given[0]}
+            cs = dp_checksum(torch, state)
+            every = torch.empty((MESH_WORLD, 2), dtype=torch.int64,
+                                device=cs.device)
+            (getattr(dist, "all_gather_single", None)
+             or dist.all_gather_into_tensor)(every, cs[None])
+            row["ranks_agree"] = bool((every == every[0]).all())
+            rows.append(row)
+            if i == 0 and spec.get("words") and dist.get_rank() == 0:
+                step1 = dp_words(state)
+    if step1 is not None:
+        ref = torch.load(scratch / f"{tag}_one_card.pt")
+        n = tot = 0
+        sizes = None
+        for k, w in ref.items():
+            d = step1[k].long() - w.long()
+            n += int((d != 0).sum())
+            tot += d.numel()
+            b = torch.bincount(d[d != 0].abs().clamp(max=33), minlength=34)
+            sizes = b if sizes is None else sizes + b
+        out["word_share"] = n / tot
+        # how far apart: 1 code (a rounding tie), 32 (a gradient's sign
+        # flipped at step 1: Madam moves 16 codes), 33 = more
+        out["word_diff_sizes"] = {str(k): int(v) for k, v in
+                                  enumerate(sizes.tolist()) if v}
+    out["steps"] = rows
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.monotonic() - t_part
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_checks(tag, spec, one, ranks):
+    """Phase 26's checks on every rank's rows against one card's."""
+    r0 = ranks[0]
+    for r in ranks:
+        check(all(x["ranks_agree"] for x in r["steps"]),
+              f"{tag} rank {r['rank']}: a rank's words or moments left the "
+              f"others' after a step")
+        check(all(x["loss"] == y["loss"] and x["grad_norm"] == y["grad_norm"]
+                  for x, y in zip(r["steps"], r0["steps"])),
+              f"{tag} rank {r['rank']}: its losses differ from rank 0's")
+        for x in r["steps"]:
+            check(x["launches"]["encode_pack"] > 0
+                  and x["launches"]["qmatmul"] > 0
+                  and x["k1_given_scale_calls"] > 0,
+                  f"{tag}: K1 with a given scale or K2 not launched on a "
+                  f"data-parallel step: {x['launches']}")
+            check(x["collectives"]["max_reduce"] > 0
+                  and x["collectives"]["sum"] > 0,
+                  f"{tag}: a step made no MAX or SUM reduce: "
+                  f"{x['collectives']}")
+        if "cli" in r:
+            c = r["cli"]
+            check(c["failures_recovered"] == 0
+                  and all(math.isfinite(v) for v in c["losses"]),
+                  f"{tag}: the CLI run retried or lost its loss: {c}")
+            check(c["launches"]["madam_step"] == 8 * spec["steps"]
+                  and c["launches"]["encode_pack"] > 0
+                  and c["launches"]["qmatmul"] > 0
+                  and c["launches"]["qmatmul_decode"] > 0
+                  and c["k1_given_scale_calls"] > 0,
+                  f"{tag}: the CLI's main path launches {c['launches']}, "
+                  f"given-scale K1 calls {c['k1_given_scale_calls']}")
+    rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+           for x, y in zip(r0["steps"], one["steps"])]
+    grel = [abs(x["grad_norm"] - y["grad_norm"]) / abs(y["grad_norm"])
+            for x, y in zip(r0["steps"], one["steps"])]
+    check(rel[0] <= DP_STEP0_RTOL, f"{tag}: step-0 loss {rel[0]:.2e} from "
+          f"one card's (limit {DP_STEP0_RTOL})")
+    check(all(v <= TRAIN_LOSS_RTOL for v in rel), f"{tag}: losses {rel} "
+          f"from one card's (limit {TRAIN_LOSS_RTOL})")
+    check(all(v <= DP_GNORM_RTOL for v in grel), f"{tag}: grad norms {grel}"
+          f" from one card's (limit {DP_GNORM_RTOL})")
+    if spec.get("words"):
+        check(r0["word_share"] <= TRAIN_WORD_SHARE,
+              f"{tag}: {r0['word_share']:.2%} of words apart from one "
+              f"card's after step 1")
+    return {"loss_rel": rel, "grad_norm_rel": grel}
 
 
 def shard_invariance(torch, ops, ref, fmt):
@@ -6068,10 +6543,11 @@ def mesh_serve(torch, ops, tag, arch, argv, mesh, cut, scratch):
     return row
 
 
-def mesh_rank(rank, world, port, out_dir, runs):
+def mesh_rank(rank, world, port, out_dir, runs, dp_runs):
     """One rank of ``--mesh``: torchrun's environment for this card, then
-    every ``runs`` entry through :func:`mesh_serve`; this rank's results
-    go to ``out_dir/rank<r>.json``."""
+    every ``runs`` entry through :func:`mesh_serve` and every ``dp_runs``
+    part through :func:`dp_part`; this rank's results go to
+    ``out_dir/rank<r>.json``."""
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                       RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
@@ -6100,6 +6576,16 @@ def mesh_rank(rank, world, port, out_dir, runs):
                   f"launches a forward {r['launches_a_forward']}, "
                   f"collectives a forward {r['collectives_a_forward']} "
                   f"({r['seconds']:.1f}s)", flush=True)
+    for tag, spec in dp_runs:
+        out[tag] = dp_part(torch, ops, tag, spec, Path(out_dir))
+        if rank == 0:
+            r = out[tag]
+            print(f"{tag} rank 0: {spec['arch']} on ({MESH_WORLD}, 1): "
+                  "losses " + " ".join(f"{x['loss']:.5f}" for x in r["steps"])
+                  + ", step ms " + " ".join(f"{x['step_ms']:.1f}"
+                                           for x in r["steps"])
+                  + f", collectives {r['steps'][-1]['collectives']}, peak "
+                  f"{r['peak_gb']:.2f} GB ({r['seconds']:.1f}s)", flush=True)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
@@ -6112,8 +6598,9 @@ def free_port():
         return s.getsockname()[1]
 
 
-def mesh_main(torch, card):
-    """``--mesh``: phase 25c-e on four cards of one host."""
+def mesh_main(torch, card, serve=True):
+    """``--mesh``: phases 25c-e and 26 on four cards of one host
+    (``serve=False``, ``--mesh-train``: phase 26 alone)."""
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
     check(n >= MESH_WORLD, f"--mesh needs {MESH_WORLD} cards, "
@@ -6125,22 +6612,35 @@ def mesh_main(torch, card):
     scratch = ROOT / "build" / "mesh"
     scratch.mkdir(parents=True, exist_ok=True)
     marks = [("build", time.monotonic())]
+    runs = MESH_RUNS if serve else []
     one = {}
-    for tag, arch, argv, mesh, cut in MESH_RUNS:
+    for tag, arch, argv, mesh, cut in runs:
         if tag in MESH_ONE_CARD:
             one[tag] = one_card(torch, ops, tag, arch, argv, cut, scratch)
     marks.append(("one card", time.monotonic()))
+    dp_one = {tag: dp_one_card(torch, ops, tag, spec, scratch)
+              for tag, spec in DP_RUNS}
+    marks.append(("26 one card", time.monotonic()))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"26: card 0 holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
+          f"reserved before the ranks start", flush=True)
     # as torchrun does: one intra-op thread a rank (the ranks share the
-    # host's cores; read when each rank imports torch)
+    # host's cores; read when each rank imports torch); expandable
+    # segments, so a rank's gemma3 step (26b) is not refused for the
+    # cache's fragments after the earlier parts
     os.environ["OMP_NUM_THREADS"] = "1"
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     mp.start_processes(mesh_rank, args=(MESH_WORLD, free_port(),
-                                        str(scratch), MESH_RUNS),
+                                        str(scratch), runs, DP_RUNS),
                        nprocs=MESH_WORLD, join=True, start_method="spawn")
     marks.append(("ranks", time.monotonic()))
     ranks = [json.loads((scratch / f"rank{r}.json").read_text())
              for r in range(MESH_WORLD)]
-    res = {"card": card, "one_card": one, "ranks": ranks}
-    for tag, arch, argv, mesh, cut in MESH_RUNS:
+    res = {"card": card, "one_card": one, "ranks": ranks,
+           "dp_one_card": dp_one}
+    for tag, arch, argv, mesh, cut in runs:
         rows = [rk[tag] for rk in ranks]
         n_req = int(argv[argv.index("--requests") + 1])
         for r in rows:
@@ -6180,13 +6680,49 @@ def mesh_main(torch, card):
             line["profile"] = [r["profile"] for r in rows]
         res[tag] = line
         print(json.dumps(line))
+    for tag, spec in DP_RUNS:
+        rows = [rk[tag] for rk in ranks]
+        cmp = dp_checks(tag, spec, dp_one[tag], rows)
+        r0 = rows[0]
+        line = {"tag": tag, "arch": spec["arch"], "mesh": f"{MESH_WORLD},1",
+                "global_batch": [spec["batch"], spec["seq"]],
+                "losses": [x["loss"] for x in r0["steps"]],
+                "one_card_losses": [x["loss"] for x in
+                                    dp_one[tag]["steps"]],
+                "grad_norms": [x["grad_norm"] for x in r0["steps"]],
+                "one_card_grad_norms": [x["grad_norm"] for x in
+                                        dp_one[tag]["steps"]],
+                **cmp,
+                "step_ms": [[x["step_ms"] for x in r["steps"]]
+                            for r in rows],
+                "one_card_step_ms": [x["step_ms"] for x in
+                                     dp_one[tag]["steps"]],
+                "collectives_a_step": r0["steps"][-1]["collectives"],
+                "launches_a_step": r0["steps"][-1]["launches"],
+                "k1_given_scale_calls_a_step":
+                    r0["steps"][-1]["k1_given_scale_calls"],
+                "profile": [r["profile"] for r in rows],
+                "stages": [r["stages"] for r in rows],
+                "one_card_stages": dp_one[tag]["stages"],
+                "peak_gb": [r["peak_gb"] for r in rows],
+                "one_card_peak_gb": dp_one[tag]["peak_gb"],
+                "word_share": r0.get("word_share"),
+                "word_diff_sizes": r0.get("word_diff_sizes"),
+                "ranks_agree": True}
+        if "cli" in r0:
+            line["cli"] = {k: r0["cli"][k] for k in (
+                "losses", "wall_s", "tokens_per_s", "launches",
+                "k1_given_scale_calls")}
+        res[tag] = line
+        print(json.dumps(line))
     marks.append(("checks", time.monotonic()))
     res["seconds_by_phase"] = {b[0]: b[1] - a[1]
                                for a, b in zip(marks, marks[1:])}
     res["seconds"] = time.monotonic() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke_mesh.json").write_text(json.dumps(res, indent=1))
+    name = "chip_smoke_mesh.json" if serve else "chip_smoke_mesh_train.json"
+    (out_dir / name).write_text(json.dumps(res, indent=1))
     print(f"chip_smoke --mesh took {res['seconds']:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s"
                       for k, v in res["seconds_by_phase"].items()))
@@ -6201,6 +6737,7 @@ def main() -> int:
 
     t_start = time.monotonic()
     sweeps = {"--k1-sweep": k1_sweep, "--k2-sweep": k2_sweep,
+              "--k1-given": k1_given_check,
               "--k6-sweep": k6_sweep, "--k8-sweep": k8_sweep,
               "--serving": online_serving,
               "--obs": lambda torch, ops, ref, fmt: observability(
@@ -6223,12 +6760,12 @@ def main() -> int:
                                                 K5_KIMI_CASES),
                   **mixtures(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
-    meshed = sys.argv[1:] == ["--mesh"]
+    meshed = sys.argv[1:] in (["--mesh"], ["--mesh-train"])
     if sys.argv[1:] and not (sweep or meshed):
-        print(f"usage: {Path(__file__).name} [--k1-sweep | --k2-sweep | "
-              f"--k6-sweep | --k8-sweep | --serving | --obs | "
+        print(f"usage: {Path(__file__).name} [--k1-sweep | --k1-given | "
+              f"--k2-sweep | --k6-sweep | --k8-sweep | --serving | --obs | "
               f"--dense-variants | --modality | --recurrent | --moe | "
-              f"--mesh]", file=sys.stderr)
+              f"--mesh | --mesh-train]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -6248,7 +6785,8 @@ def main() -> int:
     if meshed:
         for line in card.stdout.strip().splitlines()[1:]:
             print(line)
-        return mesh_main(torch, card.stdout.strip())
+        return mesh_main(torch, card.stdout.strip(),
+                         serve=sys.argv[1] == "--mesh")
 
     from repro_torch.core.lns import LNSFormat
     from repro_torch.kernels import _build, ops, ref
@@ -6279,6 +6817,7 @@ def main() -> int:
                                          (2048, 1536)])
     k1_edge_calls = k1_edges(torch, ops, ref, fmt)
     k1_launch = k1_one_launch(torch, ops, fmt)
+    k1_given = k1_given_check(torch, ops, ref, fmt)
     mark("3 K1")
     gemms = [(576, 576), (576, 192), (576, 1536), (1536, 576)]
     # the main path's shapes first (decode M=4, prefill M=32, training
@@ -6506,6 +7045,7 @@ def main() -> int:
             "qmatmul_decode": k2_decode, "qmatmul_driven": k2_driven,
             "encode_pack_edge_calls": k1_edge_calls,
             "encode_pack_one_launch": k1_launch,
+            "encode_pack_given_scale": k1_given,
             "sample_logits": sampler,
             "shapes": {"encode_pack": k1, "qmatmul": k2,
                        "qmatmul_decode_pass": k2_pass, "paged_attend": k5,

@@ -14,6 +14,11 @@ port and written back as ``uint16`` (``uint32`` past 16 bits), the JAX
 package's word dtype, so either framework restores what the other
 wrote. Saving copies every leaf to the host before it returns; the files
 are written on a thread, and the commit is a rename.
+
+Under data parallelism (``group=``, the ranks that hold one replicated
+state) rank 0 of the group writes and every rank reads: a restore waits
+for rank 0's writer and meets the others at a barrier before it reads
+``LATEST``, so no rank reads a step that is not yet committed.
 """
 from __future__ import annotations
 
@@ -87,9 +92,14 @@ def _rebuild(like, path, load):
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, group=None):
         self.dir = directory
         self.keep = keep
+        self.group = group
+        self.writer = True
+        if group is not None:
+            import torch.distributed as dist
+            self.writer = dist.get_rank(group) == 0
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -98,7 +108,10 @@ class CheckpointManager:
              extra: Optional[Dict[str, Any]] = None, async_: bool = True):
         """Snapshot ``state``: the host copy is taken before returning, so
         the caller may go on updating; the files are written in the
-        background unless ``async_`` is false."""
+        background unless ``async_`` is false. Only the writer (rank 0
+        of the group) writes; the other ranks return at once."""
+        if not self.writer:
+            return
         self.wait()
         flat = flatten_state(state)
         manifest = {"step": int(step), "data_cursor": int(data_cursor),
@@ -158,10 +171,19 @@ class CheckpointManager:
                                "manifest.json")) as f:
             return json.load(f)
 
+    def _sync(self) -> None:
+        """The writer's pending files committed, then (with a group) every
+        rank past a barrier."""
+        self.wait()
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
+
     def restore(self, step: int, like):
         """A state shaped like ``like``, each leaf in ``like``'s dtype and
-        on its device (ints stay ints)."""
-        self.wait()
+        on its device (ints stay ints). With a group every rank of it
+        calls this together."""
+        self._sync()
         d = os.path.join(self.dir, f"step_{step:08d}")
 
         def load(path, leaf):
@@ -177,6 +199,7 @@ class CheckpointManager:
         return _rebuild(like, (), load)
 
     def restore_latest(self, like) -> Tuple[int, Any]:
+        self._sync()
         step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")

@@ -40,15 +40,19 @@ def approx_product_values(ex: torch.Tensor, ew: torch.Tensor, fmt: LNSFormat,
     return conversion.exp2_hybrid(p, fmt.gamma, lut_entries)
 
 
-def approx_value(eq: str, x: torch.Tensor, w: torch.Tensor, cfg):
+def approx_value(eq: str, x: torch.Tensor, w: torch.Tensor, cfg,
+                 x_scale=None):
     """The approximate product and its operands, with no autograd graph:
     ``(y_approx, xq, wq)``, where ``xq = Q_A(x)`` and ``wq = Q_W(w)`` are
-    the f32 decodes and ``y_approx`` sums the γ bucketed einsums."""
+    the f32 decodes and ``y_approx`` sums the γ bucketed einsums.
+    ``x_scale`` replaces Q_A's own scale of ``x`` (a data-parallel rank's
+    is the global batch's)."""
     fmt: LNSFormat = cfg.weight
     afmt: LNSFormat = cfg.act or fmt
     gamma = fmt.gamma
     with torch.no_grad():
-        sx_scale = compute_scale(x, axis=cfg.act_scale_axis)
+        sx_scale = (compute_scale(x, axis=cfg.act_scale_axis)
+                    if x_scale is None else x_scale)
         sw_scale = compute_scale(w, axis=cfg.weight_scale_axis)
         sx, ex = lns_encode(x, afmt, sx_scale)
         sw, ew = lns_encode(w, fmt, sw_scale)
@@ -68,7 +72,7 @@ def approx_value(eq: str, x: torch.Tensor, w: torch.Tensor, cfg):
 
 
 def approx_qeinsum(eq: str, x: torch.Tensor, w: torch.Tensor,
-                   cfg) -> torch.Tensor:
+                   cfg, x_scale=None) -> torch.Tensor:
     """Quantized einsum whose forward accumulates with the approximate
     conversion (``cfg.approx_lut`` LUT entries) and whose backward is the
     straight-through gradient of the exact fake-quantized einsum
@@ -84,7 +88,7 @@ def approx_qeinsum(eq: str, x: torch.Tensor, w: torch.Tensor,
     gradient flows, so its GEMMs pass back zeros (ROADMAP H9); the forward
     values are the same.
     """
-    y_approx, xq, wq = approx_value(eq, x, w, cfg)
+    y_approx, xq, wq = approx_value(eq, x, w, cfg, x_scale)
     y_exact = torch.einsum(eq, ste(x.to(torch.float32), xq),
                            ste(w.to(torch.float32), wq))
     y = y_exact + (y_approx - y_exact).detach()

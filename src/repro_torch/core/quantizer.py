@@ -17,7 +17,19 @@
   approximation (``core.quant_training.approx_qeinsum``, paper Table 10).
 
 Training adds Q_E on each GEMM output's gradient (:func:`backward_quantize`)
-and Q_G on the final weight gradients (:func:`quantize_grads`). The routed
+and Q_G on the final weight gradients (:func:`quantize_grads`).
+
+Under a data-parallel mesh each rank holds its rows of the global batch,
+and every per-tensor scale of an activation (Q_A) or an error (Q_E) is
+the global batch's: the rank's own scale max-reduced over the group the
+active rules split ``"batch"`` over (:func:`global_stat`;
+``sharding.batch_group``), then handed to K1 (``encode_pack(scale=)``) or
+to the fake-quant encode. ``pow2_scale`` is monotone, so the max of the
+ranks' scales is the scale of the global absmax, exactly. Where one
+tensor feeds several GEMMs (q/k/v, up/gate) the caller reduces its scale
+once and passes it to each (``qeinsum(x_stat=)``). Q_W (replicated
+weights) and Q_G (taken on the summed gradient) stay local. The serving
+rules replicate the batch, so serving reduces nothing here. The routed
 GEMM's gradient is :class:`_RoutedMatmul`, which saves the packed
 activation (1 byte per element) rather than a dense one and returns dW into
 the weight's ``delta`` carrier. Without a carrier (serving) the routed GEMM
@@ -34,21 +46,58 @@ from repro_torch.core.lns import (LNSFormat, LNSWeight, compute_scale,
                                   is_lns_weight, lns_decode_packed,
                                   lns_quantize, lns_requant_packed)
 from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import batch_group
 from repro_torch.kernels import dispatch
-from repro_torch.numerics.fp import FPFormat, fp_quantize
+from repro_torch.numerics.fp import FPFormat, fp_absmax, fp_quantize
 
 __all__ = ["Format", "QuantConfig", "qeinsum", "quantize", "ste_quantize",
            "ste_quantize_sharded", "backward_quantize", "cot_boundary",
-           "quantize_grads"]
+           "quantize_grads", "global_stat", "act_stat"]
 
 Format = Union[LNSFormat, FPFormat]
 
 
-def _apply_format(x: torch.Tensor, fmt: Format,
-                  scale_axis: Optional[int]) -> torch.Tensor:
+def _stat(x: torch.Tensor, fmt: Format,
+          scale_axis: Optional[int]) -> torch.Tensor:
+    """What ``fmt``'s scale is made of: the pow2 scale of an LNS format,
+    the absmax of a miniature float (its scale is monotone in it)."""
     if isinstance(fmt, LNSFormat):
-        return lns_quantize(x, fmt, scale_axis=scale_axis)
-    return fp_quantize(x, fmt, scale_axis=scale_axis)
+        return compute_scale(x, axis=scale_axis)
+    return fp_absmax(x, scale_axis)
+
+
+def _apply_format(x: torch.Tensor, fmt: Format, scale_axis: Optional[int],
+                  stat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Onto ``fmt``'s grid under ``x``'s own scale, or the one ``stat``
+    (:func:`_stat` of the whole tensor) gives."""
+    if isinstance(fmt, LNSFormat):
+        return lns_quantize(x, fmt, scale_axis=scale_axis, scale=stat)
+    return fp_quantize(x, fmt, scale_axis=scale_axis, absmax=stat)
+
+
+def global_stat(x: torch.Tensor, fmt: Optional[Format],
+                scale_axis: Optional[int] = None,
+                group=None) -> Optional[torch.Tensor]:
+    """The scale statistic of the whole tensor of which ``x`` holds this
+    rank's rows (dim 0 split over ``group``): the rank's own, max-reduced
+    over the group. None without a format or a group, and where the
+    scale keeps dim 0 (each row's scale is then the rank's own)."""
+    if fmt is None or group is None:
+        return None
+    if scale_axis is not None and scale_axis % x.dim() == 0:
+        return None
+    st = _stat(x, fmt, scale_axis).detach()    # a scale takes no gradient
+    return collectives.max_reduce(st.reshape(-1), group).reshape(st.shape)
+
+
+def act_stat(x: torch.Tensor,
+             cfg: Optional["QuantConfig"]) -> Optional[torch.Tensor]:
+    """Q_A's global statistic of ``x`` under the active mesh (None
+    without a data-parallel group): one MAX reduce for every GEMM that
+    reads ``x`` (``qeinsum(..., x_stat=)``)."""
+    if cfg is None or not cfg.is_quantized:
+        return None
+    return global_stat(x, cfg.act, cfg.act_scale_axis, batch_group())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +150,12 @@ class QuantConfig:
 
 
 def quantize(x: torch.Tensor, fmt: Optional[Format],
-             scale_axis: Optional[int] = None) -> torch.Tensor:
+             scale_axis: Optional[int] = None,
+             stat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Onto ``fmt``'s grid: Q_log for an LNS format, the miniature-float
-    grid for an ``FPFormat`` (identity for ``fmt=None``)."""
-    return x if fmt is None else _apply_format(x, fmt, scale_axis)
+    grid for an ``FPFormat`` (identity for ``fmt=None``); ``stat`` is a
+    whole tensor's scale statistic (:func:`global_stat`)."""
+    return x if fmt is None else _apply_format(x, fmt, scale_axis, stat)
 
 
 def _needs_grad(x: torch.Tensor) -> bool:
@@ -123,56 +174,62 @@ def ste(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def ste_quantize(x: torch.Tensor, fmt: Optional[Format],
-                 scale_axis: Optional[int] = None) -> torch.Tensor:
-    """Forward: onto the grid. Backward: identity (straight through)."""
+                 scale_axis: Optional[int] = None,
+                 stat: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Forward: onto the grid (under ``stat``'s scale where given).
+    Backward: identity (straight through)."""
     if fmt is None:
         return x
-    return ste(x, quantize(x, fmt, scale_axis))
+    return ste(x, quantize(x, fmt, scale_axis, stat))
 
 
-def ste_quantize_sharded(xs, fmt: LNSFormat, group) -> list:
-    """Per-tensor Q_log of each of ``xs`` (straight through), where each
-    is this rank's shard of a tensor split over ``group``'s ranks: a
-    tensor's scale is the whole tensor's, every rank's scales
-    max-reduced in one collective (``pow2_scale`` is monotone, so the
-    max of the ranks' scales is the scale of the global absmax,
-    exactly)."""
-    if not isinstance(fmt, LNSFormat):
-        raise NotImplementedError(
-            "a per-tensor miniature-float scale over a sharded tensor")
-    scales = collectives.max_reduce(
-        torch.stack([compute_scale(x) for x in xs]), group)
-    return [ste(x, lns_quantize(x, fmt, scale=s))
-            for x, s in zip(xs, scales)]
+def ste_quantize_sharded(xs, fmt: Format, group) -> list:
+    """Per-tensor Q_A of each of ``xs`` (straight through), where each is
+    this rank's shard of a tensor split over ``group``'s ranks (a head
+    group, a data shard's rows, or both jointly): a tensor's scale is the
+    whole tensor's, every rank's statistics max-reduced in one collective
+    (``pow2_scale`` is monotone, so the max of the ranks' scales is the
+    scale of the global absmax, exactly; a miniature float's scale is
+    monotone in its absmax)."""
+    stats = collectives.max_reduce(
+        torch.stack([_stat(x, fmt, None) for x in xs]).detach(), group)
+    return [ste(x, _apply_format(x, fmt, None, st))
+            for x, st in zip(xs, stats)]
 
 
 class _BackwardQuantize(torch.autograd.Function):
     """Identity forward; the gradient is put on ``fmt``'s grid (Q_E) and
-    cast to ``cot_dtype``."""
+    cast to ``cot_dtype``. The data-parallel group is taken in the forward:
+    the backward may run on autograd's device thread, which does not see
+    the forward's mesh context."""
 
     @staticmethod
-    def forward(ctx, x, fmt, scale_axis, cot_dtype):
+    def forward(ctx, x, fmt, scale_axis, cot_dtype, group):
         ctx.fmt, ctx.scale_axis, ctx.cot_dtype = fmt, scale_axis, cot_dtype
+        ctx.group = group
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.fmt is not None:
-            g = _apply_format(g, ctx.fmt, ctx.scale_axis)
+            g = _apply_format(g, ctx.fmt, ctx.scale_axis, global_stat(
+                g, ctx.fmt, ctx.scale_axis, ctx.group))
         if ctx.cot_dtype is not None:
             g = g.to(ctx.cot_dtype)
-        return g, None, None, None
+        return g, None, None, None, None
 
 
 def backward_quantize(x: torch.Tensor, fmt: Optional[Format],
                       scale_axis: Optional[int] = None,
-                      cot_dtype: Optional[torch.dtype] = None
-                      ) -> torch.Tensor:
+                      cot_dtype: Optional[torch.dtype] = None,
+                      group=None) -> torch.Tensor:
     """Forward identity; backward quantizes the gradient (the paper's
-    Q_E) and stores it in ``cot_dtype``. No node without a gradient."""
+    Q_E) and stores it in ``cot_dtype``. No node without a gradient. With
+    ``group`` (the data-parallel group) the gradient's scale is the
+    global batch's."""
     if not _needs_grad(x):
         return x
-    return _BackwardQuantize.apply(x, fmt, scale_axis, cot_dtype)
+    return _BackwardQuantize.apply(x, fmt, scale_axis, cot_dtype, group)
 
 
 def cot_boundary(x: torch.Tensor) -> torch.Tensor:
@@ -235,13 +292,18 @@ def _forward_packed(w: LNSWeight, ffmt: LNSFormat) -> torch.Tensor:
 
 
 def _routed_impl(fmt: LNSFormat, x: torch.Tensor, pw: torch.Tensor,
-                 wscale: torch.Tensor):
-    """y = decode(Q_A(x)) @ decode(pw) * s_x * s_w through K1 and K2.
+                 wscale: torch.Tensor, x_scale: Optional[torch.Tensor] = None):
+    """y = decode(Q_A(x)) @ decode(pw) * s_x * s_w through K1 and K2, with
+    Q_A's scale K1's own or the given ``x_scale`` (the global batch's).
     Returns ``(y, px, sx)``: the packed activation and its scale are the
     backward's residuals."""
     K = x.shape[-1]
     xm = x.reshape(-1, K).contiguous()
-    px, sx = dispatch.encode_pack(xm, fmt, scale_axis=None)
+    if x_scale is None:
+        px, sx = dispatch.encode_pack(xm, fmt, scale_axis=None)
+    else:
+        px, sx = dispatch.encode_pack(xm, fmt, scale_axis=None,
+                                      scale=x_scale.reshape(1, 1))
     sw = wscale.reshape(1, -1).to(torch.float32).expand(1, pw.shape[1])
     y = dispatch.qmatmul(px, pw, fmt, scale_a=sx, scale_b=sw.contiguous(),
                          compute_dtype=x.dtype, out_dtype=x.dtype)
@@ -254,8 +316,8 @@ class _RoutedMatmul(torch.autograd.Function):
     ignored by the primal; the backward returns dW into it."""
 
     @staticmethod
-    def forward(ctx, fmt, x, delta, pw, wscale):
-        y, px, sx = _routed_impl(fmt, x, pw, wscale)
+    def forward(ctx, fmt, x, delta, pw, wscale, x_scale):
+        y, px, sx = _routed_impl(fmt, x, pw, wscale, x_scale)
         ctx.fmt = fmt
         ctx.x_dtype, ctx.d_dtype = x.dtype, delta.dtype
         ctx.x_shape = x.shape
@@ -273,7 +335,7 @@ class _RoutedMatmul(torch.autograd.Function):
         xq = (lns_decode_packed(px, fmt, torch.float32) * sx).to(xdt)
         dx = (dym @ wq.T).reshape(ctx.x_shape).to(xdt)
         ddelta = (xq.T @ dym).to(ctx.d_dtype)
-        return None, dx, ddelta, None, None
+        return None, dx, ddelta, None, None, None
 
 
 def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -286,28 +348,37 @@ def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, x, w)
 
 
-def qeinsum(eq: str, x: torch.Tensor, w,
-            cfg: Optional[QuantConfig]) -> torch.Tensor:
+def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
+            x_stat: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``einsum(eq, Q_A(x), Q_W(w))`` with Q_E on the output's gradient;
     packed 2-D weights route through the kernels, dense ones take the
     fake-quant leg. A packed weight without a ``delta`` (serving) calls
-    the kernels with no autograd machinery, as the JAX package does."""
+    the kernels with no autograd machinery, as the JAX package does.
+    Under a data-parallel mesh Q_A's and Q_E's scales are the global
+    batch's; ``x_stat`` is Q_A's, reduced once by the caller where ``x``
+    feeds several GEMMs (:func:`act_stat`)."""
+    quant = cfg is not None and cfg.is_quantized
+    group = batch_group() if quant else None
+    if group is not None and x_stat is None:
+        x_stat = global_stat(x, cfg.act, cfg.act_scale_axis, group)
     if is_lns_weight(w):
         if _routable(eq, w, cfg):
             pw = _forward_packed(w, cfg.weight)
             if w.delta is None:
-                y = _routed_impl(cfg.weight, x, pw, w.scale)[0]
+                y = _routed_impl(cfg.weight, x, pw, w.scale, x_stat)[0]
             else:
-                y = _RoutedMatmul.apply(cfg.weight, x, w.delta, pw, w.scale)
-            return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)
+                y = _RoutedMatmul.apply(cfg.weight, x, w.delta, pw, w.scale,
+                                        x_stat)
+            return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype,
+                                     group)
         w = w.decode(x.dtype)      # per-leaf fallback; delta carries grads
-    if cfg is None or not cfg.is_quantized:
+    if not quant:
         return backward_quantize(_einsum(eq, x, w), None, None, x.dtype)
     if cfg.approx_lut is not None and cfg.weight is not None:
         from repro_torch.core.quant_training import approx_qeinsum
-        y = approx_qeinsum(eq, x, w, cfg)
+        y = approx_qeinsum(eq, x, w, cfg, x_scale=x_stat)
     else:
-        xq = ste_quantize(x, cfg.act, cfg.act_scale_axis)
+        xq = ste_quantize(x, cfg.act, cfg.act_scale_axis, x_stat)
         wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
         y = _einsum(eq, xq, wq)
-    return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype)
+    return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype, group)

@@ -1,30 +1,42 @@
-"""The collectives of the mesh forward, over one process group.
+"""The collectives of the mesh forward and of the data-parallel step,
+over one process group.
 
-Only two kinds run in the serving forward, each at a point the serving
-rules fix (``repro_torch.distributed.sharding``):
+Two kinds run in the forward, each at a point the rules fix
+(``repro_torch.distributed.sharding``):
 
 * :func:`gather` concatenates each rank's block of a dim in rank order:
   the all-gather epilogue after a column-parallel GEMM, a head-sharded
   attention, or the expert-parallel FFN. It moves bytes and adds
   nothing, so the result is the single device's bit for bit.
 * :func:`max_reduce` takes the elementwise max over ranks: the global
-  absmax behind a per-tensor scale of a sharded tensor. A max is exact in
-  any order.
+  absmax behind a per-tensor scale of a sharded tensor (a head group's
+  under serving, a data shard's rows in training). A max is exact in any
+  order.
 
-No sum is ever reduced across ranks in the serving forward. The training
-collectives (``optim.compression``) sum. Both run on NCCL for CUDA
-tensors and gloo for CPU ones, whichever backend the group was made with.
+No sum is ever reduced across ranks in the serving forward. The
+data-parallel train step sums (:func:`sum_reduce`, :func:`sum_tensors`):
+the gradients, the loss's label count and the router's route counts.
+The compression psums (``optim.compression``) sum too. All run on NCCL
+for CUDA tensors and gloo for CPU ones, whichever backend the group was
+made with.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather", "max_reduce", "group_size", "broadcast_object",
-           "counts", "reset_counts"]
+__all__ = ["gather", "max_reduce", "sum_reduce", "sum_tensors",
+           "group_size", "broadcast_object", "counts", "reset_counts",
+           "SUM_BUCKET_BYTES"]
 
 # collectives issued (over a group of more than one rank) since the last
-# reset, by kind: what a step or a forward costs in round trips
-_COUNTS = {"gather": 0, "max_reduce": 0}
+# reset, by kind: what a step or a forward costs in round trips; "sum"
+# counts every SUM all-reduce, a gradient bucket included
+_COUNTS = {"gather": 0, "max_reduce": 0, "sum": 0}
+
+# the f32 staging buffer of one SUM bucket: the gradients reduce through
+# it a bucket at a time, so the temporary stays this size whatever the
+# model (gemma3-12b's 1.0e9-element embedding gradient takes 16 buckets)
+SUM_BUCKET_BYTES = 256 << 20
 
 
 def counts() -> dict:
@@ -68,6 +80,64 @@ def max_reduce(t: torch.Tensor, group) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
+
+
+def sum_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum of ``t`` over the group (a new tensor; ``t``
+    itself without a group)."""
+    if group_size(group) == 1:
+        return t
+    import torch.distributed as dist
+    _COUNTS["sum"] += 1
+    out = t.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def sum_tensors(ts, group, bucket_bytes: int = SUM_BUCKET_BYTES) -> None:
+    """Sum each tensor of ``ts`` over the group's ranks, in place: the
+    elements are copied into an f32 bucket of at most ``bucket_bytes``
+    (small tensors share one, a large one takes as many as it fills),
+    the bucket is SUM-reduced, and each sum is cast back to its tensor's
+    dtype once. Every rank must pass the same shapes in the same order.
+    Nothing happens without a group."""
+    if group_size(group) == 1:
+        return
+    import torch.distributed as dist
+    ts = [t for t in ts if t.numel()]
+    if not ts:
+        return
+    cap = max(1, bucket_bytes // 4)
+    cap = min(cap, sum(t.numel() for t in ts))
+    buf = torch.empty((cap,), dtype=torch.float32, device=ts[0].device)
+    pending, used = [], 0      # (flat view, start in the view, n, at)
+
+    def flush():
+        nonlocal used
+        if not used:
+            return
+        _COUNTS["sum"] += 1
+        dist.all_reduce(buf[:used], op=dist.ReduceOp.SUM, group=group)
+        for flat, lo, n, at in pending:
+            flat[lo:lo + n].copy_(buf[at:at + n])
+        pending.clear()
+        used = 0
+
+    for t in ts:
+        if not t.is_contiguous():
+            raise ValueError("sum_tensors reduces contiguous tensors in "
+                             "place")
+        flat = t.view(-1)
+        lo = 0
+        while lo < flat.numel():
+            n = min(flat.numel() - lo, cap - used)
+            buf[used:used + n].copy_(flat[lo:lo + n])
+            pending.append((flat, lo, n, used))
+            used += n
+            lo += n
+            if used == cap:
+                flush()
+    flush()
 
 
 def broadcast_object(obj, src: int = 0, group=None):

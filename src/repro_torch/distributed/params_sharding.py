@@ -23,8 +23,8 @@ from repro_torch.core.lns import LNSWeight, is_lns_weight
 from repro_torch.distributed.sharding import spec_for
 
 __all__ = ["params_logical_axes", "cache_logical_axes", "opt_logical_axes",
-           "batch_shardings", "tree_shardings", "local_shape",
-           "shard_leaf", "shard_tree", "LocalShard"]
+           "batch_shardings", "batch_rows", "tree_shardings",
+           "local_shape", "shard_leaf", "shard_tree", "LocalShard"]
 
 # leaf name -> logical axes of the 2-D core (the JAX package's table)
 _BY_NAME: Dict[str, Tuple[Optional[str], ...]] = {
@@ -225,6 +225,16 @@ def batch_shardings(batch: Dict[str, Any], mesh, rules=None):
     """Batch tensors shard over ``("pod", "data")`` on the batch axis."""
     return {k: spec_for(("batch",) + (None,) * (v.ndim - 1), mesh, rules)
             for k, v in batch.items()}
+
+
+def batch_rows(batch: Dict[str, torch.Tensor], mesh,
+               rules=None) -> Dict[str, torch.Tensor]:
+    """This rank's rows of a global batch: each tensor sliced along its
+    leading dim by its :func:`batch_shardings` placement (the rank's data
+    shard, shards in rank order), as JAX's ``device_put`` with those
+    shardings leaves on each device. The leading dim must split evenly."""
+    places = batch_shardings(batch, mesh, rules)
+    return {k: _slice(v, places[k], mesh) for k, v in batch.items()}
 
 
 def _entry_axes(entry) -> Tuple[str, ...]:

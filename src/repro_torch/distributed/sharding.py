@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 __all__ = ["LOGICAL_RULES", "shard_ctx", "current_mesh", "current_rules",
            "spec_for", "serving_rules", "model_axis_size", "axis_group",
-           "axis_shards"]
+           "axis_shards", "joint_group", "batch_group"]
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -196,3 +196,33 @@ def axis_group(name: str):
         return None
     axes = _resolve(name, current_mesh(), current_rules())
     return current_mesh().group(axes)
+
+
+def joint_group(*names: str):
+    """The process group over every mesh axis (of size > 1) that splits
+    any of the logical dims ``names`` under the active mesh and rules,
+    taken jointly in the mesh's axis order; None where none is split.
+    A per-tensor scale of a tensor split along several of them (a data
+    shard's rows of a head group) reduces over this group."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    rules = current_rules()
+    axes = set()
+    for n in names:
+        r = _resolve(n, mesh, rules)
+        for a in ((r,) if isinstance(r, str) else (r or ())):
+            if mesh.shape[a] > 1:
+                axes.add(a)
+    if not axes:
+        return None
+    return mesh.group(tuple(a for a in mesh.axis_names if a in axes))
+
+
+def batch_group():
+    """The process group the active rules split the batch over: a
+    data-parallel mesh's data group (raising where the mesh holds none),
+    None under the serving rules (which replicate the batch) or without
+    a mesh. Every per-tensor scale of an activation or an error, the
+    loss's label count and the router's statistics reduce over it."""
+    return joint_group("batch")

@@ -37,6 +37,13 @@
 // keeps the plain version's order of operations under -fmad=false; where s
 // is a normal power of two, |x| * (1/s) is the same IEEE result as |x| / s
 // (the reciprocal is exact), so the divide is skipped.
+//
+// A given scale (the TPU kernel's own contract: `scale` is an input of
+// shape (R, 1), or (1, 1) for the tensor) skips the absmax pass: per tensor
+// a grid-stride encode of 16-byte vectors under the one scale, per row the
+// per-row kernel with the max taken from `given` instead of the row. The
+// scale rows are written out as in the self-scaled call. This is what a
+// data-parallel rank runs: its scale is the max over every rank's rows.
 #include <float.h>
 
 #include "common.cuh"
@@ -44,6 +51,7 @@
 #define K1_MAX_THREADS 1024
 #define K1_SMEM_MAX (200 * 1024)
 #define K1_ROW_THREADS 256      // per row: 8 warps, one row each
+#define K1_GIVEN_BLOCKS_PER_SM 4
 
 // grid barrier state: arrivals, generation, two max slots (by generation
 // parity); zero at load, left so after every call
@@ -226,9 +234,9 @@ k1_tensor_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
 
 template <typename T>
 __global__ void __launch_bounds__(K1_ROW_THREADS)
-k1_row_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
-              float* __restrict__ srow, long long R, long long C, int bits,
-              float gamma, int vec_ok) {
+k1_row_kernel(const T* __restrict__ x, const float* __restrict__ given,
+              uint8_t* __restrict__ out, float* __restrict__ srow,
+              long long R, long long C, int bits, float gamma, int vec_ok) {
   constexpr int VEC = K1Elem<T>::VEC;
   const int lane = threadIdx.x & 31;
   const long long row = static_cast<long long>(blockIdx.x) *
@@ -238,12 +246,18 @@ k1_row_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
   uint8_t* orow = out + row * C;
   const long long nv = vec_ok ? C / VEC : 0;
   const uint4* xv = reinterpret_cast<const uint4*>(xr);
-  unsigned int m = 0u;
-  for (long long v = lane; v < nv; v += 32) m = max(m, vec_absmax<T>(xv[v]));
-  for (long long i = nv * VEC + lane; i < C; i += 32)
-    m = max(m, abs_bits(K1Elem<T>::f32(xr[i])));
-  m = __reduce_max_sync(0xffffffffu, m);
-  const K1Enc enc(pow2_scale(m), bits, gamma);
+  float s;
+  if (given != nullptr) {
+    s = given[row];
+  } else {
+    unsigned int m = 0u;
+    for (long long v = lane; v < nv; v += 32) m = max(m, vec_absmax<T>(xv[v]));
+    for (long long i = nv * VEC + lane; i < C; i += 32)
+      m = max(m, abs_bits(K1Elem<T>::f32(xr[i])));
+    m = __reduce_max_sync(0xffffffffu, m);
+    s = pow2_scale(m);
+  }
+  const K1Enc enc(s, bits, gamma);
   if (lane == 0) srow[row] = enc.s;
   for (long long v = lane; v < nv; v += 32)
     encode_vec<T>(xv[v], enc, orow + v * VEC);
@@ -251,12 +265,34 @@ k1_row_kernel(const T* __restrict__ x, uint8_t* __restrict__ out,
     orow[i] = static_cast<uint8_t>(enc.word(K1Elem<T>::f32(xr[i])));
 }
 
+// ------------------------------------------------- per tensor, given scale
+
+template <typename T>
+__global__ void __launch_bounds__(K1_MAX_THREADS)
+k1_given_kernel(const T* __restrict__ x, const float* __restrict__ given,
+                uint8_t* __restrict__ out, float* __restrict__ srow,
+                long long n, long long R, int bits, float gamma, int aligned) {
+  constexpr int VEC = K1Elem<T>::VEC;
+  const K1Enc enc(given[0], bits, gamma);
+  const long long tid = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        threadIdx.x;
+  const long long nt = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long r = tid; r < R; r += nt) srow[r] = enc.s;
+  const long long nv = aligned ? n / VEC : 0;
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  for (long long v = tid; v < nv; v += nt)
+    encode_vec<T>(xv[v], enc, out + v * VEC);
+  for (long long i = nv * VEC + tid; i < n; i += nt)
+    out[i] = static_cast<uint8_t>(enc.word(K1Elem<T>::f32(x[i])));
+}
+
 // ----------------------------------------------------------------- entry
 
 template <typename T>
-static int launch(const void* x, int per_row, uint8_t* out, float* srow,
-                  long long R, long long C, int bits, int gamma, int threads,
-                  long long one_block, long long min_chunk, cudaStream_t s) {
+static int launch(const void* x, int per_row, const float* given,
+                  uint8_t* out, float* srow, long long R, long long C,
+                  int bits, int gamma, int threads, long long one_block,
+                  long long min_chunk, cudaStream_t s) {
   constexpr int VEC = K1Elem<T>::VEC;
   const T* xt = static_cast<const T*>(x);
   const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
@@ -264,7 +300,7 @@ static int launch(const void* x, int per_row, uint8_t* out, float* srow,
     const int vec_ok = aligned && (C * static_cast<long long>(sizeof(T))) % 16 == 0;
     const long long blocks = (R + K1_ROW_THREADS / 32 - 1) / (K1_ROW_THREADS / 32);
     k1_row_kernel<T><<<static_cast<unsigned>(blocks), K1_ROW_THREADS, 0, s>>>(
-        xt, out, srow, R, C, bits, static_cast<float>(gamma), vec_ok);
+        xt, given, out, srow, R, C, bits, static_cast<float>(gamma), vec_ok);
     return static_cast<int>(cudaGetLastError());
   }
   static int sms = 0;
@@ -277,6 +313,16 @@ static int launch(const void* x, int per_row, uint8_t* out, float* srow,
                          K1_SMEM_MAX);
   }
   const long long n = R * C;
+  if (given != nullptr) {
+    long long nb = (n / VEC + threads - 1) / threads;
+    if (nb < 1) nb = 1;
+    if (nb > static_cast<long long>(sms) * K1_GIVEN_BLOCKS_PER_SM)
+      nb = static_cast<long long>(sms) * K1_GIVEN_BLOCKS_PER_SM;
+    k1_given_kernel<T><<<static_cast<unsigned>(nb), threads, 0, s>>>(
+        xt, given, out, srow, n, R, bits, static_cast<float>(gamma),
+        aligned ? 1 : 0);
+    return static_cast<int>(cudaGetLastError());
+  }
   long long nb = n <= one_block ? 1 : (n + min_chunk - 1) / min_chunk;
   if (nb > sms) nb = sms;  // one block per SM: every block is resident
   long long chunk = (n + nb - 1) / nb;
@@ -292,12 +338,15 @@ static int launch(const void* x, int per_row, uint8_t* out, float* srow,
 }
 
 // x: R x C, f32 or bf16 (dt); per_row: one scale a row (scale_axis=0), else
-// one for the tensor; out: R x C uint8 words; srow: R f32 scales. Per
+// one for the tensor; given: null (the kernel takes the absmax scale) or the
+// scales to encode against, R f32 per row or 1 per tensor; out: R x C uint8
+// words; srow: R f32 scales. Per
 // tensor: `threads` a block (a multiple of 32, <= 1024); one block up to
 // `one_block` elements, above that one block a `min_chunk` elements up to
 // one a SM.
 REPRO_EXPORT int repro_encode_pack(const void* x, int dt, int per_row,
-                                   uint8_t* out, float* srow, long long R,
+                                   const float* given, uint8_t* out,
+                                   float* srow, long long R,
                                    long long C, int bits, int gamma,
                                    int threads, long long one_block,
                                    long long min_chunk, void* stream) {
@@ -306,8 +355,8 @@ REPRO_EXPORT int repro_encode_pack(const void* x, int dt, int per_row,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dt == DT_BF16)
-    return launch<__nv_bfloat16>(x, per_row, out, srow, R, C, bits, gamma,
-                                 threads, one_block, min_chunk, s);
-  return launch<float>(x, per_row, out, srow, R, C, bits, gamma, threads,
-                       one_block, min_chunk, s);
+    return launch<__nv_bfloat16>(x, per_row, given, out, srow, R, C, bits,
+                                 gamma, threads, one_block, min_chunk, s);
+  return launch<float>(x, per_row, given, out, srow, R, C, bits, gamma,
+                       threads, one_block, min_chunk, s);
 }

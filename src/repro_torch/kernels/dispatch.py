@@ -44,14 +44,18 @@ def route(t) -> str:
 
 
 def encode_pack(x: torch.Tensor, fmt: LNSFormat,
-                scale_axis: Optional[int] = None):
-    """K1: Q_log-encode a 2-D tensor -> ``(packed (R,C), scale (R,1))``."""
+                scale_axis: Optional[int] = None,
+                scale: Optional[torch.Tensor] = None):
+    """K1: Q_log-encode a 2-D tensor -> ``(packed (R,C), scale (R,1))``,
+    against its own absmax scale or a given one (``(1, 1)`` per tensor,
+    ``(R, 1)`` per row)."""
     backend = route(x)
     impl = ops.encode_pack if backend == "kernel" else ref.encode_pack
+    args = (x, fmt, scale_axis) + (() if scale is None else (scale,))
     if kernel_stats.active() is not None:
         return kernel_stats.observe("encode_pack", backend, fmt.bits, x,
-                                    impl, x, fmt, scale_axis)
-    return impl(x, fmt, scale_axis)
+                                    impl, *args)
+    return impl(*args)
 
 
 def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,

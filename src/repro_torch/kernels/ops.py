@@ -61,8 +61,8 @@ class Kernel:
 
 
 ENCODE_PACK = Kernel("encode_pack", "repro_encode_pack",
-                     [_P, _I, _I, _P, _P, _LL, _LL, _I, _I, _I, _LL, _LL,
-                      _P])
+                     [_P, _I, _I, _P, _P, _P, _LL, _LL, _I, _I, _I, _LL,
+                      _LL, _P])
 QMATMUL = Kernel("qmatmul", "repro_qmatmul",
                  [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _P])
@@ -135,10 +135,14 @@ _K1_MIN_CHUNK = 2048
 
 
 def encode_pack(x: torch.Tensor, fmt: LNSFormat,
-                scale_axis: Optional[int] = None):
+                scale_axis: Optional[int] = None,
+                scale: Optional[torch.Tensor] = None):
     """K1 on the card -> ``(packed uint8 (R,C), scale (R,1) f32)``: the
     pow2 absmax scale (per tensor, or per row for ``scale_axis=0``) and the
-    words in one launch; no torch op runs besides the two allocations."""
+    words in one launch; no torch op runs besides the two allocations.
+    With ``scale`` (f32 ``(1, 1)`` per tensor, ``(R, 1)`` per row) the
+    kernel skips its absmax pass and encodes against it, still one
+    launch: a data-parallel rank's scale is the global batch's."""
     _check(x, "x", _FLOATS, 2)
     _check_fmt(fmt)
     if scale_axis not in (None, 0):
@@ -147,9 +151,15 @@ def encode_pack(x: torch.Tensor, fmt: LNSFormat,
     R, C = x.shape
     if R * C == 0:
         raise ValueError(f"K1 takes a non-empty x, got {tuple(x.shape)}")
+    given = 0
+    if scale is not None:
+        if scale.device != x.device:
+            raise ValueError(f"scale: on {scale.device}, x on {x.device}")
+        given = _scale_ptr(scale, (1, 1) if scale_axis is None else (R, 1),
+                           "scale")
     out = torch.empty((R, C), dtype=torch.uint8, device=x.device)
     srow = torch.empty((R, 1), dtype=torch.float32, device=x.device)
-    ENCODE_PACK(x.data_ptr(), _DT[x.dtype], int(scale_axis == 0),
+    ENCODE_PACK(x.data_ptr(), _DT[x.dtype], int(scale_axis == 0), given,
                 out.data_ptr(), srow.data_ptr(), R, C, fmt.bits, fmt.gamma,
                 _K1_THREADS, _K1_ONE_BLOCK, _K1_MIN_CHUNK, _stream(x))
     return out, srow

@@ -39,9 +39,19 @@ def row_scale(x: torch.Tensor, scale_axis: Optional[int] = None):
 
 
 def encode_pack(x: torch.Tensor, fmt: LNSFormat,
-                scale_axis: Optional[int] = None):
-    """K1: Q_log-encode a 2-D tensor -> ``(packed (R,C), scale (R,1))``."""
-    srow = row_scale(x, scale_axis)
+                scale_axis: Optional[int] = None,
+                scale: Optional[torch.Tensor] = None):
+    """K1: Q_log-encode a 2-D tensor -> ``(packed (R,C), scale (R,1))``,
+    against its own pow2 absmax scale or a given ``scale`` (f32 ``(1,
+    1)`` per tensor, ``(R, 1)`` per row)."""
+    if scale is None:
+        srow = row_scale(x, scale_axis)
+    else:
+        want = (1, 1) if scale_axis is None else (x.shape[0], 1)
+        if tuple(scale.shape) != want:
+            raise ValueError(f"scale: expected shape {want}, got "
+                             f"{tuple(scale.shape)}")
+        srow = scale.to(torch.float32).expand(x.shape[0], 1).contiguous()
     sign, code = lns_encode(x, fmt, srow)
     return lns_pack(sign, code, fmt), srow
 

@@ -33,19 +33,36 @@ writes a ``torch.profiler`` Chrome trace of the run into DIR.
   python -m repro_torch.launch.train --smoke --device cpu --steps 3 \
       --trace-dir /tmp/trace --numerics-log /tmp/trace/steps.jsonl \
       --kernel-stats --quiet=false --progress-every 1
+
+Data-parallel training (``--mesh DATA,1``): one process a card under
+torchrun, as JAX's CLI trains on ``make_host_mesh(data=device_count)``.
+Every rank draws the same state from seed 0 and steps the global batch
+``--batch`` (each rank computes its ``--batch / DATA`` rows; scales, the
+loss and the gradients are the global batch's), rank 0 prints and
+writes the checkpoints and the observability outputs:
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch smollm-135m --mesh 4,1 --steps 3 --batch 32 --seq 256
+
+``--mesh`` with more than one rank and no torchrun environment raises,
+and so does ``MODEL > 1`` (tensor-parallel training is not ported).
 """
 from __future__ import annotations
 
 import argparse
+import builtins
 import contextlib
 import tempfile
 import time
 
-from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_rules, get_smoke_config
 from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import batch_group, shard_ctx
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.obs import NumericsObserver, kernel_stats
 from repro_torch.optim.madam import MadamConfig
 from repro_torch.training.data import SyntheticLM
@@ -91,6 +108,10 @@ def parser() -> argparse.ArgumentParser:
                     help="--quiet=false prints a progress line every "
                          "--progress-every steps through the observer")
     ap.add_argument("--progress-every", type=int, default=10)
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="data-parallel training on a (data, 1) mesh of "
+                         "ranks started by torchrun (one a card); e.g. "
+                         "'4,1'; --batch is the global batch")
     return ap
 
 
@@ -99,10 +120,43 @@ def _quant_config(fmt: str) -> QuantConfig:
             "fp32": QuantConfig.full_precision()}[fmt]
 
 
+def _mesh(spec: str, device):
+    try:
+        data, model = (int(v) for v in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--mesh expects 'DATA,MODEL', got {spec!r}") \
+            from None
+    if model != 1:
+        raise SystemExit(
+            f"--mesh {spec}: training is data-parallel only (MODEL must be "
+            f"1); tensor-parallel training is not ported (ROADMAP 7b)")
+    return make_host_mesh(data, model, device=device)
+
+
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
+    mesh = owned = None
+    if args.mesh:
+        import torch.distributed as dist
+        owned = not dist.is_initialized()
+        mesh = _mesh(args.mesh, args.device)
+    try:
+        with (shard_ctx(mesh, get_rules(args.arch)) if mesh is not None
+              else contextlib.nullcontext()):
+            return _main(args, mesh)
+    finally:
+        if owned:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _main(args, mesh) -> dict:
     qcfg = _quant_config(args.format)
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    group = batch_group()
+    root = mesh is None or mesh.rank == 0
+    # under a mesh rank 0 prints, the other ranks stay quiet
+    print = builtins.print if root else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     # Q_U, the store Madam steps, is the quantizer config's where it is
     # an LNS format; otherwise (fp32, and fp8's FP16 Q_U, which the step
@@ -113,33 +167,47 @@ def main(argv=None) -> dict:
     n = sum(p.packed.numel() + p.scale.numel() if is_lns_weight(p)
             else p.numel() for _, p in leaves(state.params))
     print(f"arch={cfg.name} params={n:,} format={args.format} "
-          f"device={device}")
+          f"device={device}"
+          + (f" mesh={dict(mesh.shape)}" if mesh is not None else ""))
     observed = bool(args.trace_dir or args.numerics_log or not args.quiet)
     observer = stats = None
     step_fn = build_train_step(cfg, qcfg, mcfg, accum_steps=args.accum_steps,
                                numerics=observed)
     data = SyntheticLM(cfg, batch=args.batch, seq=args.seq)
-    with tempfile.TemporaryDirectory() as tmp, \
-            contextlib.ExitStack() as stack:
-        ckpt = CheckpointManager(args.ckpt_dir or tmp, keep=3)
-        if observed:
+    with contextlib.ExitStack() as stack:
+        ckpt_dir = args.ckpt_dir
+        if ckpt_dir is None:
+            # one temporary directory, rank 0's, that every rank reads
+            tmp = (stack.enter_context(tempfile.TemporaryDirectory())
+                   if root else None)
+            ckpt_dir = (collectives.broadcast_object(tmp, group=group)
+                        if group is not None else tmp)
+            if group is not None:
+                import torch.distributed as dist
+                # rank 0 removes it only after every rank is done
+                stack.callback(dist.barrier, group=group)
+        ckpt = CheckpointManager(ckpt_dir, keep=3, group=group)
+        if observed and root:
             observer = NumericsObserver(log_path=args.numerics_log,
                                         quiet=args.quiet,
                                         progress_every=args.progress_every)
             stack.callback(observer.close)
-        if args.kernel_stats:
+        if args.kernel_stats and root:
             stats = kernel_stats.enable()
             stack.callback(kernel_stats.disable)
-        if args.torch_profile:
+        if args.torch_profile and root:
             stack.enter_context(
                 kernel_stats.profiler_trace(args.torch_profile))
         t0 = time.monotonic()
+        # every rank reads the global batch; the step moves the rank's
+        # rows of each microbatch to its card
         report = run_supervised(
             step_fn, state, data, ckpt,
             SupervisorConfig(max_steps=args.steps,
                              save_every=args.save_every),
             observer=observer)
         dt = time.monotonic() - t0
+    # the global batch's tokens
     tok = args.steps * args.batch * args.seq
     print(f"done: {report.steps_done} steps in {dt:.1f}s "
           f"({tok / dt:.0f} tok/s) loss {report.losses[0]:.4f} -> "
@@ -149,6 +217,9 @@ def main(argv=None) -> dict:
            "tokens_per_s": tok / dt, "losses": report.losses,
            "failures_recovered": report.failures_recovered,
            "straggler_events": report.straggler_events}
+    if mesh is not None:
+        out["mesh"] = dict(mesh.shape)
+        out["rank"] = mesh.rank
     if observer is not None:
         summary = out["numerics"] = observer.summary()
         worst = summary.get("worst_sat_frac")

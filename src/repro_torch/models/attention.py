@@ -38,10 +38,10 @@ import torch
 
 from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode,
                                   lns_encode, lns_pack, lns_unpack)
-from repro_torch.core.quantizer import (QuantConfig, qeinsum, ste_quantize,
-                                        ste_quantize_sharded)
+from repro_torch.core.quantizer import (QuantConfig, act_stat, qeinsum,
+                                        ste_quantize, ste_quantize_sharded)
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import axis_group
+from repro_torch.distributed.sharding import axis_group, joint_group
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_rope, decoded_of, dense_of,
@@ -52,13 +52,15 @@ __all__ = ["attn_apply", "attn_zero_leaves", "flash_attention",
            "mla_leaves", "mla_apply", "init_mla_cache"]
 
 
-def _qa(xs, cfg: ArchConfig, qcfg: Optional[QuantConfig], group=None):
+def _qa(xs, cfg: ArchConfig, qcfg: Optional[QuantConfig]):
     """Q_A on each attention operand of ``xs`` (per tensor, straight
-    through), unless ``cfg.quantize_attention`` is off. Under head
-    sharding (``group``) each scale is the whole tensor's, all of them
-    max-reduced over the ranks' head groups in one collective."""
+    through), unless ``cfg.quantize_attention`` is off. Where the operands
+    are split over ranks (a head group under serving, a data shard's rows
+    in training, or both) each scale is the whole tensor's, all of them
+    max-reduced over the joint group in one collective."""
     if qcfg is None or not cfg.quantize_attention or qcfg.act is None:
         return list(xs)
+    group = joint_group("batch", "qkv_out")
     if group is not None:
         return ste_quantize_sharded(xs, qcfg.act, group)
     return [ste_quantize(x, qcfg.act, None) for x in xs]
@@ -159,9 +161,10 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     hd = cfg.head_dim
     grp = axis_group("qkv_out")
     theta = theta if theta is not None else cfg.rope_theta
-    q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg)
-    k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg)
-    v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg)
+    xs = act_stat(x, qcfg)        # one reduce for the three projections
+    q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg, x_stat=xs)
+    k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg, x_stat=xs)
+    v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg, x_stat=xs)
     h, kv = q.shape[-1] // hd, k.shape[-1] // hd     # this rank's heads
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
@@ -176,8 +179,7 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     rot = rope(positions, hd, theta)
     if rot.dim() == 3:
         rot = rot[None]
-    q, k, v = _qa((apply_rope(q, rot), apply_rope(k, rot), v), cfg, qcfg,
-                  grp)
+    q, k, v = _qa((apply_rope(q, rot), apply_rope(k, rot), v), cfg, qcfg)
     if cache is None:
         rep = h // kv
         out = flash_attention(q, k.repeat_interleave(rep, dim=2),
@@ -441,13 +443,16 @@ def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     nope, rpe, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     kvr = cfg.kv_lora_rank
     grp = axis_group("qkv_out")
-    ql = qeinsum("bsd,dr->bsr", x, dense_of(p["q_down"], cfg), qcfg)
+    xs = act_stat(x, qcfg)        # one reduce for q_down and kv_down
+    ql = qeinsum("bsd,dr->bsr", x, dense_of(p["q_down"], cfg), qcfg,
+                 x_stat=xs)
     ql = rms_norm(ql, p["q_norm"], cfg.norm_eps)
     q = qeinsum("bsr,re->bse", ql, dense_of(p["q_up"], cfg), qcfg)
     h = q.shape[-1] // (nope + rpe)                  # this rank's heads
     q = q.reshape(B, S, h, nope + rpe)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    kvd = qeinsum("bsd,dr->bsr", x, dense_of(p["kv_down"], cfg), qcfg)
+    kvd = qeinsum("bsd,dr->bsr", x, dense_of(p["kv_down"], cfg), qcfg,
+                  x_stat=xs)
     c_kv = rms_norm(kvd[..., :kvr], p["kv_norm"], cfg.norm_eps)
     k_rope = kvd[..., kvr:]
     rot = rope(positions, rpe, cfg.rope_theta)
@@ -462,7 +467,7 @@ def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, h, rpe)],
                       dim=-1)
         qq = torch.cat([q_nope, q_rope], dim=-1)
-        qq, k, v = _qa((qq, k, v), cfg, qcfg, grp)
+        qq, k, v = _qa((qq, k, v), cfg, qcfg)
         out = flash_attention(qq, k, v)
     else:
         out = _mla_decode(q_nope, q_rope, c_kv, k_rope,

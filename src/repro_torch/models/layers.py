@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lns import is_lns_weight, lns_decode_packed
-from repro_torch.core.quantizer import QuantConfig, qeinsum
+from repro_torch.core.quantizer import QuantConfig, act_stat, qeinsum
 from repro_torch.distributed import collectives
 from repro_torch.distributed.sharding import axis_group
 from repro_torch.models.common import ArchConfig
@@ -85,9 +85,11 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
     K1-encoded activation) and the hidden state is all-gathered before
     the replicated ``down``, whose Q_A then sees the whole tensor."""
     act = ACT_FNS[cfg.act_fn]
-    up = qeinsum("bsd,df->bsf", x, dense_of(p["up"], cfg), qcfg)
+    xs = act_stat(x, qcfg)        # one reduce for up and gate
+    up = qeinsum("bsd,df->bsf", x, dense_of(p["up"], cfg), qcfg, x_stat=xs)
     if cfg.mlp_gated:
-        gate = qeinsum("bsd,df->bsf", x, dense_of(p["gate"], cfg), qcfg)
+        gate = qeinsum("bsd,df->bsf", x, dense_of(p["gate"], cfg), qcfg,
+                       x_stat=xs)
         up = act(gate) * up
     else:
         up = act(up)

@@ -25,6 +25,14 @@ attention layer when ``cfg.use_mla`` is set, and deepseek-v3's
 multi-token-prediction module at ``params["mtp"]`` in the loss.
 ``forward(remat=True)`` recomputes each layer in the backward pass
 (``torch.utils.checkpoint``) instead of keeping its activations.
+
+Under a data-parallel mesh each rank holds its rows of the global batch
+and :func:`lm_loss` returns the rank's share of the global loss: its
+masked sums over the global label count (SUM-reduced without a
+gradient), so the ranks' losses and gradients sum to the one-device
+ones. The recompute runs in the backward, perhaps on autograd's device
+thread, so it re-enters the forward's mesh context and reissues the
+forward's MAX reduces in the same order on every rank.
 """
 from __future__ import annotations
 
@@ -37,7 +45,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.lns import LNSWeight, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import axis_shards
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (axis_shards, batch_group,
+                                              current_mesh, current_rules,
+                                              shard_ctx)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -443,11 +454,12 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     remat = remat and caches is None and torch.is_grad_enabled()
     shared = params.get("shared")
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = _in_mesh_context(_block) if remat else _block
     for kind, bp, c in layers(cfg, params, caches):
         if remat:
             # nothing in a block draws random numbers (its rounding is
             # deterministic), so the recompute gives the forward's values
-            x, aux = checkpoint(_block, kind, bp, x, cfg, qcfg, positions,
+            x, aux = checkpoint(block, kind, bp, x, cfg, qcfg, positions,
                                 None, None, shared, use_reentrant=False)
         else:
             x, aux = _block(kind, bp, x, cfg, qcfg, positions, c,
@@ -457,6 +469,22 @@ def forward(params, tokens: torch.Tensor, cfg: ArchConfig,
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = _logits(params, x, cfg, qcfg, head)
     return ForwardOut(logits, aux_total, x) if full else logits
+
+
+def _in_mesh_context(fn: Callable) -> Callable:
+    """``fn`` run under the mesh and rules active now, wherever it is
+    called later (a recompute in the backward may run on another
+    thread, which would otherwise see no mesh and take rank-local
+    scales)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return fn
+    rules = current_rules()
+
+    def run(*args):
+        with shard_ctx(mesh, rules):
+            return fn(*args)
+    return run
 
 
 def _logits(params, x: torch.Tensor, cfg: ArchConfig, qcfg,
@@ -472,12 +500,15 @@ def _logits(params, x: torch.Tensor, cfg: ArchConfig, qcfg,
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy in f32 over labels >= 0."""
+    """Mean next-token cross entropy in f32 over labels >= 0. Under a
+    data-parallel mesh, this rank's share: its rows' sum over the global
+    batch's label count."""
     lf = logits.to(torch.float32)
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    return torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    count = collectives.sum_reduce(mask.sum().detach(), batch_group())
+    return torch.sum((logz - gold) * mask) / torch.clamp_min(count, 1.0)
 
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
@@ -490,7 +521,10 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     ``batch["patches"]`` the patch positions are run and then dropped:
     the loss covers the text positions only. With K codebooks the
     logits ``(B, S, K * V)`` are read as ``(B, S, K, V)`` against labels
-    ``(B, S, K)``, every codebook's every position weighted alike."""
+    ``(B, S, K)``, every codebook's every position weighted alike. Under a
+    data-parallel mesh ``batch`` holds this rank's rows and the loss is
+    its share of the global batch's (every term's sum over the global
+    count): the shares sum to the one-device loss."""
     patches = batch.get("patches")
     tokens, labels = batch["tokens"], batch["labels"]
     out = forward(params, tokens, cfg, qcfg, patches=patches, remat=remat,

@@ -39,6 +39,16 @@ order. Only maxima and concatenations cross ranks (where JAX's GSPMD
 may sum the experts' outputs), so the result is one device's bit for
 bit; each expert's einsum takes a fixed batch of experts
 (:func:`_experts_einsum`), so a rank's product is one card's.
+
+Data parallelism (a training mesh that splits ``batch``): a rank holds
+one data shard's tokens, which are exactly one of the reference's
+dispatch groups, so :func:`_dp_groups` counts the groups its own rows
+hold (one). The balance loss enters as the rank's share: the route
+counts are SUM-reduced over the data group and the probabilities summed
+over the rank's tokens divide by the global token count. Q_A's scales
+of the expert buffers are the global batch's, and the no-grad path's
+skip test is decided on the maximum over the data group (jointly with
+the expert group), so every rank issues the same collectives.
 """
 from __future__ import annotations
 
@@ -51,7 +61,9 @@ from repro_torch.core.lns import (LNSFormat, compute_scale, is_lns_weight,
                                   pow2_scale)
 from repro_torch.core.quantizer import QuantConfig, qeinsum, quantize
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import axis_group, current_mesh
+from repro_torch.distributed.sharding import (axis_group, axis_shards,
+                                              batch_group, current_mesh,
+                                              joint_group)
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import ACT_FNS, decoded_of, dense_of
 
@@ -86,7 +98,11 @@ def _router(p, x: torch.Tensor, cfg: ArchConfig):
     """Top-k routing: ``(gates (T, K), expert ids (T, K), aux loss)``. The
     logits are f32; the top k is a stable descending sort, the lower
     expert first on a tie (``lax.top_k``'s order); the Switch-style
-    balance loss counts the routes with a bincount."""
+    balance loss counts the routes with a bincount. Under a
+    data-parallel mesh the loss is this rank's share: the route counts
+    are the global batch's and the mean probability sums this rank's
+    tokens over the global count, so the shares sum to the one-device
+    ``E · Σ me · ce``."""
     T = x.shape[0] * x.shape[1]
     E, K = cfg.num_experts, cfg.experts_per_token
     w = decoded_of(p["router"], cfg).to(torch.float32)
@@ -95,9 +111,15 @@ def _router(p, x: torch.Tensor, cfg: ArchConfig):
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :K], top_i[:, :K]
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
-    me = torch.mean(probs, dim=0)
-    ce = torch.bincount(top_i.reshape(-1), minlength=E).to(
-        torch.float32) / (T * K)
+    counts = torch.bincount(top_i.reshape(-1), minlength=E).to(torch.float32)
+    group = batch_group()
+    if group is None:
+        me = torch.mean(probs, dim=0)
+        ce = counts / (T * K)
+    else:
+        t_all = T * collectives.group_size(group)
+        me = torch.sum(probs, dim=0) / t_all
+        ce = collectives.sum_reduce(counts, group) / (t_all * K)
     aux = E * torch.sum(me * ce)
     return top_p, top_i, aux
 
@@ -153,7 +175,8 @@ def _expert_ffn_parallel(p, xe, cfg: ArchConfig, qcfg, group):
     e_ax = xe.dim() - 3
     n = p["w_up"].shape[0]
     r = dist.get_rank(group)
-    x_scale = compute_scale(xe) if a_fmt is not None else None
+    x_scale = (collectives.max_reduce(compute_scale(xe), batch_group())
+               if a_fmt is not None else None)
     y = _expert_ffn_chunked(p, xe.narrow(e_ax, r * n, n), cfg, qcfg,
                             group=group, x_scale=x_scale)
     return collectives.gather(y, group, dim=e_ax)
@@ -209,7 +232,13 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
     scales, the computed rows' maximum that the skip test reads (a rank
     that computed every expert of its own contributes rows the bound
     covers, so the test decides as one device does) and the hidden Q_A
-    scale."""
+    scale.
+
+    Under a data-parallel mesh Q_A's scales (the buffer's and the
+    hidden one) and the skip test's maximum are taken jointly over the
+    data group and the expert group (:func:`joint_group`), and the
+    maximum is reduced on every rank whether or not it skipped experts,
+    so every rank issues the same collectives."""
     act = ACT_FNS[cfg.act_fn]
     quant = qcfg is not None and qcfg.is_quantized
     a_fmt = qcfg.act if quant else None
@@ -219,8 +248,10 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
     e_ax = xe.dim() - 3
     E = xe.shape[e_ax]
     lns_a = isinstance(a_fmt, LNSFormat) and a_ax is None
+    joint = joint_group("batch", "experts") if group is not None else \
+        batch_group()
     if lns_a and x_scale is None:
-        x_scale = compute_scale(xe)
+        x_scale = collectives.max_reduce(compute_scale(xe), batch_group())
     xq = (lns_quantize(xe, a_fmt, scale=x_scale) if lns_a
           else quantize(xe, a_fmt, a_ax))
     sel = None
@@ -236,9 +267,9 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
     gate, s_gate = _experts_einsum(f"{g}ecd,edf->{g}ecf", xq, p["w_gate"],
                                    cfg, qcfg, w_fmt, sel, group=group)
     h = act(gate) * up
-    if lns_a and (sel is not None or group is not None):
+    if lns_a and (sel is not None or joint is not None):
         hmax = h.abs().amax() if h.numel() else h.new_zeros(())
-        hmax = collectives.max_reduce(hmax.to(torch.float32), group)
+        hmax = collectives.max_reduce(hmax.to(torch.float32), joint)
         bound = _skipped_bound(a_fmt, x_scale, xe.shape[-1], s_up, s_gate)
         if sel is not None and not float(hmax) > bound:
             sel = None
@@ -248,9 +279,9 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
                                       p["w_gate"], cfg, qcfg, w_fmt, None,
                                       group=group)
             h = act(gate) * up
-    if group is not None and lns_a:
+    if joint is not None and lns_a:
         hq = lns_quantize(h, a_fmt, scale=collectives.max_reduce(
-            compute_scale(h), group))
+            compute_scale(h), joint))
     else:
         hq = quantize(h, a_fmt, a_ax)
     y, _ = _experts_einsum(f"{g}ecf,efd->{g}ecd", hq, p["w_down"], cfg, qcfg,
@@ -563,8 +594,12 @@ def routing(top_i: torch.Tensor, top_p: torch.Tensor, cfg: ArchConfig,
 
 
 def _dp_groups() -> int:
-    """The dispatch groups: the size of the active mesh's data axes
-    (``pod`` and ``data``), 1 without a mesh."""
+    """The dispatch groups this rank's rows hold: the size of the active
+    mesh's data axes (``pod`` and ``data``) over the shards the rules
+    split the batch into, 1 without a mesh. Under serving (the batch
+    replicated) that is the data size, as JAX's ``_dp_groups``; under
+    data parallelism a rank holds one data shard's tokens, which are one
+    of the reference's groups, so 1."""
     mesh = current_mesh()
     if mesh is None:
         return 1
@@ -572,7 +607,7 @@ def _dp_groups() -> int:
     for a in ("pod", "data"):
         if a in mesh.axis_names:
             n *= mesh.shape[a]
-    return n
+    return max(1, n // axis_shards("batch"))
 
 
 def _sorted_dispatch(p, x, top_p, top_i, cfg: ArchConfig, qcfg):

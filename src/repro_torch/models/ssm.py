@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.quantizer import QuantConfig, qeinsum
+from repro_torch.core.quantizer import QuantConfig, act_stat, qeinsum
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import decoded_of, dense_of, rms_norm
 
@@ -98,11 +98,12 @@ def mamba_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     B, S, D = x.shape
     d_in, H, P, N = _dims(cfg)
     f32 = torch.float32
-    z = qeinsum("bsd,de->bse", x, dense_of(p["z_proj"], cfg), qcfg)
-    xin = qeinsum("bsd,de->bse", x, dense_of(p["x_proj"], cfg), qcfg)
-    bin_ = qeinsum("bsd,dn->bsn", x, dense_of(p["b_proj"], cfg), qcfg)
-    cin = qeinsum("bsd,dn->bsn", x, dense_of(p["c_proj"], cfg), qcfg)
-    dt_raw = qeinsum("bsd,dh->bsh", x, dense_of(p["dt_proj"], cfg), qcfg)
+    xs = act_stat(x, qcfg)        # one reduce for the five projections
+    z, xin, bin_, cin, dt_raw = (
+        qeinsum(eq, x, dense_of(p[name], cfg), qcfg, x_stat=xs)
+        for eq, name in (("bsd,de->bse", "z_proj"), ("bsd,de->bse", "x_proj"),
+                         ("bsd,dn->bsn", "b_proj"), ("bsd,dn->bsn", "c_proj"),
+                         ("bsd,dh->bsh", "dt_proj")))
     bias_x, bias_b, bias_c = torch.split(p["conv_b"], [d_in, N, N])
     pre = state if state is not None else {}
     xs, new_cx = _causal_conv(xin.to(f32), decoded_of(p["conv_wx"], cfg),

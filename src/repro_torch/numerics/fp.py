@@ -19,7 +19,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["FPFormat", "fp_quantize", "fp_round"]
+__all__ = ["FPFormat", "fp_quantize", "fp_absmax", "fp_round"]
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -63,18 +63,28 @@ def fp_round(v: torch.Tensor, fmt: FPFormat) -> torch.Tensor:
     return torch.clamp(q, -fmt.max_value, fmt.max_value)
 
 
-def fp_quantize(x: torch.Tensor, fmt: FPFormat,
-                scale_axis: Optional[int] = None) -> torch.Tensor:
-    """Fake-quantize ``x`` onto the miniature-float grid with an absmax
-    scale (per tensor, or keeping resolution on ``scale_axis``), keeping
-    its dtype."""
+def fp_absmax(x: torch.Tensor,
+              scale_axis: Optional[int] = None) -> torch.Tensor:
+    """The f32 absmax an ``fp_quantize`` scale is made of: per tensor (0-d)
+    or keeping ``scale_axis`` (reduced over every other dim, kept)."""
     xf = x.to(torch.float32)
     if scale_axis is None:
-        absmax = xf.abs().amax()
-    else:
-        keep = scale_axis % x.dim()
-        absmax = xf.abs().amax(
-            dim=tuple(i for i in range(x.dim()) if i != keep), keepdim=True)
+        return xf.abs().amax()
+    keep = scale_axis % x.dim()
+    return xf.abs().amax(
+        dim=tuple(i for i in range(x.dim()) if i != keep), keepdim=True)
+
+
+def fp_quantize(x: torch.Tensor, fmt: FPFormat,
+                scale_axis: Optional[int] = None,
+                absmax: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fake-quantize ``x`` onto the miniature-float grid with an absmax
+    scale (per tensor, or keeping resolution on ``scale_axis``), keeping
+    its dtype. ``absmax`` (:func:`fp_absmax` of a whole tensor of which
+    ``x`` is a part) replaces ``x``'s own."""
+    xf = x.to(torch.float32)
+    if absmax is None:
+        absmax = fp_absmax(x, scale_axis)
     # divide by a tensor: ATen on CUDA turns a division by a Python scalar
     # into a multiply by its reciprocal, which rounds differently from the
     # CPU's (and JAX's) IEEE divide

@@ -12,6 +12,16 @@ Wraps a train step with:
   to rebuild the state (elastic down-shift);
 * an ``observer`` hook whose ``record_step(step, metrics, walltime_s)``
   sees every committed step. The supervisor itself never prints.
+
+Under a data-parallel mesh (active when it is called: the group the
+rules split ``batch`` over) every rank runs the supervisor in lockstep,
+and every decision that could part them is taken jointly: a failure
+(raised or a NaN loss) and a straggler skip are MAX-reduced flags, one
+before the step (the failure injector) and one before its state is
+committed, so every rank retries, skips or commits together. A rank that
+raises inside the step, between its collectives, cannot be recovered
+this way: the others wait in the collective. Checkpoints are written by
+rank 0 alone (``CheckpointManager(group=)``) and read by every rank.
 """
 from __future__ import annotations
 
@@ -20,7 +30,11 @@ import statistics
 import time
 from typing import Any, Callable, List, Optional
 
+import torch
+
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import batch_group, current_mesh
 
 __all__ = ["SupervisorConfig", "TrainReport", "run_supervised"]
 
@@ -54,10 +68,30 @@ def run_supervised(
     *,
     failure_injector: Optional[Callable[[int], None]] = None,
     on_rebuild: Optional[Callable[[Any], Any]] = None,
+    device_put_batch: Optional[Callable] = None,
     observer: Optional[Any] = None,
 ) -> TrainReport:
     """``step_fn(state, batch)`` moves the batch to the state's device
-    itself (``training.steps.batch_to_device``)."""
+    itself (``training.steps.batch_to_device``; under data parallelism the
+    step takes the global batch and moves only this rank's rows of each
+    microbatch); ``device_put_batch``, as in the JAX package, maps each
+    batch before the step sees it."""
+    group = batch_group()
+    flag_dev = current_mesh().device if group is not None else None
+
+    def joint(*flags: bool) -> List[bool]:
+        """The flags OR-ed over the data-parallel ranks (one MAX reduce;
+        as they are without a group)."""
+        if group is None:
+            return list(flags)
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int32,
+                         device=flag_dev)
+        return [bool(v) for v in collectives.max_reduce(t, group).tolist()]
+
+    def elsewhere() -> Exception:
+        return RuntimeError(f"step {step} failed on another data-parallel "
+                            f"rank")
+
     report = TrainReport()
     step_times: List[float] = []
     retries = 0
@@ -68,15 +102,37 @@ def run_supervised(
 
     while step < sup.max_steps:
         batch = next(data_iter)
+        if device_put_batch is not None:
+            batch = device_put_batch(batch)
         t0 = time.monotonic()
+        err: Optional[Exception] = None
         try:
             if failure_injector is not None:
                 failure_injector(step)
-            new_state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])    # waits for the step to finish
-            if loss != loss:
-                raise FloatingPointError(f"NaN loss at step {step}")
-        except Exception:
+        except Exception as e:      # noqa: BLE001 - any failure retries
+            err = e
+        if group is not None and joint(err is not None)[0] and err is None:
+            err = elsewhere()
+        if err is None:
+            try:
+                new_state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])    # waits for the step
+                if loss != loss:
+                    raise FloatingPointError(f"NaN loss at step {step}")
+            except Exception as e:  # noqa: BLE001
+                err = e
+        dt = time.monotonic() - t0
+        straggler = (err is None and len(step_times)
+                     >= sup.warmup_timing_steps
+                     and dt > sup.straggler_factor
+                     * statistics.median(step_times))
+        if group is not None:
+            failed, straggler = joint(err is not None, straggler)
+            if failed and err is None:
+                err = elsewhere()
+            straggler = straggler and err is None
+
+        if err is not None:
             report.failures_recovered += 1
             retries += 1
             if retries > sup.max_retries:
@@ -85,9 +141,8 @@ def run_supervised(
                     report.rebuilds += 1
                     retries = 0
                     continue
-                raise
-            last = ckpt.latest_step()
-            _, state = ckpt.restore_latest(state)
+                raise err
+            last, state = ckpt.restore_latest(state)
             man = ckpt.manifest(last)
             data.seek(man["data_cursor"])
             data_iter = iter(data)
@@ -95,15 +150,12 @@ def run_supervised(
             continue
 
         retries = 0
-        dt = time.monotonic() - t0
-        if len(step_times) >= sup.warmup_timing_steps:
-            med = statistics.median(step_times)
-            if dt > sup.straggler_factor * med:
-                report.straggler_events += 1
-                if sup.straggler_policy == "skip":
-                    report.skipped_batches += 1
-                    step_times.append(dt)
-                    continue
+        if straggler:
+            report.straggler_events += 1
+            if sup.straggler_policy == "skip":
+                report.skipped_batches += 1
+                step_times.append(dt)
+                continue
         step_times.append(dt)
 
         state = new_state

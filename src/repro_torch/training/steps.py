@@ -11,7 +11,23 @@
    ``numerics``) in one pass per leaf.
 
 ``accum_steps > 1`` runs the microbatches one after another and sums
-their quantized gradients, as the JAX package's scan does. ``remat`` (on
+their quantized gradients, as the JAX package's scan does.
+
+Data parallelism (a mesh whose rules split ``batch``, active when the
+step is built): parameters and optimizer state are
+replicated, and the step computes the one-device step on the global
+batch. The global batch is cut into microbatches first (microbatch i is
+global rows ``[i·B/A, (i+1)·B/A)``), then each into this rank's rows
+(``params_sharding.batch_rows``), where the batch lies: only the rank's
+rows go to its card. Each rank's loss is its share of the
+global loss, its Q_A and Q_E scales are the global batch's
+(``core.quantizer``); after each microbatch's backward the gradients and
+the loss are SUM-reduced in f32 buckets
+(``collectives.sum_tensors``), and only then does Q_G quantize them, as
+the reference applies Q_G to the global microbatch gradient. The grad
+norm and K3 (or K4) run replicated on the reduced gradients, so every
+rank steps to the same words. A stochastic Q_U needs the same
+generator seed on every rank (checked at the first step). ``remat`` (on
 by default, as in the JAX package) recomputes each layer's forward in the
 backward pass (``torch.utils.checkpoint``): nothing inside a layer draws
 random numbers, so the recompute repeats the forward bit for bit and the
@@ -19,6 +35,7 @@ loss, gradients and words are the same as without it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +44,11 @@ import torch
 from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, quantize_grads
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed.params_sharding import batch_rows
+from repro_torch.distributed.sharding import (batch_group, current_mesh,
+                                              current_rules,
+                                              model_axis_size, shard_ctx)
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import (decode_step, forward, init_params,
                                      lm_loss)
@@ -64,11 +86,27 @@ def _device_of(params) -> torch.device:
     raise ValueError("empty parameter tree")
 
 
+def _as_tensors(batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A ``SyntheticLM`` batch (numpy) as tensors where they lie."""
+    return {k: (v if isinstance(v, torch.Tensor) else
+                torch.from_numpy(np.ascontiguousarray(v)))
+            for k, v in batch.items()}
+
+
 def batch_to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A ``SyntheticLM`` batch (numpy) as tensors on ``device``."""
-    return {k: (v if isinstance(v, torch.Tensor) else
-                torch.from_numpy(np.ascontiguousarray(v))).to(device)
-            for k, v in batch.items()}
+    return {k: v.to(device) for k, v in _as_tensors(batch).items()}
+
+
+def _same_seed(generator: torch.Generator, group, device) -> None:
+    """Raise unless every rank's generator has this rank's seed (two MAX
+    reduces: of the seed and of its negation)."""
+    seed = generator.initial_seed() & ((1 << 62) - 1)
+    t = torch.tensor([seed, -seed], dtype=torch.int64, device=device)
+    m = collectives.max_reduce(t, group)
+    if int(m[0]) != seed or int(m[1]) != -seed:
+        raise ValueError("a stochastic Q_U needs the same generator seed "
+                         "on every data-parallel rank")
 
 
 def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
@@ -83,7 +121,14 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     the optimizer steps, ``mcfg.update_format``. A miniature-float Q_U
     (``QuantConfig.fp8()``'s FP16) is not read, as in the JAX package,
     whose step never reads ``qcfg.update``: the weights stay in Madam's
-    LNS store and K3 steps them on that path too."""
+    LNS store and K3 steps them on that path too.
+
+    Built under a data-parallel mesh (``shard_ctx``), it is the
+    data-parallel step: ``batch`` is the global batch on every rank, and
+    the step runs under that mesh and its rules wherever it is called,
+    moving only this rank's rows to the card. A mesh whose ``model`` axis is
+    larger than 1 raises: tensor-parallel training is not ported (the
+    JAX train CLI has none either, ROADMAP)."""
     q_u = getattr(qcfg, "update", None)
     if isinstance(q_u, LNSFormat) and q_u != mcfg.update_format:
         raise ValueError(f"Q_U {q_u} differs from the optimizer's store "
@@ -94,32 +139,64 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     if not isinstance(fwd_fmt, LNSFormat):
         fwd_fmt = None
 
-    def one_microbatch(params, mb):
+    mesh = current_mesh()
+    rules = current_rules()
+    if mesh is not None and model_axis_size(mesh) > 1:
+        raise NotImplementedError(
+            f"training on a mesh with model = {model_axis_size(mesh)}: only "
+            f"data-parallel training (model = 1) is ported (ROADMAP 7b)")
+    seed_checked = []
+
+    def one_microbatch(params, mb, group):
         proxies = grad_proxies(params, cfg.compute_dtype)
         loss = lm_loss(attach_proxies(params, proxies), mb, cfg, qcfg,
                        remat=remat)
         loss.backward()
         grads = tree_map(lambda d: d.grad, proxies)
+        loss = loss.detach()
+        if group is not None:
+            # the ranks' shares summed: the global microbatch's loss and
+            # gradient, the loss riding in the gradients' first bucket
+            box = loss.reshape(1).to(torch.float32)
+            collectives.sum_tensors([box] + [g for _, g in leaves(grads)],
+                                    group)
+            loss = box[0]
         # encode-site stats read the raw gradients Q_G is about to encode
         enc = grad_encode_stats(grads, qcfg) if numerics else {}
-        return loss.detach(), quantize_grads(grads, qcfg), enc
+        return loss, quantize_grads(grads, qcfg), enc
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
+        ctx = (shard_ctx(mesh, rules) if mesh is not None
+               else contextlib.nullcontext())
+        with ctx:
+            return _train_step(state, batch, generator)
+
+    def _train_step(state, batch, generator):
         params = state.params
-        batch = batch_to_device(batch, _device_of(params))
+        group = batch_group()
+        device = _device_of(params)
+        batch = _as_tensors(batch)
+        if group is not None and generator is not None and not seed_checked:
+            _same_seed(generator, group, device)
+            seed_checked.append(True)
+        n = next(iter(batch.values())).shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch {n} does not split into "
+                             f"{accum_steps} microbatches")
+        # the global batch's microbatches, then this rank's rows of each
+        mbs = ([batch] if accum_steps == 1 else
+               [{k: v.chunk(accum_steps)[i] for k, v in batch.items()}
+                for i in range(accum_steps)])
+        if group is not None:
+            mbs = [batch_rows(mb, mesh) for mb in mbs]
+        mbs = [batch_to_device(mb, device) for mb in mbs]
         if accum_steps == 1:
-            loss, grads, enc_stats = one_microbatch(params, batch)
+            loss, grads, enc_stats = one_microbatch(params, mbs[0], group)
         else:
-            n = next(iter(batch.values())).shape[0]
-            if n % accum_steps:
-                raise ValueError(f"batch {n} does not split into "
-                                 f"{accum_steps} microbatches")
-            mbs = [{k: v.chunk(accum_steps)[i] for k, v in batch.items()}
-                   for i in range(accum_steps)]
             encs = []
             for i, mb in enumerate(mbs):
-                l_i, g_i, e_i = one_microbatch(params, mb)
+                l_i, g_i, e_i = one_microbatch(params, mb, group)
                 if i == 0:   # the sums run in f32, as the JAX scan's carry
                     loss = l_i.to(torch.float32)
                     grads = tree_map(lambda g: g.to(torch.float32), g_i)
