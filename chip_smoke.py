@@ -12,8 +12,9 @@
     python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
     python3 chip_smoke.py --recurrent  # 1, 2, K5 at hd 112, and 23
     python3 chip_smoke.py --moe        # 1, 2, K5 at rep 8, and 24
-    python3 chip_smoke.py --mesh       # 1, 2, 25c-e and 26 on four cards
+    python3 chip_smoke.py --mesh       # 1, 2, 25c-e, 26, 27 on four cards
     python3 chip_smoke.py --mesh-train # 1, 2 and 26 on four cards
+    python3 chip_smoke.py --mesh-serve # 1, 2 and 27 on four cards
     python3 chip_smoke.py --k1-given   # K1 with a given scale only
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -335,7 +336,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``qmatmul_colshard`` and ``paged_attend_headgroup``). (b) An NCCL
     world of one: ``Engine(mesh=)`` on a (1, 1) mesh serves phase 4's
     trace through the serve CLI's engine (``--mesh 1,1``), 8/8, streams
-    equal to phase 4's, every kernel of the path launched.
+    equal to phase 4's, every kernel of the path launched; then the same
+    engine serves 3 streamed completions through ``launch.serve``'s
+    gateway path (``run_http``, stopped by the process's own SIGINT):
+    each ends 'length', ``/health`` names the mesh, no page left in use.
     ``--mesh`` (four cards; fewer fails): the one-card runs first, on
     card 0 in this process, then one NCCL rank a card (spawned, torchrun's
     environment, one intra-op thread a rank, a 300 s collective timeout)
@@ -376,6 +380,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     one card), cut into stages at synchronized boundaries, the forward,
     backward, SUM reduce, Q_G and update times and the MAX reduces' host
     time; the peak a rank.
+
+27. Mesh serving completed (``--mesh``; ``--mesh-serve`` runs this phase
+    alone). On card 0 first: K2 on every column block (m = 2, 4) of
+    rwkv6's ``ck`` (4 x 2048 @ 2048 x 7168) and zamba2's shared
+    ``up``/``gate`` (4 x 3584 @ 3584 x 14336) and K5 on every head group
+    of zamba2's 32 / 32 heads at 112 (bf16 and packed pools) equal the
+    whole calls' columns / heads bit for bit, the model = 4 blocks timed
+    (the kernel table's rows); zamba2's LoRA-merged QKV (random packed
+    weights, rank 128) merged on each rank's column blocks equals one
+    card's merged columns bit for bit, and the dense GEMM on a block is
+    compared with the whole GEMM's columns (the reason the port merges
+    at the whole width, ``params_sharding.kept_whole``); the one-card runs
+    of 27a-c. (a) The gateway on (2, 2): one NCCL rank a card runs
+    ``launch.serve.run_http`` over smollm-135m at full width (paged, on
+    demand, k = 2), rank 0 serving loopback HTTP, this process the
+    client: 8 streamed completions one after another equal one card's
+    replay; an idle gap of ``GATEWAY_IDLE_S`` (broadcasts a second and
+    rank 0's host cost of one printed); a DELETE after 4 frames ends
+    'aborted'; 429 past ``--max-queue``; ``/health`` names the mesh and
+    its numerics are one card's (weights exactly, the draft view's mean
+    error within 1e-5); ``/metrics`` carries the mesh label; SIGINT to
+    every rank: each exits 0 with every page back and rank 0's number of
+    broadcasts. (b) rwkv6-1.6b and (c) zamba2-7b at full width and depth
+    on (1, 4) through the serve CLI's engine (4 requests of 8 + 16
+    tokens, paged at 16: rwkv6 stays dense): greedy streams equal one
+    card's; TPOT and TTFT beside one card's, collectives and launches a
+    forward, words and peak a rank. Results in
+    ``chiprun_out/chip_smoke_mesh*.json``.
 
 Phase 21d serves qwen2.5-32b at the depth ``SERVE_DEPTH_CUT`` gives (32
 of its 64 layers), at full width, to keep the run inside its time limit.
@@ -5879,6 +5911,40 @@ DP_RUNS = [
 DP_STEP0_RTOL = 1e-4
 DP_GNORM_RTOL = 0.1
 
+# phase 27 (mesh serving completed). 27a: the gateway on (2, 2) over
+# smollm-135m at full width, paged on demand, k = 2, rank 0 serving
+# loopback HTTP and the other ranks following; 8 streamed completions one
+# after another (a row's tokens depend on what shares its batch, so each
+# runs alone, as in the one-card replay), an idle gap, then a DELETE and a
+# burst past the watermark. 27b/27c: rwkv6-1.6b and zamba2-7b at full
+# width and depth on (1, 4), short prompts (a recurrent prefill is a step
+# a position)
+GATEWAY_ARGV = ["--arch", "smollm-135m", "--slots", "4", "--page-size",
+                "16", "--alloc-policy", "ondemand", "--speculate-k", "2",
+                "--draft-bitwidth", "6", "--max-len", "160",
+                "--max-queue", "4"]
+GATEWAY_MESH = "2,2"
+GATEWAY_STREAMS = 8
+GATEWAY_IDLE_S = 4.0
+GATEWAY_EXIT_S = 120
+RECURRENT_MESH_ARGV = ["--requests", "4", "--slots", "4", "--prompt-len",
+                       "8", "--gen-len", "16", "--page-size", "16"]
+MESH27_RUNS = [("27b", "rwkv6-1.6b", RECURRENT_MESH_ARGV, "1,4", None),
+               ("27c", "zamba2-7b", RECURRENT_MESH_ARGV, "1,4", None)]
+# 27's shard shapes at model = 4 (and 2): K2 on rwkv6's ck (2048 x 7168)
+# and zamba2's shared up/gate (3584 x 14336) column blocks; K5 on
+# zamba2's head groups (32 over 32 KV heads at 112); the blocks timed
+MESH27_K2_GEMMS = [(4, 2048, 7168), (4, 3584, 14336)]
+MESH27_K5_HEADS = [("zamba2-7b", K5_HD112)]
+MESH27_K2_TIMED = [(4, 2048, 7168 // 4), (4, 3584, 14336 // 4)]
+MESH27_K5_TIMED = [("zamba2 head group of 4: decode bf16 pool hd 112", 4, 1,
+                    [33, 48, 61, 66], False, (8, 8, 112)),
+                   ("zamba2 head group of 4: decode packed pool hd 112", 4,
+                    1, [33, 48, 61, 66], True, (8, 8, 112))]
+# the merged QKV check's activations: a decode step of 4 slots and a
+# prefill of 8 positions
+MERGED_QKV_X = [(4, 1), (1, 8)]
+
 
 def dp_config(spec):
     """A phase-26 part's model config."""
@@ -6250,16 +6316,18 @@ def dp_checks(tag, spec, one, ranks):
     return {"loss_rel": rel, "grad_norm_rel": grel}
 
 
-def shard_invariance(torch, ops, ref, fmt):
-    """25a: K2 on each contiguous column block (m = 2, 4) of every
-    ``MESH_K2_GEMMS`` shape, f32 and bf16 out, must equal those columns
-    of the whole call bit for bit; K5 on each head group of
-    ``MESH_K5_HEADS`` (bf16 and packed pools) must equal those heads of
-    the whole call. Then the shard shapes the mesh runs are timed as
-    phase 3 times K2 and K5 (the kernel table's shard rows)."""
+def shard_invariance(torch, ops, ref, fmt, tag="25a", gemms=MESH_K2_GEMMS,
+                     heads_list=MESH_K5_HEADS, splits=MESH_SPLITS,
+                     k2_timed=MESH_K2_TIMED, k5_timed=MESH_K5_TIMED):
+    """25a (27's shapes with ``tag="27"``): K2 on each contiguous column
+    block (m = 2, 4) of every ``gemms`` shape, f32 and bf16 out, must
+    equal those columns of the whole call bit for bit; K5 on each head
+    group of ``heads_list`` (bf16 and packed pools) must equal those
+    heads of the whole call. Then the shard shapes the mesh runs are
+    timed as phase 3 times K2 and K5 (the kernel table's shard rows)."""
     gen = torch.Generator(device="cuda").manual_seed(25)
     rows = []
-    for M, K, N in MESH_K2_GEMMS:
+    for M, K, N in gemms:
         x = torch.randn((M, K), generator=gen, device="cuda").to(
             torch.bfloat16)
         pa, sa = ops.encode_pack(x, fmt)
@@ -6270,7 +6338,7 @@ def shard_invariance(torch, ops, ref, fmt):
         path = ops.qmatmul_plan(M, N, K)["path"]
         for odt in (torch.float32, torch.bfloat16):
             whole = ops.qmatmul(pa, pb, fmt, sa, sb, out_dtype=odt)
-            for m in MESH_SPLITS:
+            for m in splits:
                 w = N // m
                 for r in range(m):
                     cols = slice(r * w, (r + 1) * w)
@@ -6278,14 +6346,14 @@ def shard_invariance(torch, ops, ref, fmt):
                                        sb[:, cols].contiguous(),
                                        out_dtype=odt)
                     check(torch.equal(part, whole[:, cols]),
-                          f"25a K2 {M}x{K}x{N} ({path}) column block {r} of "
+                          f"{tag} K2 {M}x{K}x{N} ({path}) column block {r} of "
                           f"{m} ({odt}) differs from the whole call's")
         rows.append({"kernel": "qmatmul", "shape": [M, K, N], "path": path,
-                     "splits": list(MESH_SPLITS), "bitwise": True})
-        print(f"25a K2 {M}x{K}x{N} ({path}): every column block of "
+                     "splits": list(splits), "bitwise": True})
+        print(f"{tag} K2 {M}x{K}x{N} ({path}): every column block of "
               f"m = 2, 4 equals the whole call's columns bit for bit (f32 "
               f"and bf16 out)")
-    for arch, heads in MESH_K5_HEADS:
+    for arch, heads in heads_list:
         H, KV, HD = heads
         for packed in (False, True):
             q, kp, vp, ks, vs, bt, ln = k5_inputs(
@@ -6293,7 +6361,7 @@ def shard_invariance(torch, ops, ref, fmt):
             kw = dict(fmt=fmt if packed else None, softcap=None,
                       sm_scale=1 / math.sqrt(HD))
             whole = ops.paged_attend(q, kp, vp, ks, vs, bt, ln, **kw)
-            for m in MESH_SPLITS:
+            for m in splits:
                 for r in range(m):
                     hs = slice(r * H // m, (r + 1) * H // m)
                     gs = slice(r * KV // m, (r + 1) * KV // m)
@@ -6303,18 +6371,18 @@ def shard_invariance(torch, ops, ref, fmt):
                                            part(kp), part(vp), part(ks),
                                            part(vs), bt, ln, **kw)
                     check(torch.equal(got, whole[:, :, hs]),
-                          f"25a K5 {arch} head group {r} of {m} "
+                          f"{tag} K5 {arch} head group {r} of {m} "
                           f"({'packed' if packed else 'bf16'} pool) differs "
                           f"from the whole call's heads")
             rows.append({"kernel": "paged_attend", "arch": arch,
                          "heads": list(heads), "packed": packed,
-                         "splits": list(MESH_SPLITS), "bitwise": True})
-            print(f"25a K5 {arch} {H}/{KV} heads at head_dim {HD} "
+                         "splits": list(splits), "bitwise": True})
+            print(f"{tag} K5 {arch} {H}/{KV} heads at head_dim {HD} "
                   f"({'packed' if packed else 'bf16'} pool): every head "
                   f"group of m = 2, 4 equals the whole call's heads bit for "
                   f"bit")
-    k2 = k2_check(torch, ops, ref, fmt, MESH_K2_TIMED)
-    k5 = k5_check(torch, ops, ref, fmt, MESH_K5_TIMED)
+    k2 = k2_check(torch, ops, ref, fmt, k2_timed)
+    k5 = k5_check(torch, ops, ref, fmt, k5_timed)
     return {"invariance": rows, "qmatmul": k2, "paged_attend": k5}
 
 
@@ -6341,11 +6409,82 @@ def mesh_of_one(torch, ops, phase4_streams):
                "decode_steps": engine.decode_steps, "streams_equal": True}
         print(f"25b: (1, 1) NCCL mesh served 8/8, streams equal phase 4's, "
               f"tpot p50 {row['tpot_p50_ms']:.2f} ms, launches {counts}")
+        row["gateway"] = mesh_of_one_gateway(torch, ops, engine)
     finally:
         del engine
         dist.destroy_process_group()
         torch.cuda.empty_cache()
     return row
+
+
+def mesh_of_one_gateway(torch, ops, engine):
+    """25b: the (1, 1) mesh's engine, reset, serves 3 streamed completions
+    through ``launch.serve.run_http`` on 127.0.0.1:0 (the mesh gateway's
+    path: the driver steps through the step broadcast, its numerics
+    come from one, its stop is one), the client on a thread of this
+    process, which then interrupts the process as Ctrl-C would. Every
+    completion ends 'length', /health names the mesh, the run returns
+    with no page in use and every kernel of the path launched."""
+    import asyncio
+    import signal
+    import threading
+    from repro_torch.launch.serve import run_http
+    engine.reset()
+    bodies = [{"prompt": list(range(1 + i, 17 + i)), "max_tokens": 8}
+              for i in range(3)]
+    box = {}
+
+    def ready(host, port):
+        box["addr"] = (host, port)
+
+    def client():
+        try:
+            t_end = time.monotonic() + 60
+            while "addr" not in box and time.monotonic() < t_end:
+                time.sleep(0.01)
+            host, port = box["addr"]
+
+            async def session():
+                res = [await sse_call(host, port, b) for b in bodies]
+                health = json.loads((await http_call(host, port, "GET",
+                                                     "/health"))[1])
+                return res, health
+            box["res"] = asyncio.run(session())
+        finally:
+            os.kill(os.getpid(), signal.SIGINT)
+
+    thread = threading.Thread(target=client, daemon=True)
+    prev = signal.getsignal(signal.SIGINT)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    thread.start()
+    try:
+        run_http(engine, "127.0.0.1:0", engine.cfg.name, 8, ready=ready)
+    finally:
+        signal.signal(signal.SIGINT, prev)
+    thread.join(10)
+    wall = time.monotonic() - t0
+    counts = ops.launch_counts()
+    check("res" in box, "25b: the gateway's client did not finish")
+    res, health = box["res"]
+    check(all(r["status"] == 200 and r["reason"] == "length"
+              and len(r["tokens"]) == 8 for r in res),
+          f"25b: a gateway completion on the (1, 1) mesh did not finish: "
+          f"{[(r['status'], r['reason']) for r in res]}")
+    check(health.get("mesh") == {"data": 1, "model": 1}
+          and health.get("numerics", {}).get("weights", {}).get("elements"),
+          f"25b: /health lacks the mesh or the numerics: {health}")
+    check(engine.allocator.in_use == 0 and not engine.scheduler.running,
+          "25b: the gateway's stop left pages or requests behind")
+    check(all(counts[k] > 0 for k in ("encode_pack", "qmatmul",
+                                      "paged_attend", "fused_sample")),
+          f"25b: a kernel was not launched through the gateway: {counts}")
+    print(f"25b: the (1, 1) mesh's gateway served 3 streams in "
+          f"{wall:.2f}s, /health mesh {health['mesh']}, stopped with no "
+          f"page in use, {engine.mesh_syncs} step broadcasts")
+    return {"wall_s": wall, "launches": counts, "mesh": health["mesh"],
+            "mesh_syncs": engine.mesh_syncs}
 
 
 @contextlib.contextmanager
@@ -6411,6 +6550,7 @@ def one_card(torch, ops, tag, arch, argv, cut, scratch):
                                     warm="short")
     row = {"streams": streams(engine), "completed": int(agg["completed"]),
            "tpot_p50_ms": agg["tpot_p50_s"] * 1e3,
+           "ttft_mean_ms": agg["ttft_mean_s"] * 1e3,
            "tokens_per_s": agg["tokens_per_s"],
            "weights_gb": packed_bytes(engine.params) / 1e9,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -6598,9 +6738,9 @@ def free_port():
         return s.getsockname()[1]
 
 
-def mesh_main(torch, card, serve=True):
-    """``--mesh``: phases 25c-e and 26 on four cards of one host
-    (``serve=False``, ``--mesh-train``: phase 26 alone)."""
+def mesh_main(torch, card, parts=("25", "26", "27")):
+    """``--mesh``: phases 25c-e, 26 and 27 on four cards of one host
+    (``--mesh-train``: phase 26 alone, ``--mesh-serve``: 27 alone)."""
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
     check(n >= MESH_WORLD, f"--mesh needs {MESH_WORLD} cards, "
@@ -6612,15 +6752,30 @@ def mesh_main(torch, card, serve=True):
     scratch = ROOT / "build" / "mesh"
     scratch.mkdir(parents=True, exist_ok=True)
     marks = [("build", time.monotonic())]
-    runs = MESH_RUNS if serve else []
+    runs = ((MESH_RUNS if "25" in parts else [])
+            + (MESH27_RUNS if "27" in parts else []))
+    dp_runs = DP_RUNS if "26" in parts else []
+    # 26's one-card steps first, on a fresh cache: gemma3's staged step
+    # (26b) took card 0 to 7.5 GB of its end after 25's serve runs
+    dp_one = {tag: dp_one_card(torch, ops, tag, spec, scratch)
+              for tag, spec in dp_runs}
+    marks.append(("26 one card", time.monotonic()))
     one = {}
     for tag, arch, argv, mesh, cut in runs:
-        if tag in MESH_ONE_CARD:
+        if tag in MESH_ONE_CARD or tag.startswith("27"):
             one[tag] = one_card(torch, ops, tag, arch, argv, cut, scratch)
     marks.append(("one card", time.monotonic()))
-    dp_one = {tag: dp_one_card(torch, ops, tag, spec, scratch)
-              for tag, spec in DP_RUNS}
-    marks.append(("26 one card", time.monotonic()))
+    shards27 = gw_ref = None
+    if "27" in parts:
+        from repro_torch.core.lns import LNSFormat
+        from repro_torch.kernels import ref as plain
+        shards27 = shard_invariance(
+            torch, ops, plain, LNSFormat(8, 8), tag="27",
+            gemms=MESH27_K2_GEMMS, heads_list=MESH27_K5_HEADS,
+            k2_timed=MESH27_K2_TIMED, k5_timed=MESH27_K5_TIMED)
+        shards27["merged_qkv"] = merged_qkv_check(torch)
+        gw_ref = gateway_reference(torch, ops)
+        marks.append(("27 one card", time.monotonic()))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"26: card 0 holds {torch.cuda.memory_reserved() / 1e9:.2f} GB "
@@ -6633,13 +6788,19 @@ def mesh_main(torch, card, serve=True):
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     mp.start_processes(mesh_rank, args=(MESH_WORLD, free_port(),
-                                        str(scratch), runs, DP_RUNS),
+                                        str(scratch), runs, dp_runs),
                        nprocs=MESH_WORLD, join=True, start_method="spawn")
     marks.append(("ranks", time.monotonic()))
     ranks = [json.loads((scratch / f"rank{r}.json").read_text())
              for r in range(MESH_WORLD)]
     res = {"card": card, "one_card": one, "ranks": ranks,
            "dp_one_card": dp_one}
+    if "27" in parts:
+        res["27a"] = gateway_mesh(torch, scratch, gw_ref)
+        print(json.dumps({k: v for k, v in res["27a"].items()
+                          if k != "numerics"}))
+        res["27_shards"] = shards27
+        marks.append(("27a ranks", time.monotonic()))
     for tag, arch, argv, mesh, cut in runs:
         rows = [rk[tag] for rk in ranks]
         n_req = int(argv[argv.index("--requests") + 1])
@@ -6678,9 +6839,21 @@ def mesh_main(torch, card, serve=True):
                       f"differ from one card's")
         if tag == "25d":
             line["profile"] = [r["profile"] for r in rows]
+        if tag.startswith("27"):
+            line["ttft_mean_ms"] = rows[0]["ttft_mean_ms"]
+            line["one_card"]["ttft_mean_ms"] = one[tag]["ttft_mean_ms"]
+            line["launches_a_forward"] = rows[0]["launches_a_forward"]
+            print(f"{tag}: {arch} on (1, 4): streams equal one card's, tpot "
+                  f"p50 {line['tpot_p50_ms']:.2f} ms (one card "
+                  f"{one[tag]['tpot_p50_ms']:.2f} ms), ttft mean "
+                  f"{line['ttft_mean_ms']:.1f} ms (one card "
+                  f"{one[tag]['ttft_mean_ms']:.1f} ms), collectives a "
+                  f"forward {line['collectives_a_forward']}, peak a rank "
+                  f"{[round(x, 2) for x in line['peak_gb']]} GB (one card "
+                  f"{one[tag]['peak_gb']:.2f} GB)")
         res[tag] = line
         print(json.dumps(line))
-    for tag, spec in DP_RUNS:
+    for tag, spec in dp_runs:
         rows = [rk[tag] for rk in ranks]
         cmp = dp_checks(tag, spec, dp_one[tag], rows)
         r0 = rows[0]
@@ -6721,7 +6894,9 @@ def mesh_main(torch, card, serve=True):
     res["seconds"] = time.monotonic() - t_start
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    name = "chip_smoke_mesh.json" if serve else "chip_smoke_mesh_train.json"
+    name = ("chip_smoke_mesh.json" if len(parts) > 1 else
+            {"26": "chip_smoke_mesh_train.json",
+             "27": "chip_smoke_mesh_serve.json"}[parts[0]])
     (out_dir / name).write_text(json.dumps(res, indent=1))
     print(f"chip_smoke --mesh took {res['seconds']:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s"
@@ -6732,7 +6907,365 @@ def mesh_main(torch, card, serve=True):
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 27: mesh serving completed (the gateway on a mesh, the recurrent
+# families tensor-parallel)
+
+
+def merged_qkv_check(torch):
+    """27c: zamba2-7b's LoRA-merged shared QKV at full width (random packed
+    ``wq``/``wk``/``wv`` and one occurrence's ``lora_a``/``lora_b`` of
+    rank 128). ``_lora_qkv`` on each rank's ``qkv_out`` column blocks (m
+    = 4) must give one card's merged weights restricted to those heads,
+    bit for bit; then the dense (fake-quant, cuBLAS) GEMM on a block is
+    compared with those columns of the whole GEMM at ``MERGED_QKV_X``'s
+    shapes, which decides ``params_sharding.kept_whole``: where a block
+    sums in another order, the port merges and projects at the whole
+    width on every rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import LNSFormat, LNSWeight
+    from repro_torch.core.quantizer import QuantConfig, qeinsum
+    from repro_torch.distributed.sharding import serving_rules, shard_ctx
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import _lora_qkv
+    cfg = get_config("zamba2-7b")
+    fmt = LNSFormat(8, 8)
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    d, r = cfg.d_model, cfg.shared_block_lora_rank
+    q_dim = cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+
+    def packed(K, N, scale):
+        return LNSWeight(torch.randint(0, 256, (K, N), generator=gen,
+                                       device="cuda", dtype=torch.uint8),
+                         torch.full((1, N), scale, device="cuda"), fmt)
+
+    attn = {"wq": packed(d, q_dim, 2.0 ** -4),
+            "wk": packed(d, kv_dim, 2.0 ** -4),
+            "wv": packed(d, kv_dim, 2.0 ** -4)}
+    bp = {"lora_a": packed(d, r, 2.0 ** -4),
+          "lora_b": packed(r, q_dim + 2 * kv_dim, 2.0 ** -6)}
+    qcfg = QuantConfig.lns_madam()
+    whole = _lora_qkv(attn, bp, cfg)
+    xs = {(B, S): torch.randn((B, S, d), generator=gen, device="cuda").to(
+        cfg.compute_dtype) for B, S in MERGED_QKV_X}
+    ys = {k: {bs: qeinsum("bsd,de->bse", x, whole[k], qcfg)
+              for bs, x in xs.items()} for k in ("wq", "wk", "wv")}
+    m = 4
+    merged_equal, gemm_equal = True, {f"{B}x{S}": True for B, S in xs}
+    for rank in range(m):
+        mesh = Mesh({"data": 1, "model": m}, rank, "cuda")
+        block = dict(attn)
+        for k in ("wq", "wk", "wv"):
+            w = attn[k]
+            n = w.packed.shape[1] // m
+            cols = slice(rank * n, (rank + 1) * n)
+            block[k] = LNSWeight(w.packed[:, cols].contiguous(),
+                                 w.scale[:, cols].contiguous(), fmt)
+        with shard_ctx(mesh, serving_rules(cfg, mesh)):
+            got = _lora_qkv(block, bp, cfg)
+        for k in ("wq", "wk", "wv"):
+            n = whole[k].shape[1] // m
+            cols = slice(rank * n, (rank + 1) * n)
+            merged_equal &= torch.equal(got[k], whole[k][:, cols])
+            for (B, S), x in xs.items():
+                y = qeinsum("bsd,de->bse", x, got[k], qcfg)
+                gemm_equal[f"{B}x{S}"] &= torch.equal(y, ys[k][(B, S)][
+                    ..., cols])
+    check(merged_equal, "27c: a rank's LoRA-merged QKV block differs from "
+          "one card's merged weights restricted to its heads")
+    out = {"merged_blocks_bitwise": merged_equal,
+           "gemm_blocks_bitwise": gemm_equal,
+           "rule": "whole width on every rank (params_sharding.kept_whole)"}
+    print(f"27c merged QKV (zamba2-7b, lora rank {r}, model = {m}): every "
+          f"rank's merged block equals one card's columns bit for bit; the "
+          f"dense GEMM on a block equals the whole GEMM's columns "
+          f"{gemm_equal} (so the port merges and projects at the whole "
+          f"width and keeps the rank's heads)")
+    return out
+
+
+def gateway_bodies(cfg):
+    """27a's completions: greedy and seeded interleaved, two sharing a
+    prompt (the second reuses the first's pages)."""
+    import numpy as np
+    rng = np.random.default_rng(27)
+    out = []
+    for i in range(GATEWAY_STREAMS):
+        prompt = rng.integers(1, cfg.vocab_size, (8 + 2 * i,)).tolist()
+        if i == 4:
+            prompt = out[1]["prompt"]
+        body = {"prompt": prompt, "max_tokens": 8 + 2 * (i % 3)}
+        if i % 2:
+            body.update(temperature=0.8, top_k=50, seed=2700 + i)
+        out.append(body)
+    return out
+
+
+def gateway_reference(torch, ops):
+    """27a's one-card replay on card 0: the gateway's engine built from
+    the same argv, each body parsed as the gateway parses it and run to
+    its end before the next; the streams, the numerics snapshot and the
+    TPOT."""
+    from repro_torch.launch.serve import build_engine, parser
+    from repro_torch.server.protocol import parse_completion
+    from repro_torch.serving import Request
+    engine = build_engine(parser().parse_args(GATEWAY_ARGV))
+    bodies = gateway_bodies(engine.cfg)
+    tpot = []
+    for i, b in enumerate(bodies):
+        c = parse_completion(json.dumps(b).encode())
+        agg = engine.run([Request(rid=i, prompt=c.prompt,
+                                  max_new_tokens=c.max_tokens,
+                                  sampling=c.sampling)])
+        tpot.append(agg["tpot_p50_s"] * 1e3)
+    out = {"bodies": bodies, "streams": streams(engine),
+           "numerics": engine.numerics_snapshot(), "tpot_ms": tpot,
+           "launches_k7": ops.launch_counts().get("requant_pack", 0)}
+    print(f"27a one card: {len(bodies)} completions replayed one after "
+          f"another, tpot p50 {[round(t, 2) for t in tpot]} ms")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def gateway_rank(rank, world, port, out_dir):
+    """One rank of 27a: torchrun's environment for this card, the
+    gateway's engine from ``GATEWAY_ARGV`` on the (2, 2) mesh, then
+    ``launch.serve.run_http`` (rank 0 serves loopback HTTP on port 0 and
+    writes its address to ``out_dir/addr``; the others follow) until the
+    parent's SIGINT stops it; this rank's results go to
+    ``out_dir/gw_rank<r>.json``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import build_engine, parser, run_http
+    torch.set_num_threads(1)
+    _build.library()
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="env://",
+                            timeout=datetime.timedelta(
+                                seconds=MESH_TIMEOUT_S))
+    args = parser().parse_args(GATEWAY_ARGV + ["--mesh", GATEWAY_MESH])
+    engine = build_engine(args)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def ready(host, p):
+        tmp = Path(out_dir) / "addr.tmp"
+        tmp.write_text(f"{host}:{p}")
+        tmp.rename(Path(out_dir) / "addr")
+
+    t0 = time.monotonic()
+    run_http(engine, "127.0.0.1:0", engine.cfg.name, args.max_queue,
+             ready=ready)
+    out = {"rank": rank, "free_pages": engine.allocator.available,
+           "num_pages": engine.num_pages,
+           "running": len(engine.scheduler.running),
+           "queued": len(engine.queue), "mesh_syncs": engine.mesh_syncs,
+           "mesh_sync_s": engine.mesh_sync_s,
+           "decode_steps": engine.decode_steps,
+           "spec_cycles": engine.spec_cycles, "prefills": engine.prefills,
+           "launches": ops.launch_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.monotonic() - t0}
+    (Path(out_dir) / f"gw_rank{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def gateway_client(host, port, bodies, max_queue):
+    """27a's client session over loopback: the bodies streamed one after
+    another, ``/metrics.json`` around an idle gap of ``GATEWAY_IDLE_S``,
+    then a stream DELETEd after 4 frames and ``max_queue`` long streams
+    with one more POST past the watermark; then ``/health``, ``/metrics``
+    and ``/metrics.json`` once no request is live."""
+    import asyncio
+
+    async def session():
+        res = {"streams": []}
+        for b in bodies:
+            res["streams"].append(await sse_call(host, port, b))
+        stats = lambda: http_call(host, port, "GET", "/metrics.json")
+        res["idle_before"] = json.loads((await stats())[1])
+        t0 = time.monotonic()
+        await asyncio.sleep(GATEWAY_IDLE_S)
+        res["idle_after"] = json.loads((await stats())[1])
+        res["idle_s"] = time.monotonic() - t0
+        long = {"prompt": bodies[0]["prompt"], "max_tokens": 48}
+        res["deleted"] = await sse_call(host, port, long, delete_after=4)
+        burst = [asyncio.ensure_future(sse_call(
+            host, port, {**long, "max_tokens": 24}))
+            for _ in range(max_queue)]
+        t_end = time.monotonic() + 60
+        while time.monotonic() < t_end:
+            if json.loads((await stats())[1])["inflight"] >= max_queue:
+                break
+            await asyncio.sleep(0.005)
+        res["over"] = await http_call(host, port, "POST", "/v1/completions",
+                                      long)
+        res["burst"] = await asyncio.gather(*burst)
+        t_end = time.monotonic() + 60
+        while time.monotonic() < t_end:
+            st = json.loads((await stats())[1])
+            if (st["running"] == 0 and st["queued"] == 0 and
+                    st["kv_pages_available"] == st["kv_pages_total"]):
+                break
+            await asyncio.sleep(0.02)
+        res["stats"] = st
+        res["health"] = json.loads((await http_call(host, port, "GET",
+                                                    "/health"))[1])
+        res["metrics"] = (await http_call(host, port, "GET",
+                                          "/metrics"))[1].decode()
+        return res
+
+    return asyncio.run(session())
+
+
+def gateway_mesh(torch, scratch, ref):
+    """27a on four cards: one NCCL rank a card (spawned) runs
+    :func:`gateway_rank`; this process is the HTTP client
+    (:func:`gateway_client`), then passes SIGINT to every rank as torchrun
+    does and waits for each to exit. Checked: the 8 streams equal the
+    one-card replay's, the DELETE ends ``aborted``, 429 past the
+    watermark, ``/health``'s mesh and whole-tree numerics (the weights'
+    exactly, the draft view's mean error within 1e-5 relative), the mesh
+    label in ``/metrics``, the ranks stepping through the idle gap, every
+    rank's pages back and every rank's exit code 0."""
+    import signal
+    import torch.multiprocessing as mp
+    gdir = scratch / "gateway"
+    if gdir.exists():
+        for f in gdir.iterdir():
+            f.unlink()
+    gdir.mkdir(parents=True, exist_ok=True)
+    t0 = time.monotonic()
+    ctx = mp.start_processes(gateway_rank, args=(MESH_WORLD, free_port(),
+                                                 str(gdir)),
+                             nprocs=MESH_WORLD, join=False,
+                             start_method="spawn")
+    try:
+        t_end = time.monotonic() + MESH_TIMEOUT_S
+        while not (gdir / "addr").exists():
+            check(time.monotonic() < t_end, "27a: the gateway never listened")
+            check(all(p.exitcode is None for p in ctx.processes),
+                  "27a: a rank ended before the gateway listened")
+            time.sleep(0.05)
+        host, port = (gdir / "addr").read_text().rsplit(":", 1)
+        t_listen = time.monotonic() - t0
+        max_queue = int(GATEWAY_ARGV[GATEWAY_ARGV.index("--max-queue") + 1])
+        res = gateway_client(host, int(port), ref["bodies"], max_queue)
+    finally:
+        for p in ctx.processes:
+            if p.exitcode is None:
+                os.kill(p.pid, signal.SIGINT)
+        t_stop = time.monotonic()
+        t_end = t_stop + GATEWAY_EXIT_S
+        codes = []
+        for p in ctx.processes:
+            p.join(max(t_end - time.monotonic(), 0.1))
+            if p.exitcode is None:
+                p.kill()
+                p.join()
+            codes.append(p.exitcode)
+        stop_s = time.monotonic() - t_stop
+    check(codes == [0] * MESH_WORLD, f"27a: the ranks exited {codes} after "
+          f"SIGINT ({stop_s:.1f}s)")
+    ranks = [json.loads((gdir / f"gw_rank{r}.json").read_text())
+             for r in range(MESH_WORLD)]
+    for i, s in enumerate(res["streams"]):
+        check(s["status"] == 200 and s["reason"] == "length",
+              f"27a: stream {i} got {s['status']} {s['reason']}")
+    got = {i: s["tokens"] for i, s in enumerate(res["streams"])}
+    check(got == ref["streams"], f"27a: the gateway's streams on the mesh "
+          f"differ from one card's replay: "
+          f"{[i for i in got if got[i] != ref['streams'].get(i)]}")
+    d = res["deleted"]
+    check(d["reason"] == "aborted" and 4 <= len(d["tokens"]) < 48,
+          f"27a: the DELETE ended {d['reason']} after {len(d['tokens'])} "
+          f"tokens")
+    check(res["over"][0] == 429, f"27a: past the watermark got "
+          f"{res['over'][0]}, not 429")
+    check(all(s["status"] == 200 and s["reason"] == "length"
+              for s in res["burst"]), "27a: a burst stream did not finish")
+    health = res["health"]
+    check(health.get("mesh") == {"data": 2, "model": 2},
+          f"27a: /health's mesh is {health.get('mesh')}")
+    num, want = health.get("numerics", {}), ref["numerics"]
+    check(num.get("weights") == want["weights"],
+          f"27a: /health's weights numerics {num.get('weights')} are not "
+          f"one card's {want['weights']}")
+    dr, wdr = num.get("draft_requant", {}), want.get("draft_requant", {})
+    check(dr.keys() == wdr.keys() and all(
+        abs(dr[b]["rel_err_mean"] - wdr[b]["rel_err_mean"])
+        <= 1e-5 * abs(wdr[b]["rel_err_mean"]) and
+        {k: v for k, v in dr[b].items() if k != "rel_err_mean"} ==
+        {k: v for k, v in wdr[b].items() if k != "rel_err_mean"}
+        for b in wdr), f"27a: /health's draft numerics {dr} are not one "
+        f"card's {wdr}")
+    check('mesh="data=2,model=2"' in res["metrics"],
+          "27a: /metrics' build_info lacks the mesh label")
+    a, b = res["idle_before"], res["idle_after"]
+    syncs = b["mesh_syncs"] - a["mesh_syncs"]
+    per_s = syncs / res["idle_s"]
+    host_us = (b["mesh_sync_s"] - a["mesh_sync_s"]) / max(syncs, 1) * 1e6
+    check(syncs > 0, "27a: the ranks did not step through the idle gap")
+    for r in ranks:
+        check(r["free_pages"] == r["num_pages"] and r["running"] == 0
+              and r["queued"] == 0, f"27a rank {r['rank']}: "
+              f"{r['free_pages']}/{r['num_pages']} pages free, "
+              f"{r['running']} running after the stop")
+        check(r["mesh_syncs"] == ranks[0]["mesh_syncs"],
+              f"27a rank {r['rank']} took {r['mesh_syncs']} broadcasts, "
+              f"rank 0 {ranks[0]['mesh_syncs']}")
+    launches = ranks[0]["launches"]
+    check(all(launches.get(k, 0) > 0 for k in (
+        "encode_pack", "qmatmul", "paged_attend", "fused_sample",
+        "requant_pack")), f"27a: a kernel of the path did not launch: "
+        f"{launches}")
+    line = {"tag": "27a", "arch": "smollm-135m", "mesh": GATEWAY_MESH,
+            "streams_equal": True, "streams": len(got),
+            "first_frame_ms": [s["first_frame_s"] * 1e3
+                               for s in res["streams"]],
+            "deleted_after": len(d["tokens"]), "over_status": res["over"][0],
+            "health_mesh": health["mesh"], "numerics": num,
+            "idle_s": res["idle_s"], "idle_broadcasts": syncs,
+            "broadcasts_per_s": per_s, "broadcast_host_us": host_us,
+            "listen_s": t_listen, "stop_s": stop_s, "exit_codes": codes,
+            "launches": launches,
+            "tpot_p50_ms": res["stats"]["tpot_p50_s"] * 1e3,
+            "ttft_mean_ms": res["stats"]["ttft_mean_s"] * 1e3,
+            "one_card_tpot_ms": ref["tpot_ms"],
+            "peak_gb": [r["peak_gb"] for r in ranks],
+            "mesh_syncs": [r["mesh_syncs"] for r in ranks],
+            "pages_back": True}
+    print(f"27a: the gateway on (2, 2) served {len(got)} streams equal to "
+          f"one card's replay, DELETE after {len(d['tokens'])} tokens "
+          f"'aborted', 429 past the watermark, /health mesh "
+          f"{health['mesh']} and numerics equal to one card's; idle "
+          f"{res['idle_s']:.1f}s: {syncs} broadcasts ({per_s:.1f}/s, "
+          f"{host_us:.0f} us of rank 0's host each); every rank's pages "
+          f"back, exit codes {codes} {stop_s:.1f}s after SIGINT; the "
+          f"gateway's tpot p50 {line['tpot_p50_ms']:.2f} ms, ttft mean "
+          f"{line['ttft_mean_ms']:.1f} ms; peak "
+          f"{[round(r['peak_gb'], 2) for r in ranks]} GB; launches "
+          f"{launches}")
+    return line
+
+
 def main() -> int:
+    if len(sys.argv) == 2 and sys.argv[1] in ("--mesh", "--mesh-train",
+                                              "--mesh-serve"):
+        # this process runs one card's large steps and serve runs one
+        # after another on card 0 before the ranks start (and the ranks
+        # inherit it): segments that grow keep its cache from fragmenting
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     import torch
 
     t_start = time.monotonic()
@@ -6760,12 +7293,14 @@ def main() -> int:
                                                 K5_KIMI_CASES),
                   **mixtures(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
-    meshed = sys.argv[1:] in (["--mesh"], ["--mesh-train"])
+    meshed = {"--mesh": ("25", "26", "27"), "--mesh-train": ("26",),
+              "--mesh-serve": ("27",)}.get(
+                  sys.argv[1] if len(sys.argv) == 2 else None)
     if sys.argv[1:] and not (sweep or meshed):
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k1-given | "
               f"--k2-sweep | --k6-sweep | --k8-sweep | --serving | --obs | "
               f"--dense-variants | --modality | --recurrent | --moe | "
-              f"--mesh | --mesh-train]", file=sys.stderr)
+              f"--mesh | --mesh-train | --mesh-serve]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -6785,8 +7320,7 @@ def main() -> int:
     if meshed:
         for line in card.stdout.strip().splitlines()[1:]:
             print(line)
-        return mesh_main(torch, card.stdout.strip(),
-                         serve=sys.argv[1] == "--mesh")
+        return mesh_main(torch, card.stdout.strip(), meshed)
 
     from repro_torch.core.lns import LNSFormat
     from repro_torch.kernels import _build, ops, ref

@@ -12,6 +12,20 @@ slices a full tree (a carried JAX tree from ``repro_torch.convert``, or a
 drawn one) into rank r's local tree, and :class:`LocalShard` does the same
 a leaf at a time while ``models.model.init_params`` draws, so no rank
 ever holds more than one full leaf.
+
+One rule is the port's own: zamba2's shared attention ``wq``/``wk``/
+``wv`` and every occurrence's ``lora_a``/``lora_b`` stay whole on every
+rank, whatever their logical axes (the tables keep JAX's, whose
+``("lora", "qkv_out")`` for ``lora_b`` is a GSPMD placement that changes
+no value). A contiguous ``qkv_out`` slice of ``lora_b``'s fused ``[q | k
+| v]`` columns is not a rank's head group, and the LoRA-merged QKV takes
+``qeinsum``'s dense leg, whose cuBLAS GEMM sums a column block in
+another order than the whole call at decode shapes (``chip_smoke.py``
+phase 27c). So every rank merges and projects at the whole width, as one
+card does, and keeps its heads' columns of q, k and v
+(``models.attention.attn_apply``); the KV pools still hold the rank's
+head group. :func:`split_axes` gives the placement the port really
+keeps.
 """
 from __future__ import annotations
 
@@ -24,7 +38,8 @@ from repro_torch.distributed.sharding import spec_for
 
 __all__ = ["params_logical_axes", "cache_logical_axes", "opt_logical_axes",
            "batch_shardings", "batch_rows", "tree_shardings",
-           "local_shape", "shard_leaf", "shard_tree", "LocalShard"]
+           "local_shape", "shard_leaf", "shard_tree", "LocalShard",
+           "kept_whole", "split_axes"]
 
 # leaf name -> logical axes of the 2-D core (the JAX package's table)
 _BY_NAME: Dict[str, Tuple[Optional[str], ...]] = {
@@ -107,6 +122,19 @@ _CACHE_AXES = {
     "shift_cm": ("batch", None),
     "idx": ("batch",),
 }
+
+
+def kept_whole(path) -> bool:
+    """The port's rule (module docstring): a leaf every rank holds whole
+    under serving whatever its logical axes, zamba2's shared QKV and its
+    LoRA leaves. ``path`` is a tree path."""
+    names = _names(path)
+    if not names:
+        return False
+    if names[-1] in ("lora_a", "lora_b"):
+        return True
+    return names[:2] == ("shared", "attn") and names[-1] in ("wq", "wk",
+                                                             "wv")
 
 
 def _is_axes(x) -> bool:
@@ -302,20 +330,50 @@ def shard_tree(tree, mesh, rules=None, *, serving: bool = True,
             else params_logical_axes(tree, serving=serving))
     places = tree_shardings(axes, mesh, rules)
 
-    def walk(t, p):
+    def walk(t, p, path):
         if isinstance(t, dict):
-            return {k: walk(v, p[k]) for k, v in t.items()}
+            return {k: walk(v, p[k], path + (k,)) for k, v in t.items()}
         if isinstance(t, list):
-            return [walk(v, q) for v, q in zip(t, p)]
+            return [walk(v, q, path + (i,))
+                    for i, (v, q) in enumerate(zip(t, p))]
+        if serving and not caches and kept_whole(path):
+            return t
         return shard_leaf(t, p, mesh)
-    return walk(tree, places)
+    return walk(tree, places, ())
+
+
+def split_axes(params, mesh, rules=None) -> Any:
+    """The tree of the mesh axes (of size > 1, in the mesh's order) each
+    leaf of a serving tree is split over as the port places it (``()``
+    for a leaf every rank holds whole): what a sum over a leaf's shards
+    reduces over to be the whole leaf's. Reads names and ranks only, so
+    a rank's local tree gives the same answer as the full one."""
+    axes = params_logical_axes(params, serving=True)
+    places = tree_shardings(axes, mesh, rules)
+
+    def walk(t, p, path):
+        if isinstance(t, dict):
+            return {k: walk(v, p[k], path + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, q, path + (i,))
+                    for i, (v, q) in enumerate(zip(t, p))]
+        if kept_whole(path):
+            return ()
+        spec = p.packed if isinstance(p, LNSWeight) else p
+        used = set()
+        for entry in spec:
+            used.update(_entry_axes(entry))
+        return tuple(a for a in mesh.axis_names
+                     if a in used and mesh.shape[a] > 1)
+    return walk(params, places, ())
 
 
 class LocalShard:
     """The rank's shard of each leaf as ``models.model.init_params``
     draws it (``init_params(shard=LocalShard(...))``): a drawn leaf (after
-    its ``leaf_fn``) is sliced at once, and an expert stack is drawn whole
-    but encoded only over the rank's experts (:meth:`experts`)."""
+    its ``leaf_fn``) is sliced at once (a :func:`kept_whole` leaf stays
+    whole), and an expert stack is drawn whole but encoded only over the
+    rank's experts (:meth:`experts`)."""
 
     def __init__(self, mesh, rules=None, serving: bool = True):
         self.mesh, self.rules, self.serving = mesh, rules, serving
@@ -329,6 +387,8 @@ class LocalShard:
                         self.mesh, self.rules)
 
     def __call__(self, path, leaf):
+        if self.serving and kept_whole(path):
+            return leaf
         return shard_leaf(leaf, self._spec(path, leaf), self.mesh)
 
     def experts(self, path, ndim: int, E: int) -> Tuple[int, int]:

@@ -28,7 +28,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 __all__ = ["LOGICAL_RULES", "shard_ctx", "current_mesh", "current_rules",
            "spec_for", "serving_rules", "model_axis_size", "axis_group",
-           "axis_shards", "joint_group", "batch_group"]
+           "axis_shards", "axis_index", "joint_group", "batch_group"]
 
 AxisVal = Union[None, str, Tuple[str, ...]]
 
@@ -184,6 +184,20 @@ def axis_shards(name: str) -> int:
     for a in ((axes,) if isinstance(axes, str) else axes):
         n *= mesh.shape[a]
     return n
+
+
+def axis_index(name: str) -> int:
+    """This rank's block of a dim named ``name`` under the active mesh and
+    rules: its index among the :func:`axis_shards` blocks, the mesh axes
+    taken jointly, the first the slowest (0 where the dim is whole)."""
+    if axis_shards(name) == 1:
+        return 0
+    mesh = current_mesh()
+    axes = _resolve(name, mesh, current_rules())
+    idx = 0
+    for a in ((axes,) if isinstance(axes, str) else axes):
+        idx = idx * mesh.shape[a] + mesh.coords[a]
+    return idx
 
 
 def axis_group(name: str):

@@ -48,6 +48,24 @@ CPU, gloo ranks stand in for the cards:
 ``--mesh`` with more than one rank and no torchrun environment raises;
 ``--mesh 1,1`` runs a world of one without torchrun.
 
+``--http`` on a mesh: rank 0 runs the gateway and its driver thread,
+which steps the engine; every other rank follows (``Engine.follow``):
+each step it takes rank 0's broadcast (clock, submissions, aborts),
+applies it and steps in lockstep, until rank 0's ``stop``. An idle
+gateway still steps every poll, so no rank waits long in a broadcast.
+torchrun passes SIGINT to every rank: a follower ignores it and ends
+only on rank 0's ``stop``; rank 0 aborts the live requests, broadcasts
+``stop`` with those aborts, and every rank destroys the process group
+and exits 0. A fatal step fails every stream, and rank 0 exits 1 at
+once (the others may sit in any collective of that step), so torchrun
+tears the group down.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.serve --smoke \
+      --device cpu --mesh 2,2 --page-size 4 --http 127.0.0.1:8000
+  curl -N localhost:8000/v1/completions -d \
+      '{"prompt": [1,2,3], "max_tokens": 8, "stream": true}'
+  kill -INT <torchrun's pid>
+
 Observability: ``--trace-dir DIR`` attaches an ``EngineObserver`` (request
 spans and the step timeline), prints the run's time breakdown and exports
 a Chrome trace into DIR at the end (online: at shutdown);
@@ -65,6 +83,11 @@ import argparse
 import asyncio
 import builtins
 import contextlib
+import os
+import signal
+import sys
+import threading
+from typing import Callable, Optional
 
 import torch
 
@@ -113,15 +136,23 @@ def build_engine(args) -> Engine:
                   sharded_params=mesh is not None)
 
 
-def serve_http(engine: Engine, http: str, model: str,
-               max_queue: int) -> None:
+def serve_http(engine: Engine, http: str, model: str, max_queue: int,
+               ready: Optional[Callable[[str, int], None]] = None) -> bool:
     """Run the gateway until interrupted; shutting down aborts the live
-    requests, so their slots and pages are released."""
+    requests, so their slots and pages are released. ``ready`` gets the
+    bound address once the gateway listens. Under a mesh this is rank 0's
+    part (the others follow, :func:`run_http`): the stop reaches the
+    followers, and a fatal step ends the gateway at once. Returns False
+    after a fatal step under a mesh, True otherwise."""
     from repro_torch.server.app import Gateway
     from repro_torch.server.driver import EngineDriver
 
     host, _, port = http.rpartition(":")
-    driver = EngineDriver(engine, max_inflight=max_queue).start()
+    mesh = engine._mesh is not None
+    fatal = threading.Event()
+    driver = EngineDriver(engine, max_inflight=max_queue,
+                          on_fatal=(lambda exc: fatal.set()) if mesh
+                          else None).start()
 
     async def run():
         gw = await Gateway(driver, host=host or "127.0.0.1",
@@ -130,17 +161,46 @@ def serve_http(engine: Engine, http: str, model: str,
         print(f"gateway listening on http://{h}:{p}  "
               f"(slots={engine.num_slots} max_len={engine.max_len} "
               f"max_queue={max_queue})", flush=True)
+        if ready is not None:
+            ready(h, p)
+        serving = asyncio.ensure_future(gw.serve_forever())
         try:
-            await gw.serve_forever()
+            while not serving.done() and not fatal.is_set():
+                await asyncio.wait([serving], timeout=0.05)
+            if fatal.is_set():
+                await asyncio.sleep(0.2)   # the streams' error frames
         finally:
+            serving.cancel()
             await gw.stop()
 
     try:
         asyncio.run(run())
     except KeyboardInterrupt:
+        if mesh:   # a second interrupt must not cut the stop broadcast
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
         print("shutting down: aborting live requests", flush=True)
     finally:
-        driver.shutdown()
+        if not fatal.is_set():
+            driver.shutdown(timeout=None if mesh else 10.0)
+    return not fatal.is_set()
+
+
+def run_http(engine: Engine, http: str, model: str, max_queue: int,
+             ready: Optional[Callable[[str, int], None]] = None) -> None:
+    """``--http``: :func:`serve_http` on one card or on rank 0 of a mesh;
+    every other rank ignores SIGINT for the rest of the process (torchrun
+    passes it to every rank) and follows rank 0's steps until its
+    ``stop``. After a fatal step under a mesh rank 0 exits 1 at once,
+    without the group's teardown: the followers may sit in a collective
+    of that step, and torchrun ends them."""
+    if not engine._root:
+        signal.signal(signal.SIGINT, signal.SIG_IGN)
+        engine.follow()
+        return
+    if not serve_http(engine, http, model, max_queue, ready):
+        print("fatal step under a mesh: exiting", flush=True)
+        sys.stderr.flush()
+        os._exit(1)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -212,8 +272,6 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
-    if args.mesh and args.http:
-        raise SystemExit("--http is not served on a mesh yet")
     engine = build_engine(args)
     try:
         return _main(args, engine)
@@ -253,9 +311,9 @@ def _main(args, engine) -> dict:
               f" GiB")
     if args.http:
         try:
-            serve_http(engine, args.http, cfg.name, args.max_queue)
+            run_http(engine, args.http, cfg.name, args.max_queue)
         finally:
-            if observer is not None:
+            if observer is not None and root:
                 print("trace:", observer.export(args.trace_dir,
                                                 tag=cfg.name))
         return {}

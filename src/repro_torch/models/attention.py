@@ -41,7 +41,8 @@ from repro_torch.core.lns import (LNSFormat, compute_scale, lns_decode,
 from repro_torch.core.quantizer import (QuantConfig, act_stat, qeinsum,
                                         ste_quantize, ste_quantize_sharded)
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import axis_group, joint_group
+from repro_torch.distributed.sharding import (axis_group, axis_index,
+                                              axis_shards, joint_group)
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (apply_rope, decoded_of, dense_of,
@@ -156,7 +157,10 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     heads and their KV heads (GQA groups are contiguous), keeps only those
     in its caches and pools, and all-gathers the heads before the
     replicated ``wo``; Q_A's per-tensor scales are max-reduced over the
-    ranks first."""
+    ranks first. Where ``wq/wk/wv`` are held whole on every rank
+    (``params_sharding.kept_whole``: zamba2's LoRA-merged shared QKV) the
+    projections run at the whole width, as on one card, and the rank keeps
+    its heads' columns of each."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     grp = axis_group("qkv_out")
@@ -165,6 +169,11 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg, x_stat=xs)
     k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg, x_stat=xs)
     v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg, x_stat=xs)
+    m = axis_shards("qkv_out")
+    if m > 1 and q.shape[-1] == cfg.num_heads * hd:      # held whole
+        i = axis_index("qkv_out")
+        q, k, v = (t.narrow(-1, i * (t.shape[-1] // m), t.shape[-1] // m)
+                   for t in (q, k, v))
     h, kv = q.shape[-1] // hd, k.shape[-1] // hd     # this rank's heads
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)

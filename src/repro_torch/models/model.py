@@ -46,9 +46,9 @@ from repro_torch.core.lns import LNSWeight, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (axis_shards, batch_group,
-                                              current_mesh, current_rules,
-                                              shard_ctx)
+from repro_torch.distributed.sharding import (axis_index, axis_shards,
+                                              batch_group, current_mesh,
+                                              current_rules, shard_ctx)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
@@ -398,14 +398,25 @@ def _lora_qkv(attn_p, bp, cfg: ArchConfig):
     """zamba2: the shared QKV weights decoded plus this occurrence's LoRA
     delta ``lora_a @ lora_b`` (compute dtype). Dense weights take
     ``qeinsum``'s fake-quant leg, not K2, as in the JAX package; ``wo``
-    stays packed."""
+    stays packed. The delta is always the whole ``[q | k | v]`` product;
+    a ``wq``/``wk``/``wv`` held as this rank's column block (a mesh that
+    shards ``qkv_out``) takes the delta's columns of the rank's heads in
+    each of the three blocks, so the merged block is one card's merged
+    weight restricted to those heads, bit for bit. The serving placement
+    keeps them whole (``params_sharding.kept_whole``)."""
     delta = decoded_of(bp["lora_a"], cfg) @ decoded_of(bp["lora_b"], cfg)
     q_dim = cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim
     out = dict(attn_p)
-    out["wq"] = decoded_of(attn_p["wq"], cfg) + delta[:, :q_dim]
-    out["wk"] = decoded_of(attn_p["wk"], cfg) + delta[:, q_dim:q_dim + kv_dim]
-    out["wv"] = decoded_of(attn_p["wv"], cfg) + delta[:, q_dim + kv_dim:]
+    for name, lo, width in (("wq", 0, q_dim), ("wk", q_dim, kv_dim),
+                            ("wv", q_dim + kv_dim, kv_dim)):
+        w = decoded_of(attn_p[name], cfg)
+        n = w.shape[-1]
+        if n != width and width != n * axis_shards("qkv_out"):
+            raise ValueError(f"{name}: {n} columns are neither the whole "
+                             f"{width} nor a qkv_out block of them")
+        at = lo + (axis_index("qkv_out") * n if n != width else 0)
+        out[name] = w + delta[:, at:at + n]
     return out
 
 
@@ -579,7 +590,12 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
     past a rewound cursor then land only on ring slots no query can see
     any more. Under a mesh whose serving rules shard ``kv_heads`` the
     KV caches and pools hold this rank's head group; MLA's latent cache
-    is replicated."""
+    is replicated, and so is every recurrent state: the serving rules keep
+    ``ssm_inner`` whole, so each rank runs the whole Mamba2 mixer and WKV
+    and holds the whole ``ssm``/``S``/``conv_*``/``shift_*`` rows, equal
+    to one card's. JAX's cache table names ``act_heads`` for ``ssm`` and
+    ``S`` (``params_sharding``); that is a GSPMD placement, which changes
+    no value, and the port does not slice recurrent state."""
     dev = resolve_device(device)
     prefix, n_periods, period = cfg.layer_pattern()
     if page_size is not None and num_pages is None:

@@ -14,6 +14,13 @@ RWKV FFN. The token-shift mixes are static learned coefficients, as in
 the JAX package (its documented deviation from the reference
 implementation's five dynamic LoRAs; the decay LoRA is kept).
 
+Under a serving mesh the time mix is replicated (its projections are
+``ssm_inner``, which the serving rules keep whole), so every rank runs
+the whole WKV and holds the whole state; the channel mix is
+column-parallel where ``d_ff`` divides the ``model`` axis: ``ck`` is the
+rank's column block and the squared-ReLU hidden state is all-gathered
+before the whole ``cv``, whose Q_A then sees the whole tensor.
+
 The recurrence is plain torch: the JAX package computes it outside any
 Pallas kernel. A state dict is updated **in place** (``copy_`` into the
 engine's cache views).
@@ -26,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.quantizer import QuantConfig, qeinsum
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import axis_group
 from repro_torch.models.common import _DECAY_LORA, ArchConfig
 from repro_torch.models.layers import decoded_of, dense_of
 
@@ -125,7 +134,7 @@ def rwkv_apply(p: Dict[str, Any], x: torch.Tensor, x_cm: torch.Tensor,
     xck = x_cm + (xcs - x_cm) * mixc[0]
     xcr = x_cm + (xcs - x_cm) * mixc[1]
     kk = qeinsum("bsd,df->bsf", xck, dense_of(p["ck"], cfg), qcfg)
-    kk = torch.square(F.relu(kk))
+    kk = collectives.gather(torch.square(F.relu(kk)), axis_group("mlp"))
     vv = qeinsum("bsf,fd->bsd", kk, dense_of(p["cv"], cfg), qcfg)
     rr = torch.sigmoid(qeinsum("bsd,de->bse", xcr, dense_of(p["cr"], cfg),
                                qcfg))

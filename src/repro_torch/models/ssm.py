@@ -11,6 +11,13 @@ Pallas kernel. One group (B/C shared across heads); the depthwise causal
 conv of width ``ssm_conv_width`` is a sum of shifts. A state dict is
 updated **in place**.
 
+Under a serving mesh the mixer is replicated: its projections are
+``ssm_inner`` or unnamed, which the serving rules keep whole, so every
+rank computes the whole mixer with no collective and holds the whole
+state, equal to one card's. JAX's cache table names ``act_heads`` for
+``ssm``; that is a GSPMD placement, which changes no value, and the port
+does not slice the state.
+
 The JAX package's three-operand einsums are written as pairwise
 contractions: contracted left to right, ``bkhp,bkn,bkh->bhpn`` would
 build a (B, Q, H, P, N) product first (470 MB a chunk for zamba2-7b at

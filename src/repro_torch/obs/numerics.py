@@ -77,23 +77,29 @@ def grad_encode_stats(grads, qcfg) -> Dict[str, Dict[str, torch.Tensor]]:
             for p, g in leaves(grads) if g.dim() >= 2}
 
 
-def tree_code_stats(params) -> Dict[str, Any]:
+def tree_code_stats(params, reduce=None) -> Dict[str, Any]:
     """Code-rail occupancy of every packed leaf: the share of codes at 0
     (the largest magnitude) and at ``max_code`` (the flush-to-zero rail)
     and the mean code, over all ``elements``. Codes piling at a rail mean
     the serving copy lost resolution. One pass over the words on their
-    device, three integer sums a leaf back to the host (int64, so a
-    full-width tree's code sum does not wrap)."""
+    device, a leaf's four integer sums back to the host in one copy
+    (int64, so a full-width tree's code sum does not wrap). ``reduce``
+    (a mesh engine's) takes a leaf's path and its sums and returns them
+    summed over the ranks that hold its shards, so a rank's local tree
+    gives the whole tree's occupancy."""
     tot = lo = hi = code_sum = 0
-    for _, leaf in leaves(params):
+    for path, leaf in leaves(params):
         if not is_lns_weight(leaf):
             continue
         fmt = leaf.fmt
         code = leaf.packed.to(torch.int32) & fmt.max_code
-        lo += int((code == 0).sum())
-        hi += int((code == fmt.max_code).sum())
-        code_sum += int(code.sum())
-        tot += code.numel()
+        sums = torch.stack([(code == 0).sum(), (code == fmt.max_code).sum(),
+                            code.sum(), torch.tensor(code.numel(),
+                                                     device=code.device)])
+        if reduce is not None:
+            sums = reduce(path, sums)
+        a, b, c, n = sums.tolist()
+        lo, hi, code_sum, tot = lo + a, hi + b, code_sum + c, tot + n
     if tot == 0:
         return {"elements": 0}
     return {"elements": tot, "code0_frac": lo / tot,

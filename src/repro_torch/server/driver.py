@@ -24,6 +24,18 @@ that thread and exposes a thread-safe surface:
   serving context, with the numerics snapshot the driver thread took
   (the engine's tensors are never read from the event loop's thread).
 
+Under a mesh (``Engine(mesh=)``) the driver runs on rank 0 only: its
+thread steps the engine, and each step's broadcast carries the
+submissions and aborts to the other ranks, which :meth:`Engine.follow`.
+An idle loop still steps every ``poll_s``, so no follower ever waits on a
+broadcast longer than that. A normal stop aborts the live requests and
+broadcasts ``stop`` with those aborts (``Engine.stop_followers``). A
+fatal step fails every stream and then calls ``on_fatal``: the followers
+may sit in any collective of that step, where no ``stop`` reaches them,
+so the launcher exits the process and torchrun tears the group down
+(``launch.serve``). The mesh shape is in ``/health``, the stats and the
+Prometheus info labels, as in the JAX package's driver.
+
 Events a sink receives: ``("token", tok)`` per generated token and one
 terminal ``("finish", reason, token_list | None[, spec_dict])`` with
 reason in ``{"stop", "length", "capacity", "aborted", "error"}``. The
@@ -56,10 +68,12 @@ Sink = Callable[[tuple], None]
 
 class EngineDriver:
     def __init__(self, engine: Engine, *, max_inflight: int = 64,
-                 poll_s: float = 0.02, metrics_window: int = 4096):
+                 poll_s: float = 0.02, metrics_window: int = 4096,
+                 on_fatal: Optional[Callable[[BaseException], None]] = None):
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
         self._engine = engine
+        self._on_fatal = on_fatal
         self._max_inflight = max_inflight
         self._poll_s = poll_s
         self._mail: "queue.Queue[tuple]" = queue.Queue()
@@ -189,6 +203,9 @@ class EngineDriver:
             out["num_pages"] = eng.num_pages
             out["alloc_policy"] = eng.alloc_policy
             out["prefix_cache"] = eng._prefix_ok
+        mesh = self._mesh_shape()
+        if mesh is not None:
+            out["mesh"] = mesh
         if eng.spec is not None:
             out["spec"] = {"k": eng.spec.k,
                            "draft_bits": eng.spec.draft_bits,
@@ -209,13 +226,21 @@ class EngineDriver:
         info = {"arch": health.get("arch"), "device": health["device"],
                 "card": health.get("card"),
                 "checkpoint_id": health.get("checkpoint_id"),
-                "alloc_policy": health.get("alloc_policy")}
+                "alloc_policy": health.get("alloc_policy"),
+                "mesh": ",".join(f"{k}={v}" for k, v in
+                                 health.get("mesh", {}).items()) or None}
         with self._lock:
             return render_prometheus(stats, self._hists.values(), info)
 
-    def shutdown(self, timeout: float = 10.0) -> None:
+    def _mesh_shape(self) -> Optional[Dict[str, int]]:
+        mesh = self._engine._mesh
+        return None if mesh is None else {a: int(mesh.shape[a])
+                                          for a in mesh.axis_names}
+
+    def shutdown(self, timeout: Optional[float] = 10.0) -> None:
         """Stop the loop: live requests are aborted (sinks get their
-        terminal event), then the thread exits."""
+        terminal event), then the thread exits (under a mesh after
+        broadcasting ``stop``; pass ``timeout=None`` to wait for it)."""
         if not self._thread.is_alive():
             return
         self._stopping.set()
@@ -291,6 +316,10 @@ class EngineDriver:
 
     def _loop(self) -> None:
         eng = self._engine
+        if eng.device.type == "cuda" and eng.device.index is not None:
+            # the CUDA runtime's current device is per thread (a mesh
+            # rank's engine names its card; a bare "cuda" is the default)
+            torch.cuda.set_device(eng.device)
         while True:
             busy = bool(eng.scheduler.running) or bool(eng.queue)
             cmds = []
@@ -309,12 +338,13 @@ class EngineDriver:
                 self._stopping.set()
                 for rid in list(self._sinks):
                     eng.abort(rid)
+                eng.stop_followers()      # with those aborts
                 self._fail_pending()
                 self._refresh_stats()
                 return
             try:
                 eng.step()
-            except Exception:
+            except Exception as exc:
                 # a dying engine must not leave streams hanging: every
                 # live sink gets a terminal event, /health flips to 503
                 self._stopping.set()
@@ -326,6 +356,8 @@ class EngineDriver:
                         self._errors += 1
                 self._fail_pending()  # submits mailed during the fatal step
                 self._refresh_stats()
+                if self._on_fatal is not None:
+                    self._on_fatal(exc)
                 raise
             # keep the engine's retained state bounded (token lists
             # already reached the sinks)
@@ -367,6 +399,13 @@ class EngineDriver:
             snap["kv_pages_total"] = eng.num_pages
             snap["prefix_hits"] = eng.prefix_hits
             snap["prefix_reused_tokens"] = eng.prefix_reused_tokens
+        mesh = self._mesh_shape()
+        if mesh is not None:
+            # tells a sharded deployment from a one-card one at a glance;
+            # the step broadcasts taken and rank 0's host seconds in them
+            snap["mesh"] = mesh
+            snap["mesh_syncs"] = eng.mesh_syncs
+            snap["mesh_sync_s"] = eng.mesh_sync_s
         spec = eng.spec_snapshot()
         if spec is not None:
             snap.update(spec)
@@ -374,7 +413,9 @@ class EngineDriver:
         # here, on the driver thread (the only one that touches them): the
         # engine computes it once and again only after a new draft view,
         # so a refresh is a dict walk. health() hands out this copy under
-        # the lock instead of calling into the engine from the event loop
+        # the lock instead of calling into the engine from the event loop.
+        # Under a mesh its sums are collectives: the engine takes it in
+        # the next step's broadcast and hands out the last one meanwhile
         numerics = eng.numerics_snapshot()
         for scope, stats in numerics.items():
             for k, v in stats.items():

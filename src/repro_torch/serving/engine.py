@@ -92,10 +92,17 @@ max-reduces each per-tensor scale of a sharded tensor; no sum crosses
 ranks, so the streams are one device's. The ranks step in lockstep:
 rank 0 alone takes ``submit`` and ``abort`` and its clock alone gates
 arrivals; at the top of every step it broadcasts its clock, the
-submissions and aborts since the last step, the speculation arm and
-whether ``run`` is done. Victims and growth order by admission order.
-The recurrent families (their state and LoRA leaves) and the gateway
-are not served on a mesh yet.
+submissions and aborts since the last step, the speculation arm,
+whether a numerics snapshot is wanted and whether the ranks stop.
+Victims and growth order by admission order. ``run`` drives all ranks
+(rank 0 with the requests); under the gateway rank 0's driver thread
+calls ``step`` and the other ranks :meth:`Engine.follow`, until
+:meth:`Engine.stop_followers`. The recurrent families serve too: their
+time mix and Mamba2 mixer are replicated (``ssm_inner`` is whole under
+the serving rules), so every rank computes them and holds the whole
+state a slot; rwkv6's channel mix is column-parallel over ``ck``;
+zamba2's shared block is head-parallel, its LoRA-merged QKV computed at
+the whole width on every rank (``distributed.params_sharding``).
 """
 from __future__ import annotations
 
@@ -108,8 +115,8 @@ import torch
 
 from repro_torch.core.quantizer import QuantConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.collectives import broadcast_object
-from repro_torch.distributed.params_sharding import shard_tree
+from repro_torch.distributed.collectives import broadcast_object, sum_reduce
+from repro_torch.distributed.params_sharding import shard_tree, split_axes
 from repro_torch.distributed.sharding import serving_rules, shard_ctx
 from repro_torch.kernels import dispatch
 from repro_torch.launch.mesh import Mesh
@@ -124,6 +131,7 @@ from repro_torch.serving.spec import (SpecAutotuner, SpecConfig,
                                       build_draft_params,
                                       draft_requant_error, request_class,
                                       spec_supported)
+from repro_torch.tree import tree_get
 
 __all__ = ["Engine", "DEFAULT_BUCKETS", "ADMIT_FAIL_TRIP"]
 
@@ -208,11 +216,6 @@ class Engine:
             if not isinstance(mesh, Mesh):
                 raise TypeError(f"mesh must be a repro_torch.launch.mesh."
                                 f"Mesh (make_host_mesh), got {type(mesh)}")
-            kinds = set(cfg.layer_pattern()[0]) | set(cfg.layer_pattern()[2])
-            if kinds & {"mamba", "rwkv", "shared_attn"}:
-                raise NotImplementedError(
-                    f"{cfg.name}: the recurrent families are not served on "
-                    f"a mesh yet")
             if device is not None and torch.device(device).type != \
                     mesh.device.type:
                 raise ValueError(f"device {device} is not the mesh's "
@@ -272,6 +275,10 @@ class Engine:
         # kept across reset()
         self._draft_views: Dict[int, tuple] = {}
         self._numerics_cache: Optional[Dict[str, Any]] = None
+        # under a mesh: the last snapshot rank 0 handed out, and whether
+        # the next step's broadcast asks every rank for a fresh one
+        self._numerics_last: Dict[str, Any] = {}
+        self._numerics_wanted = False
         # the gateway driver's taps, called from step()/_admit() with
         # (rid, token) and (rid, reason, RequestState | None)
         self.token_sink: Optional[Callable[[int, Any], None]] = None
@@ -309,16 +316,22 @@ class Engine:
     def _mesh_sync(self, stop: bool = False,
                    now: Optional[float] = None) -> Dict[str, Any]:
         """Rank 0 broadcasts its clock (or ``now``), the submissions and
-        aborts it took since the last call, its speculation arm and
-        ``stop``; the other ranks apply the ops in rank 0's order and take
-        the arm."""
+        aborts it took since the last call, its speculation arm, whether
+        it wants a numerics snapshot, and ``stop``; the other ranks apply
+        the ops in rank 0's order and take the arm, and every rank takes
+        the snapshot (its sums are collectives) if asked."""
+        t0 = time.perf_counter()
         msg = None
         if self._root:
             msg = {"now": self._now() if now is None else now,
                    "ops": self._mesh_ops, "stop": stop,
-                   "arm": self._spec_arm if self.spec is not None else None}
+                   "arm": self._spec_arm if self.spec is not None else None,
+                   "numerics": self._numerics_wanted}
             self._mesh_ops = []
+            self._numerics_wanted = False
         msg = broadcast_object(msg, src=0)
+        self.mesh_syncs += 1
+        self.mesh_sync_s += time.perf_counter() - t0
         if not self._root:
             for op, arg in msg["ops"]:
                 if op == "submit":
@@ -327,7 +340,35 @@ class Engine:
                     self._abort(arg, msg["now"])
             if msg["arm"] is not None:
                 self._spec_arm = tuple(msg["arm"])
+        if msg["numerics"]:
+            self._numerics_cache = self._numerics_last = self._numerics()
         return msg
+
+    def follow(self) -> None:
+        """A follower's side of a mesh whose rank 0 steps from a loop of
+        its own (the gateway's driver thread): take each step's broadcast,
+        apply rank 0's submissions and aborts, step, until rank 0's
+        :meth:`stop_followers`. A follower's sinks are None, so nothing
+        streams from here."""
+        if self._root:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh")
+        while True:
+            msg = self._mesh_sync()
+            if msg["stop"]:
+                return
+            with self._ctx():
+                self._step(None, msg["now"])
+
+    def stop_followers(self) -> None:
+        """Rank 0: broadcast ``stop`` with the submissions and aborts taken
+        since the last step, so every follower applies them (its pages
+        come back as rank 0's do) and leaves :meth:`follow`. Nothing
+        without a mesh."""
+        if self._mesh is None:
+            return
+        self._rank0_only("stop_followers")
+        self._mesh_sync(stop=True)
 
     def _reset_state(self) -> None:
         with self._ctx():
@@ -348,6 +389,8 @@ class Engine:
         # rank 0's submissions and aborts since the last step, mirrored to
         # the other ranks at the top of the next one
         self._mesh_ops: List[tuple] = []
+        self.mesh_syncs = 0              # step broadcasts taken
+        self.mesh_sync_s = 0.0           # host seconds in them
         self._admit_seq = 0
         self._slot_len = np.zeros((self.num_slots,), np.int64)
         self._last_tok = np.zeros((self.num_slots,) + self._tok_width,
@@ -902,7 +945,9 @@ class Engine:
             head = (self._head if dparams is self.params
                     else lm_head(dparams, self.cfg))
             view = self._draft_views[bits] = (dparams, head)
-            self._numerics_cache = None  # a new view: re-derive health
+            # a new view: re-derive health (under a mesh every rank builds
+            # it in the same step, and rank 0 asks again in a broadcast)
+            self._numerics_cache = None
         return view
 
     def numerics_snapshot(self) -> Dict[str, Any]:
@@ -911,16 +956,39 @@ class Engine:
         (``draft_requant_error``), for ``/health``. Computed on the first
         call and cached until a new draft view is built; it reads the
         engine's tensors, so call it from the thread that steps the
-        engine."""
+        engine.
+
+        Under a mesh the snapshot is the whole tree's: each leaf's sums
+        are summed over the ranks its shards lie on (a leaf every rank
+        holds whole counts once). Those sums are collectives, so rank 0
+        never takes them alone: a call with no fresh snapshot asks for
+        one in the next step's broadcast, where every rank takes it, and
+        returns the last one meanwhile (``{}`` before the first)."""
         if self._numerics_cache is not None:
             return self._numerics_cache
-        snap: Dict[str, Any] = {"weights": tree_code_stats(self.params)}
-        drafts = {f"b{bits}": draft_requant_error(self.params, view)
+        if self._mesh is not None:
+            self._rank0_only("numerics_snapshot")
+            self._numerics_wanted = True
+            return self._numerics_last
+        self._numerics_cache = self._numerics()
+        return self._numerics_cache
+
+    def _numerics(self) -> Dict[str, Any]:
+        reduce = None
+        if self._mesh is not None:
+            split = split_axes(self.params, self._mesh, self._mesh_rules)
+
+            def reduce(path, sums):
+                axes = tree_get(split, path)
+                return (sum_reduce(sums, self._mesh.group(axes)) if axes
+                        else sums)
+        snap: Dict[str, Any] = {"weights": tree_code_stats(self.params,
+                                                           reduce)}
+        drafts = {f"b{bits}": draft_requant_error(self.params, view, reduce)
                   for bits, (view, _) in sorted(self._draft_views.items())
                   if view is not self.params}
         if drafts:
             snap["draft_requant"] = drafts
-        self._numerics_cache = snap
         return snap
 
     def _spec_ready(self, k: int) -> bool:
@@ -1194,29 +1262,23 @@ class Engine:
     def run(self, requests: Sequence[Request] = ()) -> Dict[str, float]:
         """Drive the requests to completion; aggregate metrics of the
         requests this call completed. Under a mesh every rank calls it,
-        rank 0 with the requests and the others with none: rank 0 decides
-        each step whether the run is done and tells the others."""
+        rank 0 with the requests and the others with none: the others
+        :meth:`follow` until rank 0 has nothing live and stops them."""
         for r in requests:
             self.submit(r)
         self._run_sink = sink = []
         self._t0 = time.monotonic()
         try:
-            while True:
-                live = bool(self.queue or self.scheduler.running)
-                if self._mesh is None:
-                    if not live:
-                        break
-                    ran = self.step()
-                else:
-                    msg = self._mesh_sync(stop=not live)
-                    if msg["stop"]:
-                        break
-                    with self._ctx():
-                        ran = self._step(None, msg["now"])
-                if not ran and self._root:
-                    nxt = self.queue.next_arrival()
-                    if nxt is not None:
-                        time.sleep(min(max(nxt - self._now(), 0.0), 0.05))
+            if not self._root:
+                self.follow()
+            else:
+                while self.queue or self.scheduler.running:
+                    if not self.step():
+                        nxt = self.queue.next_arrival()
+                        if nxt is not None:
+                            time.sleep(min(max(nxt - self._now(), 0.0),
+                                           0.05))
+                self.stop_followers()
         finally:
             self._run_sink = None
         return summarize(sink, self._now())

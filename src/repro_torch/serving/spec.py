@@ -123,32 +123,40 @@ def build_draft_params(params, bits: int):
     return view
 
 
-def draft_requant_error(params, draft_params) -> Dict[str, float]:
+def draft_requant_error(params, draft_params,
+                        reduce=None) -> Dict[str, float]:
     """Numerics health of a draft view against its target tree:
     ``rel_err_mean``, mean |decode(draft) - decode(target)| over mean
     |decode(target)|, and ``sat_hi_frac``, the fraction of target codes
-    the down-grid clamps at the coarse grid's rail."""
-    src = [x for _, x in leaves(params) if is_lns_weight(x)]
+    the down-grid clamps at the coarse grid's rail. ``reduce`` as in
+    ``obs.numerics.tree_code_stats``: a leaf's path and its f64 sums
+    (error, reference, saturated, elements) summed over its ranks."""
+    src = [(p, x) for p, x in leaves(params) if is_lns_weight(x)]
     dst = [x for _, x in leaves(draft_params) if is_lns_weight(x)]
     err = ref = sat = 0.0
     n = 0
     bits = None
-    for s, d in zip(src, dst):
+    f64 = torch.float64
+    for (path, s), d in zip(src, dst):
         bits = d.fmt.bits
-        if d is s:  # identity leaf: zero error
-            n += s.packed.numel()
-            continue
-        sv = lns_decode_packed(s.packed, s.fmt, torch.float32)
-        dv = lns_decode_packed(d.packed, d.fmt, torch.float32)
-        err += float(torch.sum(torch.abs(dv - sv)))
-        ref += float(torch.sum(torch.abs(sv)))
-        ratio = s.fmt.gamma // d.fmt.gamma
-        if ratio >= 1:
-            code = s.packed.to(torch.int32) & s.fmt.max_code
-            sat += float(torch.sum(torch.div(code + ratio // 2, ratio,
-                                              rounding_mode="floor")
-                                   > d.fmt.max_code))
-        n += s.packed.numel()
+        zero = torch.zeros((), dtype=f64, device=s.packed.device)
+        e = r = z = zero
+        if d is not s:  # an identity leaf has zero error
+            sv = lns_decode_packed(s.packed, s.fmt, torch.float32)
+            dv = lns_decode_packed(d.packed, d.fmt, torch.float32)
+            e = torch.sum(torch.abs(dv - sv)).to(f64)
+            r = torch.sum(torch.abs(sv)).to(f64)
+            ratio = s.fmt.gamma // d.fmt.gamma
+            if ratio >= 1:
+                code = s.packed.to(torch.int32) & s.fmt.max_code
+                z = torch.sum(torch.div(code + ratio // 2, ratio,
+                                        rounding_mode="floor")
+                              > d.fmt.max_code).to(f64)
+        sums = torch.stack([e, r, z, zero + s.packed.numel()])
+        if reduce is not None:
+            sums = reduce(path, sums)
+        a, b, c, m = sums.tolist()
+        err, ref, sat, n = err + a, ref + b, sat + c, n + int(m)
     if n == 0:
         return {"elements": 0}
     return {"bits": bits, "elements": n,
