@@ -12,7 +12,7 @@
     python3 chip_smoke.py --modality   # 1, 2, K5 at hd 96, and 22
     python3 chip_smoke.py --recurrent  # 1, 2, K5 at hd 112, and 23
     python3 chip_smoke.py --moe        # 1, 2, K5 at rep 8, and 24
-    python3 chip_smoke.py --mesh       # 1, 2, 25c-e, 26, 27 on four cards
+    python3 chip_smoke.py --mesh       # 1, 2, 25c-e, 26, 27, 28b on four cards
     python3 chip_smoke.py --mesh-train # 1, 2 and 26 on four cards
     python3 chip_smoke.py --mesh-serve # 1, 2 and 27 on four cards
     python3 chip_smoke.py --k1-given   # K1 with a given scale only
@@ -408,6 +408,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
     card's; TPOT and TTFT beside one card's, collectives and launches a
     forward, words and peak a rank. Results in
     ``chiprun_out/chip_smoke_mesh*.json``.
+28. The dry run (``repro_torch.launch.dryrun``) held to the card. (a) In
+    the default run, smollm-135m at full width and depth: train 8 x 4096,
+    prefill 4 x 8192 and decode 32 x 32768 over dense caches, each traced
+    on ``meta`` (processes of their own started after the build) and run
+    once on card 0 under the same cost mode (``launch.cost``): argument
+    and output bytes, FLOPs and bytes equal, the modelled peak within
+    ``DRY_PEAK_RTOL`` of ``max_memory_allocated`` less what was allocated
+    before; a second call's wall beside max(T_compute, T_memory); card 0's
+    ``total_memory``. (b) In ``--mesh``, after 25 and 26: qwen2.5-32b
+    decode on (1, 4) at full depth dry-run on the fake backend gives 25d's
+    words a rank, and its profiled step's gathers and MAX reduces and
+    their bytes; smollm-135m's (4, 1) train step gives 26a's last step's
+    collectives and bytes; every rank times all-gather and SUM all-reduce
+    at 1, 16 and 256 MB (bus bandwidth beside ``NVLINK_BW``).
 
 Phase 21d serves qwen2.5-32b at the depth ``SERVE_DEPTH_CUT`` gives (32
 of its 64 layers), at full width, to keep the run inside its time limit.
@@ -432,10 +446,17 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 tensor
-# FLOP/s, f32 FLOP/s outside the tensor cores
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+# FLOP/s, f32 FLOP/s outside the tensor cores (``launch.roofline``), and
+# each kernel's operations and bytes (``kernels.costs``); neither module
+# imports torch. Without the repo beside the script main() refuses to run
+sys.path.insert(0, str(SRC))
+try:
+    from repro_torch.kernels import costs
+    from repro_torch.launch.roofline import F32_FLOPS
+    from repro_torch.launch.roofline import HBM_BW as HBM_BPS
+    from repro_torch.launch.roofline import PEAK_FLOPS as BF16_FLOPS
+except ImportError:
+    costs = HBM_BPS = BF16_FLOPS = F32_FLOPS = None
 
 # tolerances of the kernel-vs-plain checks (phase 3) and why:
 # K2: both sides multiply the same bf16-rounded decodes exactly in f32 and
@@ -501,19 +522,13 @@ SPEC_RUNS = [
     ("spec_k1_b6", ["--speculate-k", "1", "--draft-bitwidth", "6"]),
     ("baseline_end", []),
 ]
-# K8's bound counts what the function needs, not what the kernel does. A
-# term's magnitude depends only on m = code_a + code_b, so a table of the
-# 2 max_code + 1 terms (built in shared memory by the datapath's own
-# arithmetic, at any LUT size) leaves per product an add (m), one
-# shared-memory load, a sign apply and an accumulate. Each word is decoded
-# once (code mask, sign bit); each output takes an add, a min and a max
-# per block_k slice. Integer ops issue at up to 128 lanes per SM per clock
-# (4 schedulers x 32: adds and shifts go to the INT32 pipe and, as IMAD
-# forms, to the FMA pipe); shared-memory loads at 32 per SM per clock (32
-# four-byte banks). SMs and the maximum SM clock are read from the card.
-K8_ALU_OPS_PER_PRODUCT = 3
-K8_ALU_OPS_PER_WORD = 2
-K8_ALU_OPS_PER_SLICE = 3
+# K8's bound counts what the function needs, not what the kernel does
+# (``kernels.costs.lns_matmul_packed``: per product an add, one
+# shared-memory load, a sign apply and an accumulate). Integer ops issue
+# at up to 128 lanes per SM per clock (4 schedulers x 32: adds and shifts
+# go to the INT32 pipe and, as IMAD forms, to the FMA pipe); shared-memory
+# loads at 32 per SM per clock (32 four-byte banks). SMs and the maximum
+# SM clock are read from the card.
 ISSUE_LANES_PER_SM = 128
 SMEM_LOADS_PER_SM = 32
 # phase 17: the LUT-8 approximation is the exact conversion, so its loss
@@ -526,11 +541,6 @@ SMEM_LOADS_PER_SM = 32
 # of LUT-8 ones would not pass
 APPROX_LOSS_RTOL = 1.1e-4
 APPROX_EXTRA_STEPS = 0
-# K6's operations an element, for its bound: greedy a compare; noise-in a
-# divide, an add and a compare; seeded also the noise (two mix32 rounds of
-# 8 integer ops, 4 more to key, shift and convert, 2 to scale, two logs
-# and two negations)
-K6_OPS = {"greedy": 1, "noise-in": 3, "seeded": 3 + 16 + 4 + 2 + 4}
 # K6's seeded noise on the card against the plain version on the CPU:
 # torch's CPU log (a vectorised polynomial) and CUDA's logf may round the
 # last bit apart. An ulp of the inner log moves g by about that ulp over
@@ -927,8 +937,9 @@ def k1_given_check(torch, ops, ref, fmt, shapes=K1_GIVEN_SHAPES):
             check(len(names) == 1 and names[0].startswith("void k1_"),
                   f"K1 given scale {R}x{C} (scale_axis={axis}): one call "
                   f"ran {names}")
-            nbytes = R * C * 2 + R * C + R * 4 + s.numel() * 4
-            b, by = bound_ms(nbytes, 8 * R * C, F32_FLOPS)
+            c = costs.encode_pack(R, C, x.element_size(),
+                                  scale_numel=s.numel())
+            b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
             rows.append(dict(
                 shape=[R, C], scale_axis=axis, kernels=names,
                 ms=cuda_ms(torch, lambda: ops.encode_pack(x, fmt, axis,
@@ -961,8 +972,8 @@ def k1_check(torch, ops, ref, fmt, shapes):
         row_ties, _, row_err = k1_pair(torch, ops, ref, x, fmt, 0,
                                        f"{R}x{C} per row")
         err = max(err, row_err)
-        nbytes = R * C * 2 + R * 4 + R * C
-        b, by = bound_ms(nbytes, 10 * R * C, F32_FLOPS)
+        c = costs.encode_pack(R, C, x.element_size())
+        b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
         rows.append(dict(
             shape=[R, C], tie_words=ties, tie_words_per_row=row_ties,
             near_half=near, max_abs_err=err,
@@ -1108,9 +1119,8 @@ def k2_check(torch, ops, ref, fmt, shapes):
             it["i"] = (it["i"] + 1) % len(pbs)
             return it["i"]
 
-        esize = 2 if odt == torch.bfloat16 else 4
-        nbytes = M * K + K * N + 4 * (M + N) + esize * M * N
-        b, by = bound_ms(nbytes, 2 * M * N * K,
+        c = costs.qmatmul(M, K, N, odt.itemsize)
+        b, by = bound_ms(c.bytes, c.ops,
                          BF16_FLOPS if cdt == torch.bfloat16 else F32_FLOPS)
         rows.append(dict(
             shape=[M, K, N], path=plan["path"], splits=plan["splits"],
@@ -1178,8 +1188,8 @@ def k2_decode_pass_check(torch, ops, ref, fmt, shapes):
 
         # each word read once, each padded bf16 element written once; a
         # table lookup and a sign apply an element (CUDA cores)
-        nbytes = M * K + K * N + 2 * (want[0].numel() + want[1].numel())
-        b, by = bound_ms(nbytes, 2 * (M * K + K * N), F32_FLOPS)
+        c = costs.qmatmul_decode(M, K, N, want[0].numel(), want[1].numel())
+        b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
         rows.append(dict(
             shape=[M, K, N], max_abs_err=0.0,
             ms=cuda_ms(torch, lambda: ops.qmatmul_decode(pa, pbs[rot()],
@@ -1385,15 +1395,11 @@ def k5_check(torch, ops, ref, fmt, cases):
         mask = (torch.arange(cap, device="cuda")[None, None, :]
                 <= qpos[:, :, None])[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        elem, page = kp.element_size(), kp.shape[1]
-        n_pos = [min(-(-int(n) // page), bt.shape[1]) * page
-                 for n in lengths]
-        nbytes = (q.numel() * 2 + sum(n_pos) * 2 * KV * HD * elem
-                  + (sum(n_pos) * 2 * KV * 2 if packed else 0)
-                  + bt.numel() * 4 + B * 4 + q.numel() * 4)
-        visible = sum(max(int(n) - S + s + 1, 0) for n in lengths
-                      for s in range(S))
-        b, by = bound_ms(nbytes, 4 * H * HD * visible, BF16_FLOPS)
+        c = costs.paged_attend(B, S, H, HD, KV, kp.shape[1], bt.shape[1],
+                               [int(n) for n in lengths],
+                               q_bytes=q.element_size(),
+                               pool_bytes=kp.element_size(), packed=packed)
+        b, by = bound_ms(c.bytes, c.ops, BF16_FLOPS)
         rows.append(dict(
             shape=[B, S, H, HD], case=name, lengths=list(lengths),
             max_abs_err=err,
@@ -1463,8 +1469,8 @@ def k6_check(torch, ops, ref, shapes=((4, 49152), (16, 49152))):
             check(torch.equal(out, want), f"K6 {name} {B}x{V}: tokens differ "
                   f"{out.tolist()} vs {want.tolist()}")
             check(int(out[0]) == 100, f"K6 {name}: not the first maximum")
-            nbytes = B * V * 4 * reads + B * 4 * (2 if name != "seeded" else 1)
-            b, by = bound_ms(nbytes, B * V * K6_OPS[name], F32_FLOPS)
+            c = costs.fused_sample(B, V, name, lg.element_size())
+            b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
             rows.append(dict(
                 shape=[B, V], case=name, max_abs_err=0,
                 blocks=ops.fused_sample_plan(B, V)["blocks"],
@@ -1696,7 +1702,8 @@ def k7_check(torch, ops, ref):
                 ops.requant_pack(w, src, dst), want),
                 f"K7 8->{bits}: words differ at a misaligned or ragged leaf "
                 f"of {w.numel()} (offset {w.data_ptr() % 16})")
-        b, by = bound_ms(2 * n_view, 5 * n_view, F32_FLOPS)
+        c = costs.requant_pack(n_view)
+        b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
         rows.append(dict(
             leaf="view", shape=[n_view], bits=bits, launches=1,
             max_abs_err=0,
@@ -1727,7 +1734,8 @@ def k7_check(torch, ops, ref):
 
         for bits in (6,):
             dst = src.with_bits(bits)
-            b, by = bound_ms(2 * n, 5 * n, F32_FLOPS)
+            c = costs.requant_pack(n)
+            b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
             rows.append(dict(
                 leaf=name, shape=list(shape), bits=bits, launches=1,
                 max_abs_err=0,
@@ -1790,10 +1798,8 @@ def k34_check(torch, ops, ref, cases):
         frac = target - torch.floor(target)
         ulp = torch.abs(torch.nextafter(target, target + 1) - target)
         near = (frac - 0.5).abs() <= MADAM_TIE_ULPS * ulp
-        n = R * C
-        w_b, g_b = (4 if bits > 8 else 1), (2 if gdt == torch.bfloat16 else 4)
-        nbytes = n * (2 * w_b + g_b + 2 * 4)   # word, g, v in; word, v out
-        b, by = bound_ms(nbytes, 15 * n, F32_FLOPS)
+        c = costs.madam_step(R * C, w.element_size(), g.element_size())
+        b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
         for name in rows:
             if name == "madam_step":
                 kw_w, kv_w = ops.madam_step(w, g, v, bc, fmt, **kw)
@@ -2707,7 +2713,7 @@ def k8_check(torch, ops, ref, fmt, gemms):
     gen = torch.Generator(device="cuda").manual_seed(8)
     rates = k8_rates(torch)
     print(f"K8 bound: {rates['sms']} SMs x {rates['max_sm_mhz']:.0f} MHz; "
-          f"per product {K8_ALU_OPS_PER_PRODUCT} integer ops at "
+          f"per product {costs.K8_ALU_OPS_PER_PRODUCT} integer ops at "
           f"{ISSUE_LANES_PER_SM} lanes/SM/clock "
           f"({rates['int_ops_per_s']:.4g} op/s) and 1 shared-memory load "
           f"at {SMEM_LOADS_PER_SM}/SM/clock "
@@ -2715,14 +2721,10 @@ def k8_check(torch, ops, ref, fmt, gemms):
           f"LUT size")
 
     def bound(M, K, N):
-        products = M * K * N
-        slices = -(-K // 16)
-        alu = (K8_ALU_OPS_PER_PRODUCT * products
-               + K8_ALU_OPS_PER_WORD * (M * K + K * N)
-               + K8_ALU_OPS_PER_SLICE * M * N * slices)
-        t_b = (M * K + K * N + 4 * M * N) / HBM_BPS * 1e3
-        t_o = max(alu / rates["int_ops_per_s"],
-                  products / rates["smem_loads_per_s"]) * 1e3
+        c = costs.lns_matmul_packed(M, K, N)
+        t_b = c.bytes / HBM_BPS * 1e3
+        t_o = max(c.ops / rates["int_ops_per_s"],
+                  c.smem_loads / rates["smem_loads_per_s"]) * 1e3
         return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations")
 
     def rel_err(out, a, b, sa, sb):
@@ -2824,7 +2826,8 @@ def k1_sweep(torch, ops, ref, fmt):
                      (2048, 576), (2048, 1536)):
             x = (torch.randn((R, C), generator=gen, device="cuda") * 3.0
                  ).to(torch.bfloat16)
-            b, _ = bound_ms(R * C * 2 + R * 4 + R * C, 0, 1)
+            b, _ = bound_ms(costs.encode_pack(R, C, x.element_size()).bytes,
+                            0, 1)
             for threads in (256, 512, 1024):
                 for chunk in (2048, 4096, 8192, 16384):
                     ops._K1_THREADS, ops._K1_MIN_CHUNK = threads, chunk
@@ -2982,10 +2985,9 @@ def k9_check(torch, ops, ref, cases):
         bad = int((diff & ~near).sum())
         check(bad == 0, f"K9 {R}x{C} B={bits}: {bad} codes differ away "
               f"from a tie")
-        n = R * C
-        c_b = code.element_size()
-        nbytes = n * (2 * c_b + 1 + g.element_size() + 2 * 4)
-        b_ms, by = bound_ms(nbytes, 15 * n, F32_FLOPS)
+        c = costs.madam_step_unpacked(R * C, code.element_size(),
+                                      g.element_size())
+        b_ms, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
         rows.append(dict(
             shape=[R, C], bits=bits, code_dtype=str(code.dtype)[6:],
             g_dtype=str(gdt)[6:], tie_codes=int(diff.sum()),
@@ -4903,7 +4905,8 @@ def gemma3_draft_view(torch, ops, ref, engine):
         torch.cuda.synchronize()
         ms += start.elapsed_time(end)
         del out
-    b, by = bound_ms(2 * words, 5 * words, F32_FLOPS)
+    c = costs.requant_pack(words)
+    b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
     print(f"21a: gemma3-12b draft view at 6 bits: 3 K7 launches over "
           f"{words / 1e9:.2f}e9 words, every word equal to the plain "
           f"version's, scales and f32 leaves shared; the launches "
@@ -4964,8 +4967,8 @@ def k3_large_leaf(torch, ops, ref, R, C, what="21e's largest leaf"):
         near_n += int(near.sum())
         err = max(err, int((kw_w[sl] - pw).abs().max()))
         del pw, pv, target, frac, ulp, near, diff, sign
-    n = R * C
-    b, by = bound_ms(n * (2 * 4 + 2 + 2 * 4), 15 * n, F32_FLOPS)
+    c = costs.madam_step(R * C, w.element_size(), g.element_size())
+    b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
     ms = min(times)
     print(f"K3 madam_step {R}x{C} B=16 g bf16 ({what}): v' "
           f"equal, words differing at ties {ties} (near-tie {near_n}), "
@@ -4986,8 +4989,8 @@ def k6_variant(torch, ops, ref, B, V):
     kern = lambda: ops.fused_sample(lg, None, None)
     plain = lambda: ref.fused_sample(lg, None, None)
     check(torch.equal(kern(), plain()), f"K6 greedy {B}x{V}: tokens differ")
-    b, by = bound_ms(B * V * 4 + B * 4 * 2, B * V * K6_OPS["greedy"],
-                     F32_FLOPS)
+    c = costs.fused_sample(B, V, "greedy", lg.element_size())
+    b, by = bound_ms(c.bytes, c.ops, F32_FLOPS)
     row = dict(shape=[B, V], case="greedy", max_abs_err=0,
                blocks=ops.fused_sample_plan(B, V)["blocks"],
                ms=cuda_ms(torch, kern), plain_ms=cuda_ms(torch, plain),
@@ -6232,6 +6235,7 @@ def dp_part(torch, ops, tag, spec, scratch):
                 break
             row = {"loss": loss, "grad_norm": float(m["grad_norm"]),
                    "step_ms": ms, "collectives": collectives.counts(),
+                   "collective_bytes": collectives.byte_counts(),
                    "launches": ops.launch_counts(),
                    "k1_given_scale_calls": given[0]}
             cs = dp_checksum(torch, state)
@@ -6595,6 +6599,7 @@ def profile_mesh_step(torch, engine, trace, ops, out_dir):
     host = [e for e in averages(prof) if e.device_type != cuda
             and e.key.startswith("c10d::")]
     row = {"collectives": collectives.counts(),
+           "collective_bytes": collectives.byte_counts(),
            "launches": ops.launch_counts(),
            "busy_ms": sum(e.self_device_time_total for e in kernels
                           if not e.key.startswith("nccl:")) / 1e3,
@@ -6683,7 +6688,7 @@ def mesh_serve(torch, ops, tag, arch, argv, mesh, cut, scratch):
     return row
 
 
-def mesh_rank(rank, world, port, out_dir, runs, dp_runs):
+def mesh_rank(rank, world, port, out_dir, runs, dp_runs, bus=False):
     """One rank of ``--mesh``: torchrun's environment for this card, then
     every ``runs`` entry through :func:`mesh_serve` and every ``dp_runs``
     part through :func:`dp_part`; this rank's results go to
@@ -6726,6 +6731,8 @@ def mesh_rank(rank, world, port, out_dir, runs, dp_runs):
                                            for x in r["steps"])
                   + f", collectives {r['steps'][-1]['collectives']}, peak "
                   f"{r['peak_gb']:.2f} GB ({r['seconds']:.1f}s)", flush=True)
+    if bus:
+        out["bus"] = bus_bandwidth(torch, dist, world)
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     dist.barrier()
     dist.destroy_process_group()
@@ -6736,6 +6743,245 @@ def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the dry run (``launch.dryrun``) held to the card. 28a:
+# smollm-135m at full width and depth in three cells, each traced on
+# ``meta`` (in processes of their own, started after the build: they take
+# host time only) and run once on card 0 under the same cost mode;
+# arguments, FLOPs and bytes must be equal, the step's peak within
+# DRY_PEAK_RTOL of the allocator's. 28b (``--mesh``): qwen2.5-32b decode on
+# (1, 4) and smollm-135m's (4, 1) train step dry-run on the fake backend,
+# held to 25d's and 26a's words and collective counters
+DRY_CELLS = [("train", 4096, 8), ("prefill", 8192, 4), ("decode", 32768, 32)]
+DRY_PEAK_RTOL = 0.10
+DRY_CHILD = r"""
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import dryrun
+kind, seq, batch = json.loads(sys.argv[2])
+t0 = time.monotonic()
+rep = dryrun.measure(*dryrun.cell_step(
+    get_config("smollm-135m"), ShapeSpec(kind, seq, batch, kind), None,
+    None))
+rep["trace_s"] = time.monotonic() - t0
+open(sys.argv[1], "w").write(json.dumps(rep))
+"""
+# all-gather and SUM all-reduce sizes of 28b's bus bandwidth
+BUS_SIZES_MB = (1, 16, 256)
+# 28b: 25d's profiled decode step (its slots) and 26a's global batch
+DRY_MESH_DECODE = ("qwen2.5-32b", 4, 64)
+DRY_MESH_TRAIN = ("smollm-135m", 32, 256)
+
+
+def dry_start(cells=DRY_CELLS):
+    """28a's meta traces, one process a cell (no card), started now;
+    :func:`dry_check` collects them. Each is killed if still running when
+    this process exits."""
+    import atexit
+    out = ROOT / "build" / "dry"
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    procs = {}
+    for cell in cells:
+        path = out / f"{cell[0]}.json"
+        path.unlink(missing_ok=True)
+        procs[cell[0]] = (subprocess.Popen(
+            [sys.executable, "-c", DRY_CHILD, str(path), json.dumps(cell)],
+            env=env, cwd=ROOT), path)
+    atexit.register(lambda: [p.kill() for p, _ in procs.values()
+                             if p.poll() is None])
+    return procs
+
+
+def dry_check(torch, procs):
+    """28a: each cell run once on card 0 under the cost mode, beside its
+    meta trace; then once more outside the mode, its wall beside the
+    roofline's max(T_compute, T_memory)."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import dryrun, roofline
+    cfg = get_config("smollm-135m")
+    rows = {}
+    for kind, seq, batch in DRY_CELLS:
+        spec = ShapeSpec(kind, seq, batch, kind)
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        args, run = dryrun.cell_step(cfg, spec, None, None, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        card = dryrun.measure(args, run)
+        torch.cuda.synchronize()
+        mode_s = time.monotonic() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        del out, args, run
+        proc, path = procs[kind]
+        check(proc.wait(timeout=600) == 0, f"28a {kind}: the meta trace "
+              f"failed (exit {proc.returncode})")
+        meta = json.loads(path.read_text())
+        t_c = meta["flops"] / roofline.PEAK_FLOPS * 1e3
+        t_m = meta["bytes"] / roofline.HBM_BW * 1e3
+        row = {"shape": [batch, seq], "meta": meta, "card": card,
+               "card_peak_bytes": peak, "card_mode_s": mode_s,
+               "wall_ms": wall_ms, "t_compute_ms": t_c, "t_memory_ms": t_m,
+               "model_peak_rel_err": meta["memory"]["peak_bytes"] / peak - 1}
+        rows[kind] = row
+        for k in ("argument_size_in_bytes", "output_size_in_bytes"):
+            check(meta["memory"][k] == card["memory"][k],
+                  f"28a {kind}: {k} {meta['memory'][k]} on meta, "
+                  f"{card['memory'][k]} on the card")
+        for k in ("flops", "bytes"):
+            check(meta[k] == card[k], f"28a {kind}: {k} {meta[k]} on meta, "
+                  f"{card[k]} on the card")
+        check(abs(row["model_peak_rel_err"]) <= DRY_PEAK_RTOL,
+              f"28a {kind}: modelled peak {meta['memory']['peak_bytes']} vs "
+              f"max_memory_allocated {peak} "
+              f"({row['model_peak_rel_err']:+.1%})")
+        print(f"28a smollm-135m {kind} {batch}x{seq}: arguments "
+              f"{meta['memory']['argument_size_in_bytes'] / 1e9:.3f} GB, "
+              f"FLOPs {meta['flops']:.6g} and bytes {meta['bytes']:.6g} "
+              f"equal on meta and the card ({meta['aten_ops']} aten ops, "
+              f"{sum(r['calls'] for r in meta['kernels'].values())} kernel "
+              f"calls); peak {meta['memory']['peak_bytes'] / 1e9:.3f} GB "
+              f"modelled vs {peak / 1e9:.3f} GB max_memory_allocated "
+              f"({row['model_peak_rel_err']:+.2%}); an unmodelled call "
+              f"{wall_ms:.1f} ms beside max(T_compute {t_c:.2f}, T_memory "
+              f"{t_m:.2f}) ms = {wall_ms / max(t_c, t_m):.2f}x (meta trace "
+              f"{meta['trace_s']:.1f} s, the mode's run on the card "
+              f"{mode_s:.1f} s)", flush=True)
+    props = torch.cuda.get_device_properties(0)
+    print(f"28a: card 0 total_memory {props.total_memory} bytes "
+          f"(launch.roofline.HBM_BYTES {roofline.HBM_BYTES})")
+    rows["total_memory"] = props.total_memory
+    return rows
+
+
+def bus_bandwidth(torch, dist, world):
+    """28b on every rank: all-gather and SUM all-reduce of BUS_SIZES_MB
+    (the gathered output's size), bus bandwidth as nccl-tests counts it
+    ((n-1)/n of the bytes an all-gather moves, 2 (n-1)/n an
+    all-reduce), CUDA events around 10 calls after 3."""
+    out = {}
+    for mb in BUS_SIZES_MB:
+        n = mb * (1 << 20) // 4
+        full = torch.empty(n, dtype=torch.float32, device="cuda")
+        part = torch.ones(n // world, dtype=torch.float32, device="cuda")
+        calls = {"all-gather": (lambda: dist.all_gather_into_tensor(
+                     full, part), (world - 1) / world),
+                 "all-reduce": (lambda: dist.all_reduce(full),
+                                2 * (world - 1) / world)}
+        for kind, (fn, factor) in calls.items():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(10):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            s = start.elapsed_time(end) / 10 / 1e3
+            out[f"{kind} {mb} MB"] = {"s": s, "bus_bps": n * 4 / s * factor}
+        del full, part
+    return out
+
+
+def dry_mesh(torch, ranks):
+    """28b in the parent (no card): qwen2.5-32b decode on (1, 4) at full
+    depth and smollm-135m's data-parallel step on (4, 1), dry-run on the
+    fake backend, held to 25d's words and profiled step and to 26a's last
+    step."""
+    from repro_torch.configs import ShapeSpec, get_config, get_rules
+    from repro_torch.distributed.sharding import serving_rules, shard_ctx
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import NVLINK_BW
+    out = {}
+    arch, slots, seq = DRY_MESH_DECODE
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    with dryrun.meta_mesh({"data": 1, "model": MESH_WORLD},
+                          MESH_WORLD) as mesh:
+        rules = serving_rules(cfg, mesh)
+        with shard_ctx(mesh, rules):
+            args, run = dryrun.cell_step(
+                cfg, ShapeSpec("d", seq, slots, "decode"), mesh, rules)
+            rep = dryrun.measure(args, run)
+        words = packed_bytes(args[0])
+    prof = [rk["25d"]["profile"] for rk in ranks]
+    measured = [rk["25d"]["weights_gb"] for rk in ranks]
+    kinds = ("all-gather", "all-reduce")
+    dry_bytes = {k: rep["collectives"]["bytes"].get(k, 0) for k in kinds}
+    card_bytes = [{k: p["collective_bytes"]["bytes"].get(k, 0)
+                   for k in kinds} for p in prof]
+    out["25d"] = {"words_gb": words / 1e9, "card_words_gb": measured,
+                  "collectives": rep["collective_calls"],
+                  "card_collectives": [p["collectives"] for p in prof],
+                  "bytes": dry_bytes, "card_bytes": card_bytes,
+                  "peak_gb": rep["memory"]["peak_bytes"] / 1e9,
+                  "trace_s": time.monotonic() - t0}
+    for r, (w, p, b) in enumerate(zip(measured, prof, card_bytes)):
+        check(abs(words / 1e9 - w) < 1e-9,
+              f"28b: qwen2.5-32b words a rank {words / 1e9} GB modelled, "
+              f"{w} GB on rank {r} (25d)")
+        for k in ("gather", "max_reduce"):
+            check(rep["collective_calls"][k] == p["collectives"][k],
+                  f"28b: qwen2.5-32b {k} a step {rep['collective_calls']} "
+                  f"modelled, {p['collectives']} on rank {r} (25d)")
+        check(b == dry_bytes, f"28b: qwen2.5-32b collective bytes a step "
+              f"{dry_bytes} modelled, {b} on rank {r} (25d)")
+    print(f"28b qwen2.5-32b decode on (1, {MESH_WORLD}) dry-run: "
+          f"{words / 1e9:.2f} GB of words a rank (25d: "
+          f"{[round(w, 2) for w in measured]}), collectives a step "
+          f"{rep['collective_calls']} and bytes {dry_bytes} equal 25d's "
+          f"profiled step ({out['25d']['trace_s']:.1f} s)", flush=True)
+    arch, batch, seq = DRY_MESH_TRAIN
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    with dryrun.meta_mesh({"data": MESH_WORLD, "model": 1},
+                          MESH_WORLD) as mesh:
+        rules = get_rules(arch)
+        with shard_ctx(mesh, rules):
+            rep = dryrun.measure(*dryrun.cell_step(
+                cfg, ShapeSpec("t", seq, batch, "train"), mesh, rules))
+    steps = [rk["26a"]["steps"][-1] for rk in ranks]
+    dry_bytes = rep["collectives"]["bytes"]
+    out["26a"] = {"collectives": rep["collective_calls"],
+                  "card_collectives": [x["collectives"] for x in steps],
+                  "bytes": dry_bytes,
+                  "card_bytes": [x["collective_bytes"]["bytes"]
+                                 for x in steps],
+                  "trace_s": time.monotonic() - t0}
+    for r, x in enumerate(steps):
+        check(x["collectives"] == rep["collective_calls"],
+              f"28b: smollm (4, 1) step collectives {rep['collective_calls']}"
+              f" modelled, {x['collectives']} on rank {r} (26a)")
+        check(x["collective_bytes"]["bytes"] == dry_bytes,
+              f"28b: smollm (4, 1) step bytes {dry_bytes} modelled, "
+              f"{x['collective_bytes']['bytes']} on rank {r} (26a)")
+    print(f"28b smollm-135m train on ({MESH_WORLD}, 1) dry-run: collectives "
+          f"a step {rep['collective_calls']} and bytes {dry_bytes} equal "
+          f"26a's last step ({out['26a']['trace_s']:.1f} s)", flush=True)
+    bus = [rk["bus"] for rk in ranks]
+    out["bus"] = bus
+    for key in bus[0]:
+        bps = [b[key]["bus_bps"] for b in bus]
+        print(f"28b {key} on {MESH_WORLD} cards: bus bandwidth "
+              f"{min(bps) / 1e9:.1f}-{max(bps) / 1e9:.1f} GB/s a rank "
+              f"(launch.roofline.NVLINK_BW {NVLINK_BW / 1e9:.0f} GB/s)",
+              flush=True)
+    return out
 
 
 def mesh_main(torch, card, parts=("25", "26", "27")):
@@ -6787,8 +7033,9 @@ def mesh_main(torch, card, parts=("25", "26", "27")):
     os.environ["OMP_NUM_THREADS"] = "1"
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
+    dry = "25" in parts and "26" in parts     # 28b
     mp.start_processes(mesh_rank, args=(MESH_WORLD, free_port(),
-                                        str(scratch), runs, dp_runs),
+                                        str(scratch), runs, dp_runs, dry),
                        nprocs=MESH_WORLD, join=True, start_method="spawn")
     marks.append(("ranks", time.monotonic()))
     ranks = [json.loads((scratch / f"rank{r}.json").read_text())
@@ -6889,6 +7136,9 @@ def mesh_main(torch, card, parts=("25", "26", "27")):
         res[tag] = line
         print(json.dumps(line))
     marks.append(("checks", time.monotonic()))
+    if dry:
+        res["28b"] = dry_mesh(torch, ranks)
+        marks.append(("28b", time.monotonic()))
     res["seconds_by_phase"] = {b[0]: b[1] - a[1]
                                for a, b in zip(marks, marks[1:])}
     res["seconds"] = time.monotonic() - t_start
@@ -7332,6 +7582,8 @@ def main() -> int:
     print(f"kernels built and loaded in {build_s:.1f}s")
 
     fmt = LNSFormat(8, 8)
+    # 28a's meta traces run on the host beside phases 3-25
+    dry_procs = None if sweep else dry_start()
     if sweep:
         name = sys.argv[1][2:].replace("-", "_")
         rows = sweeps[sys.argv[1]](torch, ops, ref, fmt)
@@ -7509,6 +7761,9 @@ def main() -> int:
     mark("25a")
     one_mesh = mesh_of_one(torch, ops, paged["streams"])
     mark("25b")
+    torch.cuda.empty_cache()
+    dry = dry_check(torch, dry_procs)
+    mark("28a")
 
     # launches: each kernel's count on its own path's run (serving for
     # K1/K2/K5/K6, the training run for K2's decode pass and K3, the numerics step for K4, the
@@ -7593,6 +7848,7 @@ def main() -> int:
             "dense_variants": variants, "modality": modal,
             "recurrent": recur, "moe": mixture,
             "mesh": {"shards": shards, "mesh_of_one": one_mesh},
+            "dry_run": dry,
             "serve_paged": paged, "serve_dense": dense,
             "logits": logits, "profile": prof, "train": train,
             "numerics": numerics, "train_step": step_cmp,

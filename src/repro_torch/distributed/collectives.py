@@ -26,12 +26,18 @@ import torch
 
 __all__ = ["gather", "max_reduce", "sum_reduce", "sum_tensors",
            "group_size", "broadcast_object", "counts", "reset_counts",
-           "SUM_BUCKET_BYTES"]
+           "name_group", "byte_counts", "SUM_BUCKET_BYTES"]
 
 # collectives issued (over a group of more than one rank) since the last
 # reset, by kind: what a step or a forward costs in round trips; "sum"
 # counts every SUM all-reduce, a gradient bucket included
 _COUNTS = {"gather": 0, "max_reduce": 0, "sum": 0}
+# their operand bytes (a rank's) and calls since the last reset, by kind
+# as the JAX package's roofline names them ("all-gather", "all-reduce";
+# "broadcast" for broadcast_object's pickled bytes) and by the mesh axes
+# the group spans (:func:`name_group`; "?" for a group no mesh named)
+_BYTES: dict = {}
+_AXES: dict = {}
 
 # the f32 staging buffer of one SUM bucket: the gradients reduce through
 # it a bucket at a time, so the temporary stays this size whatever the
@@ -46,6 +52,31 @@ def counts() -> dict:
 def reset_counts() -> None:
     for k in _COUNTS:
         _COUNTS[k] = 0
+    _BYTES.clear()
+
+
+def name_group(group, axes: str) -> None:
+    """Record that ``group`` spans the mesh axes ``axes`` (``"model"``,
+    ``"data+model"``...), the key its collectives' bytes are counted
+    under."""
+    _AXES[group] = axes
+
+
+def _charge(kind: str, group, nbytes: int) -> None:
+    row = _BYTES.setdefault((kind, _AXES.get(group, "?")), [0, 0])
+    row[0] += 1
+    row[1] += int(nbytes)
+
+
+def byte_counts() -> dict:
+    """Since the last reset: ``{"bytes": {kind: n}, "calls": {kind: n},
+    "by_axis": {axes: {kind: n}}}``, a rank's operand bytes."""
+    out = {"bytes": {}, "calls": {}, "by_axis": {}}
+    for (kind, axes), (calls, nbytes) in sorted(_BYTES.items()):
+        out["bytes"][kind] = out["bytes"].get(kind, 0) + nbytes
+        out["calls"][kind] = out["calls"].get(kind, 0) + calls
+        out["by_axis"].setdefault(axes, {})[kind] = nbytes
+    return out
 
 
 def group_size(group) -> int:
@@ -61,6 +92,7 @@ def gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
         return x
     import torch.distributed as dist
     _COUNTS["gather"] += 1
+    _charge("all-gather", group, x.numel() * x.element_size())
     dim = dim % x.dim()
     xm = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xm.shape[0],) + tuple(xm.shape[1:]),
@@ -77,6 +109,7 @@ def max_reduce(t: torch.Tensor, group) -> torch.Tensor:
         return t
     import torch.distributed as dist
     _COUNTS["max_reduce"] += 1
+    _charge("all-reduce", group, t.numel() * t.element_size())
     out = t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
     return out
@@ -89,6 +122,7 @@ def sum_reduce(t: torch.Tensor, group) -> torch.Tensor:
         return t
     import torch.distributed as dist
     _COUNTS["sum"] += 1
+    _charge("all-reduce", group, t.numel() * t.element_size())
     out = t.clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
@@ -117,6 +151,7 @@ def sum_tensors(ts, group, bucket_bytes: int = SUM_BUCKET_BYTES) -> None:
         if not used:
             return
         _COUNTS["sum"] += 1
+        _charge("all-reduce", group, used * 4)
         dist.all_reduce(buf[:used], op=dist.ReduceOp.SUM, group=group)
         for flat, lo, n, at in pending:
             flat[lo:lo + n].copy_(buf[at:at + n])
@@ -142,8 +177,11 @@ def sum_tensors(ts, group, bucket_bytes: int = SUM_BUCKET_BYTES) -> None:
 
 def broadcast_object(obj, src: int = 0, group=None):
     """Rank ``src``'s picklable ``obj`` on every rank of ``group`` (the
-    world by default)."""
+    world by default); its pickled bytes are counted as a broadcast."""
+    import pickle
     import torch.distributed as dist
     box = [obj]
     dist.broadcast_object_list(box, src=src, group=group)
+    _charge("broadcast", group if group is not None else dist.group.WORLD,
+            len(pickle.dumps(box[0])))
     return box[0]

@@ -4,6 +4,9 @@
 * A CUDA tensor launches the hand-written kernel (``kernels.ops``), or the
   wrapper raises. There is no fallback from a CUDA tensor to the plain
   version, and no setting that reroutes one.
+* A ``meta`` tensor goes to the kernel's shape function
+  (``kernels.meta``): its outputs as ``meta`` tensors, nothing computed.
+  A dry run traces a step this way. Nothing else reaches it.
 
 Any other device raises. The JAX package's backend precedence chain
 (``configure()``, per-call argument, env var, platform) has no counterpart
@@ -12,7 +15,9 @@ here: the caller picks the device, and the device picks the path.
 Every entry point checks one module global, ``kernel_stats.active()``;
 with a collector enabled it runs the implementation the route chose
 through ``kernel_stats.observe``, which counts and times it and never
-changes the route.
+changes the route. With a cost sink active (``kernels.costs``, a dry
+run's cost mode), or on ``meta``, each call is charged its kernel's
+cost, from its arguments' shapes (:func:`_call`).
 """
 from __future__ import annotations
 
@@ -21,8 +26,9 @@ from typing import List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lns import LNSFormat, compute_scale, lns_encode, lns_pack
-from repro_torch.kernels import ops, ref
+from repro_torch.core.lns import (LNSFormat, compute_scale, lns_encode,
+                                  lns_pack, lns_word_dtype)
+from repro_torch.kernels import costs, meta, ops, ref
 from repro_torch.kernels.madam_stats import madam_stats_dict, requant_spec
 from repro_torch.obs import kernel_stats
 
@@ -33,14 +39,35 @@ __all__ = ["route", "encode_pack", "qmatmul", "qmatmul_decode",
            "lns_matmul_packed", "lns_matmul"]
 
 
+_ROUTES = {"cpu": "plain", "cuda": "kernel", "meta": "meta"}
+
+
 def route(t) -> str:
-    """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA one."""
+    """``"plain"`` for a CPU tensor, ``"kernel"`` for a CUDA one,
+    ``"meta"`` for a ``meta`` one."""
     kind = t.device.type
-    if kind == "cpu":
-        return "plain"
-    if kind == "cuda":
-        return "kernel"
-    raise ValueError(f"no kernel path for device {t.device}")
+    if kind not in _ROUTES:
+        raise ValueError(f"no kernel path for device {t.device}")
+    return _ROUTES[kind]
+
+
+def _pick(backend: str, name: str):
+    """The implementation of kernel ``name`` on ``backend``."""
+    return getattr({"kernel": ops, "plain": ref, "meta": meta}[backend],
+                   name)
+
+
+def _call(op: str, backend: str, bits: int, probe, cost_fn, impl, *args,
+          **kwargs):
+    """Run ``impl``: charged ``cost_fn()`` (a ``costs.Cost``) where a cost
+    sink is active or the route is ``meta``, counted and timed where
+    ``kernel_stats`` is on."""
+    if backend == "meta" or costs.active() is not None:
+        impl = costs.charged(op, backend == "meta", cost_fn, impl)
+    if kernel_stats.active() is not None:
+        return kernel_stats.observe(op, backend, bits, probe, impl, *args,
+                                    **kwargs)
+    return impl(*args, **kwargs)
 
 
 def encode_pack(x: torch.Tensor, fmt: LNSFormat,
@@ -50,12 +77,13 @@ def encode_pack(x: torch.Tensor, fmt: LNSFormat,
     against its own absmax scale or a given one (``(1, 1)`` per tensor,
     ``(R, 1)`` per row)."""
     backend = route(x)
-    impl = ops.encode_pack if backend == "kernel" else ref.encode_pack
     args = (x, fmt, scale_axis) + (() if scale is None else (scale,))
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe("encode_pack", backend, fmt.bits, x,
-                                    impl, *args)
-    return impl(*args)
+    cost = lambda: costs.encode_pack(
+        x.shape[0], x.shape[1], x.element_size(),
+        lns_word_dtype(fmt).itemsize,
+        None if scale is None else scale.numel())
+    return _call("encode_pack", backend, fmt.bits, x, cost,
+                 _pick(backend, "encode_pack"), *args)
 
 
 def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
@@ -66,24 +94,28 @@ def qmatmul(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat,
     """K2: packed ``pa (M,K) @ pb (K,N)`` -> ``out_dtype`` (f32 or bf16),
     row/column scales."""
     backend = route(pa)
-    impl = ops.qmatmul if backend == "kernel" else ref.qmatmul
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe(
-            "qmatmul", backend, fmt.bits, pa, impl, pa, pb, fmt, scale_a,
-            scale_b, compute_dtype=compute_dtype, out_dtype=out_dtype)
-    return impl(pa, pb, fmt, scale_a, scale_b, compute_dtype=compute_dtype,
-                out_dtype=out_dtype)
+    M, K = pa.shape
+    cost = lambda: costs.qmatmul(
+        M, K, pb.shape[1], out_dtype.itemsize,
+        word_bytes=pa.element_size(),
+        scales=scale_a is not None or scale_b is not None)
+    return _call("qmatmul", backend, fmt.bits, pa, cost,
+                 _pick(backend, "qmatmul"), pa, pb, fmt, scale_a, scale_b,
+                 compute_dtype=compute_dtype, out_dtype=out_dtype)
 
 
 def qmatmul_decode(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat):
     """K2's decode pass: packed operands -> padded K-major bf16
     ``(ad, bt)``, as the wgmma path multiplies them."""
     backend = route(pa)
-    impl = ops.qmatmul_decode if backend == "kernel" else ref.qmatmul_decode
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe("qmatmul_decode", backend, fmt.bits, pa,
-                                    impl, pa, pb, fmt)
-    return impl(pa, pb, fmt)
+    (M, K), N = pa.shape, pb.shape[1]
+
+    def cost():
+        a, b = meta.padded(M, K, N)
+        return costs.qmatmul_decode(M, K, N, a[0] * a[1], b[0] * b[1],
+                                    pa.element_size())
+    return _call("qmatmul_decode", backend, fmt.bits, pa, cost,
+                 _pick(backend, "qmatmul_decode"), pa, pb, fmt)
 
 
 def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
@@ -92,25 +124,34 @@ def paged_attend(q, kp, vp, k_scale, v_scale, block_table, lengths, *,
                  sm_scale: float) -> torch.Tensor:
     """K5: attend ``q (B,S,h,hd)`` over a paged pool -> f32."""
     backend = route(q)
-    impl = ops.paged_attend if backend == "kernel" else ref.paged_attend
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe(
-            "paged_attend", backend, fmt.bits if fmt is not None else 0, q,
-            impl, q, kp, vp, k_scale, v_scale, block_table, lengths,
-            fmt=fmt, softcap=softcap, sm_scale=sm_scale)
-    return impl(q, kp, vp, k_scale, v_scale, block_table, lengths, fmt=fmt,
-                softcap=softcap, sm_scale=sm_scale)
+
+    def cost():
+        B, S, H, HD = q.shape
+        page, mp = kp.shape[1], block_table.shape[1]
+        # the lengths the rows reach (a host read), or on meta every
+        # position of the block table: the most the call could need
+        ln = ([mp * page] * B if backend == "meta" else
+              [int(n) for n in lengths.tolist()])
+        return costs.paged_attend(B, S, H, HD, kp.shape[2], page, mp, ln,
+                                  q_bytes=q.element_size(),
+                                  pool_bytes=kp.element_size(),
+                                  packed=fmt is not None)
+    return _call("paged_attend", backend,
+                 fmt.bits if fmt is not None else 0, q, cost,
+                 _pick(backend, "paged_attend"), q, kp, vp, k_scale,
+                 v_scale, block_table, lengths, fmt=fmt, softcap=softcap,
+                 sm_scale=sm_scale)
 
 
 def fused_sample(logits: torch.Tensor, gumbel: Optional[torch.Tensor],
                  temp: Optional[torch.Tensor]) -> torch.Tensor:
     """K6: ``logits (B,V)`` -> ``(B,)`` int32 tokens."""
     backend = route(logits)
-    impl = ops.fused_sample if backend == "kernel" else ref.fused_sample
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe("fused_sample", backend, 0, logits, impl,
-                                    logits, gumbel, temp)
-    return impl(logits, gumbel, temp)
+    cost = lambda: costs.fused_sample(
+        *logits.shape, "greedy" if gumbel is None else "noise-in",
+        logits.element_size())
+    return _call("fused_sample", backend, 0, logits, cost,
+                 _pick(backend, "fused_sample"), logits, gumbel, temp)
 
 
 def fused_sample_seeded(logits: torch.Tensor, temp, seed, step, *,
@@ -120,13 +161,11 @@ def fused_sample_seeded(logits: torch.Tensor, temp, seed, step, *,
     of ``ref.gumbel_noise`` drawn in the kernel; with ``noise_out`` also
     that noise ``(B,V)``."""
     backend = route(logits)
-    impl = (ops.fused_sample_seeded if backend == "kernel"
-            else ref.fused_sample_seeded)
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe("fused_sample_seeded", backend, 0, logits,
-                                    impl, logits, temp, seed, step,
-                                    noise_out=noise_out)
-    return impl(logits, temp, seed, step, noise_out=noise_out)
+    cost = lambda: costs.fused_sample(*logits.shape, "seeded",
+                                      logits.element_size())
+    return _call("fused_sample_seeded", backend, 0, logits, cost,
+                 _pick(backend, "fused_sample_seeded"), logits, temp, seed,
+                 step, noise_out=noise_out)
 
 
 def requant_pack(packed: torch.Tensor, src: LNSFormat,
@@ -134,11 +173,10 @@ def requant_pack(packed: torch.Tensor, src: LNSFormat,
     """K7: re-grid packed words of any rank from ``src`` to ``dst`` bits
     (the self-speculative draft view; integer-only, scales untouched)."""
     backend = route(packed)
-    impl = ops.requant_pack if backend == "kernel" else ref.requant_pack
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe("requant_pack", backend, dst.bits, packed,
-                                    impl, packed, src, dst)
-    return impl(packed, src, dst)
+    cost = lambda: costs.requant_pack(packed.numel(), packed.element_size(),
+                                      lns_word_dtype(dst).itemsize)
+    return _call("requant_pack", backend, dst.bits, packed, cost,
+                 _pick(backend, "requant_pack"), packed, src, dst)
 
 
 def requant_pack_many(leaves: Sequence[torch.Tensor], src,
@@ -151,13 +189,12 @@ def requant_pack_many(leaves: Sequence[torch.Tensor], src,
         raise ValueError(f"requant_pack_many: leaves must share one kind of "
                          f"device, got {sorted(kinds) or 'no leaves'}")
     backend, = kinds
-    impl = (ops.requant_pack_many if backend == "kernel"
-            else ref.requant_pack_many)
-    if kernel_stats.active() is not None:
-        bits = dst.bits if isinstance(dst, LNSFormat) else dst[0].bits
-        return kernel_stats.observe("requant_pack_many", backend, bits,
-                                    leaves[0], impl, leaves, src, dst)
-    return impl(leaves, src, dst)
+    d0 = dst if isinstance(dst, LNSFormat) else dst[0]
+    cost = lambda: costs.requant_pack(
+        sum(p.numel() for p in leaves), leaves[0].element_size(),
+        lns_word_dtype(d0).itemsize)
+    return _call("requant_pack_many", backend, d0.bits, leaves[0], cost,
+                 _pick(backend, "requant_pack_many"), leaves, src, dst)
 
 
 def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
@@ -170,7 +207,6 @@ def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     Returns ``(new_packed, new_v)``, plus the dict of
     ``madam_stats.MADAM_STAT_KEYS`` with ``with_stats``."""
     backend = route(packed)
-    kernel = backend == "kernel"
     shape = packed.shape
     if len(shape) < 2:
         raise ValueError(f"madam_step needs a >=2-D leaf, got {tuple(shape)}")
@@ -179,16 +215,14 @@ def madam_step(packed: torch.Tensor, g: torch.Tensor, v: torch.Tensor,
     v2 = v.reshape(p2.shape)
     bc = ref.bias_correction(beta, count)
     kw = dict(lr=lr, beta=beta, eps=eps)
-    if not with_stats:
-        impl = ops.madam_step if kernel else ref.madam_step
-    else:
-        impl = ops.madam_step_stats if kernel else ref.madam_step_stats
+    impl = _pick(backend, "madam_step_stats" if with_stats
+                 else "madam_step")
+    if with_stats:
         kw["requant"] = requant_spec(fmt, requant_fmt)
-    if kernel_stats.active() is not None:
-        out = kernel_stats.observe("madam_step", backend, fmt.bits, packed,
-                                   impl, p2, g2, v2, bc, fmt, **kw)
-    else:
-        out = impl(p2, g2, v2, bc, fmt, **kw)
+    cost = lambda: costs.madam_step(p2.numel(), p2.element_size(),
+                                    g2.element_size())
+    out = _call("madam_step", backend, fmt.bits, packed, cost, impl, p2, g2,
+                v2, bc, fmt, **kw)
     if not with_stats:
         np_, nv = out
         return np_.reshape(shape), nv.reshape(shape)
@@ -205,14 +239,12 @@ def madam_step_unpacked(code: torch.Tensor, sign: torch.Tensor,
     (the counterpart of ``repro.kernels.ops.madam_step``); ``count`` is
     the post-increment step. Returns ``(new_code, new_v)``."""
     backend = route(code)
-    impl = (ops.madam_step_unpacked if backend == "kernel"
-            else ref.madam_step_unpacked)
     bc = ref.bias_correction(beta, count)
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe("madam_step_unpacked", backend, fmt.bits,
-                                    code, impl, code, sign, g, v, bc, fmt,
-                                    lr=lr, beta=beta, eps=eps)
-    return impl(code, sign, g, v, bc, fmt, lr=lr, beta=beta, eps=eps)
+    cost = lambda: costs.madam_step_unpacked(code.numel(), code.element_size(),
+                                             g.element_size())
+    return _call("madam_step_unpacked", backend, fmt.bits, code, cost,
+                 _pick(backend, "madam_step_unpacked"), code, sign, g, v, bc,
+                 fmt, lr=lr, beta=beta, eps=eps)
 
 
 def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
@@ -221,14 +253,12 @@ def lns_matmul_packed(pa: torch.Tensor, pb: torch.Tensor, fmt: LNSFormat, *,
     """K8: the Fig.-6 integer datapath on packed ``pa (M,K) @ pb (K,N)``
     -> int32 partial sums in ``frac_bits`` fixed point."""
     backend = route(pa)
-    impl = (ops.lns_matmul_packed if backend == "kernel"
-            else ref.lns_matmul_packed)
-    if kernel_stats.active() is not None:
-        return kernel_stats.observe(
-            "lns_matmul_packed", backend, fmt.bits, pa, impl, pa, pb, fmt,
-            frac_bits=frac_bits, lut_entries=lut_entries, block_k=block_k)
-    return impl(pa, pb, fmt, frac_bits=frac_bits, lut_entries=lut_entries,
-                block_k=block_k)
+    cost = lambda: costs.lns_matmul_packed(*pa.shape, pb.shape[1], block_k,
+                                           pa.element_size())
+    return _call("lns_matmul_packed", backend, fmt.bits, pa, cost,
+                 _pick(backend, "lns_matmul_packed"), pa, pb, fmt,
+                 frac_bits=frac_bits, lut_entries=lut_entries,
+                 block_k=block_k)
 
 
 def lns_matmul(a: torch.Tensor, b: torch.Tensor, fmt: LNSFormat, *,

@@ -117,6 +117,12 @@ class ArchConfig:
     def q_heads_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """Eligible for long_500k (recurrent, or mostly local attention),
+        as the JAX package decides."""
+        return self.family in ("ssm", "hybrid") or self.local_global_ratio > 0
+
     def layer_pattern(self) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
         """(prefix kinds, number of periods, period kinds): ``prefix``
         unrolled layers, then ``n_periods`` repetitions of the period.
@@ -144,10 +150,12 @@ class ArchConfig:
             return prefix, n_periods, period
         return (), self.num_layers, ("dense",)
 
-    def params_count(self) -> int:
+    def params_count(self, active_only: bool = False) -> int:
         """Trainable parameters, counted as the JAX package counts them:
         the shared block once, its norms and LoRA once an occurrence; the
-        MTP module (a dense block, a norm and the 2d -> d projection)."""
+        MTP module (a dense block, a norm and the 2d -> d projection).
+        ``active_only`` counts a token's experts only: the routed top-k and
+        the shared ones."""
         d = self.d_model
         rows = self.vocab_size * (self.num_codebooks or 1)
         head = 0 if self.tie_embeddings else d * rows
@@ -155,13 +163,17 @@ class ArchConfig:
         total = rows * d + head + d
         for kind in set(prefix) | set(period):
             n = prefix.count(kind) + n_periods * period.count(kind)
-            total += n * self._layer_params(kind)
+            total += n * self._layer_params(kind, active_only)
         if "shared_attn" in period or "shared_attn" in prefix:
             total += self._attn_params() + self._mlp_params()
         if self.mtp_depth:
             total += (self._attn_params() + self._mlp_params() + 3 * d
                       + 2 * d * d)
         return total
+
+    def active_params_count(self) -> int:
+        """Parameters a token runs through (``MODEL_FLOPS``' N)."""
+        return self.params_count(active_only=True)
 
     def _attn_params(self) -> int:
         d, hd = self.d_model, self.head_dim
@@ -182,9 +194,10 @@ class ArchConfig:
     def _mlp_params(self) -> int:
         return self.d_model * self.d_ff * (3 if self.mlp_gated else 2)
 
-    def _layer_params(self, kind: str) -> int:
+    def _layer_params(self, kind: str, active_only: bool = False) -> int:
         """One layer of ``kind`` (a shared block's occurrence: its norms
-        and LoRA only)."""
+        and LoRA only; an MoE layer's routed top-k experts only with
+        ``active_only``)."""
         d = self.d_model
         if kind == "rwkv":       # rwkv_init's leaves, two norms
             return (6 * d + 2 * d * _DECAY_LORA + d + 5 * d * d + d + 2 * d
@@ -202,7 +215,9 @@ class ArchConfig:
             return 2 * d + (d * r + r * qkv if r else 0)
         if kind == "moe":        # attention, norms, experts, router
             expert = d * self.moe_d_ff * (3 if self.mlp_gated else 2)
+            routed = (self.experts_per_token if active_only
+                      else self.num_experts)
             return (self._attn_params() + 2 * d
-                    + (self.num_experts + self.num_shared_experts) * expert
+                    + (routed + self.num_shared_experts) * expert
                     + d * self.num_experts)
         return self._attn_params() + self._mlp_params() + 2 * d

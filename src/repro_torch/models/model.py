@@ -180,7 +180,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     only the rank's experts of an expert stack: the draws are the whole
     tree's, so each rank holds its slice of the same weights."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # meta draws nothing; its ops take (and ignore) a CPU generator
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     dt = cfg.compute_dtype
     d, f = cfg.d_model, cfg.d_ff
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim

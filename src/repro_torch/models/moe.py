@@ -94,6 +94,14 @@ def moe_leaves(cfg: ArchConfig):
     return out
 
 
+def _route_counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """Routes an expert: ``bincount(ids, minlength=E)`` for ids below E,
+    int64, as a scatter-add (which a ``meta`` tensor can run too)."""
+    ids = ids.long()
+    return torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def _router(p, x: torch.Tensor, cfg: ArchConfig):
     """Top-k routing: ``(gates (T, K), expert ids (T, K), aux loss)``. The
     logits are f32; the top k is a stable descending sort, the lower
@@ -111,7 +119,7 @@ def _router(p, x: torch.Tensor, cfg: ArchConfig):
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_p, top_i = top_p[:, :K], top_i[:, :K]
     top_p = top_p / torch.sum(top_p, dim=-1, keepdim=True)
-    counts = torch.bincount(top_i.reshape(-1), minlength=E).to(torch.float32)
+    counts = _route_counts(top_i.reshape(-1), E).to(torch.float32)
     group = batch_group()
     if group is None:
         me = torch.mean(probs, dim=0)
@@ -255,7 +263,10 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
     xq = (lns_quantize(xe, a_fmt, scale=x_scale) if lns_a
           else quantize(xe, a_fmt, a_ax))
     sel = None
-    if a_fmt is None or (lns_a and w_fmt is not None):
+    # on ``meta`` (a dry run) which experts got rows is unknown: every
+    # expert is computed, the most the step can cost
+    if xe.device.type != "meta" and (
+            a_fmt is None or (lns_a and w_fmt is not None)):
         rows = xe.ne(0).any(dim=-1).any(dim=-1)
         if rows.dim() == 2:
             rows = rows.any(dim=0)
@@ -270,8 +281,8 @@ def _expert_ffn_chunked(p, xe, cfg: ArchConfig, qcfg, group=None,
     if lns_a and (sel is not None or joint is not None):
         hmax = h.abs().amax() if h.numel() else h.new_zeros(())
         hmax = collectives.max_reduce(hmax.to(torch.float32), joint)
-        bound = _skipped_bound(a_fmt, x_scale, xe.shape[-1], s_up, s_gate)
-        if sel is not None and not float(hmax) > bound:
+        if sel is not None and not float(hmax) > _skipped_bound(
+                a_fmt, x_scale, xe.shape[-1], s_up, s_gate):
             sel = None
             up, _ = _experts_einsum(f"{g}ecd,edf->{g}ecf", xq, p["w_up"],
                                     cfg, qcfg, w_fmt, None, group=group)
@@ -347,6 +358,10 @@ def _regrid_exact(w, w_fmt: LNSFormat, dtype) -> bool:
     64), every scale an exact power of two, and every decoded word a
     normal number (scale · 2^(-max_code/γ) >= 2^-126). One host read."""
     if not is_lns_weight(w) or w.delta is not None or w.fmt != w_fmt:
+        return False
+    if w.scale.device.type == "meta":
+        # a dry run cannot read the scales: the decode-then-quantize path,
+        # which computes more
         return False
     if w_fmt.gamma > (64 if dtype == torch.bfloat16 else 1 << 16):
         return False
@@ -487,7 +502,7 @@ def _group_routing_maps(flat_e: torch.Tensor, gates: torch.Tensor, E: int,
     dev = flat_e.device
     flat_e = flat_e.long()
     tok = torch.div(torch.arange(TK, device=dev), K, rounding_mode="floor")
-    counts = torch.bincount(flat_e, minlength=E)
+    counts = _route_counts(flat_e, E)
     starts = torch.cumsum(counts, 0) - counts
     order = torch.sort(flat_e, stable=True).indices
     e_sorted = flat_e[order]

@@ -226,8 +226,11 @@ def test_cuda_tensors_never_reach_plain_path(no_cuda, monkeypatch):
     dispatch.madam_step_unpacked(cuda, cuda, cuda, cuda, 1,
                                  LNSFormat(16, 2048), lr=0.01)
     assert called == list(ops.KERNELS)
+    # a meta tensor takes the shape functions (a dry run), any other
+    # device raises
+    assert dispatch.route(torch.empty(1, device="meta")) == "meta"
     with pytest.raises(ValueError, match="no kernel path"):
-        dispatch.route(torch.empty(1, device="meta"))
+        dispatch.route(types.SimpleNamespace(device=torch.device("mps")))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
