@@ -15,6 +15,8 @@
     python3 chip_smoke.py --mesh       # 1, 2, 25c-e, 26, 27, 28b on four cards
     python3 chip_smoke.py --mesh-train # 1, 2 and 26 on four cards
     python3 chip_smoke.py --mesh-serve # 1, 2 and 27 on four cards
+    python3 chip_smoke.py --mesh-25c   # 1, 2 and 25c five times, four cards
+    python3 chip_smoke.py --mesh-long  # 1, 2 and 30 on four cards
     python3 chip_smoke.py --k1-given   # K1 with a given scale only
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -422,6 +424,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
     their bytes; smollm-135m's (4, 1) train step gives 26a's last step's
     collectives and bytes; every rank times all-gather and SUM all-reduce
     at 1, 16 and 256 MB (bus bandwidth beside ``NVLINK_BW``).
+
+25c's replicas (ROADMAP H20). In every 25c run each rank also keeps,
+for every sampled batch, a digest of the logits and the sampled ids, and
+at the end a digest of every pool's null page: the printed line names
+the first batch at which two data replicas (ranks 0/2, 1/3) part, if
+any, and whether their null pages are equal. ``--mesh-25c`` runs 25c
+alone five times in one spawn (each run held to rank 0's and one card's
+streams as ``--mesh`` holds it), then once more with the paged write's
+last-writer rule turned off (``25c.old``, the write before the repair:
+duplicate null-page targets in the card's scatter order), reported and
+not checked.
+30. Split-KV decode at 524,288 positions (``--mesh-long``, four cards).
+    Caches are filled, not prefilled: each block of ``LONG_BLOCK``
+    positions of each layer's K and V is drawn on the card from a
+    ``torch.Generator`` seeded by (seed, layer, k/v, block), so every
+    placement holds the same values and no rank draws more than its
+    block; a ring holds its layer's draw of the last ring-size positions,
+    recurrent state is zero, every cursor ``LONG_SEQ - LONG_STEPS``.
+    Then ``LONG_STEPS`` greedy steps (K6 on the logits) through
+    ``build_decode_step``. (a) gemma3-12b at full width and depth, B = 1:
+    first one card (card 0, this process) holds the whole cache and
+    runs the unsplit path, then one NCCL rank a card runs split-KV on
+    (2, 2) (``decode_rules``: the batch of 1 replicated, the positions
+    over data and model, 131,072 a rank) on the one card's tokens. (b)
+    zamba2-7b at full width and depth, B = 1, on (1, 4): first the
+    head-parallel serving placement (``serving_rules``: the shared
+    block's cache holds 8 of 32 KV heads a rank), then split-KV (131,072
+    positions a rank, every head) on its tokens; one card cannot hold the
+    97.7 GB cache. Checked: every rank's tokens are rank 0's; each split
+    run's logits within ``LOGIT_RTOL`` of max |logit| of its reference
+    run's at every step, its greedy token equal wherever the reference's
+    top-2 margin exceeds that (the first closer step printed); K1, K2
+    and K6 launched, K6 once a step. Printed: TPOT p50, the peak and the
+    cache GB a rank, the merge's collectives a step by kind, count and
+    bytes. Then on card 0: K2 at gemma3's M = 1 shapes (the one-card run)
+    and at zamba2's (rank 0 of the split run), and K6 at 1 x 262144 and
+    1 x 32000, each beside its plain version and ``torch.matmul`` /
+    ``torch.argmax``. Results in ``chiprun_out/chip_smoke_mesh_long.json``.
 
 Phase 21d serves qwen2.5-32b at the depth ``SERVE_DEPTH_CUT`` gives (32
 of its 64 layers), at full width, to keep the run inside its time limit.
@@ -5897,6 +5937,11 @@ MESH_RUNS = [
 ]
 # the runs whose one-card streams the parent computes first
 MESH_ONE_CARD = ("25c", "25d", "25e2")
+# --mesh-25c: 25c five times in one spawn, then once with the paged
+# write's last-writer rule off (the write before H20's repair)
+H20_RUNS = ([(f"25c.{i}", "smollm-135m", MESH_SMOLLM, "2,2", None)
+             for i in range(1, 6)]
+            + [("25c.old", "smollm-135m", MESH_SMOLLM, "2,2", None)])
 MESH_TIMEOUT_S = 300
 # phase 26: data-parallel training on (4, 1), each part beside one card's
 # steps on the same global batches (batch is the global batch)
@@ -6541,6 +6586,68 @@ def where_parted(torch, a_path, b_path):
     return out
 
 
+@contextlib.contextmanager
+def batch_digests():
+    """While open, a digest of every logits batch the engine samples and
+    the batch's argmax ids (the greedy rows' tokens), in order."""
+    import hashlib
+    import torch
+    from repro_torch.serving import engine as engine_mod
+    seen = []
+    real = engine_mod.sample_logits
+
+    def spy(logits, *a, **kw):
+        host = logits.detach().contiguous().cpu()
+        seen.append([hashlib.sha1(host.view(-1).view(torch.uint8).numpy()
+                                  .tobytes()).hexdigest()[:16],
+                     host.float().argmax(-1).reshape(-1).tolist()])
+        return real(logits, *a, **kw)
+
+    engine_mod.sample_logits = spy
+    try:
+        yield seen
+    finally:
+        engine_mod.sample_logits = real
+
+
+def null_page_digest(torch, engine):
+    """A digest of the null page (the pool's last page) of every paged
+    pool of the engine, in tree order."""
+    import hashlib
+    from repro_torch.tree import leaves
+    h = hashlib.sha1()
+    for path, t in leaves(engine.caches):
+        if path[-1] in ("kp", "vp", "kp_scale", "vp_scale"):
+            page = t[:, -1] if t.dim() == 5 else t[-1]
+            h.update(page.contiguous().view(-1).view(torch.uint8).cpu()
+                     .numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def scatter_unordered(on):
+    """With ``on``, the paged write takes every duplicate null-page target
+    in the card's scatter order, as before H20's repair
+    (``attention._last_writer`` keeps every write)."""
+    from repro_torch.models import attention
+    real = attention._last_writer
+    if on:
+        attention._last_writer = lambda target, keep: keep.clone()
+    try:
+        yield
+    finally:
+        attention._last_writer = real
+
+
+def first_parting(a, b):
+    """The first sampled batch at which two ranks' digests differ, with
+    both batches' argmax ids, or None."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[0] != y[0]:
+            return {"batch": i, "ids": [x[1], y[1]]}
+    return None if len(a) == len(b) else {"batch": min(len(a), len(b))}
+
+
 def one_card(torch, ops, tag, arch, argv, cut, scratch):
     """A one-card run (card 0) of a mesh run's trace, for its streams,
     TPOT and memory."""
@@ -6639,13 +6746,16 @@ def mesh_serve(torch, ops, tag, arch, argv, mesh, cut, scratch):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     ctx = cut_config(arch, **cut) if cut else contextlib.nullcontext()
-    with ctx as cfg, routes_seen(ops) as seen:
+    h20 = tag.startswith("25c")
+    with ctx as cfg, routes_seen(ops) as seen, \
+            scatter_unordered(tag == "25c.old"):
         args = parser().parse_args(["--arch", arch] + argv + ["--mesh",
                                                                 mesh])
         engine = build_engine(args)
         root = engine._root
         rec = (logits_recorded(ops, scratch / f"{tag}_mesh.pt")
-               if tag == "25e2" and root else contextlib.nullcontext())
+               if tag == "25e2" and root else
+               batch_digests() if h20 else contextlib.nullcontext())
         trace = lambda: synthetic_trace(engine.cfg, requests=args.requests,
                                         prompt_len=args.prompt_len,
                                         gen_len=args.gen_len, seed=args.seed)
@@ -6654,12 +6764,13 @@ def mesh_serve(torch, ops, tag, arch, argv, mesh, cut, scratch):
         engine.run([first] if root else ())
         engine.reset()
         torch.cuda.synchronize()
-        with rec:
+        with rec as digests:
             ops.reset_launch_counts()
             collectives.reset_counts()
             agg = engine.run(trace() if root else ())
             torch.cuda.synchronize()
         counts = ops.launch_counts()
+        null_page = null_page_digest(torch, engine) if h20 else None
         coll = collectives.counts()
         drops = (drop_shares(seen, engine.cfg, engine.num_slots)
                  if engine.cfg.num_experts else None)
@@ -6678,6 +6789,8 @@ def mesh_serve(torch, ops, tag, arch, argv, mesh, cut, scratch):
            "weights_gb": packed_bytes(engine.params) / 1e9,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "dropped": drops, "cut": cut}
+    if h20:
+        row["digests"], row["null_page"] = digests, null_page
     if tag == "25d":
         row["profile"] = profile_mesh_step(torch, engine, trace, ops,
                                            scratch)
@@ -6743,6 +6856,395 @@ def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+# ---------------------------------------------------------------------------
+# phase 30 (``--mesh-long``): split-KV decode at 524,288 positions. 30a
+# gemma3-12b: one card's unsplit decode (this process, card 0), then
+# split-KV on (2, 2); 30b zamba2-7b on (1, 4): the head-parallel serving
+# placement, then split-KV. Caches filled on the card a block at a time
+LONG_SEQ = 524288
+LONG_BLOCK = 4096
+LONG_STEPS = 8
+LONG_SEED = 0
+LONG_TOKEN = 2          # the first token fed at every run
+LONG_TIMEOUT_S = 900
+LONG_RUNS = [("30a", "gemma3-12b", "2,2"), ("30b", "zamba2-7b", "1,4")]
+
+
+def long_seed(key, which, block):
+    """The generator seed of one ``LONG_BLOCK`` of one layer's K or V:
+    a function of (``LONG_SEED``, layer, k/v, block) alone."""
+    import zlib
+    return (LONG_SEED * 1_000_003
+            + zlib.crc32(f"{key}/{which}/{block}".encode())) % (1 << 62)
+
+
+def long_draw(torch, key, which, block, kv, hd, dtype):
+    """One block's values, every KV head: ``(LONG_BLOCK, kv, hd)``."""
+    g = torch.Generator(device="cuda").manual_seed(
+        long_seed(key, which, block))
+    return (torch.randn((LONG_BLOCK, kv, hd), generator=g, device="cuda")
+            * 0.5).to(dtype)
+
+
+def long_fill(torch, cfg, caches):
+    """Fill this rank's caches (built under the active mesh and rules):
+    a dense cache's block of positions from the draws of the
+    ``LONG_BLOCK`` blocks it overlaps, its KV head group; a ring (a
+    ``local`` layer) with its own layer's draw of the last ring-size
+    positions before the cursor, each at its slot ``p mod size``; every
+    cursor ``LONG_SEQ - LONG_STEPS``; recurrent state stays zero."""
+    from repro_torch.distributed.sharding import axis_index, axis_shards
+    from repro_torch.tree import leaves
+    idx = LONG_SEQ - LONG_STEPS
+    prefix, _, period = cfg.layer_pattern()
+    for path, t in leaves(caches):
+        name = path[-1]
+        if name == "idx":
+            t.fill_(idx)
+            continue
+        if name not in ("k", "v"):
+            continue
+        kind = (prefix[path[1]] if path[0] == "prefix"
+                else period[int(str(path[1])[3:])])
+        stack = t if t.dim() == 5 else t[None]
+        rows, L, kvl = stack.shape[1:4]
+        assert rows == 1, "phase 30 runs one row"
+        h0 = (axis_index("kv_heads") * kvl
+              if kvl < cfg.num_kv_heads else 0)
+        heads = slice(h0, h0 + kvl)
+        for i in range(stack.shape[0]):
+            key = "/".join(str(k) for k in path[:-1]) + f"/{i}"
+            if kind == "local":
+                span = range(idx - L, idx)
+            else:
+                lo = axis_index("kv_seq") * L if axis_shards("kv_seq") > 1 \
+                    else 0
+                span = range(lo, lo + L)
+            for b in range(span.start // LONG_BLOCK,
+                           (span.stop - 1) // LONG_BLOCK + 1):
+                a, e = max(span.start, b * LONG_BLOCK), min(
+                    span.stop, (b + 1) * LONG_BLOCK)
+                if a >= e:
+                    continue
+                vals = long_draw(torch, key, name, b, cfg.num_kv_heads,
+                                 cfg.head_dim, t.dtype)[
+                    a - b * LONG_BLOCK:e - b * LONG_BLOCK, heads]
+                if kind == "local":
+                    slots = torch.arange(a, e, device="cuda") % L
+                    stack[i, 0, slots] = vals
+                else:
+                    stack[i, 0, a - span.start:e - span.start] = vals
+
+
+def cache_gb(caches):
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for _, t in leaves(caches)) / 1e9
+
+
+def long_decode(torch, ops, cfg, params, caches, step, feed=None):
+    """``LONG_STEPS`` greedy steps from ``LONG_TOKEN`` (K6 on each step's
+    logits); with ``feed`` (another run's tokens) the step after t takes
+    ``feed[t]``, so two runs' logits stay comparable. Returns the
+    sampled tokens, the logits (host, f32), the step walls (ms), the
+    launches of the steps, and the collectives of the second step."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    tok = torch.full((1, 1), LONG_TOKEN, dtype=torch.int32, device="cuda")
+    out = {"tokens": [], "logits": [], "step_ms": []}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    for t in range(LONG_STEPS):
+        pos = torch.full((1,), LONG_SEQ - LONG_STEPS + t, dtype=torch.int32)
+        if t == 1:
+            collectives.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = step(params, caches, {"tokens": tok}, pos)
+        nxt = dispatch.fused_sample(logits.float(), None, None)
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        if t == 1:
+            out["collectives"] = collectives.counts()
+            out["collective_bytes"] = collectives.byte_counts()
+        check(logits.shape == (1, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              "phase 30: non-finite or misshapen logits")
+        out["tokens"].append(int(nxt[0]))
+        out["logits"].append(logits.float().cpu())
+        tok = (torch.tensor([[feed[t]]], dtype=torch.int32, device="cuda")
+               if feed is not None else nxt.reshape(1, 1).to(torch.int32))
+    out["launches"] = ops.launch_counts()
+    check(out["launches"]["fused_sample"] == LONG_STEPS
+          and out["launches"]["qmatmul"] > 0
+          and out["launches"]["encode_pack"] > 0,
+          f"phase 30: K1, K2 and K6 must launch (K6 once a step): "
+          f"{out['launches']}")
+    out["tpot_p50_ms"] = sorted(out["step_ms"][1:])[(LONG_STEPS - 1) // 2]
+    return out
+
+
+def long_params(torch, cfg, shard=None):
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    mcfg = MadamConfig(update_format=LNSFormat(bits=8, gamma=8))
+    return init_params(cfg, seed=0, device="cuda",
+                       leaf_fn=lns_leaf_encoder(mcfg), shard=shard)
+
+
+def long_run(torch, ops, cfg, params, mesh, rules, feed=None):
+    """One run: this rank's caches under ``mesh`` and ``rules`` (whole
+    with no mesh), filled, then the greedy steps through
+    ``build_decode_step``; the caches are freed after."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.distributed.sharding import shard_ctx
+    from repro_torch.models.model import init_caches
+    from repro_torch.training.steps import build_decode_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    ctx = (shard_ctx(mesh, rules) if mesh is not None
+           else contextlib.nullcontext())
+    with ctx:
+        caches = init_caches(1, LONG_SEQ, cfg, device="cuda")
+        long_fill(torch, cfg, caches)
+    step = build_decode_step(cfg, QuantConfig.lns_madam(), mesh=mesh,
+                             rules=rules)
+    fill_s = time.monotonic() - t0
+    out = long_decode(torch, ops, cfg, params, caches, step, feed)
+    out.update(cache_gb=cache_gb(caches), fill_s=fill_s,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               words_gb=packed_bytes(params) / 1e9)
+    del caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_rank(rank, world, port, out_dir, ref_tokens):
+    """One rank of ``--mesh-long``: 30a's split run on (2, 2) on the one
+    card's tokens, then 30b on (1, 4): the serving placement, then
+    split-KV on its tokens. This rank's results go to
+    ``out_dir/rank<r>.pt``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_rules
+    from repro_torch.distributed.params_sharding import LocalShard
+    from repro_torch.distributed.sharding import decode_rules, serving_rules
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    _build.library()
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="env://",
+                            timeout=datetime.timedelta(
+                                seconds=LONG_TIMEOUT_S))
+    out = {}
+    for tag, arch, shape in LONG_RUNS:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        mesh = make_host_mesh(*(int(x) for x in shape.split(",")))
+        split = decode_rules(cfg, mesh, 1, get_rules(arch))
+        serve = serving_rules(cfg, mesh)
+        # the weights' placement is the serving rules' under both
+        params = long_params(torch, cfg, LocalShard(mesh, split))
+        with k2_shapes_seen(torch, ops) as seen:
+            if tag == "30b":
+                out["30b_serve"] = long_run(torch, ops, cfg, params, mesh,
+                                            serve)
+                ref_tokens = out["30b_serve"]["tokens"]
+            out[tag] = long_run(torch, ops, cfg, params, mesh, split,
+                                feed=ref_tokens)
+        out[tag]["k2_shapes"] = [[m, k, n] for (m, k, n, _, _) in seen]
+        out[tag]["seconds"] = time.monotonic() - t0
+        if rank == 0:
+            r = out[tag]
+            print(f"{tag} rank 0: {arch} split-KV on ({shape}): tpot p50 "
+                  f"{r['tpot_p50_ms']:.2f} ms, cache {r['cache_gb']:.2f} "
+                  f"GB, peak {r['peak_gb']:.2f} GB a rank, collectives a "
+                  f"step {r['collectives']} ({r['seconds']:.1f}s)",
+                  flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def long_compare(torch, tag, ref, got):
+    """A split run against its reference run on the same tokens: logits
+    within ``LOGIT_RTOL`` of max |logit| at every step, the greedy token
+    equal wherever the reference's top-2 margin exceeds that; the first
+    closer step is returned."""
+    worst, near, steps = 0.0, None, []
+    for t, (p, k) in enumerate(zip(ref["logits"], got["logits"])):
+        top = float(p.abs().max())
+        tol = LOGIT_RTOL * top
+        err = float((p - k).abs().max())
+        worst = max(worst, err / top)
+        check(err <= tol, f"{tag} step {t}: logits err {err} > {tol}")
+        top2 = torch.topk(p, 2, dim=-1).values
+        gap = float(top2[0, 0] - top2[0, 1])
+        steps.append({"max_abs_err": err, "max_abs": top, "top2_gap": gap,
+                      "mean_abs_err": float((p - k).abs().mean()),
+                      "token_equal": ref["tokens"][t] == got["tokens"][t]})
+        if gap > tol:
+            check(ref["tokens"][t] == got["tokens"][t],
+                  f"{tag} step {t}: greedy token {got['tokens'][t]} differs "
+                  f"from the reference's {ref['tokens'][t]} beyond the "
+                  f"margin")
+        elif near is None:
+            near = t
+    return {"max_rel_err": worst, "first_near_tie": near,
+            "tokens_equal": ref["tokens"] == got["tokens"],
+            "per_step": steps}
+
+
+def long_k2_rows(torch, ops, ref, fmt, shapes):
+    """K2 at the M = 1 shapes a run recorded (distinct), beside its plain
+    version and ``torch.matmul``."""
+    return k2_check(torch, ops, ref, fmt, [tuple(s) for s in
+                                           sorted(set(map(tuple, shapes)))])
+
+
+def long_main(torch, card):
+    """``--mesh-long``: phase 30 on four cards of one host."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.kernels import _build, ops, ref
+    n = torch.cuda.device_count()
+    check(n >= MESH_WORLD, f"--mesh-long needs {MESH_WORLD} cards, "
+          f"{n} are visible")
+    t_start = time.monotonic()
+    _build.build()
+    _build.library()
+    scratch = ROOT / "build" / "mesh_long"
+    scratch.mkdir(parents=True, exist_ok=True)
+    marks = [("build", time.monotonic())]
+    cfg = get_config("gemma3-12b")
+    params = long_params(torch, cfg)
+    with k2_shapes_seen(torch, ops) as seen:
+        one = long_run(torch, ops, cfg, params, None, None)
+    one["k2_shapes"] = [[m, k, n] for (m, k, n, _, _) in seen]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"30a one card: gemma3-12b unsplit at {LONG_SEQ} positions: tpot "
+          f"p50 {one['tpot_p50_ms']:.2f} ms, cache {one['cache_gb']:.2f} "
+          f"GB, peak {one['peak_gb']:.2f} GB, tokens {one['tokens']}",
+          flush=True)
+    zcfg = get_config("zamba2-7b")
+    dense = sum(k == "shared_attn" for k in zcfg.layer_pattern()[0]) + \
+        zcfg.layer_pattern()[1] * sum(k == "shared_attn" for k in
+                                      zcfg.layer_pattern()[2])
+    zamba_gb = (dense * 2 * LONG_SEQ * zcfg.num_kv_heads * zcfg.head_dim
+                * 2 / 1e9)
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"30b one card: not run, zamba2-7b's {dense} shared-block caches "
+          f"at {LONG_SEQ} positions take {zamba_gb:.1f} GB, more than one "
+          f"card's {card_gb:.1f} GB", flush=True)
+    marks.append(("30a one card", time.monotonic()))
+    os.environ["OMP_NUM_THREADS"] = "1"
+    mp.start_processes(long_rank, args=(MESH_WORLD, free_port(),
+                                        str(scratch), one["tokens"]),
+                       nprocs=MESH_WORLD, join=True, start_method="spawn")
+    marks.append(("ranks", time.monotonic()))
+    ranks = [torch.load(scratch / f"rank{r}.pt") for r in range(MESH_WORLD)]
+    res = {"card": card, "one_card": {k: v for k, v in one.items()
+                                      if k != "logits"}}
+    for tag, arch, shape in LONG_RUNS:
+        rows = [rk[tag] for rk in ranks]
+        for r, row in enumerate(rows):
+            check(row["tokens"] == rows[0]["tokens"],
+                  f"{tag}: rank {r}'s tokens differ from rank 0's")
+        base = one if tag == "30a" else ranks[0]["30b_serve"]
+        if tag == "30b":
+            for r, rk in enumerate(ranks):
+                check(rk["30b_serve"]["tokens"] == base["tokens"],
+                      f"30b serve: rank {r}'s tokens differ from rank 0's")
+        cmp = long_compare(torch, tag, base, rows[0])
+        line = {"tag": tag, "arch": arch, "mesh": shape,
+                "positions": LONG_SEQ, "steps": LONG_STEPS,
+                "tokens": rows[0]["tokens"],
+                "reference_tokens": base["tokens"], **cmp,
+                "tpot_p50_ms": [r["tpot_p50_ms"] for r in rows],
+                "step_ms": rows[0]["step_ms"],
+                "cache_gb": [r["cache_gb"] for r in rows],
+                "peak_gb": [r["peak_gb"] for r in rows],
+                "words_gb": [r["words_gb"] for r in rows],
+                "fill_s": rows[0]["fill_s"],
+                "collectives_a_step": rows[0]["collectives"],
+                "collective_bytes_a_step": rows[0]["collective_bytes"],
+                "launches": rows[0]["launches"],
+                "reference": {k: base[k] for k in (
+                    "tpot_p50_ms", "step_ms", "cache_gb", "peak_gb",
+                    "words_gb", "launches", "collectives",
+                    "collective_bytes")
+                    if k in base},
+                "ranks_agree": True}
+        res[tag] = line
+        what = "one card" if tag == "30a" else "(1, 4) serving placement"
+        print(f"{tag}: {arch} split-KV on ({shape}) at {LONG_SEQ} positions:"
+              f" tokens {line['tokens']} ({what}: {base['tokens']}), "
+              f"logits within {cmp['max_rel_err']:.4f} of max |logit| "
+              f"(limit {LOGIT_RTOL}), first step under the margin "
+              f"{cmp['first_near_tie']}; tpot p50 "
+              f"{line['tpot_p50_ms'][0]:.2f} ms ({what} "
+              f"{base['tpot_p50_ms']:.2f} ms); cache "
+              f"{line['cache_gb'][0]:.2f} GB a rank ({what} "
+              f"{base['cache_gb']:.2f}); peak "
+              f"{[round(x, 2) for x in line['peak_gb']]} GB ({what} "
+              f"{base['peak_gb']:.2f}); merge collectives a step "
+              f"{line['collectives_a_step']}, bytes "
+              f"{line['collective_bytes_a_step']['bytes']}", flush=True)
+        for t, st in enumerate(cmp["per_step"]):
+            print(f"{tag} step {t}: max |logit| {st['max_abs']:.4f}, "
+                  f"reference top-2 gap {st['top2_gap']:.4f}, max abs err "
+                  f"{st['max_abs_err']:.4f} (mean {st['mean_abs_err']:.5f}),"
+                  f" token equal {st['token_equal']}")
+        print(json.dumps({k: v for k, v in line.items()
+                          if k not in ("collective_bytes_a_step",
+                                       "per_step")}))
+    marks.append(("checks", time.monotonic()))
+    fmt = LNSFormat(8, 8)
+    res["k2_long"] = {
+        "gemma3-12b one card": long_k2_rows(torch, ops, ref, fmt,
+                                            one["k2_shapes"]),
+        "zamba2-7b split rank 0": long_k2_rows(
+            torch, ops, ref, fmt, ranks[0]["30b"]["k2_shapes"])}
+    res["k2_launches_a_step"] = {
+        "gemma3-12b one card": one["launches"]["qmatmul"] / LONG_STEPS,
+        "gemma3-12b split": ranks[0]["30a"]["launches"]["qmatmul"]
+        / LONG_STEPS,
+        "zamba2-7b split": ranks[0]["30b"]["launches"]["qmatmul"]
+        / LONG_STEPS}
+    res["k6_long"] = [k6_variant(torch, ops, ref, 1, V)
+                      for V in (cfg.vocab_size, zcfg.vocab_size)]
+    marks.append(("kernels", time.monotonic()))
+    res["seconds_by_phase"] = {b[0]: b[1] - a[1]
+                               for a, b in zip(marks, marks[1:])}
+    res["seconds"] = time.monotonic() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_mesh_long.json").write_text(
+        json.dumps(res, indent=1))
+    print(f"chip_smoke --mesh-long took {res['seconds']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s"
+                      for k, v in res["seconds_by_phase"].items()))
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
 
 
 # ---------------------------------------------------------------------------
@@ -6984,9 +7486,39 @@ def dry_mesh(torch, ranks):
     return out
 
 
+def h20_line(tag, rows, one):
+    """25c's replicas (ROADMAP H20): for each rank, whether its streams
+    are rank 0's and one card's, the first sampled batch at which it
+    parts from its data replica (ranks 0/2, 1/3) and from rank 0, and
+    whether the replicas' null pages are equal."""
+    one_streams = {str(k): v for k, v in one["streams"].items()}
+    line = {"tag": tag, "null_pages": [r["null_page"] for r in rows],
+            "streams_equal_rank0": [r["streams"] == rows[0]["streams"]
+                                    for r in rows],
+            "streams_equal_one_card": [r["streams"] == one_streams
+                                       for r in rows],
+            "batches": [len(r["digests"]) for r in rows],
+            "replica_parts": [first_parting(rows[r]["digests"],
+                                            rows[r ^ 2]["digests"])
+                              for r in range(len(rows))],
+            "rank0_parts": [first_parting(rows[0]["digests"],
+                                          r["digests"]) for r in rows]}
+    line["replica_null_pages_equal"] = [
+        rows[r]["null_page"] == rows[r ^ 2]["null_page"]
+        for r in range(len(rows))]
+    print(f"{tag}: streams equal rank 0's {line['streams_equal_rank0']}, "
+          f"one card's {line['streams_equal_one_card']}; replicas' null "
+          f"pages equal {line['replica_null_pages_equal']}; first batch "
+          f"where a rank parts from its replica "
+          f"{[p and p['batch'] for p in line['replica_parts']]} (of "
+          f"{line['batches']})", flush=True)
+    return line
+
+
 def mesh_main(torch, card, parts=("25", "26", "27")):
     """``--mesh``: phases 25c-e, 26 and 27 on four cards of one host
-    (``--mesh-train``: phase 26 alone, ``--mesh-serve``: 27 alone)."""
+    (``--mesh-train``: phase 26 alone, ``--mesh-serve``: 27 alone,
+    ``--mesh-25c``: 25c five times and ``25c.old``)."""
     import torch.multiprocessing as mp
     n = torch.cuda.device_count()
     check(n >= MESH_WORLD, f"--mesh needs {MESH_WORLD} cards, "
@@ -6999,6 +7531,7 @@ def mesh_main(torch, card, parts=("25", "26", "27")):
     scratch.mkdir(parents=True, exist_ok=True)
     marks = [("build", time.monotonic())]
     runs = ((MESH_RUNS if "25" in parts else [])
+            + (H20_RUNS if "25c" in parts else [])
             + (MESH27_RUNS if "27" in parts else []))
     dp_runs = DP_RUNS if "26" in parts else []
     # 26's one-card steps first, on a fresh cache: gemma3's staged step
@@ -7008,8 +7541,10 @@ def mesh_main(torch, card, parts=("25", "26", "27")):
     marks.append(("26 one card", time.monotonic()))
     one = {}
     for tag, arch, argv, mesh, cut in runs:
-        if tag in MESH_ONE_CARD or tag.startswith("27"):
+        if tag in MESH_ONE_CARD or tag.startswith("27") or tag == "25c.1":
             one[tag] = one_card(torch, ops, tag, arch, argv, cut, scratch)
+        elif tag.startswith("25c."):       # the same trace: run once
+            one[tag] = one["25c.1"]
     marks.append(("one card", time.monotonic()))
     shards27 = gw_ref = None
     if "27" in parts:
@@ -7051,6 +7586,10 @@ def mesh_main(torch, card, parts=("25", "26", "27")):
     for tag, arch, argv, mesh, cut in runs:
         rows = [rk[tag] for rk in ranks]
         n_req = int(argv[argv.index("--requests") + 1])
+        if tag.startswith("25c"):
+            res.setdefault("h20", {})[tag] = h20_line(tag, rows, one[tag])
+        if tag == "25c.old":    # the write before the repair: reported
+            continue
         for r in rows:
             check(r["completed"] == n_req, f"{tag} rank {r['rank']}: "
                   f"{r['completed']}/{n_req} requests completed")
@@ -7146,7 +7685,8 @@ def mesh_main(torch, card, parts=("25", "26", "27")):
     out_dir.mkdir(exist_ok=True)
     name = ("chip_smoke_mesh.json" if len(parts) > 1 else
             {"26": "chip_smoke_mesh_train.json",
-             "27": "chip_smoke_mesh_serve.json"}[parts[0]])
+             "27": "chip_smoke_mesh_serve.json",
+             "25c": "chip_smoke_mesh_h20.json"}[parts[0]])
     (out_dir / name).write_text(json.dumps(res, indent=1))
     print(f"chip_smoke --mesh took {res['seconds']:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s"
@@ -7510,7 +8050,8 @@ def gateway_mesh(torch, scratch, ref):
 
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] in ("--mesh", "--mesh-train",
-                                              "--mesh-serve"):
+                                              "--mesh-serve", "--mesh-25c",
+                                              "--mesh-long"):
         # this process runs one card's large steps and serve runs one
         # after another on card 0 before the ranks start (and the ranks
         # inherit it): segments that grow keep its cache from fragmenting
@@ -7544,13 +8085,15 @@ def main() -> int:
                   **mixtures(torch, ops, ref, fmt, card.stdout.strip())}}
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     meshed = {"--mesh": ("25", "26", "27"), "--mesh-train": ("26",),
-              "--mesh-serve": ("27",)}.get(
+              "--mesh-serve": ("27",), "--mesh-25c": ("25c",),
+              "--mesh-long": ("30",)}.get(
                   sys.argv[1] if len(sys.argv) == 2 else None)
     if sys.argv[1:] and not (sweep or meshed):
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k1-given | "
               f"--k2-sweep | --k6-sweep | --k8-sweep | --serving | --obs | "
               f"--dense-variants | --modality | --recurrent | --moe | "
-              f"--mesh | --mesh-train | --mesh-serve]", file=sys.stderr)
+              f"--mesh | --mesh-train | --mesh-serve | --mesh-25c | "
+              f"--mesh-long]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -7570,6 +8113,8 @@ def main() -> int:
     if meshed:
         for line in card.stdout.strip().splitlines()[1:]:
             print(line)
+        if meshed == ("30",):
+            return long_main(torch, card.stdout.strip())
         return mesh_main(torch, card.stdout.strip(), meshed)
 
     from repro_torch.core.lns import LNSFormat

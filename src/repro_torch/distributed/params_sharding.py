@@ -39,7 +39,8 @@ from repro_torch.distributed.sharding import spec_for
 __all__ = ["params_logical_axes", "cache_logical_axes", "opt_logical_axes",
            "batch_shardings", "batch_rows", "tree_shardings",
            "local_shape", "shard_leaf", "shard_tree", "LocalShard",
-           "kept_whole", "split_axes"]
+           "kept_whole", "split_axes", "cache_leaf_axes", "cache_local_shape",
+           "RING_AXES", "STATE_KINDS"]
 
 # leaf name -> logical axes of the 2-D core (the JAX package's table)
 _BY_NAME: Dict[str, Tuple[Optional[str], ...]] = {
@@ -122,6 +123,17 @@ _CACHE_AXES = {
     "shift_cm": ("batch", None),
     "idx": ("batch",),
 }
+
+# the port's own placement of the cache leaves that JAX's table would
+# split by position: a sliding-window ring (at most ``sliding_window +
+# slack`` slots a layer) keeps every slot, which are not positions in
+# order, and the KV heads as the serving placement shards them; the
+# recurrent state of a ``mamba`` or ``rwkv`` layer keeps every head and
+# channel (the serving rules keep ``ssm_inner`` whole) and splits its rows
+# only. Neither changes a value; split-KV decode splits the dense KV and
+# MLA latent caches, the leaves that grow with the context
+RING_AXES = ("batch", None, "kv_heads", None)
+STATE_KINDS = ("mamba", "rwkv")
 
 
 def kept_whole(path) -> bool:
@@ -215,14 +227,57 @@ def opt_logical_axes(params, opt_state):
     return type(opt_state)(g2=walk(p_axes, opt_state.g2), count=())
 
 
-def cache_logical_axes(caches) -> Any:
-    """The tree of logical-axes tuples matching a decode-cache tree."""
+def cache_leaf_axes(name: str, ndim: int,
+                    kind: Optional[str] = None) -> Tuple[Optional[str], ...]:
+    """The logical axes of one decode-cache leaf ``name`` with ``ndim``
+    dims (a stacked period leaf has a leading ``"stack"``): JAX's table,
+    or with the layer's ``kind`` the placement the port keeps (a
+    ``local`` layer's ring and a recurrent layer's state, above)."""
+    axes = _CACHE_AXES.get(name, (None,) * ndim)
+    if kind == "local" and name in ("k", "v", "k_scale", "v_scale"):
+        axes = RING_AXES
+    elif kind in STATE_KINDS:
+        axes = ("batch",) + (None,) * (len(axes) - 1)
+    if ndim > len(axes):
+        axes = ("stack",) * (ndim - len(axes)) + tuple(axes)
+    return tuple(axes)
+
+
+def _layer_kind(path, cfg) -> Optional[str]:
+    """The layer kind of a cache path (``("prefix", i, leaf)`` or
+    ``("period", "pos<j>", leaf)``) under ``cfg.layer_pattern()``."""
+    prefix, _, period = cfg.layer_pattern()
+    if path[0] == "prefix":
+        return prefix[path[1]]
+    return period[int(str(path[1])[3:])]
+
+
+def cache_logical_axes(caches, cfg=None) -> Any:
+    """The tree of logical-axes tuples matching a decode-cache tree: JAX's
+    table, or with ``cfg`` (whose ``layer_pattern`` names each layer's
+    kind) the placement the port keeps (:func:`cache_leaf_axes`)."""
     def visit(path, leaf):
-        axes = _CACHE_AXES.get(str(path[-1]), (None,) * leaf.dim())
-        if leaf.dim() > len(axes):
-            axes = ("stack",) * (leaf.dim() - len(axes)) + tuple(axes)
-        return tuple(axes)
+        kind = None if cfg is None else _layer_kind(path, cfg)
+        return cache_leaf_axes(str(path[-1]), leaf.dim(), kind)
     return _map(caches, visit)
+
+
+def cache_local_shape(shape: Sequence[int], name: str,
+                      kind: Optional[str] = None, mesh=None,
+                      rules=None) -> Tuple[int, ...]:
+    """A rank's shard shape of the cache leaf ``name`` of a ``kind``
+    layer, whole ``shape`` given (without its stack axis), under the
+    active mesh and rules: dense KV caches and MLA latents split by
+    position where ``kv_seq`` resolves (first-wins: the earlier
+    ``kv_seq`` dim takes ``model`` from the KV heads, as JAX's
+    ``spec_for``), rows where ``batch`` does. ``shape`` itself without a
+    mesh."""
+    from repro_torch.distributed.sharding import current_mesh
+    mesh = mesh or current_mesh()
+    if mesh is None:
+        return tuple(shape)
+    spec = spec_for(cache_leaf_axes(name, len(shape), kind), mesh, rules)
+    return local_shape(shape, spec, mesh)
 
 
 def tree_shardings(axes_tree, mesh, rules=None):
@@ -320,13 +375,14 @@ def shard_leaf(leaf, placement, mesh):
 
 
 def shard_tree(tree, mesh, rules=None, *, serving: bool = True,
-               caches: bool = False):
+               caches: bool = False, cfg=None):
     """Rank ``mesh.rank``'s local tree of a full parameter tree (or, with
-    ``caches``, a decode-cache tree): every leaf sliced by its placement
-    under ``mesh`` and ``rules``. The serving overrides apply by default;
-    ``convert.params_from_flat`` output goes in, the rank's shard comes
-    out."""
-    axes = (cache_logical_axes(tree) if caches
+    ``caches``, a decode-cache tree, placed as the port keeps it where
+    ``cfg`` names the layer kinds: :func:`cache_logical_axes`): every
+    leaf sliced by its placement under ``mesh`` and ``rules``. The
+    serving overrides apply by default; ``convert.params_from_flat``
+    output goes in, the rank's shard comes out."""
+    axes = (cache_logical_axes(tree, cfg) if caches
             else params_logical_axes(tree, serving=serving))
     places = tree_shardings(axes, mesh, rules)
 

@@ -27,7 +27,8 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 __all__ = ["LOGICAL_RULES", "shard_ctx", "current_mesh", "current_rules",
-           "spec_for", "serving_rules", "model_axis_size", "axis_group",
+           "spec_for", "serving_rules", "decode_rules", "batch_divisor",
+           "model_axis_size", "axis_group",
            "axis_shards", "axis_index", "joint_group", "batch_group"]
 
 AxisVal = Union[None, str, Tuple[str, ...]]
@@ -139,6 +140,51 @@ def serving_rules(cfg, mesh=None) -> Dict[str, AxisVal]:
         "mlp": on(mlp_ok),
         "experts": on(moe_ok),
     }
+
+
+def batch_divisor(mesh) -> int:
+    """The product of the mesh's ``pod`` and ``data`` sizes: what a global
+    batch must split into for ``batch`` to shard over them (JAX's
+    ``_mesh_batch_div``)."""
+    n = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            n *= mesh.shape[a]
+    return n
+
+
+def decode_rules(cfg, mesh=None, global_batch: Optional[int] = None,
+                 arch_rules: Optional[Dict[str, AxisVal]] = None
+                 ) -> Dict[str, AxisVal]:
+    """The split-KV decode placement: JAX's dry run decodes under
+    ``get_rules(arch)`` over :data:`LOGICAL_RULES`, so its rows split over
+    ``("pod", "data")`` and every dense KV and MLA latent cache
+    (``("batch", "kv_seq", "kv_heads", None)``) splits by position over
+    ``model``, which first-wins takes from the KV heads. ``kv_seq`` is
+    the config's own rule where ``arch_rules`` names one (smollm-135m's
+    ``None`` keeps its caches whole by position). The rows always go over
+    ``("pod", "data")``: smollm's own ``batch`` rule adds ``model``,
+    which its MLP, column-parallel under the serving rules, cannot take
+    (every rank of a model group must hold the same rows). Where
+    ``global_batch`` does not split over the
+    data axes (long_500k's batch of 1), the rows are replicated and the
+    positions spread over ``("data", "model")``, JAX's override
+    (``repro.launch.dryrun``).
+
+    The weights keep :func:`serving_rules`, and so do the caches' KV
+    heads where ``kv_seq`` leaves them the axis: heads, MLP and experts over
+    ``model`` where they divide it, every second GEMM of a pair on a
+    replicated contraction, so the forward splits no sum. That is the
+    one place this differs from JAX's GSPMD decode, which shards by the
+    default weight rules and sums the row-parallel halves."""
+    out = serving_rules(cfg, mesh)
+    base = {**LOGICAL_RULES, **(arch_rules or {})}
+    out["batch"], out["kv_seq"] = LOGICAL_RULES["batch"], base["kv_seq"]
+    mesh = mesh or current_mesh()
+    if (mesh is not None and global_batch is not None
+            and global_batch % batch_divisor(mesh)):
+        out["batch"], out["kv_seq"] = None, ("data", "model")
+    return out
 
 
 def spec_for(names: Sequence[Optional[str]], mesh=None,

@@ -11,14 +11,18 @@ backend, under the cost mode (``launch.cost``):
   where the rank keeps a shard. Training uses the JAX dry run's state
   (``MadamConfig(factored=(family == "moe"))``), serving its packed 8-bit
   words (``update_format=LNSFormat(8, 8)``).
-* The step is run as the port runs it. prefill and decode run
-  ``build_prefill_step`` and ``build_decode_step`` under
-  ``serving_rules(cfg, mesh)`` on the production mesh (decode over dense
-  caches from ``init_caches(B, S, cfg)``, as the JAX dry run builds
-  them). train runs ``build_train_step`` data-parallel on the mesh
-  flattened to ``(hosts·cards, 1)``: the port trains at ``model = 1``
-  only. long_500k's batch of 1 stays replicated: the port has no
-  split-KV decode. The row's ``placement`` names what was run and why.
+* The step is run as the port runs it. prefill runs
+  ``build_prefill_step`` under ``serving_rules(cfg, mesh)`` on the
+  production mesh (JAX's prefill also splits the rows over data: ROADMAP
+  7i). decode runs ``build_decode_step(mesh=)`` under ``decode_rules``,
+  JAX's decode placement (split-KV decode): the rows over the data axes,
+  each dense KV and MLA latent cache from ``init_caches(B, S, cfg)`` split
+  by position over ``model``, and long_500k's batch of 1 replicated with
+  its positions over ``(data, model)``, as JAX's ``get_rules(arch)`` with
+  its batch-1 override; the weights stay on the serving rules. train runs
+  ``build_train_step`` data-parallel on the mesh flattened to
+  ``(hosts·cards, 1)``: the port trains at ``model = 1`` only. The row's
+  ``placement`` names what was run and why.
 * The kernels take their ``meta`` route (``kernels.meta``) and are
   charged their own cost (``kernels.costs``); the collectives run on the
   fake backend and are counted by kind and mesh axis
@@ -54,7 +58,8 @@ from repro_torch.core.quantizer import QuantConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed.params_sharding import (LocalShard, kept_whole,
                                                      local_shape)
-from repro_torch.distributed.sharding import serving_rules, shard_ctx
+from repro_torch.distributed.sharding import (axis_shards, decode_rules,
+                                              serving_rules, shard_ctx)
 from repro_torch.launch import roofline
 from repro_torch.launch.cost import CostMode
 from repro_torch.launch.mesh import make_mesh
@@ -97,7 +102,14 @@ def _mesh_shape(multi_pod: bool, hosts: int, cards: int,
     return {"pod": 2, **shape} if multi_pod else shape
 
 
-def _placement(kind: str, shape: str, mesh, B: int) -> str:
+def _axes(entry, mesh) -> str:
+    """A rule's mesh axes present in ``mesh``, joined by ``+``."""
+    axes = [a for a in ((entry,) if isinstance(entry, str) else entry or ())
+            if a in mesh.axis_names]
+    return "+".join(axes) or "replicated"
+
+
+def _placement(kind: str, shape: str, mesh, B: int, rules=None) -> str:
     dims = ", ".join(f"{a}={n}" for a, n in mesh.shape.items())
     if kind == "train":
         n = mesh.size
@@ -105,14 +117,23 @@ def _placement(kind: str, shape: str, mesh, B: int) -> str:
                 f"production mesh flattened (the port trains at model = 1 "
                 f"only); parameters and optimizer state replicated, "
                 f"{B // n} of the {B} rows a rank")
-    out = (f"{kind}: serving_rules on ({dims}): heads, MLP and experts "
-           f"over model where they divide it, the batch of {B} replicated "
-           f"over data (the serving rules split no batch)")
-    if kind == "decode":
-        out += ", dense caches (init_caches)"
-    if shape == "long_500k":
-        out += "; kv_seq whole (the port has no split-KV decode)"
-    return out
+    weights = ("weights on serving_rules (heads, MLP and experts over "
+               "model where they divide it, no split sum; JAX's GSPMD "
+               "decode shards by its default weight rules)")
+    if kind == "prefill":
+        return (f"prefill: serving_rules on ({dims}): {weights}, the batch "
+                f"of {B} replicated over data (JAX splits it: ROADMAP 7i)")
+    with shard_ctx(mesh, rules):
+        rows, blocks = axis_shards("batch"), axis_shards("kv_seq")
+    seq = SHAPES[shape].seq_len
+    rows_on, pos_on = _axes(rules["batch"], mesh), _axes(rules["kv_seq"], mesh)
+    return (f"decode: decode_rules on ({dims}), split-KV decode: the batch "
+            f"of {B} over {rows_on} ({B // rows} a rank); each dense KV "
+            f"and MLA latent cache split by position over {pos_on} "
+            f"({seq // blocks} of {seq} positions a rank, every KV head; "
+            f"partials merged by a MAX and a SUM "
+            f"reduce a layer); rings and recurrent state as serving holds "
+            f"them (ring slots whole, heads over model); {weights}")
 
 
 def cell_step(cfg, spec, mesh, rules, *, device="meta", accum_steps: int = 1,
@@ -143,7 +164,7 @@ def cell_step(cfg, spec, mesh, rules, *, device="meta", accum_steps: int = 1,
         step = build_prefill_step(cfg, qcfg, mcfg)
         return (params, batch), lambda: step(params, batch)
     caches = init_caches(spec.global_batch, spec.seq_len, cfg, device=device)
-    step = build_decode_step(cfg, qcfg, mcfg)
+    step = build_decode_step(cfg, qcfg, mcfg, mesh=mesh, rules=rules)
     pos = spec.seq_len - 1
     return ((params, caches, batch),
             lambda: step(params, caches, batch, pos))
@@ -200,7 +221,9 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                 f"{arch} {shape}: the global batch of {B} does not split "
                 f"over {mesh.size} data-parallel ranks (the port trains on "
                 f"the flattened mesh, one rank a card)")
-        rules = dict(get_rules(arch) if train else serving_rules(cfg, mesh))
+        rules = dict(get_rules(arch) if train else
+                     serving_rules(cfg, mesh) if kind == "prefill" else
+                     decode_rules(cfg, mesh, B, get_rules(arch)))
         if rules_extra:
             rules.update(rules_extra)
         t0 = time.monotonic()
@@ -213,7 +236,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                   for axes in coll["by_axis"]}
         mesh_name = "x".join(str(n) for n in mesh.shape.values())
         chips = mesh.size
-        placement = _placement(kind, shape, mesh, B)
+        placement = _placement(kind, shape, mesh, B, rules)
     rep = roofline.analyze(arch, shape, mesh_name, chips, cost, coll, within,
                            roofline.model_flops(cfg, spec, kind),
                            cost["memory"]["peak_bytes"])

@@ -24,6 +24,15 @@ key of every position, ``(batch, max_len)`` a layer, and every cached
 call (prefill and decode) attends in the absorbed form, in f32, with
 ``kv_up`` folded into the query and the context (:func:`_mla_decode`).
 
+Under the decode rules (``distributed.sharding.decode_rules``, split-KV
+decode) a dense cache and an MLA latent cache hold one contiguous block of
+positions a rank, every KV head. The new positions are written on the
+rank whose block holds them; each rank attends its block
+(:func:`partial_attend`, grouped, in f32 chunks of the block) and the
+partial results merge over the ``kv_seq`` group (:func:`merge_partials`:
+a MAX reduce of the maxima, one SUM reduce of the rescaled sums and
+outputs). Rings, pools and recurrent state keep the serving placement.
+
 Unlike the JAX package, cache tensors are updated **in place**: the
 engine owns them and nothing else holds a reference, so the functional
 copy would only cost memory. With ``cfg.kv_cache_bits`` the caches hold
@@ -50,7 +59,12 @@ from repro_torch.models.layers import (apply_rope, decoded_of, dense_of,
 
 __all__ = ["attn_apply", "attn_zero_leaves", "flash_attention",
            "init_kv_cache", "init_paged_kv_cache", "is_paged_cache",
-           "mla_leaves", "mla_apply", "init_mla_cache"]
+           "mla_leaves", "mla_apply", "init_mla_cache", "partial_attend",
+           "merge_partials", "split_kv"]
+
+# positions of a rank's block cast to f32 at a time by the split-KV
+# attention: its f32 temporaries stay this many positions of K or V
+SPLIT_CHUNK = 8192
 
 
 def _qa(xs, cfg: ArchConfig, qcfg: Optional[QuantConfig]):
@@ -160,17 +174,25 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     ranks first. Where ``wq/wk/wv`` are held whole on every rank
     (``params_sharding.kept_whole``: zamba2's LoRA-merged shared QKV) the
     projections run at the whole width, as on one card, and the rank keeps
-    its heads' columns of each."""
+    its heads' columns of each.
+
+    A dense cache split by position (:func:`split_kv`) takes every head:
+    a head group's q, k and v are gathered after Q_A (one all-gather;
+    a whole-width projection keeps all its heads), the rank attends its
+    block for every head, and after the merge every rank holds every
+    head's output, so none is gathered before ``wo``."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     grp = axis_group("qkv_out")
+    split = (cache is not None and not window and not is_paged_cache(cache)
+             and split_kv())
     theta = theta if theta is not None else cfg.rope_theta
     xs = act_stat(x, qcfg)        # one reduce for the three projections
     q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg, x_stat=xs)
     k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg, x_stat=xs)
     v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg, x_stat=xs)
     m = axis_shards("qkv_out")
-    if m > 1 and q.shape[-1] == cfg.num_heads * hd:      # held whole
+    if m > 1 and q.shape[-1] == cfg.num_heads * hd and not split:  # whole
         i = axis_index("qkv_out")
         q, k, v = (t.narrow(-1, i * (t.shape[-1] // m), t.shape[-1] // m)
                    for t in (q, k, v))
@@ -189,6 +211,12 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     if rot.dim() == 3:
         rot = rot[None]
     q, k, v = _qa((apply_rope(q, rot), apply_rope(k, rot), v), cfg, qcfg)
+    if split:
+        if h < cfg.num_heads:
+            q, k, v = _gather_heads((q, k, v), grp)
+        out = _split_decode_attend(q, k, v, cache, cfg)
+        out = out.reshape(B, S, cfg.num_heads * hd)
+        return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
     if cache is None:
         rep = h // kv
         out = flash_attention(q, k.repeat_interleave(rep, dim=2),
@@ -332,6 +360,142 @@ def _attend_plain(q, k_att, v_att, q_abs, abs_pos, valid, cfg: ArchConfig,
     return torch.einsum("bhqk,bkhd->bqhd", p_attn, vf)
 
 
+def split_kv() -> bool:
+    """Whether the active rules split a dense cache by position (the
+    decode rules under a mesh whose ``kv_seq`` axes have more than one
+    rank)."""
+    return axis_shards("kv_seq") > 1
+
+
+def _gather_heads(ts, group):
+    """Every rank's head group of each of ``ts`` (B, S, heads, d),
+    concatenated in rank order, in one all-gather."""
+    B, S = ts[0].shape[:2]
+    widths = [t.shape[2] for t in ts]
+    both = collectives.gather(torch.cat(ts, dim=2), group, dim=2)
+    m = both.shape[2] // sum(widths)
+    both = both.reshape(B, S, m, sum(widths), -1)
+    out, lo = [], 0
+    for w in widths:
+        out.append(both[:, :, :, lo:lo + w].reshape(B, S, m * w, -1))
+        lo += w
+    return out
+
+
+def _block_write(cache, store, cols: torch.Tensor, lo: int) -> None:
+    """Write ``store``'s ``(B, S, ...)`` values at the global positions
+    ``cols (B, S)`` into this rank's block of ``L`` positions starting at
+    ``lo``; positions outside the block leave it as it was. The targets
+    are ``cols - lo`` modulo L, distinct for the S <= L consecutive
+    positions of a row, and a position outside the block writes back the
+    value it read, so no write depends on the scatter's order and no
+    host sync decides where to write."""
+    B, S = cols.shape
+    L = cache[store[0][0]].shape[1]
+    if S > L:
+        raise ValueError(f"{S} new positions exceed a block of {L}")
+    rows = torch.arange(B, device=cols.device)[:, None]
+    lc = torch.remainder(cols - lo, L)
+    inside = (cols >= lo) & (cols < lo + L)
+    for key, new in store:
+        buf = cache[key]
+        keep = inside.reshape((B, S) + (1,) * (buf.dim() - 2))
+        buf[rows, lc] = torch.where(keep, new.to(buf.dtype), buf[rows, lc])
+
+
+def _softmax_partial(logits: torch.Tensor, mask: torch.Tensor):
+    """``(m, p, l)`` of masked f32 logits over their last dim: the max of
+    the valid logits (-inf where none is valid), ``exp(logit - m)`` (0
+    where masked) and its sum (0 where none is valid)."""
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m))[..., None])
+    return m, p, p.sum(dim=-1)
+
+
+def partial_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   k_pos: torch.Tensor, q_abs: torch.Tensor,
+                   cfg: ArchConfig, chunk: int = SPLIT_CHUNK):
+    """Attention of ``q (B, S, h, hd)`` over one block of keys ``k, v (B,
+    L, kv, hd)`` at the absolute positions ``k_pos (L,)``, a query at
+    ``q_abs (B, S)`` seeing the keys at or before it. GQA grouped: q is
+    read as ``(B, S, kv, rep, hd)`` (query head ``j·rep + r`` on KV head
+    j), with no repeat of the keys; the block is cast to f32 ``chunk``
+    positions at a time. Returns the unnormalised partial ``(m, l, o)``:
+    per query head the max logit ``m (B, kv, rep, S)`` (-inf where the
+    block holds no valid key), ``l = Σ exp(logit - m)`` and ``o = Σ
+    exp(logit - m)·v (B, kv, rep, S, hd)``, all f32."""
+    B, S, h, hd = q.shape
+    L, kv = k.shape[1], k.shape[2]
+    qg = q.to(torch.float32).reshape(B, S, kv, h // kv, hd)
+    logits = torch.cat([torch.einsum(
+        "bskrd,bckd->bkrsc", qg, k[:, c:c + chunk].to(torch.float32))
+        for c in range(0, L, chunk)], dim=-1) / math.sqrt(hd)
+    logits = _softcap(logits, cfg.attn_logit_softcap)
+    mask = (k_pos[None, None, :] <= q_abs[:, :, None])[:, None, None]
+    m, p, l = _softmax_partial(logits, mask)
+    o = sum(torch.einsum("bkrsc,bckd->bkrsd", p[..., c:c + chunk],
+                         v[:, c:c + chunk].to(torch.float32))
+            for c in range(0, L, chunk))
+    return m, l, o
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   group) -> torch.Tensor:
+    """The attention output from every rank's partial ``(m, l, o)``
+    (:func:`partial_attend`) over ``group``: the maxima MAX-reduced, each
+    rank's sums and outputs rescaled by ``exp(m - M)`` (exactly 0 for a
+    block with no valid key, whose ``m`` is -inf), then one SUM reduce of
+    both in f32, and ``o / l`` (0 where no rank held a valid key). With no
+    group this normalises the one block."""
+    M = collectives.max_reduce(m, group)
+    a = torch.exp(m - torch.where(torch.isfinite(M), M, torch.zeros_like(M)))
+    l, o = l * a, o * a[..., None]
+    if collectives.group_size(group) > 1:
+        n = l.numel()
+        both = collectives.sum_reduce(torch.cat([l.reshape(-1),
+                                                 o.reshape(-1)]), group)
+        l, o = both[:n].reshape(l.shape), both[n:].reshape(o.shape)
+    return torch.where(l[..., None] > 0, o / torch.where(
+        l > 0, l, torch.ones_like(l))[..., None], torch.zeros_like(o))
+
+
+def _split_decode_attend(q, k_new, v_new, cache, cfg: ArchConfig):
+    """:func:`_decode_attend` over a cache split by position: this rank
+    holds positions ``[lo, lo + L)`` of every row (block ``axis_index(
+    "kv_seq")``) and every KV head, and ``q``, ``k_new``, ``v_new`` hold
+    every head. The S new positions go at the whole buffer's clamped
+    cursor, as one device writes them, on the rank whose block holds
+    each; every rank attends its block, and the partials merge over the
+    ``kv_seq`` group. ``idx`` is the whole row's cursor on every rank."""
+    B, S, h, hd = q.shape
+    idx = cache["idx"].long()
+    L = cache["k"].shape[1]
+    lo = axis_index("kv_seq") * L
+    cap = L * axis_shards("kv_seq")
+    ar = torch.arange(S, device=q.device)
+    q_abs = idx[:, None] + ar                                   # (B, S)
+    cols = torch.clamp(idx, max=cap - S)[:, None] + ar
+    if cfg.kv_cache_bits:
+        pk, sk = _kv_encode(k_new, cfg)
+        pv, sv = _kv_encode(v_new, cfg)
+        store = (("k", pk), ("v", pv), ("k_scale", sk), ("v_scale", sv))
+    else:
+        store = (("k", k_new), ("v", v_new))
+    _block_write(cache, store, cols, lo)
+    if cfg.kv_cache_bits:
+        k_att = _kv_decode(cache["k"], cache["k_scale"], cfg)
+        v_att = _kv_decode(cache["v"], cache["v_scale"], cfg)
+    else:
+        k_att, v_att = cache["k"], cache["v"]
+    k_pos = lo + torch.arange(L, device=q.device)
+    m, l, o = partial_attend(q, k_att, v_att, k_pos, q_abs, cfg)
+    out = merge_partials(m, l, o, axis_group("kv_seq"))  # (B,kv,rep,S,hd)
+    cache["idx"] += S
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, h, hd).to(q.dtype)
+
+
 def _ring_attend(q, k_new, v_new, cache, cfg: ArchConfig, window: int):
     """A sliding-window layer's append: attend over the old ring's
     contents and the S new keys, then write the new keys into the ring.
@@ -374,6 +538,26 @@ def _ring_attend(q, k_new, v_new, cache, cfg: ArchConfig, window: int):
     return out.to(q.dtype)
 
 
+def _last_writer(target: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """True at each kept write that no later kept write (in row-major
+    order) sends to the same ``target`` slot. Idle rows and prefill pads
+    write through block-table entries that all name the null page, so
+    one call can send several writes to one slot of it; a card's scatter
+    applies such duplicates in no fixed order, and the data replicas of
+    a mesh then hold different null pages (ROADMAP H20). Keeping only the
+    last writer gives the CPU's scatter order on every device, and the
+    JAX package's on the CPU. A stable sort, no host sync."""
+    n = target.shape[0]
+    ar = torch.arange(n, device=target.device)
+    t = torch.where(keep, target.long(), -1 - ar)      # dropped: distinct
+    srt, order = torch.sort(t, stable=True)
+    last = torch.ones_like(keep)
+    last[:-1] = srt[1:] != srt[:-1]
+    out = torch.empty_like(keep)
+    out[order] = last
+    return out
+
+
 def _paged_attend(q, k_new, v_new, cache, cfg: ArchConfig,
                   block_table: torch.Tensor):
     """Scatter the S new positions into the row's pages (positions past
@@ -391,6 +575,8 @@ def _paged_attend(q, k_new, v_new, cache, cfg: ArchConfig,
     pg = torch.gather(block_table.long(), 1, torch.clamp(pos // page, 0,
                                                          mp - 1))
     keep = (pos < mp * page).reshape(-1)
+    keep &= _last_writer(pg.reshape(-1) * page + (pos % page).reshape(-1),
+                         keep)
     fpg, foff = pg.reshape(-1)[keep], (pos % page).reshape(-1)[keep]
     quant = bool(cfg.kv_cache_bits)
     if quant:
@@ -478,6 +664,9 @@ def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
         qq = torch.cat([q_nope, q_rope], dim=-1)
         qq, k, v = _qa((qq, k, v), cfg, qcfg)
         out = flash_attention(qq, k, v)
+    elif split_kv():
+        out = _mla_split_decode(q_nope, q_rope, c_kv, k_rope,
+                                decoded_of(p["kv_up"], cfg), cache, cfg, grp)
     else:
         out = _mla_decode(q_nope, q_rope, c_kv, k_rope,
                           decoded_of(p["kv_up"], cfg), cache, cfg)
@@ -530,6 +719,59 @@ def _mla_decode(q_nope, q_rope, c_kv_new, k_rope_new, kv_up, cache,
                          torch.full((), -1e30, device=q_nope.device))
     p_attn = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhsk,bkr->bshr", p_attn, ck)
+    out = torch.einsum("bshr,rhv->bshv", ctx, w_v)
+    cache["idx"] += S
+    return out.to(q_nope.dtype)
+
+
+def _mla_split_decode(q_nope, q_rope, c_kv_new, k_rope_new, kv_up, cache,
+                      cfg: ArchConfig, group):
+    """:func:`_mla_decode` over a latent cache split by position (this
+    rank's block ``[lo, lo + L)``). The rank folds ``kv_up``'s key half
+    into its own heads' queries, gathers the absorbed queries and rope
+    queries of every head over ``group`` (the head groups; none where
+    ``kv_up`` is whole), attends its block for every head against the
+    one latent (a partial of :func:`partial_attend`'s kind, GQA with one
+    KV head), merges the latent contexts over the ``kv_seq`` group, and
+    keeps its own heads' contexts for ``kv_up``'s value half; the caller
+    gathers the heads before ``wo``."""
+    B, S, hl, nope = q_nope.shape
+    kvr, vd, rpe = cfg.kv_lora_rank, cfg.v_head_dim, cfg.qk_rope_dim
+    idx = cache["idx"].long()
+    L = cache["c_kv"].shape[1]
+    lo = axis_index("kv_seq") * L
+    cap = L * axis_shards("kv_seq")
+    ar = torch.arange(S, device=q_nope.device)
+    cols = torch.clamp(idx, max=cap - S)[:, None] + ar
+    _block_write(cache, (("c_kv", c_kv_new), ("k_rope", k_rope_new)), cols,
+                 lo)
+    w = kv_up.reshape(kvr, hl, nope + vd).to(torch.float32)
+    w_k, w_v = w[..., :nope], w[..., nope:]
+    q_abs = torch.einsum("bshn,rhn->bshr", q_nope.to(torch.float32), w_k)
+    qa = torch.cat([q_abs, q_rope.to(torch.float32)], dim=-1)
+    if group is not None:
+        qa = _gather_heads((qa,), group)[0]
+    h = qa.shape[2]
+    qa = qa.reshape(B, S, 1, h, kvr + rpe)
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    chunk = SPLIT_CHUNK
+    logits = torch.cat([
+        torch.einsum("bskhr,bcr->bkhsc", qa[..., :kvr],
+                     ck[:, c:c + chunk].to(torch.float32))
+        + torch.einsum("bskhr,bcr->bkhsc", qa[..., kvr:],
+                       kr[:, c:c + chunk].to(torch.float32))
+        for c in range(0, L, chunk)], dim=-1) / math.sqrt(nope + rpe)
+    k_pos = lo + torch.arange(L, device=q_nope.device)
+    q_pos = idx[:, None] + ar
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None])[:, None, None]
+    m, p, l = _softmax_partial(logits, mask)
+    o = sum(torch.einsum("bkhsc,bcr->bkhsr", p[..., c:c + chunk],
+                         ck[:, c:c + chunk].to(torch.float32))
+            for c in range(0, L, chunk))
+    ctx = merge_partials(m, l, o, axis_group("kv_seq"))  # (B,1,h,S,kvr)
+    ctx = ctx[:, 0].transpose(1, 2)                       # (B,S,h,kvr)
+    i = axis_index("qkv_out") if hl < h else 0
+    ctx = ctx[:, :, i * hl:(i + 1) * hl]
     out = torch.einsum("bshr,rhv->bshv", ctx, w_v)
     cache["idx"] += S
     return out.to(q_nope.dtype)

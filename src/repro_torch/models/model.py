@@ -46,6 +46,7 @@ from repro_torch.core.lns import LNSWeight, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, qeinsum
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
+from repro_torch.distributed.params_sharding import cache_local_shape
 from repro_torch.distributed.sharding import (axis_index, axis_shards,
                                               batch_group, current_mesh,
                                               current_rules, shard_ctx)
@@ -590,36 +591,51 @@ def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,
     ``rwkv`` layer its f32 state dict, which has no cursor ``idx``.
     Speculative decoding passes its k as ``window_slack``: draft writes
     past a rewound cursor then land only on ring slots no query can see
-    any more. Under a mesh whose serving rules shard ``kv_heads`` the
-    KV caches and pools hold this rank's head group; MLA's latent cache
-    is replicated, and so is every recurrent state: the serving rules keep
-    ``ssm_inner`` whole, so each rank runs the whole Mamba2 mixer and WKV
-    and holds the whole ``ssm``/``S``/``conv_*``/``shift_*`` rows, equal
-    to one card's. JAX's cache table names ``act_heads`` for ``ssm`` and
-    ``S`` (``params_sharding``); that is a GSPMD placement, which changes
-    no value, and the port does not slice recurrent state."""
+    any more.
+
+    Under a mesh each leaf is this rank's shard
+    (``params_sharding.cache_local_shape``). The serving rules shard the
+    KV caches and pools by ``kv_heads`` and replicate MLA's latent cache
+    and every recurrent state: the serving rules keep ``ssm_inner``
+    whole, so each rank runs the whole Mamba2 mixer and WKV and holds the
+    whole ``ssm``/``S``/``conv_*``/``shift_*`` rows, equal to one card's
+    (JAX's cache table names ``act_heads`` for ``ssm`` and ``S``, a GSPMD
+    placement that changes no value). The decode rules
+    (``sharding.decode_rules``) also split every leaf's rows where they
+    split ``batch``, and a dense KV cache or MLA latent by position where
+    ``kv_seq`` resolves: the rank holds one contiguous block of
+    ``max_len / n`` positions (block ``axis_index("kv_seq")``) and every
+    KV head; rings keep their slots and recurrent state its heads."""
     dev = resolve_device(device)
     prefix, n_periods, period = cfg.layer_pattern()
     if page_size is not None and num_pages is None:
         num_pages = batch * (-(-max_len // page_size))
-    # under a mesh that shards the KV heads, this rank's head group
-    kv = cfg.num_kv_heads // axis_shards("kv_heads")
+    hd = cfg.head_dim
+    rows = cache_local_shape((batch,), "idx")[0]
 
     def one(kind):
         if kind == "mamba":
-            return ssm_mod.init_mamba_state(batch, cfg, dev)
+            return ssm_mod.init_mamba_state(rows, cfg, dev)
         if kind == "rwkv":
-            return rwkv_mod.init_rwkv_state(batch, cfg, dev)
+            return rwkv_mod.init_rwkv_state(rows, cfg, dev)
         if cfg.use_mla and kind in ("dense", "global", "moe"):
-            return attn_mod.init_mla_cache(batch, max_len, cfg, dev)
+            _, cap, _ = cache_local_shape(
+                (batch, max_len, cfg.kv_lora_rank), "c_kv", kind)
+            return attn_mod.init_mla_cache(rows, cap, cfg, dev)
         if kind == "local":
-            return attn_mod.init_kv_cache(
-                batch, max_len, cfg, dev,
-                window=cfg.sliding_window + window_slack, kv_heads=kv)
+            ring = min(cfg.sliding_window + window_slack, max_len)
+            kv = cache_local_shape((batch, ring, cfg.num_kv_heads, hd), "k",
+                                   kind)[2]
+            return attn_mod.init_kv_cache(rows, ring, cfg, dev, window=ring,
+                                          kv_heads=kv)
         if page_size is not None:
-            return attn_mod.init_paged_kv_cache(batch, num_pages, page_size,
+            kv = cache_local_shape((num_pages + 1, page_size,
+                                    cfg.num_kv_heads, hd), "kp", kind)[2]
+            return attn_mod.init_paged_kv_cache(rows, num_pages, page_size,
                                                 cfg, dev, kv_heads=kv)
-        return attn_mod.init_kv_cache(batch, max_len, cfg, dev, kv_heads=kv)
+        _, cap, kv, _ = cache_local_shape(
+            (batch, max_len, cfg.num_kv_heads, hd), "k", kind)
+        return attn_mod.init_kv_cache(rows, cap, cfg, dev, kv_heads=kv)
 
     caches: Dict[str, Any] = {}
     if prefix:

@@ -252,20 +252,46 @@ def build_prefill_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
 
 
 def build_decode_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
-                      mcfg: Optional[MadamConfig] = None) -> Callable:
+                      mcfg: Optional[MadamConfig] = None, *, mesh=None,
+                      rules: Optional[Dict[str, Any]] = None) -> Callable:
     """``decode(params, caches, batch, pos) -> (logits, caches)``: the
     tokens of ``batch["tokens"]`` appended at ``pos`` (a scalar or a
     ``(B,)`` row of offsets) through ``batch.get("block_tables")``; the
     caches are updated in place and returned, as the JAX step returns its
-    new ones."""
-    del mcfg
+    new ones.
 
-    def serve_step(params, caches, batch, pos):
+    With ``mesh`` the step runs under ``mesh`` and ``rules`` (default
+    ``sharding.decode_rules(cfg, mesh)``: split-KV decode), and
+    ``params`` and ``caches`` are this rank's (``LocalShard`` and
+    ``init_caches`` under the same rules). ``batch`` and a ``(B,)``
+    ``pos`` are the global batch's; the step takes this rank's rows
+    (``params_sharding.batch_rows``) and returns their logits. Q_A's
+    per-tensor scales are MAX-reduced over the ranks the rows split over
+    (``quantizer.global_stat``), so a rank's rows are quantized with the
+    whole batch's scale, as on one device (ROADMAP H7)."""
+    del mcfg
+    if mesh is not None and rules is None:
+        from repro_torch.distributed.sharding import decode_rules
+        rules = decode_rules(cfg, mesh)
+
+    def step(params, caches, batch, pos):
         batch = batch_to_device(batch, _device_of(params))
         with torch.no_grad():
             logits = decode_step(params, caches, batch["tokens"], cfg, qcfg,
                                  pos_offset=pos,
                                  block_tables=batch.get("block_tables"))
         return logits, caches
+
+    if mesh is None:
+        return step
+
+    def serve_step(params, caches, batch, pos):
+        with shard_ctx(mesh, rules):
+            batch = _as_tensors(batch)
+            if isinstance(pos, torch.Tensor) and pos.dim():
+                batch = dict(batch, _pos=pos)
+            batch = batch_rows(batch, mesh)
+            pos = batch.pop("_pos", pos)
+            return step(params, caches, batch, pos)
 
     return serve_step

@@ -486,3 +486,109 @@ def test_production_mesh_refuses_cards_without_torchrun(monkeypatch):
         make_production_mesh(device="cpu")
     with pytest.raises(ValueError, match="torchrun"):
         make_production_mesh(hosts=1, cards=2, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# split-KV decode: the decode cells under JAX's batch and kv_seq rules
+
+DECODE_CELLS = [(a, s) for a, s in T.cells() if T.SHAPES[s].kind == "decode"]
+
+
+def _jax_shard_shape(shape, spec, mesh_shape):
+    out = []
+    for i, size in enumerate(shape):
+        entry = spec[i] if i < len(spec) else None
+        n = 1
+        for a in ((entry,) if isinstance(entry, str) else entry or ()):
+            n *= mesh_shape[a]
+        out.append(size // n)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("arch,shape", DECODE_CELLS)
+def test_decode_cache_local_shapes_equal_jax_spec(arch, shape):
+    """Each cache leaf of a decode cell, as ``init_caches`` places it on
+    rank 0 of the production mesh under the decode rules, has the shard
+    shape of JAX's ``spec_for`` of that leaf under ``get_rules(arch)``
+    (with JAX's batch-1 override; the rows over the data axes and the KV
+    heads as the serving rules shard the weights, as ``decode_rules``
+    keeps them): dense KV caches, MLA latents and
+    cursors exactly; a ring JAX's rows with every slot (the port keeps
+    ring slots whole) and the serving head group; recurrent state JAX's
+    rows with every head."""
+    import jax
+    from repro.configs import get_config as j_config
+    from repro.configs import get_rules as j_rules
+    from repro.distributed import params_sharding as jps
+    from repro.distributed import sharding as jsh
+    from repro.models import init_caches as j_init_caches
+    from repro_torch.distributed.sharding import decode_rules
+    from repro_torch.models.model import init_caches
+    from repro_torch.tree import leaves
+    cfg, spec = T.get_config(arch), T.SHAPES[shape]
+    B, S = spec.global_batch, spec.seq_len
+    jc = jax.eval_shape(lambda: j_init_caches(B, S, j_config(arch)))
+    is_axes = (lambda x: isinstance(x, tuple)
+               and all(e is None or isinstance(e, str) for e in x))
+    flat = lambda t, **kw: {
+        "::".join(str(getattr(k, "key", getattr(k, "idx", k))) for k in p): v
+        for p, v in jax.tree_util.tree_flatten_with_path(t, **kw)[0]}
+    jshapes = flat(jc)
+    jaxes = flat(jps.cache_logical_axes(jc), is_leaf=is_axes)
+    with dryrun.meta_mesh({"data": 32, "model": 8}, 8) as mesh:
+        rules = decode_rules(cfg, mesh, B, T.get_rules(arch))
+        # the port's rows go over the data axes only and its KV heads as
+        # its weights hold them (decode_rules)
+        jr = dict(j_rules(arch), batch=("pod", "data"),
+                  kv_heads=rules["kv_heads"])
+        if B % 32:
+            jr.update(batch=None, kv_seq=("data", "model"))
+        with shard_ctx(mesh, rules):
+            tc = init_caches(B, S, cfg, device="meta")
+        mine = {"::".join(str(k) for k in p): tuple(t.shape)
+                for p, t in leaves(tc)}
+        assert mine.keys() == jshapes.keys()
+        prefix, _, period = cfg.layer_pattern()
+        exact = 0
+        for key, jshape in jshapes.items():
+            parts = key.split("::")
+            kind = (prefix[int(parts[1])] if parts[0] == "prefix"
+                    else period[int(parts[1][3:])])
+            axes = jaxes[key]
+            want = _jax_shard_shape(jshape.shape, tuple(jsh.spec_for(
+                axes, mesh, jr)), mesh.shape)
+            got = mine[key]
+            b = list(axes).index("batch") if "batch" in axes else None
+            if kind == "local" and parts[-1] in ("k", "v"):
+                assert got[b] == want[b] and got[b + 1] == jshape.shape[
+                    b + 1], (key, got, want)
+            elif kind in ("mamba", "rwkv"):
+                assert got[b] == want[b] and got[b + 1:] == tuple(
+                    jshape.shape[b + 1:]), (key, got, want)
+            else:
+                assert got == want, (key, got, want)
+                exact += parts[-1] in ("k", "v", "c_kv", "k_rope")
+        split = tuple(jsh.spec_for(("kv_seq",), mesh, jr))[0]
+    if cfg.family not in ("ssm",):
+        assert exact > 0
+    if arch != "smollm-135m" and cfg.family != "ssm":
+        assert split is not None
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_decode_rows_name_split_kv(shape):
+    """gemma3-12b's decode cells run split-KV: the row's placement says
+    so, long_500k's cache spreads over data and model (2048 positions a
+    rank) and decode_32k's over model with 4 of the 128 rows a rank, and
+    every global layer merges with one SUM reduce (8 a step)."""
+    row = dryrun.run_cell("gemma3-12b", shape)
+    assert "split-KV decode" in row["placement"]
+    assert "no split-KV" not in row["placement"]
+    if shape == "long_500k":
+        assert "over data+model (2048 of 524288 positions" in row[
+            "placement"]
+        assert "batch of 1 over replicated" in row["placement"]
+    else:
+        assert "over model (4096 of 32768 positions" in row["placement"]
+        assert "batch of 128 over data (4 a rank)" in row["placement"]
+    assert row["collective_calls"]["sum"] == 8

@@ -34,6 +34,7 @@ from repro_torch.kernels import dispatch, ops  # noqa: E402
 from repro_torch.server.sampling import SamplingParams  # noqa: E402
 from repro_torch.serving import Engine, Request, spec, summarize  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from test_torch_model import flat_params, jax_smoke  # noqa: E402
 
@@ -408,3 +409,70 @@ def test_abort_mid_flight_returns_pages(smoke):
     assert sorted(rs.request.rid for rs in eng.aborted) == [0, 1]
     assert [rs.request.rid for rs in eng.finished] == [2]
     assert all(rs.aborted for rs in eng.aborted)
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP H20: the paged write's duplicate targets
+
+
+class _ReversedScatter(TorchDispatchMode):
+    """Applies every non-accumulating ``index_put_`` with its updates in
+    reverse order: where two updates hit one element, the first one now
+    wins. A card's scatter applies duplicate targets in no fixed order,
+    so this is one order the card may take; a write that gives every
+    element one update at most is unchanged by it."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.ops.aten.index_put_.default,
+                    torch.ops.aten.index_put.default):
+            acc = args[3] if len(args) > 3 else kwargs.get("accumulate",
+                                                           False)
+            idx = list(args[1])
+            if not acc and idx and all(i is not None and i.dtype != torch.bool
+                                       for i in idx):
+                bi = torch.broadcast_tensors(*idx)
+                n, lead = bi[0].numel(), tuple(bi[0].shape)
+                tail = tuple(args[0].shape[len(idx):])
+                vals = args[2].expand(lead + tail).reshape((n,) + tail)
+                return func(args[0], [i.reshape(n).flip(0) for i in bi],
+                            vals.flip(0), *args[3:], **kwargs)
+        return func(*args, **kwargs)
+
+
+def _pools(eng):
+    """Every paged pool of the engine (words and any scales), null page
+    included, as numpy arrays."""
+    out = {}
+    for path, t in leaves(eng.caches):
+        if path[-1] in ("kp", "vp", "kp_scale", "vp_scale"):
+            out[path] = t.to(torch.float32).numpy().copy()
+    return out
+
+
+@pytest.mark.parametrize("k", [0, 4])
+def test_paged_writes_do_not_depend_on_scatter_order(smoke, k):
+    """H20: on demand, idle rows and prefill pads write through block
+    tables that point at the one null page, several to the same slot of
+    it in one call. The pools, null page included, and the streams must
+    be the same whatever order the scatter applies duplicate targets in,
+    as they are on four cards whose data replicas must agree (25c of
+    ``chip_smoke.py --mesh``): each target takes the last writer of the
+    call in row-major order, the order of the CPU's scatter and of the
+    JAX package's ``.at[].set`` on the CPU."""
+    vocab = get_smoke_config("smollm-135m").vocab_size
+    reqs = _mixed(vocab, n=5, gen=14)
+    kw = dict(num_slots=3, max_len=40, page_size=4, num_pages=12,
+              alloc_policy="ondemand", prefix_cache=False)
+    if k:
+        kw.update(speculate_k=k, draft_bitwidth=6)
+    plain = _engine(smoke[4], **kw)
+    plain.run(reqs)
+    with _ReversedScatter():
+        rev = _engine(smoke[4], **kw)
+        rev.run(reqs)
+    assert _streams(rev) == _streams(plain)
+    a, b = _pools(plain), _pools(rev)
+    assert a.keys() == b.keys() and a
+    for key in a:
+        np.testing.assert_array_equal(b[key], a[key], err_msg=str(key))
