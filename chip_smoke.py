@@ -17,6 +17,7 @@
     python3 chip_smoke.py --mesh-serve # 1, 2 and 27 on four cards
     python3 chip_smoke.py --mesh-25c   # 1, 2 and 25c five times, four cards
     python3 chip_smoke.py --mesh-long  # 1, 2 and 30 on four cards
+    python3 chip_smoke.py --mesh-tp    # 1, 2 and 31 on four cards
     python3 chip_smoke.py --k1-given   # K1 with a given scale only
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -462,6 +463,35 @@ not checked.
     and at zamba2's (rank 0 of the split run), and K6 at 1 x 262144 and
     1 x 32000, each beside its plain version and ``torch.matmul`` /
     ``torch.argmax``. Results in ``chiprun_out/chip_smoke_mesh_long.json``.
+
+31. JAX's (data, model) placement for prefill and training
+    (``--mesh-tp``, four cards; ``sharding.data_rules``: the rows over
+    the data axis, the weights on the serving rules, a column-parallel
+    leaf a rank's columns). Each part's one-card reference runs first on
+    card 0 from the same seed and batches, then one NCCL rank a card.
+    (a) smollm-135m at full width and depth, a prefill of 8 x 4096
+    tokens (``build_prefill_step(mesh=)``) on (2, 2) and (4, 1): every
+    rank's rows of last-position logits hold one card's argmax and lie
+    within ``LOGIT_RTOL`` of its max |logit| (bit equality printed); the
+    peak a rank and the wall of a second, warm call beside one card's.
+    (b) lns8 training, ``TP_STEPS`` steps, every rank drawing its shard
+    from seed 0 (``init_train_state(shard=LocalShard)``): smollm-135m at
+    full width and depth, 32 x 256, on (1, 4) and (2, 2) (then one
+    observed step on (1, 4): K4, whole-leaf stats equal on every rank),
+    and granite-8b at full width 12 of 36 layers deep, 8 x 256, on (1, 4)
+    (one card must train the reference step). Held with phase 26's
+    bounds: step 0 within ``DP_STEP0_RTOL``, losses within
+    ``TRAIN_LOSS_RTOL``, grad norms within ``DP_GNORM_RTOL``, the words
+    after step 1 (the column shards concatenated; granite's stacked
+    leaves at their first layer) within ``TRAIN_WORD_SHARE``; every
+    rank's whole leaves and every data group's shards equal after every
+    step (checksums); K1, K2, K3 and the model group's gathers and SUMs
+    on every step. Printed: the peak a rank against one card's, the step
+    walls, the collectives a step by kind and bytes. Then on card 0: K2
+    at every column block the parts launched beside its plain version
+    and ``torch.matmul``, K1 with a given scale at the (2, 2) shapes,
+    K3 and K4 at the largest column shards. Results in
+    ``chiprun_out/chip_smoke_mesh_tp.json``.
 
 Phase 21d serves qwen2.5-32b at the depth ``SERVE_DEPTH_CUT`` gives (32
 of its 64 layers), at full width, to keep the run inside its time limit.
@@ -7248,6 +7278,604 @@ def long_main(torch, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 31 (``--mesh-tp``): JAX's (data, model) placement for prefill and
+# training (``sharding.data_rules``: the rows over the data axis, the
+# weights on the serving rules, a column-parallel leaf holding a rank's
+# columns). Each part's one-card reference runs first in this process on
+# card 0, from the same seed and batches; then one NCCL rank a card
+# (spawned) runs every part on its meshes. 31a: smollm-135m at full width
+# and depth, a prefill of 8 x 4096 tokens on (2, 2) and (4, 1). 31b: lns8
+# training, every rank drawing its shard from seed 0: smollm-135m at full
+# width and depth, 32 x 256 a step, on (1, 4) and (2, 2) (then one
+# observed step, K4, on (1, 4)); granite-8b at full width, 12 of its 36
+# layers, on (1, 4): one card trains the reference step (~2.8e9
+# parameters at 18.1-20.6 B each, ~1.5e9 a rank). Held with phase 26's
+# bounds; prefill logits within LOGIT_RTOL of max |logit|, argmax equal
+TP_PREFILL = dict(arch="smollm-135m", rows=8, seq=4096,
+                  meshes=((2, 2), (4, 1)))
+TP_TRAIN = [
+    ("31b1", dict(arch="smollm-135m", batch=32, seq=256,
+                  meshes=((1, 4), (2, 2)), observed=(1, 4))),
+    ("31b2", dict(arch="granite-8b", cut=dict(num_layers=12), batch=8,
+                  seq=256, meshes=((1, 4),), word_layers=1)),
+]
+TP_STEPS = 3
+TP_TIMEOUT_S = 600
+# K3/K4 at the largest column shards 31b steps: granite's up/gate (12
+# layers x 4096 rows, 14336 / 4 columns) and smollm's up/gate at m = 4
+TP_K34 = [(12 * 4096, 14336 // 4), (30 * 576, 1536 // 4)]
+
+
+def tp_serve_params(torch, cfg, shard=None):
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    mcfg = MadamConfig(update_format=LNSFormat(bits=8, gamma=8))
+    return init_params(cfg, seed=0, device="cuda",
+                       leaf_fn=lns_leaf_encoder(mcfg), shard=shard)
+
+
+def tp_prefill(torch, ops, params, cfg, mesh=None, rules=None):
+    """31a's prefill on this card (a rank's rows under ``mesh``): the
+    first call's last-position logits (host, f32), wall, launches and
+    collectives (counts zeroed just before), then a second call's wall
+    (warm: a mesh's first collectives also set up NCCL's communicators);
+    the peak."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import build_prefill_step
+    batch = SyntheticLM(cfg, batch=TP_PREFILL["rows"],
+                        seq=TP_PREFILL["seq"]).batch_at(0)
+    step = build_prefill_step(cfg, QuantConfig.lns_madam(), mesh=mesh,
+                              rules=rules)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    collectives.reset_counts()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = step(params, batch)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    out = {"logits": logits.float().cpu(), "first_wall_ms": first,
+           "launches": ops.launch_counts(),
+           "collectives": collectives.counts()}
+    del logits
+    t0 = time.perf_counter()
+    step(params, batch)
+    torch.cuda.synchronize()
+    out.update(wall_ms=(time.perf_counter() - t0) * 1e3,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(bool(torch.isfinite(out["logits"]).all())
+          and out["logits"].shape[-1] == cfg.vocab_size,
+          "31a: non-finite or misshapen prefill logits")
+    check(out["launches"]["encode_pack"] > 0 and out["launches"]["qmatmul"]
+          > 0, f"31a: K1 and K2 must launch on the prefill: "
+          f"{out['launches']}")
+    return out
+
+
+def tp_words(state, layers=None):
+    """The packed words by leaf path on the host (16-bit codes as int16:
+    equal exactly where the words are), a stacked leaf's first ``layers``
+    layers only where given."""
+    from repro_torch.tree import leaves
+    out = {}
+    for p, x in leaves(state.params):
+        if hasattr(x, "packed"):
+            w = x.packed
+            if layers is not None and p[0] == "period":
+                w = w[:layers]
+            out["/".join(map(str, p))] = w.short().cpu()
+    return out
+
+
+def tp_one_card(torch, ops, tag, spec, scratch):
+    """31b on card 0: the part's steps from seed 0 on the same global
+    batches; losses, grad norms, step walls, launches, the peak; the words
+    after the first step saved for the ranks."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import build_train_step, init_train_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, mcfg = dp_config(spec), MadamConfig()
+    data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"])
+    state = init_train_state(cfg, mcfg, seed=0, device="cuda")
+    step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg)
+    rows = []
+    for i in range(TP_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, data.batch_at(i))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rows.append({"loss": loss, "grad_norm": float(m["grad_norm"]),
+                     "step_ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": ops.launch_counts()})
+        if i == 0:
+            torch.save(tp_words(state, spec.get("word_layers")),
+                       scratch / f"{tag}_one_card.pt")
+    out = {"steps": rows, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "layers": cfg.num_layers}
+    print(f"{tag} one card: {spec['arch']} {cfg.num_layers} layers, "
+          f"{spec['batch']} x {spec['seq']}: losses "
+          + " ".join(f"{r['loss']:.5f}" for r in rows) + ", grad norms "
+          + " ".join(f"{r['grad_norm']:.4f}" for r in rows) + ", step ms "
+          + " ".join(f"{r['step_ms']:.1f}" for r in rows)
+          + f", peak {out['peak_gb']:.2f} GB", flush=True)
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_checksums(torch, state, split):
+    """``dp_checksum``'s two sums over the whole leaves and over the
+    split ones apart: ``(whole words, whole moments, split words, split
+    moments)``."""
+    from repro_torch.tree import leaves
+    parts = [[], [], [], []]
+    for (p, x), (_, ax) in zip(leaves(state.params), leaves(split)):
+        if not hasattr(x, "packed"):
+            continue
+        base = 2 if ax else 0
+        v = state.opt.g2
+        for k in p:
+            v = v[k]
+        parts[base].append(x.packed)
+        parts[base + 1].append(v.to(torch.float32).contiguous().view(
+            torch.int32))
+    out = torch.zeros(4, dtype=torch.int64, device=parts[0][0].device)
+    for slot, ts in enumerate(parts):
+        for i, t in enumerate(ts):
+            flat = t.reshape(-1)
+            for lo in range(0, flat.numel(), 1 << 26):
+                c = flat[lo:lo + (1 << 26)].long()
+                w = (torch.arange(lo, lo + c.numel(), device=c.device)
+                     % 65521 + 1 + i)
+                out[slot] += (c * w).sum()
+    return out
+
+
+def tp_word_share(torch, words, ref_path, split, coords):
+    """This rank's share of the words-apart count against one card's
+    (``tp_words`` of both): each split leaf's columns on the ranks of data
+    coordinate 0, each whole leaf on rank (0, 0) only, so the ranks' sums
+    cover every word once."""
+    ref = torch.load(ref_path, mmap=True)
+    n = tot = 0
+    sizes = collections.Counter()
+    for k, w in words.items():
+        whole = not split[k]
+        if coords.get("data", 0) != 0 or (whole and coords["model"] != 0):
+            continue
+        r = ref[k]
+        if r.shape != w.shape:
+            c, i = w.shape[-1], coords["model"]
+            r = r[..., i * c:(i + 1) * c]
+        d = (w.int() - r.int()).abs()
+        n += int((d != 0).sum())
+        tot += d.numel()
+        for v, c in zip(*torch.unique(d[d != 0].clamp(max=33),
+                                      return_counts=True)):
+            sizes[str(int(v))] += int(c)
+    return {"apart": n, "total": tot, "sizes": dict(sizes)}
+
+
+def tp_part(torch, ops, tag, spec, shape, scratch):
+    """31b on this rank on ``shape``: the rank's shard drawn from seed 0,
+    the part's steps (each begun at a barrier, the counts zeroed just
+    before), per step the loss, grad norm, wall, launches, collectives and
+    every rank's checksums; the words after the first step against one
+    card's; K2's shapes on the second step; the peak."""
+    import torch.distributed as dist
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.params_sharding import LocalShard, split_axes
+    from repro_torch.distributed.sharding import data_rules, shard_ctx
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.madam import MadamConfig
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import build_train_step, init_train_state
+    from repro_torch.tree import leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_part = time.monotonic()
+    cfg, mcfg = dp_config(spec), MadamConfig()
+    mesh = make_host_mesh(*shape)
+    rules = data_rules(cfg, mesh, spec["batch"])
+    data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"])
+    out = {"rank": dist.get_rank(), "coords": dict(mesh.coords), "steps": []}
+    observed = spec.get("observed") == shape
+    with shard_ctx(mesh, rules), dp_given_spy() as given:
+        state = init_train_state(cfg, mcfg, seed=0, device=mesh.device,
+                                 shard=LocalShard(mesh, rules))
+        split = split_axes(state.params, mesh, rules)
+        split_by = {"/".join(map(str, p)): bool(a)
+                    for p, a in leaves(split)}
+        out["split_leaves"] = sorted(k for k, v in split_by.items() if v)
+        step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg)
+        for i in range(TP_STEPS + (1 if observed else 0)):
+            if i == TP_STEPS:
+                step = build_train_step(cfg, QuantConfig.lns_madam(), mcfg,
+                                        numerics=True)
+            batch = data.batch_at(i)
+            dist.barrier()
+            torch.cuda.synchronize()
+            collectives.reset_counts()
+            ops.reset_launch_counts()
+            given[0] = 0
+            ctx = (k2_shapes_seen(torch, ops) if i == 1
+                   else contextlib.nullcontext())
+            t0 = time.perf_counter()
+            with ctx as seen:
+                state, m = step(state, batch)
+                loss = float(m["loss"])
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            row = {"loss": loss, "grad_norm": float(m["grad_norm"]),
+                   "step_ms": ms, "collectives": collectives.counts(),
+                   "collective_bytes": collectives.byte_counts(),
+                   "launches": ops.launch_counts(),
+                   "k1_given_scale_calls": given[0]}
+            if seen is not None:
+                out["k2_shapes"] = sorted({(M, K, N) for (M, K, N, _, _)
+                                           in seen})
+            cs = tp_checksums(torch, state, split)
+            every = torch.empty((mesh.size, 4), dtype=torch.int64,
+                                device=cs.device)
+            (getattr(dist, "all_gather_single", None)
+             or dist.all_gather_into_tensor)(every, cs[None])
+            model = [r for r in range(mesh.size)
+                     if r % shape[1] == out["rank"] % shape[1]]
+            row["whole_agree"] = bool((every[:, :2] == every[0, :2]).all())
+            row["split_agree"] = bool((every[model, 2:] == cs[2:]).all())
+            if i == TP_STEPS:
+                row["numerics_leaves"] = len(m["numerics"]["update"])
+                row["numerics"] = {
+                    k: {kk: float(vv) for kk, vv in st.items()}
+                    for k, st in m["numerics"]["update"].items()}
+                out["observed"] = row
+            else:
+                out["steps"].append(row)
+            if i == 0:
+                out["words"] = tp_word_share(
+                    torch, tp_words(state, spec.get("word_layers")),
+                    scratch / f"{tag}_one_card.pt", split_by,
+                    dict(mesh.coords))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.monotonic() - t_part
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(rank, world, port, out_dir):
+    """One rank of ``--mesh-tp``: 31a on each of its meshes (the rank's
+    shard of the 8-bit serving words from seed 0), then every 31b part on
+    each of its meshes; this rank's results go to
+    ``out_dir/rank<r>.pt``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.params_sharding import LocalShard
+    from repro_torch.distributed.sharding import data_rules
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.set_num_threads(1)
+    _build.library()
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="env://",
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    out = {"31a": {}}
+    cfg = get_config(TP_PREFILL["arch"])
+    for shape in TP_PREFILL["meshes"]:
+        mesh = make_host_mesh(*shape)
+        rules = data_rules(cfg, mesh, TP_PREFILL["rows"])
+        params = tp_serve_params(torch, cfg, LocalShard(mesh, rules))
+        dist.barrier()
+        with k2_shapes_seen(torch, ops) as seen, \
+                k1_shapes_seen(torch, ops) as k1_seen, \
+                dp_given_spy() as given:
+            r = tp_prefill(torch, ops, params, cfg, mesh, rules)
+        r["k2_shapes"] = sorted({(M, K, N) for (M, K, N, _, _) in seen})
+        r["k1_shapes"] = sorted({(R, C) for (R, C, _, _) in k1_seen})
+        r["k1_given_scale_calls"] = given[0]
+        r["coords"] = dict(mesh.coords)
+        out["31a"][f"{shape[0]},{shape[1]}"] = r
+        if rank == 0:
+            print(f"31a rank 0: {TP_PREFILL['arch']} prefill on {shape}: "
+                  f"wall {r['wall_ms']:.1f} ms (first call "
+                  f"{r['first_wall_ms']:.1f}), peak {r['peak_gb']:.2f} GB,"
+                  f" collectives {r['collectives']}", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    scratch = Path(out_dir)
+    for tag, spec in TP_TRAIN:
+        for shape in spec["meshes"]:
+            key = f"{tag} {shape[0]},{shape[1]}"
+            out[key] = tp_part(torch, ops, tag, spec, shape, scratch)
+            if rank == 0:
+                r = out[key]
+                print(f"{key} rank 0: {spec['arch']}: losses "
+                      + " ".join(f"{x['loss']:.5f}" for x in r["steps"])
+                      + ", step ms " + " ".join(f"{x['step_ms']:.1f}"
+                                               for x in r["steps"])
+                      + f", collectives {r['steps'][-1]['collectives']}, "
+                      f"peak {r['peak_gb']:.2f} GB ({r['seconds']:.1f}s)",
+                      flush=True)
+    torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def tp_prefill_checks(torch, one, ranks):
+    """31a: every rank's rows against one card's: argmax equal, logits
+    within LOGIT_RTOL of max |logit|; bit equality printed."""
+    rows_a = TP_PREFILL["rows"]
+    res = {}
+    for key in ranks[0]["31a"]:
+        data = int(key.split(",")[0])
+        per = rows_a // data
+        worst, equal, lines = 0.0, True, []
+        for rk in ranks:
+            r = rk["31a"][key]
+            d = r["coords"]["data"]
+            want = one["logits"][d * per:(d + 1) * per]
+            got = r["logits"]
+            top = float(want.abs().max())
+            err = float((got - want).abs().max())
+            worst = max(worst, err / top)
+            equal &= bool(torch.equal(got, want))
+            check(err <= LOGIT_RTOL * top,
+                  f"31a {key}: logits {err} apart, limit {LOGIT_RTOL * top}")
+            top2 = torch.topk(want, 2, dim=-1).values
+            gap = float((top2[:, 0] - top2[:, 1]).min())
+            check(torch.equal(got.argmax(-1), want.argmax(-1)),
+                  f"31a {key}: argmax differs from one card's (smallest "
+                  f"top-2 gap {gap})")
+            lines.append(gap)
+        r0 = ranks[0]["31a"][key]
+        res[key] = {"max_rel_err": worst, "bit_equal": equal,
+                    "min_top2_gap": min(lines),
+                    "peak_gb": [rk["31a"][key]["peak_gb"] for rk in ranks],
+                    "wall_ms": [rk["31a"][key]["wall_ms"] for rk in ranks],
+                    "first_wall_ms": [rk["31a"][key]["first_wall_ms"]
+                                      for rk in ranks],
+                    "collectives": r0["collectives"],
+                    "launches": r0["launches"],
+                    "k1_given_scale_calls": r0["k1_given_scale_calls"],
+                    "k2_shapes": r0["k2_shapes"],
+                    "k1_shapes": r0["k1_shapes"]}
+        print(f"31a {key}: {TP_PREFILL['arch']} prefill "
+              f"{TP_PREFILL['rows']} x {TP_PREFILL['seq']}: argmax equal, "
+              f"logits within {worst:.2e} of max |logit| (limit "
+              f"{LOGIT_RTOL}), bit-equal to one card: {equal}; peak a rank "
+              f"{max(res[key]['peak_gb']):.2f} GB (one card "
+              f"{one['peak_gb']:.2f}), wall {max(res[key]['wall_ms']):.1f} "
+              f"ms (one card {one['wall_ms']:.1f}), collectives "
+              f"{r0['collectives']}", flush=True)
+    return res
+
+
+def tp_train_checks(tag, key, one, ranks):
+    """31b on one mesh: every rank's losses and grad norms equal rank
+    0's, the whole leaves on every rank and each split leaf on its data
+    group equal after every step, phase 26's bounds against one card,
+    the words after step 1 within TRAIN_WORD_SHARE, K1/K2/K3 launched."""
+    r0 = ranks[0]
+    for r in ranks:
+        check(all(x["whole_agree"] and x["split_agree"]
+                  for x in r["steps"]),
+              f"{key} rank {r['rank']}: a whole leaf or a shard left its "
+              f"copies after a step")
+        check([(x["loss"], x["grad_norm"]) for x in r["steps"]]
+              == [(x["loss"], x["grad_norm"]) for x in r0["steps"]],
+              f"{key} rank {r['rank']}: its losses differ from rank 0's")
+        for x in r["steps"]:
+            check(x["launches"]["encode_pack"] > 0
+                  and x["launches"]["qmatmul"] > 0
+                  and x["launches"]["madam_step"] > 0,
+                  f"{key}: K1, K2 or K3 not launched on a step: "
+                  f"{x['launches']}")
+            check(x["collectives"]["gather"] > 0
+                  and x["collectives"]["sum"] > 0,
+                  f"{key}: a step made no gather or SUM: {x['collectives']}")
+    rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+           for x, y in zip(r0["steps"], one["steps"])]
+    grel = [abs(x["grad_norm"] - y["grad_norm"]) / abs(y["grad_norm"])
+            for x, y in zip(r0["steps"], one["steps"])]
+    check(rel[0] <= DP_STEP0_RTOL, f"{key}: step-0 loss {rel[0]:.2e} from "
+          f"one card's (limit {DP_STEP0_RTOL})")
+    check(all(v <= TRAIN_LOSS_RTOL for v in rel), f"{key}: losses {rel} "
+          f"from one card's (limit {TRAIN_LOSS_RTOL})")
+    check(all(v <= DP_GNORM_RTOL for v in grel), f"{key}: grad norms {grel}"
+          f" from one card's (limit {DP_GNORM_RTOL})")
+    apart = sum(r["words"]["apart"] for r in ranks)
+    total = sum(r["words"]["total"] for r in ranks)
+    sizes = collections.Counter()
+    for r in ranks:
+        sizes.update(r["words"]["sizes"])
+    share = apart / total
+    check(share <= TRAIN_WORD_SHARE, f"{key}: {share:.2%} of words apart "
+          f"from one card's after step 1")
+    out = {"loss_rel": rel, "grad_norm_rel": grel, "word_share": share,
+           "words_compared": total, "word_diff_sizes": dict(sizes),
+           "losses": [x["loss"] for x in r0["steps"]],
+           "grad_norms": [x["grad_norm"] for x in r0["steps"]],
+           "step_ms": [[x["step_ms"] for x in r["steps"]] for r in ranks],
+           "peak_gb": [r["peak_gb"] for r in ranks],
+           "collectives_a_step": r0["steps"][-1]["collectives"],
+           "collective_bytes_a_step": r0["steps"][-1]["collective_bytes"],
+           "launches_a_step": r0["steps"][-1]["launches"],
+           "k1_given_scale_calls": r0["steps"][-1]["k1_given_scale_calls"],
+           "split_leaves": r0["split_leaves"],
+           "k2_shapes": r0.get("k2_shapes"),
+           "one_card": {k: one[k] for k in ("peak_gb", "layers")},
+           "one_card_step_ms": [x["step_ms"] for x in one["steps"]],
+           "seconds": max(r["seconds"] for r in ranks)}
+    if "observed" in r0:
+        obs = [r["observed"] for r in ranks]
+        check(all(o["numerics"] == obs[0]["numerics"] for o in obs)
+              and obs[0]["launches"]["madam_step_stats"] > 0
+              and obs[0]["numerics_leaves"]
+              == obs[0]["launches"]["madam_step_stats"],
+              f"{key}: the observed step's stats differ across ranks or K4 "
+              f"did not step every packed leaf: {obs[0]['launches']}")
+        out["observed"] = {k: obs[0][k] for k in ("loss", "step_ms",
+                                                  "launches",
+                                                  "numerics_leaves")}
+    print(f"{key}: {r0['steps'][0]['launches']} a step; losses "
+          + " ".join(f"{v:.5f}" for v in out["losses"]) + " (one card "
+          + " ".join(f"{x['loss']:.5f}" for x in one["steps"]) + "), loss "
+          f"rel {max(rel):.2e}, grad norm rel {max(grel):.2e}, words apart "
+          f"after step 1 {share:.3%} of {total} ({dict(sizes)}); peak a "
+          f"rank {max(out['peak_gb']):.2f} GB (one card "
+          f"{one['peak_gb']:.2f}, {one['layers']} layers), step ms rank 0 "
+          + " ".join(f"{v:.1f}" for v in out["step_ms"][0]) + " (one card "
+          + " ".join(f"{v:.1f}" for v in out["one_card_step_ms"])
+          + f"), collectives a step {out['collectives_a_step']}, bytes "
+          f"{out['collective_bytes_a_step']['bytes']}", flush=True)
+    return out
+
+
+def tp_kernel_rows(torch, ops, ref, fmt, res):
+    """The shards 31 ran: K2 at every column block 31a and 31b launched
+    (M, K, N) beside its plain version and torch.matmul bf16; K1 with a
+    given scale at the (2, 2) runs' activation shapes (the scale MAX-
+    reduced over the data group); K3 and K4 at the largest column
+    shards (``TP_K34``)."""
+    from repro_torch.configs import get_config
+    blocks = set()
+    for key, part in list(res["31b"].items()) + [
+            (k, v) for k, v in res["31a"].items()]:
+        arch = (TP_PREFILL["arch"] if key in res["31a"] else
+                dict(TP_TRAIN)[key.split()[0]]["arch"])
+        m = int(key.split()[-1].split(",")[1])
+        if m == 1:
+            continue
+        cfg = get_config(arch)
+        widths = {cfg.d_ff // m}
+        if cfg.num_heads % m == 0 and cfg.num_kv_heads % m == 0:
+            widths |= {cfg.num_heads * cfg.head_dim // m,
+                       cfg.num_kv_heads * cfg.head_dim // m}
+        blocks |= {tuple(s) for s in part["k2_shapes"] or []
+                   if s[2] in widths}
+    k2 = k2_check(torch, ops, ref, fmt, sorted(blocks))
+    k1_shapes = sorted({tuple(s) for s in res["31a"]["2,2"]["k1_shapes"]}
+                       | {(4096, 576), (4096, 1536)})[:3]
+    k1 = k1_given_check(torch, ops, ref, fmt, k1_shapes)
+    k34 = k34_check(torch, ops, ref, [(R, C, 16, 2048, torch.bfloat16)
+                                      for R, C in TP_K34])
+    return {"qmatmul": k2, "encode_pack": k1, **k34}
+
+
+def tp_main(torch, card):
+    """``--mesh-tp``: phase 31 on four cards of one host."""
+    import torch.multiprocessing as mp
+    from repro_torch.configs import get_config
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.kernels import _build, ops, ref
+    n = torch.cuda.device_count()
+    check(n >= MESH_WORLD, f"--mesh-tp needs {MESH_WORLD} cards, {n} are "
+          f"visible")
+    t_start = time.monotonic()
+    _build.build()
+    _build.library()
+    scratch = ROOT / "build" / "mesh_tp"
+    scratch.mkdir(parents=True, exist_ok=True)
+    marks = [("build", time.monotonic())]
+    cfg = get_config(TP_PREFILL["arch"])
+    params = tp_serve_params(torch, cfg)
+    one_a = tp_prefill(torch, ops, params, cfg)
+    del params
+    print(f"31a one card: {TP_PREFILL['arch']} prefill {TP_PREFILL['rows']}"
+          f" x {TP_PREFILL['seq']}: wall {one_a['wall_ms']:.1f} ms (first "
+          f"call {one_a['first_wall_ms']:.1f}), peak {one_a['peak_gb']:.2f} "
+          f"GB, launches {one_a['launches']}", flush=True)
+    one_b = {tag: tp_one_card(torch, ops, tag, spec, scratch)
+             for tag, spec in TP_TRAIN}
+    marks.append(("one card", time.monotonic()))
+    os.environ["OMP_NUM_THREADS"] = "1"
+    mp.start_processes(tp_rank, args=(MESH_WORLD, free_port(),
+                                      str(scratch)),
+                       nprocs=MESH_WORLD, join=True, start_method="spawn")
+    marks.append(("ranks", time.monotonic()))
+    ranks = [torch.load(scratch / f"rank{r}.pt") for r in range(MESH_WORLD)]
+    res = {"card": card, "31a": tp_prefill_checks(torch, one_a, ranks),
+           "31a_one_card": {k: v for k, v in one_a.items()
+                            if k != "logits"},
+           "31b": {}}
+    for tag, spec in TP_TRAIN:
+        for shape in spec["meshes"]:
+            key = f"{tag} {shape[0]},{shape[1]}"
+            res["31b"][key] = tp_train_checks(
+                tag, key, one_b[tag], [rk[key] for rk in ranks])
+    marks.append(("checks", time.monotonic()))
+    fmt = LNSFormat(8, 8)
+    rows = tp_kernel_rows(torch, ops, ref, fmt, res)
+    res["kernels"] = rows
+    marks.append(("kernels", time.monotonic()))
+    # the kernel line: each row's launches are a step's on every rank (a
+    # rank's count; the ranks launch alike), on the (1, 4) granite part
+    # for K2/K3, the (2, 2) smollm part for K1's given scale, and the
+    # observed step for K4
+    g = res["31b"]["31b2 1,4"]["launches_a_step"]
+    s22 = res["31b"]["31b1 2,2"]
+    obs = res["31b"]["31b1 1,4"]["observed"]["launches"]
+    kernels = []
+    for name, src, tpu, rws, launched in (
+            ("qmatmul_colshard", "lns_qmatmul.cu", "lns_qmatmul.py:48",
+             rows["qmatmul"], g["qmatmul"]),
+            ("encode_pack_given_scale", "lns_quantize.cu",
+             "lns_quantize.py:80", rows["encode_pack"],
+             s22["k1_given_scale_calls"]),
+            ("madam_step_shard", "madam_update.cu", "madam_update.py:231",
+             rows["madam_step"], g["madam_step"]),
+            ("madam_step_stats_shard", "madam_update.cu",
+             "madam_update.py:291", rows["madam_step_stats"],
+             obs["madam_step_stats"])):
+        r = rws[0]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}", "launches": launched,
+            "max_abs_err": max(x["max_abs_err"] for x in rws),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    res["seconds_by_phase"] = {b[0]: b[1] - a[1]
+                               for a, b in zip(marks, marks[1:])}
+    res["seconds"] = time.monotonic() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_mesh_tp.json").write_text(
+        json.dumps(res, indent=1, default=str))
+    print(f"chip_smoke --mesh-tp took {res['seconds']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s"
+                      for k, v in res["seconds_by_phase"].items()))
+    print(json.dumps({"kernels": kernels}))
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # phase 28: the dry run (``launch.dryrun``) held to the card. 28a:
 # smollm-135m at full width and depth in three cells, each traced on
 # ``meta`` (in processes of their own, started after the build: they take
@@ -8051,7 +8679,7 @@ def gateway_mesh(torch, scratch, ref):
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] in ("--mesh", "--mesh-train",
                                               "--mesh-serve", "--mesh-25c",
-                                              "--mesh-long"):
+                                              "--mesh-long", "--mesh-tp"):
         # this process runs one card's large steps and serve runs one
         # after another on card 0 before the ranks start (and the ranks
         # inherit it): segments that grow keep its cache from fragmenting
@@ -8086,14 +8714,14 @@ def main() -> int:
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     meshed = {"--mesh": ("25", "26", "27"), "--mesh-train": ("26",),
               "--mesh-serve": ("27",), "--mesh-25c": ("25c",),
-              "--mesh-long": ("30",)}.get(
+              "--mesh-long": ("30",), "--mesh-tp": ("31",)}.get(
                   sys.argv[1] if len(sys.argv) == 2 else None)
     if sys.argv[1:] and not (sweep or meshed):
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k1-given | "
               f"--k2-sweep | --k6-sweep | --k8-sweep | --serving | --obs | "
               f"--dense-variants | --modality | --recurrent | --moe | "
               f"--mesh | --mesh-train | --mesh-serve | --mesh-25c | "
-              f"--mesh-long]", file=sys.stderr)
+              f"--mesh-long | --mesh-tp]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -8115,6 +8743,8 @@ def main() -> int:
             print(line)
         if meshed == ("30",):
             return long_main(torch, card.stdout.strip())
+        if meshed == ("31",):
+            return tp_main(torch, card.stdout.strip())
         return mesh_main(torch, card.stdout.strip(), meshed)
 
     from repro_torch.core.lns import LNSFormat

@@ -27,9 +27,19 @@ active rules split ``"batch"`` over (:func:`global_stat`;
 to the fake-quant encode. ``pow2_scale`` is monotone, so the max of the
 ranks' scales is the scale of the global absmax, exactly. Where one
 tensor feeds several GEMMs (q/k/v, up/gate) the caller reduces its scale
-once and passes it to each (``qeinsum(x_stat=)``). Q_W (replicated
-weights) and Q_G (taken on the summed gradient) stay local. The serving
-rules replicate the batch, so serving reduces nothing here. The routed
+once and passes it to each (``qeinsum(x_stat=)``). Q_G is taken on the
+summed gradient. The serving rules replicate the batch, so serving
+reduces nothing here.
+
+Under tensor-parallel training (the weights on the serving rules, a
+column-parallel GEMM holding this rank's columns) the output of such a
+GEMM is split over the model group as well: its Q_E scale is the whole
+tensor's, max-reduced over the batch and model groups jointly
+(``qeinsum(out_axis=)``), and Q_G on a column-sharded leaf's gradient
+max-reduces over that leaf's shard group (``quantize_grads(groups=)``).
+Q_W's per-output-channel scales on a column-sharded leaf are the rank's
+own columns, so they need no reduce; a replicated leaf reduces nothing
+over model. The routed
 GEMM's gradient is :class:`_RoutedMatmul`, which saves the packed
 activation (1 byte per element) rather than a dense one and returns dW into
 the weight's ``delta`` carrier. Without a carrier (serving) the routed GEMM
@@ -46,7 +56,7 @@ from repro_torch.core.lns import (LNSFormat, LNSWeight, compute_scale,
                                   is_lns_weight, lns_decode_packed,
                                   lns_quantize, lns_requant_packed)
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import batch_group
+from repro_torch.distributed.sharding import batch_group, joint_group
 from repro_torch.kernels import dispatch
 from repro_torch.numerics.fp import FPFormat, fp_absmax, fp_quantize
 
@@ -240,16 +250,23 @@ def cot_boundary(x: torch.Tensor) -> torch.Tensor:
     return backward_quantize(x, None, None, x.dtype)
 
 
-def quantize_grads(grads, cfg: Optional[QuantConfig]):
+def quantize_grads(grads, cfg: Optional[QuantConfig], groups=None):
     """Q_G on a gradient tree (nested dicts and lists of tensors), per-tensor
-    scales unless ``cfg.grad_scale_axis`` says otherwise."""
+    scales unless ``cfg.grad_scale_axis`` says otherwise. ``groups``, a
+    tree of the same shape (None for a leaf every rank holds whole), names
+    the group a leaf's shards split over: a per-tensor scale is then the
+    whole leaf's, max-reduced over it (a per-output-channel scale of a
+    column shard is the rank's own columns')."""
     if cfg is None or cfg.grad is None:
         return grads
     if isinstance(grads, dict):
-        return {k: quantize_grads(v, cfg) for k, v in grads.items()}
+        return {k: quantize_grads(v, cfg, None if groups is None
+                                  else groups[k]) for k, v in grads.items()}
     if isinstance(grads, list):
-        return [quantize_grads(v, cfg) for v in grads]
-    return _apply_format(grads, cfg.grad, cfg.grad_scale_axis)
+        return [quantize_grads(v, cfg, None if groups is None else groups[i])
+                for i, v in enumerate(grads)]
+    return _apply_format(grads, cfg.grad, cfg.grad_scale_axis, global_stat(
+        grads, cfg.grad, cfg.grad_scale_axis, groups))
 
 
 def _route_plan(eq: str) -> bool:
@@ -349,18 +366,25 @@ def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
-            x_stat: Optional[torch.Tensor] = None) -> torch.Tensor:
+            x_stat: Optional[torch.Tensor] = None,
+            out_axis: Optional[str] = None) -> torch.Tensor:
     """``einsum(eq, Q_A(x), Q_W(w))`` with Q_E on the output's gradient;
     packed 2-D weights route through the kernels, dense ones take the
     fake-quant leg. A packed weight without a ``delta`` (serving) calls
     the kernels with no autograd machinery, as the JAX package does.
     Under a data-parallel mesh Q_A's and Q_E's scales are the global
     batch's; ``x_stat`` is Q_A's, reduced once by the caller where ``x``
-    feeds several GEMMs (:func:`act_stat`)."""
+    feeds several GEMMs (:func:`act_stat`). ``out_axis`` is the logical
+    name of the output's last dim (a column-parallel GEMM's ``mlp`` or
+    ``qkv_out``): where the active rules split it, ``w`` holds this
+    rank's block of it and Q_E's scale also reduces over the ranks that
+    split it."""
     quant = cfg is not None and cfg.is_quantized
     group = batch_group() if quant else None
     if group is not None and x_stat is None:
         x_stat = global_stat(x, cfg.act, cfg.act_scale_axis, group)
+    err_group = (joint_group("batch", out_axis) if quant and out_axis
+                 else group)
     if is_lns_weight(w):
         if _routable(eq, w, cfg):
             pw = _forward_packed(w, cfg.weight)
@@ -370,7 +394,7 @@ def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
                 y = _RoutedMatmul.apply(cfg.weight, x, w.delta, pw, w.scale,
                                         x_stat)
             return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype,
-                                     group)
+                                     err_group)
         w = w.decode(x.dtype)      # per-leaf fallback; delta carries grads
     if not quant:
         return backward_quantize(_einsum(eq, x, w), None, None, x.dtype)
@@ -381,4 +405,5 @@ def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
         xq = ste_quantize(x, cfg.act, cfg.act_scale_axis, x_stat)
         wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
         y = _einsum(eq, xq, wq)
-    return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype, group)
+    return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype,
+                             err_group)

@@ -19,12 +19,30 @@ the gradients, the loss's label count and the router's route counts.
 The compression psums (``optim.compression``) sum too. All run on NCCL
 for CUDA tensors and gloo for CPU ones, whichever backend the group was
 made with.
+
+The tensor-parallel train step differentiates through the model group's
+collectives, in two autograd functions that are each other's transpose:
+
+* :func:`gather_with_grad` is :func:`gather` with a backward: this
+  rank's block of the incoming gradient. Everything after a gather is
+  replicated over the group, so that gradient is the same on every rank
+  and the block is the rank's whole share of it.
+* :func:`sum_grad` is the identity in the forward and a SUM over the
+  group in the backward. It stands at the input of each column-parallel
+  GEMM (and on a replicated leaf read inside the split region, such as
+  a qk-norm gain): each rank's gradient there is its columns' part of the
+  whole, and their sum is the single device's.
+
+A plain :func:`gather` of a tensor that requires a gradient raises:
+``all_gather_into_tensor`` writes into a tensor autograd does not track,
+so the gradient would be dropped without a word.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["gather", "max_reduce", "sum_reduce", "sum_tensors",
+__all__ = ["gather", "gather_with_grad", "sum_grad", "max_reduce",
+           "sum_reduce", "sum_tensors",
            "group_size", "broadcast_object", "counts", "reset_counts",
            "name_group", "byte_counts", "SUM_BUCKET_BYTES"]
 
@@ -86,10 +104,19 @@ def group_size(group) -> int:
 
 def gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in group-rank order
-    (identity without a group)."""
+    (identity without a group). No gradient flows through it: a tensor
+    that requires one raises (:func:`gather_with_grad` carries it)."""
     n = group_size(group)
     if n == 1:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise RuntimeError("collectives.gather drops the gradient of a "
+                           "tensor that requires one; use "
+                           "gather_with_grad")
+    return _all_gather(x, group, dim, n)
+
+
+def _all_gather(x: torch.Tensor, group, dim: int, n: int) -> torch.Tensor:
     import torch.distributed as dist
     _COUNTS["gather"] += 1
     _charge("all-gather", group, x.numel() * x.element_size())
@@ -101,6 +128,61 @@ def gather(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
         dist.all_gather_into_tensor
     agather(out, xm, group=group)
     return out.movedim(0, dim)
+
+
+class _GatherWithGrad(torch.autograd.Function):
+    """The all-gather forward; the backward takes this rank's block of
+    the gradient (the group and the rank's index are taken in the
+    forward: the backward may run on autograd's device thread)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, n):
+        import torch.distributed as dist
+        ctx.dim, ctx.width = dim % x.dim(), x.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return _all_gather(x, group, dim, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.index * ctx.width
+        return g.narrow(ctx.dim, lo, ctx.width), None, None, None
+
+
+def gather_with_grad(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """:func:`gather` whose gradient is this rank's block of the
+    incoming gradient (the module docstring). Without a gradient to carry
+    it is :func:`gather`, with no autograd node."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _all_gather(x, group, dim, n)
+    return _GatherWithGrad.apply(x, group, dim, n)
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the gradient SUM-reduced over the group (taken
+    in the forward, as :class:`_GatherWithGrad`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sum_reduce(g.contiguous(), ctx.group), None
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient is SUM-reduced over ``group`` in the
+    backward: the transpose of a replicated input read by a split
+    computation (the module docstring). No node without a group or a
+    gradient."""
+    if group_size(group) == 1 or not (torch.is_grad_enabled()
+                                      and x.requires_grad):
+        return x
+    return _SumGrad.apply(x, group)
 
 
 def max_reduce(t: torch.Tensor, group) -> torch.Tensor:

@@ -27,7 +27,8 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 __all__ = ["LOGICAL_RULES", "shard_ctx", "current_mesh", "current_rules",
-           "spec_for", "serving_rules", "decode_rules", "batch_divisor",
+           "spec_for", "serving_rules", "data_rules", "decode_rules",
+           "batch_divisor",
            "model_axis_size", "axis_group",
            "axis_shards", "axis_index", "joint_group", "batch_group"]
 
@@ -153,36 +154,59 @@ def batch_divisor(mesh) -> int:
     return n
 
 
+def data_rules(cfg, mesh=None,
+               global_batch: Optional[int] = None) -> Dict[str, AxisVal]:
+    """Rows over data, weights on :func:`serving_rules`: the placement of
+    the port's prefill (``training.steps.build_prefill_step(mesh=)``) and
+    of its tensor-parallel train step, whose forward this is. The rows of
+    the global batch split over ``("pod", "data")`` (JAX's
+    :data:`LOGICAL_RULES` ``batch``; smollm-135m's own rule adds
+    ``model``, which its column-parallel MLP cannot take: every rank of a
+    model group must hold the same rows), and every other name is
+    :func:`serving_rules`'s. ``global_batch``, where given, must split
+    over the data axes, or this raises.
+
+    The one way this differs from JAX's GSPMD placement: JAX shards the
+    second GEMM of each column-parallel pair (``wo``, ``down``) row-
+    parallel and sums the halves over ``model``; the port keeps that GEMM
+    replicated and all-gathers its input, so the forward splits no sum
+    and a rank's rows give the single device's values."""
+    out = serving_rules(cfg, mesh)
+    out["batch"] = LOGICAL_RULES["batch"]
+    mesh = mesh or current_mesh()
+    if (mesh is not None and global_batch is not None
+            and global_batch % batch_divisor(mesh)):
+        axes = [a for a in ("pod", "data") if a in mesh.axis_names]
+        raise ValueError(
+            f"a global batch of {global_batch} does not split over the "
+            f"data axes {'+'.join(axes)} ({batch_divisor(mesh)} ranks)")
+    return out
+
+
 def decode_rules(cfg, mesh=None, global_batch: Optional[int] = None,
                  arch_rules: Optional[Dict[str, AxisVal]] = None
                  ) -> Dict[str, AxisVal]:
     """The split-KV decode placement: JAX's dry run decodes under
     ``get_rules(arch)`` over :data:`LOGICAL_RULES`, so its rows split over
-    ``("pod", "data")`` and every dense KV and MLA latent cache
-    (``("batch", "kv_seq", "kv_heads", None)``) splits by position over
-    ``model``, which first-wins takes from the KV heads. ``kv_seq`` is
-    the config's own rule where ``arch_rules`` names one (smollm-135m's
-    ``None`` keeps its caches whole by position). The rows always go over
-    ``("pod", "data")``: smollm's own ``batch`` rule adds ``model``,
-    which its MLP, column-parallel under the serving rules, cannot take
-    (every rank of a model group must hold the same rows). Where
-    ``global_batch`` does not split over the
-    data axes (long_500k's batch of 1), the rows are replicated and the
-    positions spread over ``("data", "model")``, JAX's override
-    (``repro.launch.dryrun``).
+    ``("pod", "data")`` (:func:`data_rules`) and every dense KV and MLA
+    latent cache (``("batch", "kv_seq", "kv_heads", None)``) splits by
+    position over ``model``, which first-wins takes from the KV heads.
+    ``kv_seq`` is the config's own rule where ``arch_rules`` names one
+    (smollm-135m's ``None`` keeps its caches whole by position). Where
+    ``global_batch`` does not split over the data axes (long_500k's batch
+    of 1), the rows are replicated and the positions spread over
+    ``("data", "model")``, JAX's override (``repro.launch.dryrun``).
 
-    The weights keep :func:`serving_rules`, and so do the caches' KV
-    heads where ``kv_seq`` leaves them the axis: heads, MLP and experts over
-    ``model`` where they divide it, every second GEMM of a pair on a
-    replicated contraction, so the forward splits no sum. That is the
-    one place this differs from JAX's GSPMD decode, which shards by the
-    default weight rules and sums the row-parallel halves."""
-    out = serving_rules(cfg, mesh)
-    base = {**LOGICAL_RULES, **(arch_rules or {})}
-    out["batch"], out["kv_seq"] = LOGICAL_RULES["batch"], base["kv_seq"]
+    The weights keep :func:`data_rules`' serving placement, and so do the
+    caches' KV heads where ``kv_seq`` leaves them the axis, so the forward
+    splits no sum (the one place this differs from JAX's GSPMD decode)."""
     mesh = mesh or current_mesh()
-    if (mesh is not None and global_batch is not None
-            and global_batch % batch_divisor(mesh)):
+    whole = (mesh is not None and global_batch is not None
+             and global_batch % batch_divisor(mesh))
+    out = data_rules(cfg, mesh)
+    base = {**LOGICAL_RULES, **(arch_rules or {})}
+    out["kv_seq"] = base["kv_seq"]
+    if whole:
         out["batch"], out["kv_seq"] = None, ("data", "model")
     return out
 

@@ -12,17 +12,25 @@ backend, under the cost mode (``launch.cost``):
   (``MadamConfig(factored=(family == "moe"))``), serving its packed 8-bit
   words (``update_format=LNSFormat(8, 8)``).
 * The step is run as the port runs it. prefill runs
-  ``build_prefill_step`` under ``serving_rules(cfg, mesh)`` on the
-  production mesh (JAX's prefill also splits the rows over data: ROADMAP
-  7i). decode runs ``build_decode_step(mesh=)`` under ``decode_rules``,
-  JAX's decode placement (split-KV decode): the rows over the data axes,
-  each dense KV and MLA latent cache from ``init_caches(B, S, cfg)`` split
-  by position over ``model``, and long_500k's batch of 1 replicated with
-  its positions over ``(data, model)``, as JAX's ``get_rules(arch)`` with
-  its batch-1 override; the weights stay on the serving rules. train runs
-  ``build_train_step`` data-parallel on the mesh flattened to
-  ``(hosts·cards, 1)``: the port trains at ``model = 1`` only. The row's
-  ``placement`` names what was run and why.
+  ``build_prefill_step(mesh=)`` under ``data_rules``, JAX's prefill
+  placement of the rows: the batch over the data axes (one row a rank of
+  prefill_32k's 32 on (32, 8)), the weights on the serving rules. decode
+  runs ``build_decode_step(mesh=)`` under ``decode_rules``, JAX's decode
+  placement (split-KV decode): the rows over the data axes, each dense KV
+  and MLA latent cache from ``init_caches(B, S, cfg)`` split by position
+  over ``model``, and long_500k's batch of 1 replicated with its
+  positions over ``(data, model)``, as JAX's ``get_rules(arch)`` with its
+  batch-1 override; the weights stay on the serving rules. train runs
+  ``build_train_step``: the dense family tensor-parallel on the
+  production mesh ``(pod, data=hosts, model=cards)`` under ``data_rules``
+  (the rows over the data axes, each rank's shard of the state from
+  ``init_train_state(shard=)``), the other families data-parallel on the
+  mesh flattened to ``(hosts·cards, 1)`` under ``get_rules(arch)``, with
+  the whole state on every rank (their tensor-parallel backward is not
+  ported, ROADMAP 7j). The row's ``placement`` names what was run and
+  why; the one way it differs from JAX's GSPMD placement is the
+  replicated second GEMM of each column-parallel pair
+  (``sharding.data_rules``).
 * The kernels take their ``meta`` route (``kernels.meta``) and are
   charged their own cost (``kernels.costs``); the collectives run on the
   fake backend and are counted by kind and mesh axis
@@ -58,19 +66,20 @@ from repro_torch.core.quantizer import QuantConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed.params_sharding import (LocalShard, kept_whole,
                                                      local_shape)
-from repro_torch.distributed.sharding import (axis_shards, decode_rules,
-                                              serving_rules, shard_ctx)
+from repro_torch.distributed.sharding import (axis_shards, batch_divisor,
+                                              data_rules, decode_rules,
+                                              shard_ctx)
 from repro_torch.launch import roofline
 from repro_torch.launch.cost import CostMode
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.model import init_caches, init_params
 from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
-from repro_torch.training.steps import (build_decode_step,
+from repro_torch.training.steps import (TP_FAMILIES, build_decode_step,
                                         build_prefill_step, build_train_step,
                                         init_train_state)
 
-__all__ = ["SERVE_FMT", "MetaShard", "cell_step", "measure", "meta_mesh",
-           "run_cell", "main"]
+__all__ = ["SERVE_FMT", "MetaShard", "cell_rules", "cell_step", "measure",
+           "meta_mesh", "run_cell", "main"]
 
 SERVE_FMT = LNSFormat(bits=8, gamma=8)  # served weights: packed 8-bit LNS
 
@@ -95,11 +104,34 @@ class MetaShard(LocalShard):
         return local(leaf, spec)
 
 
+def _flattened(cfg, kind: str) -> bool:
+    """Whether a cell trains on the flattened mesh: a train cell of a
+    family whose tensor-parallel backward is not ported."""
+    return kind == "train" and cfg.family not in TP_FAMILIES
+
+
 def _mesh_shape(multi_pod: bool, hosts: int, cards: int,
-                train: bool) -> Dict[str, int]:
-    shape = ({"data": hosts * cards, "model": 1} if train
+                flat: bool) -> Dict[str, int]:
+    shape = ({"data": hosts * cards, "model": 1} if flat
              else {"data": hosts, "model": cards})
     return {"pod": 2, **shape} if multi_pod else shape
+
+
+def cell_rules(arch: str, cfg, kind: str, mesh, B: int) -> Dict:
+    """The rules a cell's step runs under: ``data_rules`` for prefill and
+    a tensor-parallel train cell (a train cell raising where the batch
+    does not split over the data axes), ``get_rules(arch)`` for a
+    flattened train cell, ``decode_rules`` for decode. A prefill batch
+    that does not split over the data axes (prefill_32k's 32 rows over
+    two pods' 64) is replicated, as JAX's dry run overrides ``batch``
+    for any cell whose batch its data axes do not divide."""
+    if kind == "decode":
+        return decode_rules(cfg, mesh, B, get_rules(arch))
+    if _flattened(cfg, kind):
+        return get_rules(arch)
+    if kind == "prefill" and B % batch_divisor(mesh):
+        return dict(data_rules(cfg, mesh), batch=None)
+    return data_rules(cfg, mesh, B)
 
 
 def _axes(entry, mesh) -> str:
@@ -109,24 +141,37 @@ def _axes(entry, mesh) -> str:
     return "+".join(axes) or "replicated"
 
 
-def _placement(kind: str, shape: str, mesh, B: int, rules=None) -> str:
+def _placement(kind: str, shape: str, mesh, B: int, rules=None,
+               flat: bool = False) -> str:
     dims = ", ".join(f"{a}={n}" for a, n in mesh.shape.items())
-    if kind == "train":
+    weights = ("weights on serving_rules (heads, MLP and experts over "
+               "model where they divide it; the second GEMM of each pair "
+               "replicated, no split sum, where JAX's GSPMD shards it "
+               "row-parallel)")
+    if kind == "train" and flat:
         n = mesh.size
         return (f"train: build_train_step data-parallel on ({dims}), the "
-                f"production mesh flattened (the port trains at model = 1 "
-                f"only); parameters and optimizer state replicated, "
+                f"production mesh flattened (this family's "
+                f"tensor-parallel backward is not ported, ROADMAP 7j); "
+                f"parameters and optimizer state replicated, "
                 f"{B // n} of the {B} rows a rank")
-    weights = ("weights on serving_rules (heads, MLP and experts over "
-               "model where they divide it, no split sum; JAX's GSPMD "
-               "decode shards by its default weight rules)")
-    if kind == "prefill":
-        return (f"prefill: serving_rules on ({dims}): {weights}, the batch "
-                f"of {B} replicated over data (JAX splits it: ROADMAP 7i)")
     with shard_ctx(mesh, rules):
-        rows, blocks = axis_shards("batch"), axis_shards("kv_seq")
+        rows = axis_shards("batch")
+    rows_on = _axes(rules["batch"], mesh)
+    if kind == "train":
+        return (f"train: build_train_step tensor-parallel on ({dims}) "
+                f"under data_rules: the batch of {B} over {rows_on} "
+                f"({B // rows} a rank); {weights}; each rank's shard of "
+                f"the words and second moments, gradients SUM-reduced "
+                f"over data, column shards' Q_G and grad norm over model")
+    if kind == "prefill":
+        return (f"prefill: build_prefill_step on ({dims}) under "
+                f"data_rules: the batch of {B} over {rows_on} ({B // rows} "
+                f"a rank); {weights}")
+    with shard_ctx(mesh, rules):
+        blocks = axis_shards("kv_seq")
     seq = SHAPES[shape].seq_len
-    rows_on, pos_on = _axes(rules["batch"], mesh), _axes(rules["kv_seq"], mesh)
+    pos_on = _axes(rules["kv_seq"], mesh)
     return (f"decode: decode_rules on ({dims}), split-KV decode: the batch "
             f"of {B} over {rows_on} ({B // rows} a rank); each dense KV "
             f"and MLA latent cache split by position over {pos_on} "
@@ -149,19 +194,19 @@ def cell_step(cfg, spec, mesh, rules, *, device="meta", accum_steps: int = 1,
     if device != "meta":
         batch = {k: torch.zeros(v.shape, dtype=v.dtype, device=device)
                  for k, v in batch.items()}
+    shard = (None if mesh is None or _flattened(cfg, kind) else
+             (MetaShard if device == "meta" else LocalShard)(mesh, rules))
     if kind == "train":
         mcfg = MadamConfig(factored=(cfg.family == "moe"))
-        state = init_train_state(cfg, mcfg, device=device)
+        state = init_train_state(cfg, mcfg, device=device, shard=shard)
         step = build_train_step(cfg, qcfg, mcfg, accum_steps=accum_steps,
                                 remat=remat)
         return (state, batch), lambda: step(state, batch)
     mcfg = MadamConfig(update_format=SERVE_FMT)
-    shard = (None if mesh is None else
-             (MetaShard if device == "meta" else LocalShard)(mesh, rules))
     params = init_params(cfg, device=device, leaf_fn=lns_leaf_encoder(mcfg),
                          shard=shard)
     if kind == "prefill":
-        step = build_prefill_step(cfg, qcfg, mcfg)
+        step = build_prefill_step(cfg, qcfg, mcfg, mesh=mesh, rules=rules)
         return (params, batch), lambda: step(params, batch)
     caches = init_caches(spec.global_batch, spec.seq_len, cfg, device=device)
     step = build_decode_step(cfg, qcfg, mcfg, mesh=mesh, rules=rules)
@@ -212,18 +257,16 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     spec = SHAPES[shape]
     kind = spec.kind
-    train = kind == "train"
+    flat = _flattened(cfg, kind)
     B = spec.global_batch
-    with meta_mesh(_mesh_shape(multi_pod, hosts, cards, train),
+    with meta_mesh(_mesh_shape(multi_pod, hosts, cards, flat),
                    cards) as mesh:
-        if train and B % mesh.size:
+        if flat and B % batch_divisor(mesh):
             raise ValueError(
                 f"{arch} {shape}: the global batch of {B} does not split "
-                f"over {mesh.size} data-parallel ranks (the port trains on "
-                f"the flattened mesh, one rank a card)")
-        rules = dict(get_rules(arch) if train else
-                     serving_rules(cfg, mesh) if kind == "prefill" else
-                     decode_rules(cfg, mesh, B, get_rules(arch)))
+                f"over {mesh.size} data-parallel ranks (the {cfg.family} "
+                f"family trains on the flattened mesh, one rank a card)")
+        rules = dict(cell_rules(arch, cfg, kind, mesh, B))
         if rules_extra:
             rules.update(rules_extra)
         t0 = time.monotonic()
@@ -236,7 +279,7 @@ def run_cell(arch: str, shape: str, *, multi_pod: bool = False,
                   for axes in coll["by_axis"]}
         mesh_name = "x".join(str(n) for n in mesh.shape.values())
         chips = mesh.size
-        placement = _placement(kind, shape, mesh, B, rules)
+        placement = _placement(kind, shape, mesh, B, rules, flat)
     rep = roofline.analyze(arch, shape, mesh_name, chips, cost, coll, within,
                            roofline.model_flops(cfg, spec, kind),
                            cost["memory"]["peak_bytes"])

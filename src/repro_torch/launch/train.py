@@ -45,7 +45,11 @@ writes the checkpoints and the observability outputs:
       --arch smollm-135m --mesh 4,1 --steps 3 --batch 32 --seq 256
 
 ``--mesh`` with more than one rank and no torchrun environment raises,
-and so does ``MODEL > 1`` (tensor-parallel training is not ported).
+and so does ``MODEL > 1``: the CLI is data-parallel, as JAX's is.
+Tensor-parallel training of the dense family is
+``training.steps.build_train_step`` built under a ``(data, model)`` mesh
+and ``sharding.data_rules`` on a sharded state (``init_train_state(
+shard=)``), as ``launch.dryrun`` and ``chip_smoke.py --mesh-tp`` run it.
 """
 from __future__ import annotations
 
@@ -111,7 +115,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
                     help="data-parallel training on a (data, 1) mesh of "
                          "ranks started by torchrun (one a card); e.g. "
-                         "'4,1'; --batch is the global batch")
+                         "'4,1'; --batch is the global batch. MODEL > 1 "
+                         "is refused, as JAX's CLI trains data-parallel "
+                         "only (tensor-parallel training is "
+                         "build_train_step under a (data, model) mesh)")
     return ap
 
 
@@ -128,8 +135,11 @@ def _mesh(spec: str, device):
             from None
     if model != 1:
         raise SystemExit(
-            f"--mesh {spec}: training is data-parallel only (MODEL must be "
-            f"1); tensor-parallel training is not ported (ROADMAP 7b)")
+            f"--mesh {spec}: the CLI trains data-parallel only (MODEL must "
+            f"be 1), as the JAX CLI does; tensor-parallel training is "
+            f"training.steps.build_train_step built under a (data, model) "
+            f"mesh and sharding.data_rules, on a sharded state "
+            f"(init_train_state(shard=))")
     return make_host_mesh(data, model, device=device)
 
 

@@ -180,17 +180,28 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     a head group's q, k and v are gathered after Q_A (one all-gather;
     a whole-width projection keeps all its heads), the rank attends its
     block for every head, and after the merge every rank holds every
-    head's output, so none is gathered before ``wo``."""
+    head's output, so none is gathered before ``wo``.
+
+    In training (tensor-parallel, heads over the model group) the heads'
+    gather passes back the rank's block of the gradient, and ``x``'s
+    gradient and the qk-norm gains' (replicated leaves read by the rank's
+    heads only) are SUM-reduced over the group
+    (``collectives.sum_grad``); Q_E's scale of a column block's output is
+    the whole tensor's."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     grp = axis_group("qkv_out")
     split = (cache is not None and not window and not is_paged_cache(cache)
              and split_kv())
     theta = theta if theta is not None else cfg.rope_theta
+    x = collectives.sum_grad(x, grp)
     xs = act_stat(x, qcfg)        # one reduce for the three projections
-    q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg, x_stat=xs)
-    k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg, x_stat=xs)
-    v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg, x_stat=xs)
+    q = qeinsum("bsd,de->bse", x, dense_of(p["wq"], cfg), qcfg, x_stat=xs,
+                out_axis="qkv_out")
+    k = qeinsum("bsd,de->bse", x, dense_of(p["wk"], cfg), qcfg, x_stat=xs,
+                out_axis="qkv_out")
+    v = qeinsum("bsd,de->bse", x, dense_of(p["wv"], cfg), qcfg, x_stat=xs,
+                out_axis="qkv_out")
     m = axis_shards("qkv_out")
     if m > 1 and q.shape[-1] == cfg.num_heads * hd and not split:  # whole
         i = axis_index("qkv_out")
@@ -205,8 +216,8 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     k = k.reshape(B, S, kv, hd)
     v = v.reshape(B, S, kv, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, collectives.sum_grad(p["q_norm"], grp), cfg.norm_eps)
+        k = rms_norm(k, collectives.sum_grad(p["k_norm"], grp), cfg.norm_eps)
     rot = rope(positions, hd, theta)
     if rot.dim() == 3:
         rot = rot[None]
@@ -232,7 +243,7 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
         out = _ring_attend(q, k, v, cache, cfg, window)
     else:
         out = _decode_attend(q, k, v, cache, cfg)
-    out = collectives.gather(out, grp, dim=2)
+    out = collectives.gather_with_grad(out, grp, dim=2)
     out = out.reshape(B, S, out.shape[2] * hd)
     return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
 
@@ -372,7 +383,7 @@ def _gather_heads(ts, group):
     concatenated in rank order, in one all-gather."""
     B, S = ts[0].shape[:2]
     widths = [t.shape[2] for t in ts]
-    both = collectives.gather(torch.cat(ts, dim=2), group, dim=2)
+    both = collectives.gather_with_grad(torch.cat(ts, dim=2), group, dim=2)
     m = both.shape[2] // sum(widths)
     both = both.reshape(B, S, m, sum(widths), -1)
     out, lo = [], 0
@@ -670,7 +681,7 @@ def mla_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     else:
         out = _mla_decode(q_nope, q_rope, c_kv, k_rope,
                           decoded_of(p["kv_up"], cfg), cache, cfg)
-    out = collectives.gather(out, grp, dim=2)
+    out = collectives.gather_with_grad(out, grp, dim=2)
     out = out.reshape(B, S, out.shape[2] * vd)
     return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)
 

@@ -83,17 +83,23 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
     mesh whose serving rules shard ``mlp``, ``up``/``gate`` are this
     rank's column blocks (K2 on the rank's columns of the replicated,
     K1-encoded activation) and the hidden state is all-gathered before
-    the replicated ``down``, whose Q_A then sees the whole tensor."""
+    the replicated ``down``, whose Q_A then sees the whole tensor. In
+    training the gather's gradient is the rank's block, and ``x``'s is
+    SUM-reduced over the group (``collectives.sum_grad``): each rank's
+    columns give their part of it."""
     act = ACT_FNS[cfg.act_fn]
+    grp = axis_group("mlp")
+    x = collectives.sum_grad(x, grp)
     xs = act_stat(x, qcfg)        # one reduce for up and gate
-    up = qeinsum("bsd,df->bsf", x, dense_of(p["up"], cfg), qcfg, x_stat=xs)
+    up = qeinsum("bsd,df->bsf", x, dense_of(p["up"], cfg), qcfg, x_stat=xs,
+                 out_axis="mlp")
     if cfg.mlp_gated:
         gate = qeinsum("bsd,df->bsf", x, dense_of(p["gate"], cfg), qcfg,
-                       x_stat=xs)
+                       x_stat=xs, out_axis="mlp")
         up = act(gate) * up
     else:
         up = act(up)
-    up = collectives.gather(up, axis_group("mlp"))
+    up = collectives.gather_with_grad(up, grp)
     return qeinsum("bsf,fd->bsd", up, dense_of(p["down"], cfg), qcfg)
 
 

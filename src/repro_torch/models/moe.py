@@ -187,7 +187,7 @@ def _expert_ffn_parallel(p, xe, cfg: ArchConfig, qcfg, group):
                if a_fmt is not None else None)
     y = _expert_ffn_chunked(p, xe.narrow(e_ax, r * n, n), cfg, qcfg,
                             group=group, x_scale=x_scale)
-    return collectives.gather(y, group, dim=e_ax)
+    return collectives.gather_with_grad(y, group, dim=e_ax)
 
 
 def _expert_ffn_whole(p, xe: torch.Tensor, cfg: ArchConfig, qcfg):
@@ -468,7 +468,8 @@ def moe_apply(p, x: torch.Tensor, cfg: ArchConfig,
         act = ACT_FNS[cfg.act_fn]
         up = qeinsum("bsd,df->bsf", x, dense_of(sp["up"], cfg), qcfg)
         gate = qeinsum("bsd,df->bsf", x, dense_of(sp["gate"], cfg), qcfg)
-        hid = collectives.gather(act(gate) * up, axis_group("mlp"))
+        hid = collectives.gather_with_grad(act(gate) * up,
+                                           axis_group("mlp"))
         out = out + qeinsum("bsf,fd->bsd", hid, dense_of(sp["down"], cfg),
                             qcfg)
     return out, aux

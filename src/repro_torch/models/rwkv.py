@@ -134,7 +134,8 @@ def rwkv_apply(p: Dict[str, Any], x: torch.Tensor, x_cm: torch.Tensor,
     xck = x_cm + (xcs - x_cm) * mixc[0]
     xcr = x_cm + (xcs - x_cm) * mixc[1]
     kk = qeinsum("bsd,df->bsf", xck, dense_of(p["ck"], cfg), qcfg)
-    kk = collectives.gather(torch.square(F.relu(kk)), axis_group("mlp"))
+    kk = collectives.gather_with_grad(torch.square(F.relu(kk)),
+                                      axis_group("mlp"))
     vv = qeinsum("bsf,fd->bsd", kk, dense_of(p["cv"], cfg), qcfg)
     rr = torch.sigmoid(qeinsum("bsd,de->bse", xcr, dense_of(p["cr"], cfg),
                                qcfg))

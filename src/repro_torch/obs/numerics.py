@@ -48,13 +48,16 @@ def path_name(path: Tuple[str, ...]) -> str:
     return ".".join(str(p) for p in path) or "root"
 
 
-def encode_sat_stats(x: torch.Tensor, fmt: LNSFormat,
-                     scale_axis=None) -> Dict[str, torch.Tensor]:
+def encode_sat_stats(x: torch.Tensor, fmt: LNSFormat, scale_axis=None,
+                     scale=None) -> Dict[str, torch.Tensor]:
     """Rail-saturation fractions of encoding ``x`` into ``fmt``: the
     pre-clip rounded exponent, re-derived as ``lns_encode`` computes it,
     below code 0 (``sat_lo``) or above ``max_code`` (``sat_hi``), and the
-    mean log2 of the pow2 scale (0-d f32 tensors)."""
-    scale = compute_scale(x, axis=scale_axis)
+    mean log2 of the pow2 scale (0-d f32 tensors). ``scale`` is the
+    encode's scale where it is not ``x``'s own (a shard's whole-leaf
+    scale)."""
+    if scale is None:
+        scale = compute_scale(x, axis=scale_axis)
     mag = x.to(torch.float32).abs() / scale
     e = -torch.log2(torch.clamp_min(mag, _TINY)) * fmt.gamma
     rounded = torch.floor(e + 0.5)
@@ -66,14 +69,20 @@ def encode_sat_stats(x: torch.Tensor, fmt: LNSFormat,
     }
 
 
-def grad_encode_stats(grads, qcfg) -> Dict[str, Dict[str, torch.Tensor]]:
+def grad_encode_stats(grads, qcfg,
+                      groups=None) -> Dict[str, Dict[str, torch.Tensor]]:
     """Encode-site stats of Q_G for every >=2-D gradient leaf, keyed by
-    layer name; ``{}`` when the config quantizes no gradients."""
+    layer name; ``{}`` when the config quantizes no gradients. ``groups``
+    (``core.quantizer.quantize_grads``' tree) gives a shard its whole
+    leaf's scale, as Q_G encodes it; its fractions stay the shard's."""
+    from repro_torch.core.quantizer import global_stat
     fmt = getattr(qcfg, "grad", None)
     if not isinstance(fmt, LNSFormat):
         return {}
     axis = getattr(qcfg, "grad_scale_axis", None)
-    return {path_name(p): encode_sat_stats(g, fmt, axis)
+    gr = dict(leaves(groups)) if groups is not None else {}
+    return {path_name(p): encode_sat_stats(
+                g, fmt, axis, global_stat(g, fmt, axis, gr.get(p)))
             for p, g in leaves(grads) if g.dim() >= 2}
 
 

@@ -31,7 +31,29 @@ generator seed on every rank (checked at the first step). ``remat`` (on
 by default, as in the JAX package) recomputes each layer's forward in the
 backward pass (``torch.utils.checkpoint``): nothing inside a layer draws
 random numbers, so the recompute repeats the forward bit for bit and the
-loss, gradients and words are the same as without it.
+loss, gradients and words are the same as without it; it reissues the
+forward's collectives, in the forward's order, on every rank.
+
+Tensor parallelism (the dense family on a mesh whose ``model`` axis is
+larger than 1, under ``sharding.data_rules``): the rows split over the
+data axes as above, and the weights sit where the serving rules put
+them: each column-parallel leaf (``wq``/``wk``/``wv`` and their biases
+where the head counts divide the axis, ``up``/``gate`` where ``d_ff``
+does) holds this rank's columns, every other leaf is whole on every
+rank. The state is the rank's shard of the one-device state
+(``init_train_state(shard=)``, or :func:`shard_train_state` of a whole
+one); the second moments follow their words. The forward is
+``build_prefill_step``'s placement; its backward passes through the
+model group's collectives (``collectives.gather_with_grad`` and
+``sum_grad``). Gradients reduce by leaf: every leaf SUMs over the data
+group; a column shard's gradient stays a shard, and Q_G's per-tensor
+scale is the whole leaf's (max-reduced over its shard group); the grad
+norm sums the shards' squares over their group and counts each whole
+leaf once. K3 (K4) steps each rank's shard, so a whole leaf steps to
+the same words on every rank of a model group. The observed step's
+per-leaf statistics are whole-leaf means (each a mean of its shard's
+elements, the shards equal in size, so SUM-reduced over the shard group
+and divided by its size).
 """
 from __future__ import annotations
 
@@ -45,21 +67,28 @@ from repro_torch.core.lns import LNSFormat, is_lns_weight
 from repro_torch.core.quantizer import QuantConfig, quantize_grads
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives
-from repro_torch.distributed.params_sharding import batch_rows
+from repro_torch.distributed.params_sharding import (batch_rows,
+                                                     shard_tree, split_axes)
 from repro_torch.distributed.sharding import (batch_group, current_mesh,
-                                              current_rules,
-                                              model_axis_size, shard_ctx)
+                                              current_rules, data_rules,
+                                              decode_rules, model_axis_size,
+                                              shard_ctx)
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import (decode_step, forward, init_params,
                                      lm_loss)
-from repro_torch.obs.numerics import grad_encode_stats
+from repro_torch.obs.numerics import grad_encode_stats, path_name
 from repro_torch.optim.madam import (MadamConfig, MadamState, attach_proxies,
                                      grad_proxies, lns_leaf_encoder,
                                      madam_lns)
 from repro_torch.tree import leaves, tree_map
 
-__all__ = ["TrainState", "init_train_state", "build_train_step",
-           "build_prefill_step", "build_decode_step", "batch_to_device"]
+__all__ = ["TrainState", "init_train_state", "shard_train_state",
+           "build_train_step", "build_prefill_step", "build_decode_step",
+           "batch_to_device", "TP_FAMILIES"]
+
+# the families whose train step runs tensor-parallel (model > 1); the
+# others raise there (ROADMAP 7j)
+TP_FAMILIES = ("dense",)
 
 
 class TrainState(NamedTuple):
@@ -69,15 +98,30 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(cfg: ArchConfig, mcfg: MadamConfig, *, seed: int = 0,
-                     device=None) -> TrainState:
+                     device=None, shard=None) -> TrainState:
     """Random parameters (``models.model.init_params``), each leaf encoded
     into the update store as it is drawn, and a fresh optimizer state, on
-    ``device`` (default CUDA)."""
+    ``device`` (default CUDA). ``shard`` (a
+    ``distributed.params_sharding.LocalShard`` under the step's mesh and
+    rules) keeps this rank's shard of each leaf as soon as it is encoded,
+    so the words and the second moments made beside them are the rank's
+    shard of the one-device state (tensor-parallel training)."""
     dev = resolve_device(device)
     params = init_params(cfg, seed=seed, device=dev,
-                         leaf_fn=lns_leaf_encoder(mcfg))
+                         leaf_fn=lns_leaf_encoder(mcfg), shard=shard)
     init_opt, _ = madam_lns(mcfg)
     return TrainState(params=params, opt=init_opt(params), step=0)
+
+
+def shard_train_state(state: TrainState, mesh, rules=None) -> TrainState:
+    """This rank's shard of a whole train state (a carried one): the
+    words and the second moments sliced by the serving placement under
+    ``mesh`` and ``rules`` (``params_sharding.shard_tree``)."""
+    return TrainState(
+        params=shard_tree(state.params, mesh, rules),
+        opt=type(state.opt)(g2=shard_tree(state.opt.g2, mesh, rules),
+                            count=state.opt.count),
+        step=state.step)
 
 
 def _device_of(params) -> torch.device:
@@ -128,9 +172,12 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     Built under a data-parallel mesh (``shard_ctx``), it is the
     data-parallel step: ``batch`` is the global batch on every rank, and
     the step runs under that mesh and its rules wherever it is called,
-    moving only this rank's rows to the card. A mesh whose ``model`` axis is
-    larger than 1 raises: tensor-parallel training is not ported (the
-    JAX train CLI has none either, ROADMAP)."""
+    moving only this rank's rows to the card. Built under a mesh whose
+    ``model`` axis is larger than 1 and ``sharding.data_rules(cfg,
+    mesh)``, it is the tensor-parallel step of the module docstring, on
+    the rank's shard of the state; only the dense family runs there (the
+    others raise: ROADMAP 7j), with per-tensor Q_E and Q_G scales and
+    unfactored, round-to-nearest Madam."""
     q_u = getattr(qcfg, "update", None)
     if isinstance(q_u, LNSFormat) and q_u != mcfg.update_format:
         raise ValueError(f"Q_U {q_u} differs from the optimizer's store "
@@ -144,12 +191,23 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     mesh = current_mesh()
     rules = current_rules()
     if mesh is not None and model_axis_size(mesh) > 1:
-        raise NotImplementedError(
-            f"training on a mesh with model = {model_axis_size(mesh)}: only "
-            f"data-parallel training (model = 1) is ported (ROADMAP 7b)")
+        _check_tensor_parallel(cfg, qcfg, mcfg, mesh, rules)
     seed_checked = []
+    shard_groups = []     # the leaves' shard groups, made at the first step
 
-    def one_microbatch(params, mb, group):
+    def groups_of(params):
+        """The tree of each leaf's shard group (None: whole on every
+        rank) under the step's mesh and rules."""
+        if not shard_groups:
+            if mesh is None or model_axis_size(mesh) == 1:
+                axes = tree_map(lambda p: (), params)
+            else:
+                axes = split_axes(params, mesh, rules)
+            shard_groups.append(tree_map(
+                lambda a: mesh.group(a) if a else None, axes))
+        return shard_groups[0]
+
+    def one_microbatch(params, mb, group, groups):
         proxies = grad_proxies(params, cfg.compute_dtype)
         loss = lm_loss(attach_proxies(params, proxies), mb, cfg, qcfg,
                        remat=remat)
@@ -164,8 +222,9 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
                                     group)
             loss = box[0]
         # encode-site stats read the raw gradients Q_G is about to encode
-        enc = grad_encode_stats(grads, qcfg) if numerics else {}
-        return loss, quantize_grads(grads, qcfg), enc
+        enc = (_whole_leaf(grad_encode_stats(grads, qcfg, groups), groups)
+               if numerics else {})
+        return loss, quantize_grads(grads, qcfg, groups), enc
 
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator] = None):
@@ -177,6 +236,7 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     def _train_step(state, batch, generator):
         params = state.params
         group = batch_group()
+        groups = groups_of(params)
         device = _device_of(params)
         batch = _as_tensors(batch)
         if group is not None and generator is not None and not seed_checked:
@@ -194,11 +254,12 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
             mbs = [batch_rows(mb, mesh) for mb in mbs]
         mbs = [batch_to_device(mb, device) for mb in mbs]
         if accum_steps == 1:
-            loss, grads, enc_stats = one_microbatch(params, mbs[0], group)
+            loss, grads, enc_stats = one_microbatch(params, mbs[0], group,
+                                                    groups)
         else:
             encs = []
             for i, mb in enumerate(mbs):
-                l_i, g_i, e_i = one_microbatch(params, mb, group)
+                l_i, g_i, e_i = one_microbatch(params, mb, group, groups)
                 if i == 0:   # the sums run in f32, as the JAX scan's carry
                     loss = l_i.to(torch.float32)
                     grads = tree_map(lambda g: g.to(torch.float32), g_i)
@@ -213,12 +274,12 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
         with torch.no_grad():
             # the norm's f32 temporaries come and go before the update
             # allocates the new words and moments
-            gnorm = torch.sqrt(sum(torch.sum(torch.square(
-                g.to(torch.float32))) for _, g in leaves(grads)))
+            gnorm = _grad_norm(grads, groups)
             if numerics:
                 new_params, new_opt, upd_stats = opt_update(
                     grads, state.opt, params, generator, with_stats=True,
                     requant_fmt=fwd_fmt)
+                upd_stats = _whole_leaf(upd_stats, groups)
             else:
                 new_params, new_opt = opt_update(grads, state.opt, params,
                                                  generator)
@@ -231,15 +292,95 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     return train_step
 
 
+def _check_tensor_parallel(cfg: ArchConfig, qcfg, mcfg: MadamConfig, mesh,
+                           rules) -> None:
+    """Raise unless this step can run tensor-parallel (the module
+    docstring): a family whose backward is ported, the placement its
+    state was sharded by, per-tensor Q_E/Q_G scales (a per-row or
+    per-column scale of a column shard would need another reduce) and
+    an unfactored, round-to-nearest update (a factored moment's row
+    marginal and a stochastic draw span a leaf's every column)."""
+    m = model_axis_size(mesh)
+    if cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(
+            f"tensor-parallel training of the {cfg.family!r} family "
+            f"(model = {m}) is not ported: only the dense family trains "
+            f"on a (data, model) mesh (ROADMAP 7j)")
+    want = data_rules(cfg, mesh)
+    off = sorted(k for k, v in want.items() if rules.get(k) != v)
+    if off:
+        raise ValueError(f"tensor-parallel training runs under "
+                         f"sharding.data_rules(cfg, mesh); the active "
+                         f"rules differ on {off}")
+    if qcfg is not None and (qcfg.err_scale_axis is not None
+                             or qcfg.grad_scale_axis is not None):
+        raise ValueError("tensor-parallel training takes per-tensor Q_E "
+                         "and Q_G scales")
+    if mcfg.factored or mcfg.stochastic:
+        raise ValueError("tensor-parallel training steps unfactored, "
+                         "round-to-nearest Madam")
+
+
+def _grad_norm(grads, groups) -> torch.Tensor:
+    """The global grad norm in f32: each whole leaf's squares once, each
+    shard's squares SUM-reduced over its shard group (in the tree's
+    order, the same on every rank)."""
+    pairs = [(g, gr) for (_, g), (_, gr) in zip(leaves(grads),
+                                                leaves(groups))]
+    sq = sum(torch.sum(torch.square(g.to(torch.float32)))
+             for g, gr in pairs if gr is None)
+    split: Dict[Any, torch.Tensor] = {}
+    for g, gr in pairs:
+        if gr is not None:
+            part = torch.sum(torch.square(g.to(torch.float32)))
+            split[gr] = part if gr not in split else split[gr] + part
+    for gr, part in split.items():
+        sq = sq + collectives.sum_reduce(part, gr)
+    return torch.sqrt(sq)
+
+
+def _whole_leaf(stats: Dict[str, Dict[str, torch.Tensor]],
+                groups) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-leaf statistics (keyed by ``obs.numerics.path_name``) of the
+    leaves split over a group made whole: every statistic here is a mean
+    over a leaf's elements (the K4 and encode-site fractions, the mean
+    code, the mean log2 scale), and the shards are equal in size, so
+    the whole leaf's is the shards' sum over the group over its size.
+    A whole leaf's stats are its own."""
+    by_name = {path_name(p): gr for p, gr in leaves(groups)}
+    out = {}
+    for name, st in stats.items():
+        gr = by_name.get(name)
+        if gr is None:
+            out[name] = st
+            continue
+        keys = list(st)
+        vec = torch.stack([st[k].to(torch.float32) for k in keys])
+        vec = collectives.sum_reduce(vec, gr) / collectives.group_size(gr)
+        out[name] = dict(zip(keys, vec.unbind()))
+    return out
 
 def build_prefill_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
-                       mcfg: Optional[MadamConfig] = None) -> Callable:
+                       mcfg: Optional[MadamConfig] = None, *, mesh=None,
+                       rules: Optional[Dict[str, Any]] = None) -> Callable:
     """``prefill(params, batch) -> last-position logits``: the packed
     leaves as they are (routed GEMMs through the kernels, a per-leaf
     decode elsewhere), the training attention over the whole prompt, no
     cache written, no graph recorded. ``mcfg`` is taken for the JAX
-    signature's sake."""
+    signature's sake.
+
+    With ``mesh`` the step runs under ``mesh`` and ``rules`` (default
+    ``sharding.data_rules(cfg, mesh)``: rows over the data axes, weights
+    on the serving rules), and ``params`` are this rank's
+    (``LocalShard`` or ``shard_tree`` under the same rules). ``batch`` is
+    the global batch; the step takes this rank's rows
+    (``params_sharding.batch_rows``) and returns their logits. Q_A's
+    per-tensor scales are MAX-reduced over the ranks the rows split over
+    (``quantizer.act_stat``), so a rank's rows are quantized with the
+    whole batch's scale, as on one device (ROADMAP H7)."""
     del mcfg
+    if mesh is not None and rules is None:
+        rules = data_rules(cfg, mesh)
 
     def prefill_step(params, batch):
         batch = batch_to_device(batch, _device_of(params))
@@ -248,7 +389,15 @@ def build_prefill_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
                              patches=batch.get("patches"))
         return logits[:, -1]
 
-    return prefill_step
+    if mesh is None:
+        return prefill_step
+
+    def sharded_step(params, batch):
+        with shard_ctx(mesh, rules):
+            return prefill_step(params, batch_rows(_as_tensors(batch),
+                                                   mesh))
+
+    return sharded_step
 
 
 def build_decode_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
@@ -271,7 +420,6 @@ def build_decode_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     whole batch's scale, as on one device (ROADMAP H7)."""
     del mcfg
     if mesh is not None and rules is None:
-        from repro_torch.distributed.sharding import decode_rules
         rules = decode_rules(cfg, mesh)
 
     def step(params, caches, batch, pos):

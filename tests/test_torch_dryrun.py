@@ -25,9 +25,12 @@ against the port's own CPU runs.
   ``cost_analysis()`` with the layers unrolled. JAX runs in a subprocess,
   so the dry run's ``XLA_FLAGS`` stay out of this worker.
 * Collectives: a (1, 2) mesh of gloo ranks takes real decode steps
-  (smollm, gemma3) and a (2, 1) one a real data-parallel train step; the
+  (smollm, gemma3) and a real tensor-parallel train step (gemma3, heads
+  and MLP over model), a (2, 1) one a real data-parallel train step and a
+  (2, 2) one a real prefill with the rows over data (smollm); the
   collective counts and bytes by kind and axis equal the dry run's on the
-  fake backend.
+  fake backend. Every cell runs under ``dryrun.cell_rules``, the rules the
+  dry run gives it.
 * Mesh: ``make_production_mesh``'s shapes, coordinates, group sizes and
   hosts, and its refusal off ``meta`` without torchrun.
 """
@@ -46,8 +49,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import configs as T  # noqa: E402
 from repro_torch.configs import ShapeSpec  # noqa: E402
-from repro_torch.distributed.sharding import (  # noqa: E402
-    serving_rules, shard_ctx)
+from repro_torch.distributed.sharding import shard_ctx  # noqa: E402
 from repro_torch.kernels import costs, dispatch, ref  # noqa: E402
 from repro_torch.launch import dryrun, report, roofline  # noqa: E402
 
@@ -75,9 +77,10 @@ def background():
     for shape in COLL_CELLS:
         sub = Path(d) / f"{shape[0]}x{shape[1]}"
         sub.mkdir()
+        n = shape[0] * shape[1]
         ranks[shape] = (sub, mp.start_processes(
-            _coll_rank, args=(2, f"{sub}/store", shape, str(sub)),
-            nprocs=2, join=False, start_method="spawn"))
+            _coll_rank, args=(n, f"{sub}/store", shape, str(sub)),
+            nprocs=n, join=False, start_method="spawn"))
     yield {"jax": jax_proc, "gloo": ranks}
     if jax_proc.poll() is None:
         jax_proc.kill()
@@ -303,8 +306,7 @@ def _run_cell_both(arch, kind):
     spec = SPECS[kind]
     out = {}
     with dryrun.meta_mesh({"data": 1, "model": 1}, 1) as mesh:
-        rules = (T.get_rules(arch) if kind == "train"
-                 else serving_rules(cfg, mesh))
+        rules = dryrun.cell_rules(arch, cfg, kind, mesh, spec.global_batch)
         for dev in ("cpu", "meta"):
             with shard_ctx(mesh, rules):
                 args, run = dryrun.cell_step(cfg, spec, mesh, rules,
@@ -393,14 +395,16 @@ def test_smollm_smoke_train_held_to_jax_dry_run(background):
 # ---------------------------------------------------------------------------
 # collectives: real gloo ranks against the fake backend
 
-COLL_CELLS = {(1, 2): [("smollm-135m", "decode"), ("gemma3-12b", "decode")],
-              (2, 1): [("smollm-135m", "train")]}
+COLL_CELLS = {(1, 2): [("smollm-135m", "decode"), ("gemma3-12b", "decode"),
+                       ("gemma3-12b", "train")],
+              (2, 1): [("smollm-135m", "train")],
+              (2, 2): [("smollm-135m", "prefill")]}
 
 
 def _cell_collectives(arch, kind, mesh, device):
     cfg = T.get_smoke_config(arch)
-    rules = (T.get_rules(arch) if kind == "train"
-             else serving_rules(cfg, mesh))
+    rules = dryrun.cell_rules(arch, cfg, kind, mesh,
+                              SPECS[kind].global_batch)
     with shard_ctx(mesh, rules):
         args, run = dryrun.cell_step(cfg, SPECS[kind], mesh, rules,
                                      device=device)
@@ -428,7 +432,7 @@ def gloo_collectives(background):
         while not ctx.join():
             pass
         out[shape] = [pickle.loads((sub / f"rank{r}.pkl").read_bytes())
-                      for r in range(2)]
+                      for r in range(shape[0] * shape[1])]
     return out
 
 
@@ -436,7 +440,8 @@ def gloo_collectives(background):
                                         COLL_CELLS.items() for c in cs])
 def test_collectives_equal_the_fake_backends(gloo_collectives, shape, cell):
     arch, kind = cell
-    with dryrun.meta_mesh({"data": shape[0], "model": shape[1]}, 2) as mesh:
+    with dryrun.meta_mesh({"data": shape[0], "model": shape[1]},
+                          shape[0] * shape[1]) as mesh:
         want = _cell_collectives(arch, kind, mesh, "meta")
     assert sum(want["calls"].values()) > 0
     for r, got in enumerate(gloo_collectives[shape]):
