@@ -18,6 +18,7 @@
     python3 chip_smoke.py --mesh-25c   # 1, 2 and 25c five times, four cards
     python3 chip_smoke.py --mesh-long  # 1, 2 and 30 on four cards
     python3 chip_smoke.py --mesh-tp    # 1, 2 and 31 on four cards
+    python3 chip_smoke.py --mesh-rp    # 1, 2 and 32 on four cards
     python3 chip_smoke.py --k1-given   # K1 with a given scale only
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -492,6 +493,35 @@ not checked.
     and ``torch.matmul``, K1 with a given scale at the (2, 2) shapes,
     K3 and K4 at the largest column shards. Results in
     ``chiprun_out/chip_smoke_mesh_tp.json``.
+
+32. JAX's training placement for the dense family (``--mesh-rp``, four
+    cards; ``sharding.train_rules``: phase 31's column blocks, and ``wo``
+    and ``down`` a rank's rows, their partial products SUM-reduced over
+    the model group; the embedding, an untied head and the logits a
+    rank's vocabulary block). lns8, ``TP_STEPS`` steps, every rank
+    drawing its shard from seed 0. (a) gemma3-12b at full width 6 of 48
+    layers deep, 4 x 256, on (1, 4) and (2, 2), and (b) granite-8b at full
+    width 12 of 36 layers deep, 8 x 256, on (1, 4) (then one observed
+    step: K4, whole-leaf stats equal on every rank), each held to one
+    card's steps as 31b is (step 0 within ``DP_STEP0_RTOL``; row, column
+    and vocabulary shards concatenated for the words), with no gather on
+    any step. (c) granite-8b at full width and depth (36 layers), 8 x
+    256, on (1, 4): one card cannot hold its training state, so its
+    reference is one card's forward-only ``lm_loss`` on the same words,
+    plain and as m = 2, 4, 8 model ranks compute it (the row blocks' SUM
+    reorders the forward, and at 36 layers one card's own orders lie
+    ~2e-4 apart); step 0 within ``DP_STEP0_RTOL`` of their range, the
+    ranks equal after every step, every loss and grad norm finite, the
+    peak a rank under 80 GB. In every part, step 0's first ``wo`` and
+    ``down`` SUMs on every rank within ``RP_SUM_RTOL`` of the rank-order
+    f32 sum of the partials recomputed from the rank's own inputs, and
+    the same partials rounded to bf16 (the control) beyond it. Printed:
+    the peak a rank (and the draw's), the step walls, the collectives a
+    step by kind and bytes. Then on card 0: K2 at every row block and
+    vocabulary block the parts launched beside its plain version and
+    ``torch.matmul``, K1 with a given scale at the row blocks' inputs, K3
+    at the largest row and vocabulary shards, K4 at 32b's row shard.
+    Results in ``chiprun_out/chip_smoke_mesh_rp.json``.
 
 Phase 21d serves qwen2.5-32b at the depth ``SERVE_DEPTH_CUT`` gives (32
 of its 64 layers), at full width, to keep the run inside its time limit.
@@ -7431,7 +7461,9 @@ def tp_checksums(torch, state, split):
         parts[base].append(x.packed)
         parts[base + 1].append(v.to(torch.float32).contiguous().view(
             torch.int32))
-    out = torch.zeros(4, dtype=torch.int64, device=parts[0][0].device)
+    # (under train_rules every packed leaf of gemma3 may be split)
+    dev = next(ts[0].device for ts in parts if ts)
+    out = torch.zeros(4, dtype=torch.int64, device=dev)
     for slot, ts in enumerate(parts):
         for i, t in enumerate(ts):
             flat = t.reshape(-1)
@@ -7445,9 +7477,10 @@ def tp_checksums(torch, state, split):
 
 def tp_word_share(torch, words, ref_path, split, coords):
     """This rank's share of the words-apart count against one card's
-    (``tp_words`` of both): each split leaf's columns on the ranks of data
-    coordinate 0, each whole leaf on rank (0, 0) only, so the ranks' sums
-    cover every word once."""
+    (``tp_words`` of both): each split leaf's block (columns, rows or
+    vocabulary, whichever dim is split) on the ranks of data coordinate
+    0, each whole leaf on rank (0, 0) only, so the ranks' sums cover
+    every word once."""
     ref = torch.load(ref_path, mmap=True)
     n = tot = 0
     sizes = collections.Counter()
@@ -7456,9 +7489,11 @@ def tp_word_share(torch, words, ref_path, split, coords):
         if coords.get("data", 0) != 0 or (whole and coords["model"] != 0):
             continue
         r = ref[k]
-        if r.shape != w.shape:
-            c, i = w.shape[-1], coords["model"]
-            r = r[..., i * c:(i + 1) * c]
+        if r.shape != w.shape:      # the rank's block of the split dim
+            d = next(i for i, (a, b) in enumerate(zip(w.shape, r.shape))
+                     if a != b)
+            c = w.shape[d]
+            r = r.narrow(d, coords["model"] * c, c)
         d = (w.int() - r.int()).abs()
         n += int((d != 0).sum())
         tot += d.numel()
@@ -7468,12 +7503,16 @@ def tp_word_share(torch, words, ref_path, split, coords):
     return {"apart": n, "total": tot, "sizes": dict(sizes)}
 
 
-def tp_part(torch, ops, tag, spec, shape, scratch):
-    """31b on this rank on ``shape``: the rank's shard drawn from seed 0,
-    the part's steps (each begun at a barrier, the counts zeroed just
-    before), per step the loss, grad norm, wall, launches, collectives and
-    every rank's checksums; the words after the first step against one
-    card's; K2's shapes on the second step; the peak."""
+def tp_part(torch, ops, tag, spec, shape, scratch, rules_fn=None):
+    """31b (32 with ``rules_fn=train_rules``) on this rank on ``shape``:
+    the rank's shard drawn from seed 0 under ``rules_fn(cfg, mesh, batch)``
+    (default ``data_rules``), the part's steps (each begun at a barrier,
+    the counts zeroed just before), per step the loss, grad norm, wall,
+    launches, collectives and every rank's checksums; the words after the
+    first step against one card's (unless the part's reference is a
+    forward, ``spec["forward_ref"]``); K2's shapes and calls on the second
+    step; under ``rules_fn`` step 0's row-block SUMs (``rp_row_sum``); the
+    draw's seconds and peak; the peak."""
     import torch.distributed as dist
     from repro_torch.core.quantizer import QuantConfig
     from repro_torch.distributed import collectives
@@ -7490,13 +7529,17 @@ def tp_part(torch, ops, tag, spec, shape, scratch):
     t_part = time.monotonic()
     cfg, mcfg = dp_config(spec), MadamConfig()
     mesh = make_host_mesh(*shape)
-    rules = data_rules(cfg, mesh, spec["batch"])
+    rules = (rules_fn or data_rules)(cfg, mesh, spec["batch"])
     data = SyntheticLM(cfg, batch=spec["batch"], seq=spec["seq"])
     out = {"rank": dist.get_rank(), "coords": dict(mesh.coords), "steps": []}
     observed = spec.get("observed") == shape
     with shard_ctx(mesh, rules), dp_given_spy() as given:
+        t0 = time.perf_counter()
         state = init_train_state(cfg, mcfg, seed=0, device=mesh.device,
                                  shard=LocalShard(mesh, rules))
+        torch.cuda.synchronize()
+        out["draw_s"] = time.perf_counter() - t0
+        out["draw_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         split = split_axes(state.params, mesh, rules)
         split_by = {"/".join(map(str, p)): bool(a)
                     for p, a in leaves(split)}
@@ -7514,8 +7557,10 @@ def tp_part(torch, ops, tag, spec, shape, scratch):
             given[0] = 0
             ctx = (k2_shapes_seen(torch, ops) if i == 1
                    else contextlib.nullcontext())
+            spy = (rp_row_spy(torch) if rules_fn is not None and i == 0
+                   else contextlib.nullcontext())
             t0 = time.perf_counter()
-            with ctx as seen:
+            with ctx as seen, spy as rows_seen:
                 state, m = step(state, batch)
                 loss = float(m["loss"])
                 torch.cuda.synchronize()
@@ -7528,6 +7573,8 @@ def tp_part(torch, ops, tag, spec, shape, scratch):
             if seen is not None:
                 out["k2_shapes"] = sorted({(M, K, N) for (M, K, N, _, _)
                                            in seen})
+                out["k2_calls"] = {f"{M}x{K}x{N}": n for (M, K, N, _, _), n
+                                   in seen.items()}
             cs = tp_checksums(torch, state, split)
             every = torch.empty((mesh.size, 4), dtype=torch.int64,
                                 device=cs.device)
@@ -7545,7 +7592,9 @@ def tp_part(torch, ops, tag, spec, shape, scratch):
                 out["observed"] = row
             else:
                 out["steps"].append(row)
-            if i == 0:
+            if rows_seen is not None:
+                out["row_sum"] = rp_row_sum(torch, rows_seen, shape)
+            if i == 0 and not spec.get("forward_ref"):
                 out["words"] = tp_word_share(
                     torch, tp_words(state, spec.get("word_layers")),
                     scratch / f"{tag}_one_card.pt", split_by,
@@ -7672,11 +7721,18 @@ def tp_prefill_checks(torch, one, ranks):
     return res
 
 
-def tp_train_checks(tag, key, one, ranks):
+def tp_train_checks(tag, key, one, ranks, gathers=True, fwd=None):
     """31b on one mesh: every rank's losses and grad norms equal rank
     0's, the whole leaves on every rank and each split leaf on its data
     group equal after every step, phase 26's bounds against one card,
-    the words after step 1 within TRAIN_WORD_SHARE, K1/K2/K3 launched."""
+    the words after step 1 within TRAIN_WORD_SHARE, K1/K2/K3 launched.
+    ``gathers=False`` (phase 32, JAX's training placement) requires that
+    a step gather nothing: the heads' output and the MLP's hidden state
+    enter their row blocks as they are. ``fwd`` (32c, whose training
+    state one card cannot hold) is one card's forward
+    (``rp_one_card_forward``) in place of ``one``'s steps: step 0 within
+    DP_STEP0_RTOL of the range of its sound orders (``rp_step0_band``),
+    every loss and grad norm finite, the peak a rank under 80 GB."""
     r0 = ranks[0]
     for r in ranks:
         check(all(x["whole_agree"] and x["split_agree"]
@@ -7692,30 +7748,11 @@ def tp_train_checks(tag, key, one, ranks):
                   and x["launches"]["madam_step"] > 0,
                   f"{key}: K1, K2 or K3 not launched on a step: "
                   f"{x['launches']}")
-            check(x["collectives"]["gather"] > 0
+            check((x["collectives"]["gather"] > 0) == gathers
                   and x["collectives"]["sum"] > 0,
-                  f"{key}: a step made no gather or SUM: {x['collectives']}")
-    rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
-           for x, y in zip(r0["steps"], one["steps"])]
-    grel = [abs(x["grad_norm"] - y["grad_norm"]) / abs(y["grad_norm"])
-            for x, y in zip(r0["steps"], one["steps"])]
-    check(rel[0] <= DP_STEP0_RTOL, f"{key}: step-0 loss {rel[0]:.2e} from "
-          f"one card's (limit {DP_STEP0_RTOL})")
-    check(all(v <= TRAIN_LOSS_RTOL for v in rel), f"{key}: losses {rel} "
-          f"from one card's (limit {TRAIN_LOSS_RTOL})")
-    check(all(v <= DP_GNORM_RTOL for v in grel), f"{key}: grad norms {grel}"
-          f" from one card's (limit {DP_GNORM_RTOL})")
-    apart = sum(r["words"]["apart"] for r in ranks)
-    total = sum(r["words"]["total"] for r in ranks)
-    sizes = collections.Counter()
-    for r in ranks:
-        sizes.update(r["words"]["sizes"])
-    share = apart / total
-    check(share <= TRAIN_WORD_SHARE, f"{key}: {share:.2%} of words apart "
-          f"from one card's after step 1")
-    out = {"loss_rel": rel, "grad_norm_rel": grel, "word_share": share,
-           "words_compared": total, "word_diff_sizes": dict(sizes),
-           "losses": [x["loss"] for x in r0["steps"]],
+                  f"{key}: a step's gathers or SUMs are not the "
+                  f"placement's: {x['collectives']}")
+    out = {"losses": [x["loss"] for x in r0["steps"]],
            "grad_norms": [x["grad_norm"] for x in r0["steps"]],
            "step_ms": [[x["step_ms"] for x in r["steps"]] for r in ranks],
            "peak_gb": [r["peak_gb"] for r in ranks],
@@ -7725,9 +7762,68 @@ def tp_train_checks(tag, key, one, ranks):
            "k1_given_scale_calls": r0["steps"][-1]["k1_given_scale_calls"],
            "split_leaves": r0["split_leaves"],
            "k2_shapes": r0.get("k2_shapes"),
-           "one_card": {k: one[k] for k in ("peak_gb", "layers")},
-           "one_card_step_ms": [x["step_ms"] for x in one["steps"]],
+           "k2_calls": r0.get("k2_calls"),
+           "draw_s": max(r["draw_s"] for r in ranks),
+           "draw_peak_gb": max(r["draw_peak_gb"] for r in ranks),
            "seconds": max(r["seconds"] for r in ranks)}
+    if fwd is None:
+        rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+               for x, y in zip(r0["steps"], one["steps"])]
+        grel = [abs(x["grad_norm"] - y["grad_norm"]) / abs(y["grad_norm"])
+                for x, y in zip(r0["steps"], one["steps"])]
+        check(rel[0] <= DP_STEP0_RTOL, f"{key}: step-0 loss {rel[0]:.2e} "
+              f"from one card's (limit {DP_STEP0_RTOL})")
+        check(all(v <= TRAIN_LOSS_RTOL for v in rel), f"{key}: losses "
+              f"{rel} from one card's (limit {TRAIN_LOSS_RTOL})")
+        check(all(v <= DP_GNORM_RTOL for v in grel), f"{key}: grad norms "
+              f"{grel} from one card's (limit {DP_GNORM_RTOL})")
+        apart = sum(r["words"]["apart"] for r in ranks)
+        total = sum(r["words"]["total"] for r in ranks)
+        sizes = collections.Counter()
+        for r in ranks:
+            sizes.update(r["words"]["sizes"])
+        share = apart / total
+        check(share <= TRAIN_WORD_SHARE, f"{key}: {share:.2%} of words "
+              f"apart from one card's after step 1")
+        out.update({"loss_rel": rel, "grad_norm_rel": grel,
+                    "word_share": share, "words_compared": total,
+                    "word_diff_sizes": dict(sizes),
+                    "one_card": {k: one[k] for k in ("peak_gb", "layers")},
+                    "one_card_step_ms": [x["step_ms"]
+                                         for x in one["steps"]]})
+        ref = (" (one card " + " ".join(f"{x['loss']:.5f}"
+                                        for x in one["steps"])
+               + f"), loss rel {max(rel):.2e}, grad norm rel "
+               f"{max(grel):.2e}, words apart after step 1 {share:.3%} of "
+               f"{total} ({dict(sizes)})")
+        peak = f" (one card {one['peak_gb']:.2f}, {one['layers']} layers)"
+        walls = (" (one card " + " ".join(
+            f"{v:.1f}" for v in out["one_card_step_ms"]) + ")")
+    else:
+        check(all(math.isfinite(x["loss"]) and math.isfinite(x["grad_norm"])
+                  for x in r0["steps"]), f"{key}: a loss or grad norm is "
+              f"not finite: "
+              f"{[(x['loss'], x['grad_norm']) for x in r0['steps']]}")
+        for r in ranks:
+            check(r["peak_gb"] < 80.0, f"{key} rank {r['rank']}: peak "
+                  f"{r['peak_gb']:.2f} GB")
+        loss0 = r0["steps"][0]["loss"]
+        rel0 = abs(loss0 - fwd["loss"]) / abs(fwd["loss"])
+        outside = rp_step0_band(loss0, fwd)
+        check(outside <= DP_STEP0_RTOL, f"{key}: step-0 loss {loss0} lies "
+              f"{outside:.2e} outside one card's sound orders "
+              f"{fwd['loss']}, {fwd['emulated']} (limit {DP_STEP0_RTOL})")
+        out.update({"loss_rel_step0": rel0, "step0_outside": outside,
+                    "control_outside": {m: rp_step0_band(v, fwd)
+                                        for m, v in fwd["control"].items()}})
+        ref = (f" (one card's forward {fwd['loss']:.5f}: step 0 rel "
+               f"{rel0:.2e}, {outside:.2e} outside its sound orders "
+               + str({m: round(v, 6) for m, v in fwd["emulated"].items()})
+               + f", limit {DP_STEP0_RTOL}; the bf16 control "
+               f"{out['control_outside']} outside), grad norms "
+               + " ".join(f"{v:.4f}" for v in out["grad_norms"]))
+        peak = f" (draw peak {out['draw_peak_gb']:.2f})"
+        walls = ""
     if "observed" in r0:
         obs = [r["observed"] for r in ranks]
         check(all(o["numerics"] == obs[0]["numerics"] for o in obs)
@@ -7740,15 +7836,11 @@ def tp_train_checks(tag, key, one, ranks):
                                                   "launches",
                                                   "numerics_leaves")}
     print(f"{key}: {r0['steps'][0]['launches']} a step; losses "
-          + " ".join(f"{v:.5f}" for v in out["losses"]) + " (one card "
-          + " ".join(f"{x['loss']:.5f}" for x in one["steps"]) + "), loss "
-          f"rel {max(rel):.2e}, grad norm rel {max(grel):.2e}, words apart "
-          f"after step 1 {share:.3%} of {total} ({dict(sizes)}); peak a "
-          f"rank {max(out['peak_gb']):.2f} GB (one card "
-          f"{one['peak_gb']:.2f}, {one['layers']} layers), step ms rank 0 "
-          + " ".join(f"{v:.1f}" for v in out["step_ms"][0]) + " (one card "
-          + " ".join(f"{v:.1f}" for v in out["one_card_step_ms"])
-          + f"), collectives a step {out['collectives_a_step']}, bytes "
+          + " ".join(f"{v:.5f}" for v in out["losses"]) + ref
+          + f"; peak a rank {max(out['peak_gb']):.2f} GB" + peak
+          + ", step ms rank 0 "
+          + " ".join(f"{v:.1f}" for v in out["step_ms"][0]) + walls
+          + f", collectives a step {out['collectives_a_step']}, bytes "
           f"{out['collective_bytes_a_step']['bytes']}", flush=True)
     return out
 
@@ -7866,6 +7958,486 @@ def tp_main(torch, card):
     (out_dir / "chip_smoke_mesh_tp.json").write_text(
         json.dumps(res, indent=1, default=str))
     print(f"chip_smoke --mesh-tp took {res['seconds']:.1f}s: "
+          + ", ".join(f"{k} {v:.1f}s"
+                      for k, v in res["seconds_by_phase"].items()))
+    print(json.dumps({"kernels": kernels}))
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 32 (``--mesh-rp``): JAX's training placement for the dense family
+# (``sharding.train_rules``): beside phase 31's column blocks, ``wo`` and
+# ``down`` hold a rank's rows (their partial products SUM-reduced over the
+# model group) and the embedding, an untied head and the logits a rank's
+# vocabulary block. lns8, TP_STEPS steps, every rank drawing its shard from
+# seed 0 (``init_train_state(shard=LocalShard(...))``). One card's
+# references run first in this process on card 0; then one NCCL rank a
+# card. 32a: gemma3-12b at full width, 6 of 48 layers (21e's depth), 4 x
+# 256, on (1, 4) and (2, 2): its untied 262,144-word head split by
+# vocabulary, qk-norm, local and global layers. 32b: granite-8b at full
+# width, 12 of 36 layers, 8 x 256, on (1, 4) (31b2's part; then an
+# observed step, K4). Both held to one card with phase 26's bounds. 32c:
+# granite-8b at full width and depth (36 layers, ~8.05e9 parameters: one
+# card cannot hold its training state), 8 x 256, on (1, 4): the step-0
+# loss within DP_STEP0_RTOL of the range of one card's forward-only
+# ``lm_loss`` at full depth (``torch.no_grad``, the same int32 words) in
+# its sound orders, then the ranks agree after every step and the losses
+# and grad norms stay finite. Every part: the row blocks' SUM on step 0
+# (``rp_row_sum``). Then on card 0: K2 at every row block and vocabulary
+# block the parts launched, K1 with a given scale at the row blocks'
+# inputs, K3 at the largest row shard (32c's ``down``) and vocab shard
+# (32a's ``tok`` on (1, 4)), K4 at 32b's row shard
+RP_TRAIN = [
+    ("32a", dict(arch="gemma3-12b", cut=dict(num_layers=6), batch=4,
+                 seq=256, meshes=((1, 4), (2, 2)), word_layers=1)),
+    ("32b", dict(arch="granite-8b", cut=dict(num_layers=12), batch=8,
+                 seq=256, meshes=((1, 4),), word_layers=1,
+                 observed=(1, 4))),
+]
+RP_FULL = ("32c", dict(arch="granite-8b", batch=8, seq=256, meshes=((1, 4),),
+                       forward_ref=True))
+RP_TIMEOUT_S = 900
+# 32c's one card computes its forward in these orders besides the plain
+# one: each as m model ranks compute it (``rp_emulated``)
+RP_ORDERS = (2, 4, 8)
+# the row blocks' SUM, checked where it happens: step 0's first ``wo`` and
+# ``down`` row-parallel calls on every rank (``rp_row_spy``), the mesh's SUM
+# against the rank-order f32 sum of the partials recomputed from the rank's
+# own inputs, within RP_SUM_RTOL of its max |value|. A sound SUM differs
+# only in the f32 order of m terms (on H100s: at most 1.11e-7); the
+# control, the same partials rounded to bf16 before their sum (a partial
+# product left in the compute dtype: 3.98e-3-6.65e-3), must fail the same
+# limit
+RP_SUM_RTOL = 1e-5
+RP_ROW_EQS = {"bse,ed->bsd": ("wo", "attn_out"),
+              "bsf,fd->bsd": ("down", "act_ff")}
+# K3 at the largest row shard (granite's 36 stacked ``down`` rows at m = 4)
+# and vocab shard (gemma3's embedding rows at m = 4); K4 at the row shard
+# 32b's observed step steps (12 stacked ``down`` rows at m = 4)
+RP_K3 = [(36 * 14336 // 4, 4096), (262144 // 4, 3840),
+         (12 * 14336 // 4, 4096)]
+
+
+@contextlib.contextmanager
+def rp_emulated(torch, m, partial_dtype=None):
+    """One card computing as ``m`` model ranks under ``train_rules``
+    compute: each row-parallel GEMM (``wo``'s and ``down``'s contraction)
+    as ``m`` row blocks, each encoded with the whole input's Q_A scale,
+    their partials (f32, or ``partial_dtype``) summed in rank order and
+    rounded once; the head as ``m`` vocabulary blocks. The same words,
+    another order of the same sums."""
+    from repro_torch.core import quantizer as qz
+    from repro_torch.core.lns import LNSWeight, is_lns_weight
+    from repro_torch.models import attention, layers, model
+    real = qz.qeinsum
+    pdt = partial_dtype or torch.float32
+
+    def cut(w, dim, lo, hi):
+        if is_lns_weight(w):
+            sc = w.scale if dim == 0 else w.scale[:, lo:hi]
+            return LNSWeight(w.packed.narrow(dim, lo, hi - lo), sc, w.fmt)
+        return w.narrow(dim, lo, hi - lo)
+
+    def blocked(eq, x, w, cfg, **kw):
+        if eq in RP_ROW_EQS:
+            c = x.shape[-1] // m
+            stat = qz.act_stat(x, cfg)
+            if stat is None and cfg is not None and cfg.is_quantized:
+                stat = qz._stat(x, cfg.act, cfg.act_scale_axis)
+            y = None
+            for i in range(m):
+                part = real(eq, x[..., i * c:(i + 1) * c],
+                            cut(w, 0, i * c, (i + 1) * c), cfg, x_stat=stat,
+                            out_dtype=pdt)
+                y = part if y is None else y + part
+            return y.to(x.dtype)
+        if eq == "bsd,dv->bsv":
+            c = w.shape[-1] // m
+            return torch.cat([real(eq, x, cut(w, 1, i * c, (i + 1) * c), cfg,
+                                   **kw) for i in range(m)], dim=-1)
+        return real(eq, x, w, cfg, **kw)
+
+    mods = (attention, layers, model)
+    for mod in mods:
+        mod.qeinsum = blocked
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.qeinsum = real
+
+
+def rp_one_card_forward(torch, spec, orders, controls):
+    """A part's one-card forward on card 0: the words drawn from seed 0 as
+    ``init_train_state`` draws them (no second moments), then
+    ``lm_loss`` on the first batch under ``torch.no_grad``, whole and as
+    ``m`` model ranks compute it for each ``m`` of ``orders``
+    (``rp_emulated``), and for each ``m`` of ``controls`` with the row
+    blocks' partials rounded to bf16 before their sum: the losses (32c's
+    reference), the plain forward's wall, each order's relative distance
+    from the plain loss (``floor``), the draw's seconds, the peak."""
+    from repro_torch.core.quantizer import QuantConfig
+    from repro_torch.models.model import init_params, lm_loss
+    from repro_torch.optim.madam import MadamConfig, lns_leaf_encoder
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.steps import batch_to_device
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dp_config(spec)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda",
+                         leaf_fn=lns_leaf_encoder(MadamConfig()))
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    batch = batch_to_device(SyntheticLM(cfg, batch=spec["batch"],
+                                        seq=spec["seq"]).batch_at(0), "cuda")
+    qcfg = QuantConfig.lns_madam()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss = float(lm_loss(params, batch, cfg, qcfg))
+        ms_ = (time.perf_counter() - t0) * 1e3
+        emulated, control = {}, {}
+        for m in orders:
+            with rp_emulated(torch, m):
+                emulated[m] = float(lm_loss(params, batch, cfg, qcfg))
+        for m in controls:
+            with rp_emulated(torch, m, torch.bfloat16):
+                control[m] = float(lm_loss(params, batch, cfg, qcfg))
+    floor = {m: abs(v - loss) / abs(loss) for m, v in emulated.items()}
+    out = {"loss": loss, "forward_ms": ms_, "emulated": emulated,
+           "floor": floor, "control": control,
+           "control_rel": {m: abs(v - loss) / abs(loss)
+                           for m, v in control.items()},
+           "draw_s": draw_s, "layers": cfg.num_layers,
+           "params": cfg.params_count(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    check(all(math.isfinite(v) for v in [loss, *emulated.values()]),
+          f"{spec['arch']} one card: a forward's loss is not finite: "
+          f"{loss}, {emulated}")
+    print(f"{spec['arch']} {cfg.num_layers} layers one card, forward only, "
+          f"{spec['batch']} x {spec['seq']}: loss {loss:.6f}, "
+          f"{ms_:.1f} ms; the same words as m model ranks compute them: "
+          + ", ".join(f"m = {m} {emulated[m]:.6f} ({floor[m]:.2e} apart)"
+                      for m in orders)
+          + "; with bf16 partials (the control): "
+          + ", ".join(f"m = {m} {control[m]:.6f} "
+                      f"({out['control_rel'][m]:.2e} apart)"
+                      for m in controls)
+          + f"; draw {draw_s:.1f} s, peak {out['peak_gb']:.2f} GB",
+          flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def rp_step0_band(loss, fwd):
+    """How far ``loss`` lies outside the range of one card's sound orders
+    of the same forward (the plain one and each ``rp_emulated`` order), in
+    units of the plain loss; 0 inside it."""
+    sound = [fwd["loss"], *fwd["emulated"].values()]
+    return max(min(sound) - loss, loss - max(sound), 0.0) / abs(fwd["loss"])
+
+
+@contextlib.contextmanager
+def rp_row_spy(torch):
+    """Step 0's first row-parallel ``wo`` and ``down`` calls on this rank:
+    the rank's input columns, its row block of the weight, the Q_A scale
+    and the partial's dtype that ``attention``/``layers.qeinsum`` were
+    given, and the tensor ``collectives.sum_forward`` made of the
+    partial. Yields ``{name: {...}}``."""
+    from repro_torch.core.lns import LNSWeight, is_lns_weight
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import axis_group
+    from repro_torch.models import attention, layers
+    real_q, real_sum = attention.qeinsum, collectives.sum_forward
+    seen, pending = {}, []
+
+    def spy_q(eq, x, w, cfg, **kw):
+        y = real_q(eq, x, w, cfg, **kw)
+        name, axis = RP_ROW_EQS.get(eq, (None, None))
+        if (name is not None and name not in seen and is_lns_weight(w)
+                and axis_group(axis) is not None):
+            stat = kw.get("x_stat")
+            seen[name] = {"x": x.detach().clone(),
+                          "w": LNSWeight(w.packed.clone(), w.scale.clone(),
+                                         w.fmt),
+                          "stat": None if stat is None else stat.clone(),
+                          "partial_dtype": str(y.dtype)}
+            pending.append(name)
+        return y
+
+    def spy_sum(x, group):
+        y = real_sum(x, group)
+        if pending:
+            seen[pending.pop()]["sum"] = y.detach().float().clone()
+        return y
+
+    attention.qeinsum = layers.qeinsum = spy_q
+    collectives.sum_forward = spy_sum
+    try:
+        yield seen
+    finally:
+        attention.qeinsum = layers.qeinsum = real_q
+        collectives.sum_forward = real_sum
+
+
+def rp_row_sum(torch, seen, shape):
+    """This rank's row-block SUM check (every rank calls it together):
+    for ``wo`` and ``down``, the partial recomputed in f32 from the rank's
+    captured input, row block and Q_A scale; the model group's partials
+    (gathered outside the counted collectives) summed in rank order, the
+    reference; the mesh's SUM's max distance from it and the control's
+    (the partials rounded to bf16, then summed), each over the reference's
+    max |value|."""
+    import torch.distributed as dist
+    from repro_torch.core.quantizer import QuantConfig, qeinsum
+    qcfg = QuantConfig.lns_madam()
+    rank, m = dist.get_rank(), shape[1]
+    group = [rank - rank % m + j for j in range(m)]
+    out = {}
+    for eq, (name, _) in RP_ROW_EQS.items():
+        c = seen.get(name)
+        if c is None or "sum" not in c:
+            out[name] = None
+            continue
+        with torch.no_grad():
+            p = qeinsum(eq, c["x"], c["w"], qcfg, x_stat=c["stat"],
+                        out_dtype=torch.float32).contiguous()
+        parts = [torch.empty_like(p) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, p)
+        parts = [parts[j] for j in group]
+        want, ctl = parts[0].clone(), parts[0].to(torch.bfloat16)
+        for q in parts[1:]:
+            want = want + q
+            ctl = (ctl.float() + q.to(torch.bfloat16).float()).to(
+                torch.bfloat16)
+        top = float(want.abs().max())
+        out[name] = {
+            "rel": float((c["sum"] - want).abs().max()) / top,
+            "rel_control": float((ctl.float() - want).abs().max()) / top,
+            "bit_equal": bool(torch.equal(c["sum"], want)),
+            "partial_dtype": c["partial_dtype"],
+            "mkn": [p.numel() // p.shape[-1], c["x"].shape[-1], p.shape[-1]]}
+    return out
+
+
+def rp_row_checks(key, ranks):
+    """Every rank's row-block SUMs (``rp_row_sum``) within RP_SUM_RTOL of
+    the rank-order f32 sum, from f32 partials; the control beyond it on
+    every rank, or the check could not see bf16 partials."""
+    out = {}
+    for name, _ in RP_ROW_EQS.values():
+        got = [r["row_sum"][name] for r in ranks]
+        check(all(g is not None for g in got), f"{key}: {name}'s row-block "
+              f"call or its SUM was not seen on step 0")
+        for r, g in zip(ranks, got):
+            check(g["partial_dtype"] == "torch.float32",
+                  f"{key} rank {r['rank']}: {name}'s partials are "
+                  f"{g['partial_dtype']}, not f32")
+            check(g["rel"] <= RP_SUM_RTOL,
+                  f"{key} rank {r['rank']}: {name}'s SUM {g['rel']:.2e} "
+                  f"from the rank-order f32 sum (limit {RP_SUM_RTOL})")
+            check(g["rel_control"] > RP_SUM_RTOL,
+                  f"{key} rank {r['rank']}: the control (bf16 partials) is "
+                  f"{g['rel_control']:.2e} from the f32 sum, within the "
+                  f"limit {RP_SUM_RTOL}: the check cannot see it")
+        out[name] = {"rel": max(g["rel"] for g in got),
+                     "rel_control": min(g["rel_control"] for g in got),
+                     "bit_equal": all(g["bit_equal"] for g in got),
+                     "mkn": got[0]["mkn"]}
+        mkn = "x".join(map(str, out[name]["mkn"]))
+        print(f"{key}: {name}'s row-block SUM ({mkn} a rank) "
+              f"{out[name]['rel']:.2e} of max |value| from the "
+              f"rank-order f32 sum (bit-equal on every rank: "
+              f"{out[name]['bit_equal']}); the control, bf16 partials, "
+              f"{out[name]['rel_control']:.2e}; limit {RP_SUM_RTOL}",
+              flush=True)
+    return out
+
+
+def rp_rank(rank, world, port, out_dir):
+    """One rank of ``--mesh-rp``: every phase-32 part on each of its
+    meshes under ``train_rules``; this rank's results go to
+    ``out_dir/rank<r>.pt``."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import train_rules
+    from repro_torch.kernels import _build, ops
+    torch.set_num_threads(1)
+    _build.library()
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method="env://",
+                            timeout=datetime.timedelta(seconds=RP_TIMEOUT_S))
+    out = {}
+    scratch = Path(out_dir)
+    for tag, spec in RP_TRAIN + [RP_FULL]:
+        for shape in spec["meshes"]:
+            key = f"{tag} {shape[0]},{shape[1]}"
+            out[key] = tp_part(torch, ops, tag, spec, shape, scratch,
+                               rules_fn=train_rules)
+            if rank == 0:
+                r = out[key]
+                print(f"{key} rank 0: {spec['arch']}: losses "
+                      + " ".join(f"{x['loss']:.5f}" for x in r["steps"])
+                      + ", step ms " + " ".join(f"{x['step_ms']:.1f}"
+                                               for x in r["steps"])
+                      + f", collectives {r['steps'][-1]['collectives']}, "
+                      f"draw {r['draw_s']:.1f} s (peak "
+                      f"{r['draw_peak_gb']:.2f} GB), peak "
+                      f"{r['peak_gb']:.2f} GB ({r['seconds']:.1f}s)",
+                      flush=True)
+    torch.save(out, scratch / f"rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def rp_blocks(res):
+    """The K2 shapes phase 32's parts launched that are a rank's row
+    block (the contraction split: ``wo``'s heads or ``down``'s hidden
+    rows at m) or vocabulary block (the head's columns), each with its
+    calls a step on rank 0 (twice over: forward and recompute)."""
+    from repro_torch.configs import get_config
+    rows, vocab = {}, {}
+    for key, part in res.items():
+        tag, mesh = key.split()
+        arch = dict(RP_TRAIN + [RP_FULL])[tag]["arch"]
+        m = int(mesh.split(",")[1])
+        cfg = get_config(arch)
+        inner = {cfg.d_ff // m, cfg.num_heads * cfg.head_dim // m}
+        for s, n in (part.get("k2_calls") or {}).items():
+            M, K, N = map(int, s.split("x"))
+            if N == cfg.d_model and K in inner:
+                rows[(M, K, N)] = rows.get((M, K, N), 0) + n
+            elif N == cfg.vocab_size // m:
+                vocab[(M, K, N)] = vocab.get((M, K, N), 0) + n
+    return rows, vocab
+
+
+def rp_main(torch, card):
+    """``--mesh-rp``: phase 32 on four cards of one host."""
+    import torch.multiprocessing as mp
+    from repro_torch.core.lns import LNSFormat
+    from repro_torch.kernels import _build, ops, ref
+    n = torch.cuda.device_count()
+    check(n >= MESH_WORLD, f"--mesh-rp needs {MESH_WORLD} cards, {n} are "
+          f"visible")
+    t_start = time.monotonic()
+    _build.build()
+    _build.library()
+    scratch = ROOT / "build" / "mesh_rp"
+    scratch.mkdir(parents=True, exist_ok=True)
+    marks = [("build", time.monotonic())]
+    # each part's forward in its meshes' orders and as their bf16
+    # control; 32c's in RP_ORDERS too, the range its step 0 is held to
+    fwd = {}
+    for tag, spec in RP_TRAIN + [RP_FULL]:
+        ms = sorted({s[1] for s in spec["meshes"]})
+        orders = sorted(set(ms) | (set(RP_ORDERS) if spec.get("forward_ref")
+                                   else set()))
+        fwd[tag] = rp_one_card_forward(torch, spec, orders, ms)
+    one = {tag: tp_one_card(torch, ops, tag, spec, scratch)
+           for tag, spec in RP_TRAIN}
+    marks.append(("one card", time.monotonic()))
+    os.environ["OMP_NUM_THREADS"] = "1"
+    mp.start_processes(rp_rank, args=(MESH_WORLD, free_port(),
+                                      str(scratch)),
+                       nprocs=MESH_WORLD, join=True, start_method="spawn")
+    marks.append(("ranks", time.monotonic()))
+    ranks = [torch.load(scratch / f"rank{r}.pt") for r in range(MESH_WORLD)]
+    res = {"card": card, "32": {}}
+    for tag, spec in RP_TRAIN + [RP_FULL]:
+        for shape in spec["meshes"]:
+            key = f"{tag} {shape[0]},{shape[1]}"
+            part = [rk[key] for rk in ranks]
+            res["32"][key] = tp_train_checks(
+                tag, key, one.get(tag), part, gathers=False,
+                fwd=fwd[tag] if spec.get("forward_ref") else None)
+            res["32"][key]["one_card_forward"] = fwd[tag]
+            res["32"][key]["row_sum"] = rp_row_checks(key, part)
+    tag_c, spec_c = RP_FULL
+    shape_c = spec_c["meshes"][0]
+    key_c = f"{tag_c} {shape_c[0]},{shape_c[1]}"
+    marks.append(("checks", time.monotonic()))
+    fmt = LNSFormat(8, 8)
+    rows, vocab = rp_blocks(res["32"])
+    check(rows and vocab, f"--mesh-rp: no row block ({rows}) or no vocab "
+          f"block ({vocab}) launched")
+    k2_rows = k2_check(torch, ops, ref, fmt, sorted(rows))
+    k2_vocab = k2_check(torch, ops, ref, fmt, sorted(vocab))
+    # K1 with a given scale at 32c's row blocks' inputs (the shapes the
+    # kernel line's launches count)
+    k1 = k1_given_check(torch, ops, ref, fmt, sorted(
+        {tuple(map(int, s.split("x")[:2]))
+         for s in res["32"][key_c]["k2_calls"] or {}
+         if tuple(map(int, s.split("x"))) in rows}))
+    k34 = k34_check(torch, ops, ref, [(R, C, 16, 2048, torch.bfloat16)
+                                      for R, C in RP_K3])
+    k3, k4 = k34["madam_step"], k34["madam_step_stats"]
+    res["kernels"] = {"qmatmul_rows": k2_rows, "qmatmul_vocab": k2_vocab,
+                      "encode_pack": k1, "madam_step": k3,
+                      "madam_step_stats": k4,
+                      "row_block_calls": {"x".join(map(str, k)): v
+                                          for k, v in rows.items()},
+                      "vocab_block_calls": {"x".join(map(str, k)): v
+                                            for k, v in vocab.items()}}
+    marks.append(("kernels", time.monotonic()))
+    # the kernel line: launches a step on every rank of 32c (granite-8b at
+    # full depth on (1, 4)) for K1's given scale, K2's row blocks and K3;
+    # 32a's (1, 4) step for K2's vocabulary blocks (granite's head is tied:
+    # the fake-quant leg, no K2); 32b's observed step for K4
+    full = res["32"][key_c]
+    k1_row = max((r for r in k1 if r["scale_axis"] is None),
+                 key=lambda r: r["shape"][0] * r["shape"][1])
+    g_calls = sum(n for s, n in (full["k2_calls"] or {}).items()
+                  if tuple(map(int, s.split("x"))) in rows)
+    a14 = res["32"]["32a 1,4"]
+    a_calls = sum(n for s, n in (a14["k2_calls"] or {}).items()
+                  if tuple(map(int, s.split("x"))) in vocab)
+    kernels = []
+    for name, src, tpu, rws, launched, r in (
+            ("encode_pack_given_scale_rowblock", "lns_quantize.cu",
+             "lns_quantize.py:80", k1, full["k1_given_scale_calls"], k1_row),
+            ("qmatmul_rowblock", "lns_qmatmul.cu", "lns_qmatmul.py:48",
+             k2_rows, g_calls, k2_rows[-1]),
+            ("qmatmul_vocabblock", "lns_qmatmul.cu", "lns_qmatmul.py:48",
+             k2_vocab, a_calls, k2_vocab[-1]),
+            ("madam_step_rowshard", "madam_update.cu", "madam_update.py:231",
+             k3[:1], full["launches_a_step"]["madam_step"], k3[0]),
+            ("madam_step_vocabshard", "madam_update.cu",
+             "madam_update.py:231", k3[1:2],
+             a14["launches_a_step"]["madam_step"], k3[1]),
+            ("madam_step_stats_rowshard", "madam_update.cu",
+             "madam_update.py:291", k4[2:],
+             res["32"]["32b 1,4"]["observed"]["launches"]["madam_step_stats"],
+             k4[2])):
+        check(launched > 0, f"--mesh-rp: {name} launched no time on the "
+              f"main path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{tpu}", "launches": launched,
+            "max_abs_err": max(x["max_abs_err"] for x in rws),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r["shape"]})
+    res["seconds_by_phase"] = {b[0]: b[1] - a[1]
+                               for a, b in zip(marks, marks[1:])}
+    res["seconds"] = time.monotonic() - t_start
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_mesh_rp.json").write_text(
+        json.dumps(res, indent=1, default=str))
+    print(f"chip_smoke --mesh-rp took {res['seconds']:.1f}s: "
           + ", ".join(f"{k} {v:.1f}s"
                       for k, v in res["seconds_by_phase"].items()))
     print(json.dumps({"kernels": kernels}))
@@ -8679,7 +9251,8 @@ def gateway_mesh(torch, scratch, ref):
 def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] in ("--mesh", "--mesh-train",
                                               "--mesh-serve", "--mesh-25c",
-                                              "--mesh-long", "--mesh-tp"):
+                                              "--mesh-long", "--mesh-tp",
+                                              "--mesh-rp"):
         # this process runs one card's large steps and serve runs one
         # after another on card 0 before the ranks start (and the ranks
         # inherit it): segments that grow keep its cache from fragmenting
@@ -8714,14 +9287,15 @@ def main() -> int:
     sweep = len(sys.argv) == 2 and sys.argv[1] in sweeps
     meshed = {"--mesh": ("25", "26", "27"), "--mesh-train": ("26",),
               "--mesh-serve": ("27",), "--mesh-25c": ("25c",),
-              "--mesh-long": ("30",), "--mesh-tp": ("31",)}.get(
+              "--mesh-long": ("30",), "--mesh-tp": ("31",),
+              "--mesh-rp": ("32",)}.get(
                   sys.argv[1] if len(sys.argv) == 2 else None)
     if sys.argv[1:] and not (sweep or meshed):
         print(f"usage: {Path(__file__).name} [--k1-sweep | --k1-given | "
               f"--k2-sweep | --k6-sweep | --k8-sweep | --serving | --obs | "
               f"--dense-variants | --modality | --recurrent | --moe | "
               f"--mesh | --mesh-train | --mesh-serve | --mesh-25c | "
-              f"--mesh-long | --mesh-tp]", file=sys.stderr)
+              f"--mesh-long | --mesh-tp | --mesh-rp]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false", file=sys.stderr)
@@ -8745,6 +9319,8 @@ def main() -> int:
             return long_main(torch, card.stdout.strip())
         if meshed == ("31",):
             return tp_main(torch, card.stdout.strip())
+        if meshed == ("32",):
+            return rp_main(torch, card.stdout.strip())
         return mesh_main(torch, card.stdout.strip(), meshed)
 
     from repro_torch.core.lns import LNSFormat

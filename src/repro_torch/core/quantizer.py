@@ -37,6 +37,11 @@ GEMM is split over the model group as well: its Q_E scale is the whole
 tensor's, max-reduced over the batch and model groups jointly
 (``qeinsum(out_axis=)``), and Q_G on a column-sharded leaf's gradient
 max-reduces over that leaf's shard group (``quantize_grads(groups=)``).
+Under JAX's training placement (``sharding.train_rules``) the input of a
+row-parallel GEMM (``wo``, ``down`` holding this rank's rows) is split
+by columns, and its Q_A scale is max-reduced over the batch and model
+groups jointly (``act_stat(split=)``) before K1 encodes the rank's
+columns with it.
 Q_W's per-output-channel scales on a column-sharded leaf are the rank's
 own columns, so they need no reduce; a replicated leaf reduces nothing
 over model. The routed
@@ -100,14 +105,18 @@ def global_stat(x: torch.Tensor, fmt: Optional[Format],
     return collectives.max_reduce(st.reshape(-1), group).reshape(st.shape)
 
 
-def act_stat(x: torch.Tensor,
-             cfg: Optional["QuantConfig"]) -> Optional[torch.Tensor]:
+def act_stat(x: torch.Tensor, cfg: Optional["QuantConfig"],
+             split: Optional[str] = None) -> Optional[torch.Tensor]:
     """Q_A's global statistic of ``x`` under the active mesh (None
     without a data-parallel group): one MAX reduce for every GEMM that
-    reads ``x`` (``qeinsum(..., x_stat=)``)."""
+    reads ``x`` (``qeinsum(..., x_stat=)``). ``split`` names ``x``'s last
+    dim where the rules may split it over the model group too (a
+    row-parallel GEMM's input, ``act_ff`` or ``attn_out``): the statistic
+    is then reduced over the batch and that split jointly."""
     if cfg is None or not cfg.is_quantized:
         return None
-    return global_stat(x, cfg.act, cfg.act_scale_axis, batch_group())
+    group = batch_group() if split is None else joint_group("batch", split)
+    return global_stat(x, cfg.act, cfg.act_scale_axis, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,11 +318,12 @@ def _forward_packed(w: LNSWeight, ffmt: LNSFormat) -> torch.Tensor:
 
 
 def _routed_impl(fmt: LNSFormat, x: torch.Tensor, pw: torch.Tensor,
-                 wscale: torch.Tensor, x_scale: Optional[torch.Tensor] = None):
+                 wscale: torch.Tensor, x_scale: Optional[torch.Tensor] = None,
+                 out_dtype: Optional[torch.dtype] = None):
     """y = decode(Q_A(x)) @ decode(pw) * s_x * s_w through K1 and K2, with
-    Q_A's scale K1's own or the given ``x_scale`` (the global batch's).
-    Returns ``(y, px, sx)``: the packed activation and its scale are the
-    backward's residuals."""
+    Q_A's scale K1's own or the given ``x_scale`` (the global batch's),
+    in ``out_dtype`` (default x's). Returns ``(y, px, sx)``: the packed
+    activation and its scale are the backward's residuals."""
     K = x.shape[-1]
     xm = x.reshape(-1, K).contiguous()
     if x_scale is None:
@@ -323,7 +333,7 @@ def _routed_impl(fmt: LNSFormat, x: torch.Tensor, pw: torch.Tensor,
                                       scale=x_scale.reshape(1, 1))
     sw = wscale.reshape(1, -1).to(torch.float32).expand(1, pw.shape[1])
     y = dispatch.qmatmul(px, pw, fmt, scale_a=sx, scale_b=sw.contiguous(),
-                         compute_dtype=x.dtype, out_dtype=x.dtype)
+                         compute_dtype=x.dtype, out_dtype=out_dtype or x.dtype)
     return y.reshape(x.shape[:-1] + (pw.shape[1],)), px, sx
 
 
@@ -333,8 +343,8 @@ class _RoutedMatmul(torch.autograd.Function):
     ignored by the primal; the backward returns dW into it."""
 
     @staticmethod
-    def forward(ctx, fmt, x, delta, pw, wscale, x_scale):
-        y, px, sx = _routed_impl(fmt, x, pw, wscale, x_scale)
+    def forward(ctx, fmt, x, delta, pw, wscale, x_scale, out_dtype):
+        y, px, sx = _routed_impl(fmt, x, pw, wscale, x_scale, out_dtype)
         ctx.fmt = fmt
         ctx.x_dtype, ctx.d_dtype = x.dtype, delta.dtype
         ctx.x_shape = x.shape
@@ -352,7 +362,7 @@ class _RoutedMatmul(torch.autograd.Function):
         xq = (lns_decode_packed(px, fmt, torch.float32) * sx).to(xdt)
         dx = (dym @ wq.T).reshape(ctx.x_shape).to(xdt)
         ddelta = (xq.T @ dym).to(ctx.d_dtype)
-        return None, dx, ddelta, None, None, None
+        return None, dx, ddelta, None, None, None, None
 
 
 def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -367,7 +377,8 @@ def _einsum(eq: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
             x_stat: Optional[torch.Tensor] = None,
-            out_axis: Optional[str] = None) -> torch.Tensor:
+            out_axis: Optional[str] = None,
+            out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``einsum(eq, Q_A(x), Q_W(w))`` with Q_E on the output's gradient;
     packed 2-D weights route through the kernels, dense ones take the
     fake-quant leg. A packed weight without a ``delta`` (serving) calls
@@ -378,7 +389,10 @@ def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
     name of the output's last dim (a column-parallel GEMM's ``mlp`` or
     ``qkv_out``): where the active rules split it, ``w`` holds this
     rank's block of it and Q_E's scale also reduces over the ranks that
-    split it."""
+    split it. ``out_dtype`` (default x's) is the output's dtype: a
+    row-parallel GEMM's partial product stays in f32, the accumulator's
+    dtype, so the SUM over the model group rounds once, as one device's
+    whole contraction does."""
     quant = cfg is not None and cfg.is_quantized
     group = batch_group() if quant else None
     if group is not None and x_stat is None:
@@ -389,21 +403,24 @@ def qeinsum(eq: str, x: torch.Tensor, w, cfg: Optional[QuantConfig], *,
         if _routable(eq, w, cfg):
             pw = _forward_packed(w, cfg.weight)
             if w.delta is None:
-                y = _routed_impl(cfg.weight, x, pw, w.scale, x_stat)[0]
+                y = _routed_impl(cfg.weight, x, pw, w.scale, x_stat,
+                                 out_dtype)[0]
             else:
                 y = _RoutedMatmul.apply(cfg.weight, x, w.delta, pw, w.scale,
-                                        x_stat)
+                                        x_stat, out_dtype)
             return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype,
                                      err_group)
         w = w.decode(x.dtype)      # per-leaf fallback; delta carries grads
+    up = (lambda t: t) if out_dtype is None else (lambda t: t.to(out_dtype))
     if not quant:
-        return backward_quantize(_einsum(eq, x, w), None, None, x.dtype)
+        return backward_quantize(_einsum(eq, up(x), up(w)), None, None,
+                                 x.dtype)
     if cfg.approx_lut is not None and cfg.weight is not None:
         from repro_torch.core.quant_training import approx_qeinsum
-        y = approx_qeinsum(eq, x, w, cfg, x_scale=x_stat)
+        y = up(approx_qeinsum(eq, x, w, cfg, x_scale=x_stat))
     else:
         xq = ste_quantize(x, cfg.act, cfg.act_scale_axis, x_stat)
         wq = ste_quantize(w, cfg.weight, cfg.weight_scale_axis)
-        y = _einsum(eq, xq, wq)
+        y = _einsum(eq, up(xq), up(wq))
     return backward_quantize(y, cfg.err, cfg.err_scale_axis, x.dtype,
                              err_group)

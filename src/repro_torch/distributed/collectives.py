@@ -14,7 +14,10 @@ Two kinds run in the forward, each at a point the rules fix
   order.
 
 No sum is ever reduced across ranks in the serving forward. The
-data-parallel train step sums (:func:`sum_reduce`, :func:`sum_tensors`):
+tensor-parallel train step's forward under ``sharding.train_rules`` does
+(:func:`sum_forward`): each row-parallel GEMM's partial product, and the
+vocabulary-parallel lookup and cross entropy. The data-parallel train
+step sums (:func:`sum_reduce`, :func:`sum_tensors`):
 the gradients, the loss's label count and the router's route counts.
 The compression psums (``optim.compression``) sum too. All run on NCCL
 for CUDA tensors and gloo for CPU ones, whichever backend the group was
@@ -41,7 +44,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gather", "gather_with_grad", "sum_grad", "max_reduce",
+__all__ = ["gather", "gather_with_grad", "sum_grad", "sum_forward",
+           "max_reduce",
            "sum_reduce", "sum_tensors",
            "group_size", "broadcast_object", "counts", "reset_counts",
            "name_group", "byte_counts", "SUM_BUCKET_BYTES"]
@@ -183,6 +187,30 @@ def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
                                       and x.requires_grad):
         return x
     return _SumGrad.apply(x, group)
+
+
+class _SumForward(torch.autograd.Function):
+    """The SUM all-reduce forward; the identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return sum_reduce(x.contiguous(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_forward(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum of ``x`` over ``group``, whose gradient is the
+    incoming one unchanged (the module docstring): a row-parallel GEMM's
+    partials made whole. ``x`` itself without a group; no node without a
+    gradient."""
+    if group_size(group) == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return sum_reduce(x.contiguous(), group)
+    return _SumForward.apply(x, group)
 
 
 def max_reduce(t: torch.Tensor, group) -> torch.Tensor:

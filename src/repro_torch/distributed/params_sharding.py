@@ -26,6 +26,15 @@ card does, and keeps its heads' columns of q, k and v
 (``models.attention.attn_apply``); the KV pools still hold the rank's
 head group. :func:`split_axes` gives the placement the port really
 keeps.
+
+Which table a placement takes follows its rules
+(:func:`serving_placement`): under ``sharding.train_rules``, JAX's
+training placement, every leaf takes JAX's non-serving axes (``wo`` and
+``down`` split by rows, ``tok`` by vocabulary rows, an untied ``head`` by
+vocabulary columns, where the rules split those dims), and the port's
+kept-whole rule above does not apply (the families it concerns do not
+train tensor-parallel); under every other table the serving overrides
+apply.
 """
 from __future__ import annotations
 
@@ -34,12 +43,13 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.lns import LNSWeight, is_lns_weight
-from repro_torch.distributed.sharding import spec_for
+from repro_torch.distributed.sharding import current_rules, spec_for
 
 __all__ = ["params_logical_axes", "cache_logical_axes", "opt_logical_axes",
            "batch_shardings", "batch_rows", "tree_shardings",
            "local_shape", "shard_leaf", "shard_tree", "LocalShard",
-           "kept_whole", "split_axes", "cache_leaf_axes", "cache_local_shape",
+           "kept_whole", "serving_placement", "split_axes", "cache_leaf_axes",
+           "cache_local_shape",
            "RING_AXES", "STATE_KINDS"]
 
 # leaf name -> logical axes of the 2-D core (the JAX package's table)
@@ -134,6 +144,16 @@ _CACHE_AXES = {
 # MLA latent caches, the leaves that grow with the context
 RING_AXES = ("batch", None, "kv_heads", None)
 STATE_KINDS = ("mamba", "rwkv")
+
+
+def serving_placement(rules=None) -> bool:
+    """Whether a placement under ``rules`` (overrides over the active
+    ones) takes the serving overrides: unless the rules split the input
+    of a row-parallel GEMM (the heads' output entering ``wo``, the MLP's
+    hidden state entering ``down``), as JAX's training placement does
+    (``sharding.train_rules``, the JAX package's default rules)."""
+    rules = {**current_rules(), **(rules or {})}
+    return not (rules.get("attn_out") or rules.get("act_ff"))
 
 
 def kept_whole(path) -> bool:
@@ -374,14 +394,15 @@ def shard_leaf(leaf, placement, mesh):
     return _slice(leaf, placement, mesh)
 
 
-def shard_tree(tree, mesh, rules=None, *, serving: bool = True,
-               caches: bool = False, cfg=None):
+def shard_tree(tree, mesh, rules=None, *, caches: bool = False, cfg=None):
     """Rank ``mesh.rank``'s local tree of a full parameter tree (or, with
     ``caches``, a decode-cache tree, placed as the port keeps it where
     ``cfg`` names the layer kinds: :func:`cache_logical_axes`): every
     leaf sliced by its placement under ``mesh`` and ``rules``. The
-    serving overrides apply by default; ``convert.params_from_flat``
+    serving overrides apply unless the rules are JAX's training
+    placement (:func:`serving_placement`); ``convert.params_from_flat``
     output goes in, the rank's shard comes out."""
+    serving = serving_placement(rules)
     axes = (cache_logical_axes(tree, cfg) if caches
             else params_logical_axes(tree, serving=serving))
     places = tree_shardings(axes, mesh, rules)
@@ -400,11 +421,13 @@ def shard_tree(tree, mesh, rules=None, *, serving: bool = True,
 
 def split_axes(params, mesh, rules=None) -> Any:
     """The tree of the mesh axes (of size > 1, in the mesh's order) each
-    leaf of a serving tree is split over as the port places it (``()``
-    for a leaf every rank holds whole): what a sum over a leaf's shards
-    reduces over to be the whole leaf's. Reads names and ranks only, so
-    a rank's local tree gives the same answer as the full one."""
-    axes = params_logical_axes(params, serving=True)
+    leaf is split over as the port places it under ``rules``
+    (:func:`shard_tree`'s placement; ``()`` for a leaf every rank holds
+    whole): what a sum over a leaf's shards reduces over to be the whole
+    leaf's. Reads names and ranks only, so a rank's local tree gives the
+    same answer as the full one."""
+    serving = serving_placement(rules)
+    axes = params_logical_axes(params, serving=serving)
     places = tree_shardings(axes, mesh, rules)
 
     def walk(t, p, path):
@@ -413,7 +436,7 @@ def split_axes(params, mesh, rules=None) -> Any:
         if isinstance(t, list):
             return [walk(v, q, path + (i,))
                     for i, (v, q) in enumerate(zip(t, p))]
-        if kept_whole(path):
+        if serving and kept_whole(path):
             return ()
         spec = p.packed if isinstance(p, LNSWeight) else p
         used = set()
@@ -429,10 +452,12 @@ class LocalShard:
     draws it (``init_params(shard=LocalShard(...))``): a drawn leaf (after
     its ``leaf_fn``) is sliced at once (a :func:`kept_whole` leaf stays
     whole), and an expert stack is drawn whole but encoded only over the
-    rank's experts (:meth:`experts`)."""
+    rank's experts (:meth:`experts`). The placement is
+    :func:`shard_tree`'s under ``rules``."""
 
-    def __init__(self, mesh, rules=None, serving: bool = True):
-        self.mesh, self.rules, self.serving = mesh, rules, serving
+    def __init__(self, mesh, rules=None):
+        self.mesh, self.rules = mesh, rules
+        self.serving = serving_placement(rules)
 
     def _spec(self, path, leaf):
         names = _names(path)

@@ -27,8 +27,8 @@ import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 __all__ = ["LOGICAL_RULES", "shard_ctx", "current_mesh", "current_rules",
-           "spec_for", "serving_rules", "data_rules", "decode_rules",
-           "batch_divisor",
+           "spec_for", "serving_rules", "data_rules", "train_rules",
+           "decode_rules", "batch_divisor",
            "model_axis_size", "axis_group",
            "axis_shards", "axis_index", "joint_group", "batch_group"]
 
@@ -158,7 +158,7 @@ def data_rules(cfg, mesh=None,
                global_batch: Optional[int] = None) -> Dict[str, AxisVal]:
     """Rows over data, weights on :func:`serving_rules`: the placement of
     the port's prefill (``training.steps.build_prefill_step(mesh=)``) and
-    of its tensor-parallel train step, whose forward this is. The rows of
+    of its column-parallel train step, whose forward this is. The rows of
     the global batch split over ``("pod", "data")`` (JAX's
     :data:`LOGICAL_RULES` ``batch``; smollm-135m's own rule adds
     ``model``, which its column-parallel MLP cannot take: every rank of a
@@ -166,11 +166,13 @@ def data_rules(cfg, mesh=None,
     :func:`serving_rules`'s. ``global_batch``, where given, must split
     over the data axes, or this raises.
 
-    The one way this differs from JAX's GSPMD placement: JAX shards the
+    Where this differs from JAX's GSPMD training placement: JAX shards the
     second GEMM of each column-parallel pair (``wo``, ``down``) row-
-    parallel and sums the halves over ``model``; the port keeps that GEMM
-    replicated and all-gathers its input, so the forward splits no sum
-    and a rank's rows give the single device's values."""
+    parallel, sums the halves over ``model`` and splits the embedding,
+    the head and the logits by vocabulary; here that GEMM is replicated
+    and its input all-gathered, so the forward splits no sum and a rank's
+    rows give the single device's values. :func:`train_rules` is JAX's
+    placement."""
     out = serving_rules(cfg, mesh)
     out["batch"] = LOGICAL_RULES["batch"]
     mesh = mesh or current_mesh()
@@ -180,6 +182,40 @@ def data_rules(cfg, mesh=None,
         raise ValueError(
             f"a global batch of {global_batch} does not split over the "
             f"data axes {'+'.join(axes)} ({batch_divisor(mesh)} ranks)")
+    return out
+
+
+def train_rules(cfg, mesh=None,
+                global_batch: Optional[int] = None) -> Dict[str, AxisVal]:
+    """JAX's training placement for the dense family (its default
+    :data:`LOGICAL_RULES` with the leaves' non-serving axes,
+    ``params_sharding.params_logical_axes(serving=False)``): the rows and
+    the column-parallel weights as in :func:`data_rules` (which raises on
+    a ``global_batch`` that does not split), and the second GEMM of each
+    pair row-parallel: ``attn_out`` over ``model`` where ``qkv_out`` is
+    split (``wo`` holds the rank's rows, the heads' output is not
+    gathered), ``act_ff`` where ``mlp`` is (``down`` likewise), and
+    ``vocab`` where ``cfg.vocab_size`` divides the axis (the embedding
+    table's rows, an untied head's columns and the logits split by
+    vocabulary). Each row block's partial product is SUM-reduced over the
+    model group in f32 and rounded once (``collectives.sum_forward``), so
+    the forward reorders the one device's contraction in f32.
+
+    Two ways this differs from JAX: where a dim does not divide the
+    ``model`` axis the port keeps it whole, as :func:`serving_rules` does,
+    where GSPMD pads it; and heads that do not divide the axis stay whole
+    on every rank, where JAX's rules would run that attention sequence-
+    parallel (``seq_shard``; not ported, ROADMAP 7l). An architecture's
+    own rules are not merged (smollm-135m's rows over ``model`` are
+    refused as under :func:`data_rules`)."""
+    out = data_rules(cfg, mesh, global_batch)
+    m = model_axis_size(mesh)
+    if out["qkv_out"]:
+        out["attn_out"] = "model"
+    if out["mlp"]:
+        out["act_ff"] = "model"
+    if m > 1 and getattr(cfg, "vocab_size", 0) % m == 0:
+        out["vocab"] = "model"
     return out
 
 

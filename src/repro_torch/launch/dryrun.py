@@ -22,15 +22,18 @@ backend, under the cost mode (``launch.cost``):
   positions over ``(data, model)``, as JAX's ``get_rules(arch)`` with its
   batch-1 override; the weights stay on the serving rules. train runs
   ``build_train_step``: the dense family tensor-parallel on the
-  production mesh ``(pod, data=hosts, model=cards)`` under ``data_rules``
-  (the rows over the data axes, each rank's shard of the state from
-  ``init_train_state(shard=)``), the other families data-parallel on the
-  mesh flattened to ``(hosts·cards, 1)`` under ``get_rules(arch)``, with
-  the whole state on every rank (their tensor-parallel backward is not
-  ported, ROADMAP 7j). The row's ``placement`` names what was run and
-  why; the one way it differs from JAX's GSPMD placement is the
-  replicated second GEMM of each column-parallel pair
-  (``sharding.data_rules``).
+  production mesh ``(pod, data=hosts, model=cards)`` under
+  ``train_rules``, JAX's training placement (the rows over the data
+  axes; ``wq``/``wk``/``wv``/``up``/``gate`` by columns, ``wo``/``down``
+  by rows, the embedding, head and logits by vocabulary over model; each
+  rank's shard of the state from ``init_train_state(shard=)``), the
+  other families data-parallel on the mesh flattened to
+  ``(hosts·cards, 1)`` under ``get_rules(arch)``, with the whole state on
+  every rank (their tensor-parallel backward is not ported, ROADMAP 7j).
+  The row's ``placement`` names what was run and why; where it differs
+  from JAX's GSPMD placement: prefill and decode keep the second GEMM of
+  each column-parallel pair replicated (``sharding.data_rules``), and a
+  dim that does not divide ``model`` stays whole (GSPMD pads it).
 * The kernels take their ``meta`` route (``kernels.meta``) and are
   charged their own cost (``kernels.costs``); the collectives run on the
   fake backend and are counted by kind and mesh axis
@@ -68,7 +71,7 @@ from repro_torch.distributed.params_sharding import (LocalShard, kept_whole,
                                                      local_shape)
 from repro_torch.distributed.sharding import (axis_shards, batch_divisor,
                                               data_rules, decode_rules,
-                                              shard_ctx)
+                                              shard_ctx, train_rules)
 from repro_torch.launch import roofline
 from repro_torch.launch.cost import CostMode
 from repro_torch.launch.mesh import make_mesh
@@ -118,10 +121,11 @@ def _mesh_shape(multi_pod: bool, hosts: int, cards: int,
 
 
 def cell_rules(arch: str, cfg, kind: str, mesh, B: int) -> Dict:
-    """The rules a cell's step runs under: ``data_rules`` for prefill and
-    a tensor-parallel train cell (a train cell raising where the batch
-    does not split over the data axes), ``get_rules(arch)`` for a
-    flattened train cell, ``decode_rules`` for decode. A prefill batch
+    """The rules a cell's step runs under: ``data_rules`` for prefill,
+    ``train_rules`` (JAX's training placement) for a tensor-parallel
+    train cell (raising where the batch does not split over the data
+    axes), ``get_rules(arch)`` for a flattened train cell,
+    ``decode_rules`` for decode. A prefill batch
     that does not split over the data axes (prefill_32k's 32 rows over
     two pods' 64) is replicated, as JAX's dry run overrides ``batch``
     for any cell whose batch its data axes do not divide."""
@@ -129,7 +133,9 @@ def cell_rules(arch: str, cfg, kind: str, mesh, B: int) -> Dict:
         return decode_rules(cfg, mesh, B, get_rules(arch))
     if _flattened(cfg, kind):
         return get_rules(arch)
-    if kind == "prefill" and B % batch_divisor(mesh):
+    if kind == "train":
+        return train_rules(cfg, mesh, B)
+    if B % batch_divisor(mesh):
         return dict(data_rules(cfg, mesh), batch=None)
     return data_rules(cfg, mesh, B)
 
@@ -159,11 +165,20 @@ def _placement(kind: str, shape: str, mesh, B: int, rules=None,
         rows = axis_shards("batch")
     rows_on = _axes(rules["batch"], mesh)
     if kind == "train":
+        with shard_ctx(mesh, rules):
+            split = [n for n in ("qkv_out", "mlp", "vocab")
+                     if axis_shards(n) > 1]
         return (f"train: build_train_step tensor-parallel on ({dims}) "
-                f"under data_rules: the batch of {B} over {rows_on} "
-                f"({B // rows} a rank); {weights}; each rank's shard of "
-                f"the words and second moments, gradients SUM-reduced "
-                f"over data, column shards' Q_G and grad norm over model")
+                f"under train_rules, JAX's training placement: the batch "
+                f"of {B} over {rows_on} ({B // rows} a rank); "
+                f"{', '.join(split) or 'nothing'} over model (each "
+                f"column-parallel leaf's columns and its row-parallel "
+                f"partner's rows, wo and down, their partial products "
+                f"SUM-reduced; the embedding, head and logits by "
+                f"vocabulary), a dim that does not divide model whole "
+                f"where JAX's GSPMD pads it; each rank's shard of the "
+                f"words and second moments, gradients SUM-reduced over "
+                f"data, shards' Q_G and grad norm over model")
     if kind == "prefill":
         return (f"prefill: build_prefill_step on ({dims}) under "
                 f"data_rules: the batch of {B} over {rows_on} ({B // rows} "

@@ -187,7 +187,12 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
     gradient and the qk-norm gains' (replicated leaves read by the rank's
     heads only) are SUM-reduced over the group
     (``collectives.sum_grad``); Q_E's scale of a column block's output is
-    the whole tensor's."""
+    the whole tensor's. Where the rules also split ``attn_out``
+    (``sharding.train_rules``), ``wo`` holds this rank's rows: the rank's
+    heads are not gathered but encoded with the whole output's Q_A scale
+    (MAX-reduced over the batch and model groups) and multiplied against
+    those rows, and the partial products are SUM-reduced over the group
+    in f32 (``collectives.sum_forward``), then rounded once."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     grp = axis_group("qkv_out")
@@ -243,6 +248,13 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig,
         out = _ring_attend(q, k, v, cache, cfg, window)
     else:
         out = _decode_attend(q, k, v, cache, cfg)
+    rows = axis_group("attn_out")
+    if rows is not None:          # wo holds this rank's rows
+        out = out.reshape(B, S, h * hd)
+        y = qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg,
+                    x_stat=act_stat(out, qcfg, "attn_out"),
+                    out_dtype=torch.float32)
+        return collectives.sum_forward(y, rows).to(out.dtype)
     out = collectives.gather_with_grad(out, grp, dim=2)
     out = out.reshape(B, S, out.shape[2] * hd)
     return qeinsum("bse,ed->bsd", out, dense_of(p["wo"], cfg), qcfg)

@@ -17,11 +17,11 @@ import torch.nn.functional as F
 from repro_torch.core.lns import is_lns_weight, lns_decode_packed
 from repro_torch.core.quantizer import QuantConfig, act_stat, qeinsum
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import axis_group
+from repro_torch.distributed.sharding import axis_group, axis_index
 from repro_torch.models.common import ArchConfig
 
 __all__ = ["dense_of", "decoded_of", "rms_norm", "rope", "apply_rope",
-           "mlp_apply", "embed_lookup", "ACT_FNS"]
+           "mlp_apply", "embed_lookup", "vocab_group", "ACT_FNS"]
 
 ACT_FNS = {
     "silu": F.silu,
@@ -86,7 +86,18 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
     the replicated ``down``, whose Q_A then sees the whole tensor. In
     training the gather's gradient is the rank's block, and ``x``'s is
     SUM-reduced over the group (``collectives.sum_grad``): each rank's
-    columns give their part of it."""
+    columns give their part of it.
+
+    Where the rules also split ``act_ff`` (``sharding.train_rules``),
+    ``down`` holds this rank's rows: the rank's hidden columns are not
+    gathered but encoded (K1) with the whole hidden state's Q_A scale
+    (MAX-reduced over the batch and model groups) and multiplied (K2)
+    against those rows, and the partial products are SUM-reduced over the
+    group in f32 and rounded once to the compute dtype, as one device
+    rounds its whole contraction (``collectives.sum_forward``; its
+    backward passes the replicated gradient to every partial). The sum's
+    order is the collective's, so the output may differ from one
+    device's in its last bit."""
     act = ACT_FNS[cfg.act_fn]
     grp = axis_group("mlp")
     x = collectives.sum_grad(x, grp)
@@ -99,6 +110,12 @@ def mlp_apply(p, x: torch.Tensor, cfg: ArchConfig,
         up = act(gate) * up
     else:
         up = act(up)
+    rows = axis_group("act_ff")
+    if rows is not None:
+        y = qeinsum("bsf,fd->bsd", up, dense_of(p["down"], cfg), qcfg,
+                    x_stat=act_stat(up, qcfg, "act_ff"),
+                    out_dtype=torch.float32)
+        return collectives.sum_forward(y, rows).to(up.dtype)
     up = collectives.gather_with_grad(up, grp)
     return qeinsum("bsf,fd->bsd", up, dense_of(p["down"], cfg), qcfg)
 
@@ -132,9 +149,45 @@ def embed_lookup(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return x
 
 
+def vocab_group(width: int, cfg: ArchConfig):
+    """The model group the active rules split the vocabulary over (None
+    where they keep it whole). ``width`` (an embedding table's rows, a
+    head's or the logits' columns) must then be the rank's block of it."""
+    grp = axis_group("vocab")
+    if grp is not None:
+        whole = cfg.vocab_size * max(1, cfg.num_codebooks)
+        block = whole // collectives.group_size(grp)
+        if width != block:
+            raise ValueError(f"the rules split the vocabulary of {whole} "
+                             f"over the model group, but a table, head or "
+                             f"logits is {width} wide, not the rank's "
+                             f"{block}")
+    return grp
+
+
 def _gather(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """``table[tokens]`` in the compute dtype, decoding a packed table's
-    gathered rows only."""
+    gathered rows only.
+
+    Where the rules split ``vocab`` and ``table`` holds this rank's block
+    of rows (``sharding.train_rules``), a token outside the block gives a
+    row of -0.0 and the rows are SUM-reduced over the model group
+    (``collectives.sum_forward``): exactly one rank holds each token's
+    row, and ``v + (-0.0)`` is ``v`` in any order, so the lookup equals
+    the whole table's bit for bit. The table's gradient is the scatter of
+    the rank's own tokens' rows."""
+    rows = (table.packed if is_lns_weight(table) else table).shape[0]
+    grp = vocab_group(rows, cfg)
+    if grp is None:
+        return _rows(table, tokens, cfg)
+    local = tokens - axis_index("vocab") * rows
+    inside = (local >= 0) & (local < rows)
+    x = _rows(table, local.clamp(0, rows - 1), cfg)
+    x = x.masked_fill(~inside[..., None], -0.0)
+    return collectives.sum_forward(x, grp)
+
+
+def _rows(table, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if is_lns_weight(table):
         rows = lns_decode_packed(table.packed[tokens], table.fmt,
                                  torch.float32)

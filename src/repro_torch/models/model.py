@@ -33,6 +33,12 @@ gradient), so the ranks' losses and gradients sum to the one-device
 ones. The recompute runs in the backward, perhaps on autograd's device
 thread, so it re-enters the forward's mesh context and reissues the
 forward's MAX reduces in the same order on every rank.
+
+Under JAX's training placement (``sharding.train_rules``) the vocabulary
+is split over the model group: the rank's block of the embedding's rows
+(``layers.embed_lookup``), of the head's columns and of the logits, and
+:func:`lm_loss`'s cross entropy is taken over the logits' blocks
+(:func:`_xent`).
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.layers import (decoded_of, dense_of, embed_lookup,
-                                       mlp_apply, rms_norm)
+                                       mlp_apply, rms_norm, vocab_group)
 
 __all__ = ["ForwardOut", "init_params", "forward", "lm_loss", "lm_head",
            "init_caches", "decode_step", "layer", "layers", "to_device"]
@@ -503,23 +509,52 @@ def _in_mesh_context(fn: Callable) -> Callable:
 
 def _logits(params, x: torch.Tensor, cfg: ArchConfig, qcfg,
             head: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The head over ``x``, softcapped by ``cfg.final_logit_softcap``."""
+    """The head over ``x``, softcapped by ``cfg.final_logit_softcap``.
+    Where the head holds this rank's vocabulary columns (a tied table's
+    rows transposed, an untied head's column block) the logits are the
+    rank's block, Q_E's scale the whole tensor's, and ``x``'s gradient is
+    SUM-reduced over the model group (``collectives.sum_grad``)."""
     if head is None:
         head = lm_head(params, cfg)
-    logits = qeinsum("bsd,dv->bsv", x, head, qcfg)
+    x = collectives.sum_grad(x, vocab_group(head.shape[-1], cfg))
+    logits = qeinsum("bsd,dv->bsv", x, head, qcfg, out_axis="vocab")
     if cfg.final_logit_softcap:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
 
 
-def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _xent(logits: torch.Tensor, labels: torch.Tensor,
+          group=None) -> torch.Tensor:
     """Mean next-token cross entropy in f32 over labels >= 0. Under a
     data-parallel mesh, this rank's share: its rows' sum over the global
-    batch's label count."""
+    batch's label count.
+
+    With ``group`` (``layers.vocab_group``) the logits are this rank's
+    block of the vocabulary (block ``axis_index("vocab")``): the row max is
+    MAX-reduced over the group, ``Σ exp(l - max)`` over the rank's block
+    SUM-reduced, and the gold logit comes from the rank whose block holds
+    the label (the others add 0; labels < 0 are masked as without a
+    group). The SUMs are ``collectives.sum_forward``, so the backward
+    gives ``softmax - onehot`` on the rank's columns. The one device's
+    ``torch.logsumexp`` sums every column's exponential in one reduction;
+    here each block is summed, then the blocks are summed in the
+    collective's order, so ``logz`` may differ in its last bits."""
     lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    if group is None:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long().clamp_min(0)[..., None])
+        gold = gold[..., 0]
+    else:
+        n = lf.shape[-1]
+        top = collectives.max_reduce(lf.detach().amax(dim=-1), group)
+        sums = torch.exp(lf - top[..., None]).sum(dim=-1)
+        logz = top + torch.log(collectives.sum_forward(sums, group))
+        local = labels.long() - axis_index("vocab") * n
+        inside = (local >= 0) & (local < n)
+        gold = torch.gather(lf, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+        gold = collectives.sum_forward(gold.masked_fill(~inside, 0.0),
+                                       group)
     mask = (labels >= 0).to(torch.float32)
     count = collectives.sum_reduce(mask.sum().detach(), batch_group())
     return torch.sum((logz - gold) * mask) / torch.clamp_min(count, 1.0)
@@ -547,10 +582,14 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ArchConfig,
     if patches is not None:
         logits = logits[:, patches.shape[1]:]
         hidden = hidden[:, patches.shape[1]:]
+    vocab = vocab_group(logits.shape[-1], cfg)
     if cfg.num_codebooks:
+        if vocab is not None:
+            raise NotImplementedError("a vocabulary split over the model "
+                                      "group with codebooks")
         B, S, K = labels.shape
         logits = logits.reshape(B, S, K, cfg.vocab_size)
-    loss = _xent(logits, labels) + 0.01 * out.aux
+    loss = _xent(logits, labels, vocab) + 0.01 * out.aux
     if cfg.mtp_depth and "mtp" in params:
         loss = loss + 0.3 * _mtp_loss(params, hidden, tokens, labels, cfg,
                                       qcfg)
@@ -574,7 +613,8 @@ def _mtp_loss(params, hidden: torch.Tensor, tokens: torch.Tensor,
     x, _ = _block("dense", mtp["block"], x, cfg, qcfg, positions, None, None)
     shifted = torch.cat([labels[:, 1:], -torch.ones_like(labels[:, :1])],
                         dim=1)
-    return _xent(_logits(params, x, cfg, qcfg), shifted)
+    logits = _logits(params, x, cfg, qcfg)
+    return _xent(logits, shifted, vocab_group(logits.shape[-1], cfg))
 
 
 def init_caches(batch: int, max_len: int, cfg: ArchConfig, *,

@@ -35,21 +35,28 @@ loss, gradients and words are the same as without it; it reissues the
 forward's collectives, in the forward's order, on every rank.
 
 Tensor parallelism (the dense family on a mesh whose ``model`` axis is
-larger than 1, under ``sharding.data_rules``): the rows split over the
-data axes as above, and the weights sit where the serving rules put
-them: each column-parallel leaf (``wq``/``wk``/``wv`` and their biases
-where the head counts divide the axis, ``up``/``gate`` where ``d_ff``
-does) holds this rank's columns, every other leaf is whole on every
-rank. The state is the rank's shard of the one-device state
-(``init_train_state(shard=)``, or :func:`shard_train_state` of a whole
-one); the second moments follow their words. The forward is
-``build_prefill_step``'s placement; its backward passes through the
-model group's collectives (``collectives.gather_with_grad`` and
-``sum_grad``). Gradients reduce by leaf: every leaf SUMs over the data
-group; a column shard's gradient stays a shard, and Q_G's per-tensor
-scale is the whole leaf's (max-reduced over its shard group); the grad
-norm sums the shards' squares over their group and counts each whole
-leaf once. K3 (K4) steps each rank's shard, so a whole leaf steps to
+larger than 1, under ``sharding.data_rules`` or ``sharding.train_rules``):
+the rows split over the data axes as above. Under ``data_rules`` the
+weights sit where the serving rules put them: each column-parallel leaf
+(``wq``/``wk``/``wv`` and their biases where the head counts divide the
+axis, ``up``/``gate`` where ``d_ff`` does) holds this rank's columns,
+every other leaf is whole on every rank. Under ``train_rules``, JAX's
+training placement, ``wo`` and ``down`` also hold this rank's rows where
+their column-parallel partners are split, and ``tok`` (an untied
+``head``) its vocabulary rows (columns) where the vocabulary divides the
+axis; the forward SUM-reduces each row block's partial product and takes
+the cross entropy over the logits' vocabulary blocks
+(``collectives.sum_forward``). The state is the rank's shard of the
+one-device state (``init_train_state(shard=)``, or
+:func:`shard_train_state` of a whole one); the second moments follow
+their words. Under ``data_rules`` the forward is
+``build_prefill_step``'s placement. The backward passes through the
+model group's collectives (``collectives.gather_with_grad``,
+``sum_grad`` and ``sum_forward``). Gradients reduce by leaf: every leaf
+SUMs over the data group; a shard's gradient stays a shard, and Q_G's
+per-tensor scale is the whole leaf's (max-reduced over its shard group);
+the grad norm sums the shards' squares over their group and counts each
+whole leaf once. K3 (K4) steps each rank's shard, so a whole leaf steps to
 the same words on every rank of a model group. The observed step's
 per-leaf statistics are whole-leaf means (each a mean of its shard's
 elements, the shards equal in size, so SUM-reduced over the shard group
@@ -72,7 +79,7 @@ from repro_torch.distributed.params_sharding import (batch_rows,
 from repro_torch.distributed.sharding import (batch_group, current_mesh,
                                               current_rules, data_rules,
                                               decode_rules, model_axis_size,
-                                              shard_ctx)
+                                              shard_ctx, train_rules)
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.model import (decode_step, forward, init_params,
                                      lm_loss)
@@ -115,8 +122,10 @@ def init_train_state(cfg: ArchConfig, mcfg: MadamConfig, *, seed: int = 0,
 
 def shard_train_state(state: TrainState, mesh, rules=None) -> TrainState:
     """This rank's shard of a whole train state (a carried one): the
-    words and the second moments sliced by the serving placement under
-    ``mesh`` and ``rules`` (``params_sharding.shard_tree``)."""
+    words and the second moments sliced by the placement of ``rules``
+    under ``mesh`` (``params_sharding.shard_tree``: the serving
+    placement under ``data_rules``, JAX's training placement under
+    ``train_rules``)."""
     return TrainState(
         params=shard_tree(state.params, mesh, rules),
         opt=type(state.opt)(g2=shard_tree(state.opt.g2, mesh, rules),
@@ -174,8 +183,9 @@ def build_train_step(cfg: ArchConfig, qcfg: Optional[QuantConfig],
     the step runs under that mesh and its rules wherever it is called,
     moving only this rank's rows to the card. Built under a mesh whose
     ``model`` axis is larger than 1 and ``sharding.data_rules(cfg,
-    mesh)``, it is the tensor-parallel step of the module docstring, on
-    the rank's shard of the state; only the dense family runs there (the
+    mesh)`` or ``sharding.train_rules(cfg, mesh)``, it is the
+    tensor-parallel step of the module docstring, on the rank's shard of
+    the state; only the dense family runs there (the
     others raise: ROADMAP 7j), with per-tensor Q_E and Q_G scales and
     unfactored, round-to-nearest Madam."""
     q_u = getattr(qcfg, "update", None)
@@ -306,12 +316,14 @@ def _check_tensor_parallel(cfg: ArchConfig, qcfg, mcfg: MadamConfig, mesh,
             f"tensor-parallel training of the {cfg.family!r} family "
             f"(model = {m}) is not ported: only the dense family trains "
             f"on a (data, model) mesh (ROADMAP 7j)")
-    want = data_rules(cfg, mesh)
-    off = sorted(k for k, v in want.items() if rules.get(k) != v)
-    if off:
+    offs = [sorted(k for k, v in want.items() if rules.get(k) != v)
+            for want in (data_rules(cfg, mesh), train_rules(cfg, mesh))]
+    if all(offs):
         raise ValueError(f"tensor-parallel training runs under "
-                         f"sharding.data_rules(cfg, mesh); the active "
-                         f"rules differ on {off}")
+                         f"sharding.data_rules(cfg, mesh) or "
+                         f"sharding.train_rules(cfg, mesh); the active "
+                         f"rules differ from data_rules on {offs[0]} and "
+                         f"from train_rules on {offs[1]}")
     if qcfg is not None and (qcfg.err_scale_axis is not None
                              or qcfg.grad_scale_axis is not None):
         raise ValueError("tensor-parallel training takes per-tensor Q_E "
